@@ -18,6 +18,11 @@ except ImportError:
     _hypothesis_fallback.install()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
+
+
 @pytest.fixture(scope="session")
 def x64():
     """Enable fp64 for reference-precision core tests."""
