@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the port's Nekbone solve goes, on one CUDA device.
 
-For each axhelm variant, on the Nekbone config mesh (16x16x16, N=7,
-Poisson, fp32, Jacobi) through the CUDA kernels, one solve of
-`--trace-iter` iterations under torch.profiler, after a warm-up solve:
+For each axhelm variant's main path on the Nekbone config mesh (16x16x16,
+N=7, fp32, Jacobi) through the CUDA kernels — precomputed, trilinear and
+partial Poisson, parallelepiped Poisson on the affinely deformed box,
+merged and trilinear Helmholtz — one solve of `--trace-iter` iterations
+under torch.profiler, after a warm-up solve:
 device kernel time by kernel name, kernels launched per iteration, and
 the device's busy and idle share of the span from its first kernel to its
 last.  (The solve's ms per iteration is timed by chip_smoke.py, phase 5.)
@@ -42,10 +44,17 @@ def main() -> None:
     from repro_torch.configs.nekbone import CONFIG
     from repro_torch.core import mesh_gen, nekbone
 
-    mesh = mesh_gen.deform_trilinear(
-        mesh_gen.box_mesh(*CONFIG.elements, CONFIG.order), seed=3)
-    for variant in ("trilinear", "precomputed"):
-        prob = nekbone.setup_problem(mesh, variant=variant, backend="cuda")
+    box = mesh_gen.box_mesh(*CONFIG.elements, CONFIG.order)
+    meshes = {"trilinear": mesh_gen.deform_trilinear(box, seed=3),
+              "affine": mesh_gen.deform_affine(box, seed=2)}
+    runs = [("trilinear", False), ("precomputed", False),
+            ("parallelepiped", False), ("partial", False),
+            ("merged", True), ("trilinear", True)]
+    for variant, helm in runs:
+        mesh = meshes["affine" if variant == "parallelepiped"
+                      else "trilinear"]
+        prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
+                                     backend="cuda")
         x_true = nekbone.random_solution(prob, seed=0)
         b = nekbone.rhs_from_solution(prob, x_true)
 
@@ -63,6 +72,7 @@ def main() -> None:
         kernels = [e for e in prof.events()
                    if e.device_type == DeviceType.CUDA]
         line = {"variant": variant,
+                "equation": "helmholtz" if helm else "poisson",
                 "iterations": int(res.iterations), "host_wall_ms": wall_ms}
         if not kernels:
             line["device"] = "not measured: the profiler saw no CUDA kernels"

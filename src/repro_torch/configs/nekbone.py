@@ -1,7 +1,9 @@
 """The paper's own workload: Nekbone PCG on trilinear hexahedral meshes.
 
 Default: N=7 (the paper's choice: NekRS default + Tensor-Core-friendly),
-E selectable; Poisson/Helmholtz, d in {1, 3}.
+E selectable; Poisson/Helmholtz, d in {1, 3}.  Every axhelm variant of the
+port runs it: precomputed, trilinear, parallelepiped (on an affinely
+deformed box), merged (Helmholtz) and partial (Poisson).
 """
 
 from dataclasses import dataclass

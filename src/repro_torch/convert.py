@@ -13,16 +13,22 @@ import numpy as np
 import torch
 
 from repro_torch.core.mesh_gen import BoxMesh
+from repro_torch.kernels.axhelm.ref import gelem_from_verts
 
 __all__ = ["mesh_from_numpy", "elem_ops_from_numpy"]
 
 # elem_ops key sets of the reference make_axhelm_elem_ops, per variant:
-# its reference backend's operands, then its kernel backend's packed "geom"
+# its reference backend's operands, then its kernel backend's "geom"
 _GEOM_KEYS = {
     "precomputed": ({"g", "gwj"}, {"geom"}),
     "trilinear": ({"verts"}, {"geom"}),
+    "parallelepiped": ({"verts"}, {"geom"}),
+    "merged": ({"verts", "lam2", "lam3"}, {"geom"}),
+    "partial": ({"verts", "gscale"}, {"geom"}),
 }
 _LAMBDA_KEYS = {"lam0", "lam1"}
+# the reference backend's names of the lambda-slot operands
+_SLOT_NAMES = {"lam2": "lam0", "lam3": "lam1", "gscale": "lam0"}
 
 
 def mesh_from_numpy(mesh) -> BoxMesh:
@@ -39,8 +45,11 @@ def mesh_from_numpy(mesh) -> BoxMesh:
 def elem_ops_from_numpy(variant: str, elem_ops: dict, device) -> dict:
     """The port's elem_ops {"geom", optional "lam0"/"lam1"} from the numpy
     arrays of the reference `make_axhelm_elem_ops`, whichever backend made
-    them: {"g", "gwj"} are packed into the (E, N1,N1,N1, 7) "geom", {"verts"}
-    becomes the trilinear "geom", a packed "geom" is kept.
+    them: {"g", "gwj"} are packed into the (E, N1,N1,N1, 7) "geom";
+    {"verts"} becomes the "geom" of trilinear, merged and partial, and
+    parallelepiped's (E, 7) `gelem_from_verts`; merged's "lam2"/"lam3"
+    become "lam0"/"lam1" and partial's "gscale" becomes "lam0"; a kernel
+    backend's "geom" is kept.
 
     Each array becomes a contiguous tensor on `device` in the array's own
     dtype.  Key sets the variant does not read raise.  The reference
@@ -60,6 +69,11 @@ def elem_ops_from_numpy(variant: str, elem_ops: dict, device) -> dict:
         arrays["geom"] = np.concatenate(
             [arrays.pop("g"), arrays.pop("gwj")[..., None]], axis=-1)
     elif "verts" in arrays:
-        arrays["geom"] = arrays.pop("verts")
+        verts = arrays.pop("verts")
+        arrays["geom"] = (gelem_from_verts(torch.tensor(verts)).numpy()
+                          if variant == "parallelepiped" else verts)
+    for name, slot in _SLOT_NAMES.items():
+        if name in arrays:
+            arrays[slot] = arrays.pop(name)
     return {name: torch.from_numpy(np.array(arr)).to(device).contiguous()
             for name, arr in arrays.items()}

@@ -2,15 +2,18 @@
 
 A^(e) = D^T [lam0 * G] D  (+ Helmholtz: + diag(lam1 * Gwj)), applied matrix-
 free by sum factorization.  The variants differ ONLY in where the geometric
-factors come from — the paper's central idea.  Ported so far:
+factors come from — the paper's central idea:
 
   precomputed     paper Alg. 2 — read 6(+1) factor arrays from memory
                   (the original Nekbone/NekRS kernel, the baseline).
+  parallelepiped  paper Alg. 4 — 7 scalars per *element*, zero-cost recalc.
   trilinear       paper Alg. 3 — 24 scalars (8 vertices) per element,
                   low-cost analytic recalculation at every node.
-
-`parallelepiped`, `merged` and `partial` raise NotImplementedError until
-their kernels are ported (ROADMAP.md, Queue 2).
+  merged          paper §4.1.1 (Helmholtz) — trilinear recalc with gScale/gwj
+                  folded into the lambda fields (Lam2, Lam3): no division,
+                  no determinant in the hot loop.
+  partial         paper §4.1.2 (Poisson) — trilinear recalc of adj(K) only;
+                  gScale (containing the division) is re-read from memory.
 
 Shapes: x is (E, N1, N1, N1) for a scalar field (d = 1),
 (E, d, N1, N1, N1) for a vector field, or (E, nrhs, d, N1, N1, N1) for an
@@ -42,6 +45,11 @@ __all__ = [
     "AxhelmOp",
     "axhelm_precomputed",
     "axhelm_trilinear",
+    "axhelm_parallelepiped",
+    "axhelm_merged",
+    "axhelm_partial",
+    "setup_merged_lambdas",
+    "setup_partial_gscale",
     "element_diagonal",
     "make_axhelm",
     "make_axhelm_elem_ops",
@@ -70,6 +78,63 @@ def axhelm_trilinear(x: torch.Tensor, verts: torch.Tensor,
     """Paper Algorithm 3: on-the-fly analytic recalculation (trilinear)."""
     factors = geometry.factors_trilinear(verts, basis)
     return axhelm_precomputed(x, factors, dhat, lam0, lam1, helmholtz)
+
+
+def axhelm_parallelepiped(x: torch.Tensor, verts: torch.Tensor,
+                          basis: SpectralBasis, dhat: torch.Tensor,
+                          lam0: Optional[torch.Tensor] = None,
+                          lam1: Optional[torch.Tensor] = None,
+                          helmholtz: bool = False) -> torch.Tensor:
+    """Paper Algorithm 4: constant-J elements, 7 scalars per element."""
+    factors = geometry.factors_parallelepiped(verts, basis)
+    return axhelm_precomputed(x, factors, dhat, lam0, lam1, helmholtz)
+
+
+def _weights_and_det(verts: torch.Tensor, basis: SpectralBasis):
+    """w3 and det(J~) of the unscaled trilinear Jacobian at every node."""
+    jt = geometry.jacobian_trilinear(verts, basis, unscaled=True)
+    w3 = torch.as_tensor(basis.w3, dtype=verts.dtype, device=verts.device)
+    return w3, geometry.det3(jt)
+
+
+def setup_merged_lambdas(verts: torch.Tensor, basis: SpectralBasis,
+                         lam0: torch.Tensor, lam1: torch.Tensor):
+    """Precompute Lam2 = gScale*lam0 and Lam3 = gwj*lam1 (paper §4.1.1).
+
+    Done once before the solve; the hot kernel then avoids the determinant
+    and the division entirely.
+    """
+    w3, det = _weights_and_det(verts, basis)
+    gscale = geometry.JT_SCALE * w3 / det
+    gwj = (geometry.JT_SCALE ** 3) * w3 * det
+    return gscale * lam0, gwj * lam1
+
+
+def setup_partial_gscale(verts: torch.Tensor,
+                         basis: SpectralBasis) -> torch.Tensor:
+    """Precompute gScale = w3/(8 det(Jt)) for partial recalculation (§4.1.2)."""
+    w3, det = _weights_and_det(verts, basis)
+    return geometry.JT_SCALE * w3 / det
+
+
+def _points(basis: SpectralBasis, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(basis.points, dtype=like.dtype, device=like.device)
+
+
+def axhelm_merged(x: torch.Tensor, verts: torch.Tensor, basis: SpectralBasis,
+                  dhat: torch.Tensor, lam2: torch.Tensor,
+                  lam3: torch.Tensor) -> torch.Tensor:
+    """Paper §4.1.1 (Helmholtz): G = adj(K~) * Lam2, mass = Lam3 — the
+    division-free half of Algorithm 3, run by the kernel's plain version."""
+    return kref.axhelm_merged(x, verts, _points(basis, verts), dhat, lam2,
+                              lam3)
+
+
+def axhelm_partial(x: torch.Tensor, verts: torch.Tensor, basis: SpectralBasis,
+                   dhat: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
+    """Paper §4.1.2 (Poisson): recompute adj(K~), re-read gScale from memory
+    (the kernel's plain version)."""
+    return kref.axhelm_partial(x, verts, _points(basis, verts), dhat, gscale)
 
 
 def element_diagonal(factors: GeomFactors, dhat: torch.Tensor,
@@ -146,8 +211,7 @@ def _resolve_backend(backend: Optional[str], dtype: torch.dtype,
 def _validate_setup(variant: str, basis: SpectralBasis, verts, lam0, lam1,
                     helmholtz: bool) -> None:
     """Shared argument validation for BOTH axhelm entry points, with the
-    reference package's errors; variants without a kernel yet raise
-    NotImplementedError."""
+    reference package's errors."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown axhelm variant {variant!r}; expected one "
                          f"of {VARIANTS}")
@@ -169,16 +233,18 @@ def _validate_setup(variant: str, basis: SpectralBasis, verts, lam0, lam1,
                 f"axhelm setup: {name} must be a scalar or a per-node "
                 f"(E, N1, N1, N1) field of shape {node_shape}, got "
                 f"{tuple(lam.shape)}")
-    kops.check_variant(variant)
 
 
 def _setup_factors(variant: str, basis: SpectralBasis, verts,
                    elem_ops) -> GeomFactors:
     """The `GeomFactors` carried on `AxhelmOp` (for the Jacobi diagonal):
-    the precomputed variant's packed [g6, gwj] operand already holds them."""
+    the precomputed variant's packed [g6, gwj] operand already holds them;
+    merged and partial share the trilinear factors."""
     if variant == "precomputed":
         geom = elem_ops["geom"]
         return GeomFactors(geom[..., :6], geom[..., 6])
+    if variant == "parallelepiped":
+        return geometry.factors_parallelepiped(verts, basis)
     return geometry.factors_trilinear(verts, basis)
 
 
@@ -226,11 +292,19 @@ def make_axhelm_elem_ops(variant: str, basis: SpectralBasis, verts,
     closed over.  `apply` accepts scalar, vector and RHS-batched fields on
     both backends.
 
-    elem_ops keys, the same for both backends: "geom" (the
-    (E, N1,N1,N1, 7) packed [g6, gwj] factors for precomputed, the (E, 8, 3)
-    vertices for trilinear) plus "lam0"/"lam1" as contiguous per-node
-    fields, scalars broadcast.  A lambda missing from the elem_ops handed
-    to `apply` falls back to the one given here.
+    elem_ops keys, the same for both backends, are the kernel's operands:
+
+      precomputed     geom = (E, N1,N1,N1, 7) packed [g6, gwj]; lam0/lam1
+      trilinear       geom = (E, 8, 3) vertices; lam0/lam1
+      parallelepiped  geom = (E, 7) `gelem_from_verts`; lam0/lam1
+      merged          geom = vertices; lam0 = Lam2, lam1 = Lam3
+                      (`setup_merged_lambdas`, a missing lambda is 1)
+      partial         geom = vertices; lam0 = gScale
+                      (`setup_partial_gscale`; lam0/lam1 are not read)
+
+    Lambdas are contiguous per-node fields, scalars broadcast.  A lambda
+    slot missing from the elem_ops handed to `apply` falls back to the
+    one assembled here — Lam2/Lam3 and gScale for merged and partial.
     """
     _validate_setup(variant, basis, verts, lam0, lam1, helmholtz)
     verts = torch.as_tensor(verts, dtype=dtype, device=device)
@@ -244,13 +318,22 @@ def make_axhelm_elem_ops(variant: str, basis: SpectralBasis, verts,
         coords = torch.as_tensor(coords, dtype=dtype, device=device)
         factors = geometry.factors_discrete(coords, basis)
         geom = torch.cat([factors.g, factors.gwj[..., None]], dim=-1)
-    else:  # trilinear
+    elif variant == "parallelepiped":
+        geom = kref.gelem_from_verts(verts)
+    else:  # trilinear, merged, partial
         geom = verts
     # the kernels take per-node lambda fields only: scalars broadcast
     lams = {name: torch.as_tensor(lam, dtype=dtype, device=device)
-            .expand(node_shape).contiguous()
+            .expand(node_shape)
             for name, lam in (("lam0", lam0), ("lam1", lam1))
             if lam is not None}
+    if variant == "merged":
+        ones = torch.ones(node_shape, dtype=dtype, device=device)
+        lams["lam0"], lams["lam1"] = setup_merged_lambdas(
+            verts, basis, lams.get("lam0", ones), lams.get("lam1", ones))
+    elif variant == "partial":
+        lams = {"lam0": setup_partial_gscale(verts, basis)}
+    lams = {name: lam.contiguous() for name, lam in lams.items()}
     elem_ops = {"geom": geom.contiguous(), **lams}
     element_op = kops.axhelm if backend == "cuda" else kops.reference
 

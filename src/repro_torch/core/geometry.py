@@ -7,6 +7,8 @@ The heart of the paper (Sections 3.2-3.3), on torch tensors:
   * the low-cost recalculation of geometric factors for trilinear elements
     (Algorithm 3): the shared terms E0/E1/F0/F1 and the (i, j)-invariant
     third Jacobian column are computed once per element and broadcast,
+  * the zero-cost parallelepiped case (Algorithm 4), where J is constant
+    per element,
   * the general discrete path (Eq. 12) via sum factorization — what the
     `precomputed` variant stores, and the oracle for the analytic path.
 
@@ -45,11 +47,15 @@ __all__ = [
     "trilinear_terms",
     "jacobian_trilinear",
     "jacobian_trilinear_at",
+    "jacobian_parallelepiped",
     "jacobian_discrete",
     "adjugate6",
+    "det3",
     "factors_from_jacobian",
     "factors_trilinear",
+    "factors_parallelepiped",
     "factors_discrete",
+    "is_parallelepiped",
 ]
 
 # True J = JT_SCALE * Jt for the trilinear analytic path.
@@ -228,6 +234,17 @@ def adjugate6(j: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def jacobian_parallelepiped(verts: torch.Tensor) -> torch.Tensor:
+    """Constant Jacobian of a parallelepiped element: (..., 3, 3).
+
+    J columns = half the edge vectors from vertex 0 (r, s, t directions).
+    """
+    e1 = verts[..., 1, :] - verts[..., 0, :]
+    e2 = verts[..., 2, :] - verts[..., 0, :]
+    e3 = verts[..., 4, :] - verts[..., 0, :]
+    return 0.5 * torch.stack([e1, e2, e3], dim=-1)
+
+
 def jacobian_discrete(coords: torch.Tensor, basis: SpectralBasis) -> torch.Tensor:
     """General (discrete) Jacobian via sum factorization (Eq. 12).
 
@@ -243,6 +260,14 @@ def jacobian_discrete(coords: torch.Tensor, basis: SpectralBasis) -> torch.Tenso
     return torch.movedim(j, 0, -2)             # (..., N1, N1, N1, 3, 3)
 
 
+def det3(j: torch.Tensor) -> torch.Tensor:
+    """det of (..., 3, 3) matrices by cofactor expansion (no LU, so the
+    same arithmetic on every device and in every dtype)."""
+    return (j[..., 0, 0] * (j[..., 1, 1] * j[..., 2, 2] - j[..., 2, 1] * j[..., 1, 2])
+            - j[..., 1, 0] * (j[..., 0, 1] * j[..., 2, 2] - j[..., 2, 1] * j[..., 0, 2])
+            + j[..., 2, 0] * (j[..., 0, 1] * j[..., 1, 2] - j[..., 1, 1] * j[..., 0, 2]))
+
+
 def factors_from_jacobian(j: torch.Tensor, w3: torch.Tensor,
                           scale: float = 1.0) -> GeomFactors:
     """Geometric factors from (possibly unscaled) Jacobians (Eq. 11/17).
@@ -253,9 +278,7 @@ def factors_from_jacobian(j: torch.Tensor, w3: torch.Tensor,
     Uses K = j^T j and  w |J| J^-1 J^-T = w * scale * adj(K) / det(j)
     (adjugate trick, Eq. 17, with the deferred-scale algebra of Alg. 3).
     """
-    det = (j[..., 0, 0] * (j[..., 1, 1] * j[..., 2, 2] - j[..., 2, 1] * j[..., 1, 2])
-           - j[..., 1, 0] * (j[..., 0, 1] * j[..., 2, 2] - j[..., 2, 1] * j[..., 0, 2])
-           + j[..., 2, 0] * (j[..., 0, 1] * j[..., 1, 2] - j[..., 1, 1] * j[..., 0, 2]))
+    det = det3(j)
     gscale = scale * w3 / det
     g = adjugate6(j) * gscale[..., None]
     gwj = w3 * (scale ** 3) * det
@@ -268,8 +291,35 @@ def factors_trilinear(verts: torch.Tensor, basis: SpectralBasis) -> GeomFactors:
     return factors_from_jacobian(jt, _const(basis.w3, verts), scale=JT_SCALE)
 
 
+def factors_parallelepiped(verts: torch.Tensor,
+                           basis: SpectralBasis) -> GeomFactors:
+    """Algorithm 4: constant-J factors, broadcast with GLL weights.
+
+    The 7 per-element values (6 of adj(K)/det + det) are the only data
+    needed; per-node factors are just the weight product times them.
+    """
+    j = jacobian_parallelepiped(verts)            # (..., 3, 3)
+    unit = factors_from_jacobian(j, torch.ones((), dtype=verts.dtype,
+                                               device=verts.device))
+    w3 = _const(basis.w3, verts)
+    g = unit.g[..., None, None, None, :] * w3[..., None]
+    gwj = unit.gwj[..., None, None, None] * w3
+    return GeomFactors(g, gwj)
+
+
 def factors_discrete(coords: torch.Tensor, basis: SpectralBasis) -> GeomFactors:
     """General path: factors from the discrete Jacobian (the paper's baseline
     precomputation — what Nekbone stores and the original kernel re-reads)."""
     j = jacobian_discrete(coords, basis)
     return factors_from_jacobian(j, _const(basis.w3, coords))
+
+
+def is_parallelepiped(verts: torch.Tensor, tol: float = 1e-12) -> torch.Tensor:
+    """True where an element's 8 vertices form a parallelepiped."""
+    v = verts
+    c0 = v[..., 3, :] - v[..., 2, :] - (v[..., 1, :] - v[..., 0, :])
+    c1 = v[..., 5, :] - v[..., 4, :] - (v[..., 1, :] - v[..., 0, :])
+    c2 = v[..., 6, :] - v[..., 4, :] - (v[..., 2, :] - v[..., 0, :])
+    c3 = v[..., 7, :] - v[..., 6, :] - (v[..., 5, :] - v[..., 4, :])
+    err = sum(torch.sum(c * c, dim=-1) for c in (c0, c1, c2, c3))
+    return err < tol

@@ -119,6 +119,11 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
                   device=None) -> NekboneProblem:
     """Build the global operator + Jacobi diagonal for a mesh/variant.
 
+    `variant` is any of `core.axhelm.VARIANTS`; merged is Helmholtz only
+    and partial Poisson only, and the other equation raises the reference
+    package's ValueError.  The Jacobi diagonal comes from the operator's
+    own factors (`AxhelmOp.factors`).
+
     `backend` selects the element-kernel implementation ("reference",
     "cuda", or "auto"/None; see core.axhelm._resolve_backend) — with "cuda"
     every PCG iteration launches the hand-written axhelm kernel, and on a

@@ -83,6 +83,15 @@ def library() -> ctypes.CDLL:
     # x, y, verts, lam0, lam1, dhat, xi, w3 | n1, n_elem, ncols, helmholtz | stream
     lib.axhelm_trilinear_f32.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
     lib.axhelm_trilinear_f32.restype = i32
+    # x, y, gelem, lam0, lam1, dhat, w3 | n1, n_elem, ncols, helmholtz | stream
+    lib.axhelm_parallelepiped_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+    lib.axhelm_parallelepiped_f32.restype = i32
+    # x, y, verts, lam2, lam3, dhat, xi | n1, n_elem, ncols | stream
+    lib.axhelm_merged_f32.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+    lib.axhelm_merged_f32.restype = i32
+    # x, y, verts, gscale, dhat, xi | n1, n_elem, ncols | stream
+    lib.axhelm_partial_f32.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+    lib.axhelm_partial_f32.restype = i32
     return lib
 
 

@@ -2,41 +2,65 @@
 // operator, with a plain C interface (bound from Python with ctypes).
 //
 // Replaces the TPU kernel repro/kernels/axhelm/kernel.py::_kernel, the body of
-// the one pl.pallas_call (kernel.py:233), in two of its variants:
-//   axhelm_precomputed_f32  variant "precomputed" (kernel.py:122-125, paper
-//                           Alg. 2): the geometric factors are read from memory;
-//   axhelm_trilinear_f32    variant "trilinear" (kernel.py:126-131, paper
-//                           Alg. 3): the factors are recomputed at every node
-//                           from the element's 8 vertices.
+// the one pl.pallas_call (kernel.py:233), in all five of its variants:
+//   axhelm_precomputed_f32     K1, "precomputed" (kernel.py:122-125, paper
+//                              Alg. 2): the geometric factors are read from
+//                              memory;
+//   axhelm_trilinear_f32       K2, "trilinear" (kernel.py:126-131, Alg. 3):
+//                              the factors are recomputed at every node from
+//                              the element's 8 vertices;
+//   axhelm_parallelepiped_f32  K3, "parallelepiped" (kernel.py:132-136,
+//                              Alg. 4): G = gelem[:6]*w3 and gwj = gelem[6]*w3
+//                              from 7 words per element;
+//   axhelm_merged_f32          K4, "merged" (kernel.py:137-153, paper
+//                              §4.1.1, Helmholtz only): G = adj(K~)*Lam2 and
+//                              mass = Lam3, with Lam2 = gScale*lam0 and
+//                              Lam3 = gwj*lam1 precomputed -- no determinant
+//                              and no division in the kernel;
+//   axhelm_partial_f32         K5, "partial" (kernel.py:154-157, §4.1.2,
+//                              Poisson only): G = adj(K~)*gScale, gScale =
+//                              w3/(8 det) re-read from memory.
 // Per element e and column c (c runs over the nrhs*d columns, which all share
 // the element's factors):
 //   y = D^T [lam0 * G (D x)]  (+ mass * x for Helmholtz, mass = lam1 * gwj)
 //
-// What bounds it on the H100 (E=4096, N1=8, one column, Poisson, fp32):
-//   precomputed moves 4*N1^3*(1+6+1) bytes per element and does
-//   12*N1^4+15*N1^3 FLOPs: memory-bound (bytes over 3.35 TB/s);
-//   trilinear moves only 4*(2*N1^3+24) bytes but adds ~90 FLOPs a node of
-//   geometry: bounded by FP32 CUDA-core arithmetic (FLOPs over 67 TFLOP/s).
+// What bounds it on the H100 (E=4096, N1=8, one column, fp32), with x and y
+// 4*2*N1^3 bytes per element:
+//   K1 adds 4*N1^3*6 factor bytes and does 12*N1^4+15*N1^3 FLOPs:
+//      memory-bound (bytes over 3.35 TB/s);
+//   K2 adds only 4*24 vertex bytes but ~90 FLOPs a node of geometry:
+//      bounded by FP32 CUDA-core arithmetic (FLOPs over 67 TFLOP/s);
+//   K3 adds 4*7 bytes and 6 FLOPs a node: memory-bound by x and y alone;
+//   K4 adds Lam2, Lam3 (4*2*N1^3) and 4*24 vertex bytes, K5 gScale
+//      (4*N1^3) and the vertices; ~66 FLOPs a node of adj(K~) keep both
+//      memory-bound.
 // What the design does about it:
 //   * one thread block per element, one thread per node; the x column and the
 //     three weighted gradient components live in shared memory (4*N1^3
 //     floats, 8 KB at N1=8), so x is read from device memory once and y is
 //     written once per column;
-//   * each thread loads (precomputed) or recomputes (trilinear) its node's
-//     6(+1) factors ONCE, folds lam0 into them, keeps them in registers and
-//     reuses them for every column -- the per-element sharing across the RHS
-//     and component axes;
-//   * the trilinear kernel stages only the 24 vertex words of its element;
+//   * each thread loads or recomputes its node's 6(+1) factors ONCE, folds
+//     the lam0 slot into them (lambda0, Lam2 or gScale), keeps them in
+//     registers and reuses them for every column -- the per-element sharing
+//     across the RHS and component axes;
+//   * the per-element geometry (24 vertex words, or K3's 7 words) is staged
+//     in shared memory once per block; K4/K5 stop Alg. 3 at adj(J~^T J~), so
+//     the compiler drops the determinant that K2 needs;
+//   * the geometry source is a template parameter: one contraction body for
+//     all five kernels;
 //   * D-hat sits in shared memory and every contraction is plain fp32 FFMA
 //     (no TF32 tensor cores), so the 1e-4 relative budget holds by
 //     construction.  Tensor-core contractions (wgmma) and TMA staging, which
-//     the trilinear kernel needs to leave the FP32 roofline, are later work.
+//     the kernels need to get past the shared-memory load rate, are later work.
 //
 // Layouts (all fp32, contiguous, the element axis outermost):
 //   x, y   (E, ncols, N1^3)  node index i + N1*j + N1^2*k
-//   geom   precomputed: (E, N1^3, 7) packed [g00 g01 g02 g11 g12 g22 gwj]
-//          trilinear:   (E, 8, 3) vertices, vertex = br + 2*bs + 4*bt
-//   lam0, lam1  (E, N1^3) or null;  dhat (N1, N1);  xi (N1);  w3 (N1^3)
+//   geom   precomputed:     (E, N1^3, 7) packed [g00 g01 g02 g11 g12 g22 gwj]
+//          trilinear, merged, partial: (E, 8, 3) vertices,
+//                           vertex = br + 2*bs + 4*bt
+//          parallelepiped:  (E, 7) [adjK/det x6, det], unweighted
+//   lam0, lam1  (E, N1^3) or null (merged: Lam2, Lam3; partial: gScale);
+//   dhat (N1, N1);  xi (N1);  w3 (N1^3)
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() (0 on success).
 
@@ -46,18 +70,31 @@
 
 namespace {
 
+// Where a kernel takes its geometric factors from (the variants of _kernel).
+enum GeomSource : int {
+  kPrecomputed = 0,     // K1
+  kTrilinear = 1,       // K2
+  kParallelepiped = 2,  // K3
+  kMerged = 3,          // K4
+  kPartial = 4,         // K5
+};
+
+__host__ __device__ constexpr bool uses_vertices(GeomSource src) {
+  return src == kTrilinear || src == kMerged || src == kPartial;
+}
+
 struct Factors {
   float g00, g01, g02, g11, g12, g22, gwj;
 };
 
-// Paper Algorithm 3 at node (k, j, i): the unscaled Jacobian J~ from the
-// vertices (columns = d/dr, d/ds, d/dt), then
-//   G = (1/8) * w3 * adj(J~^T J~) / det(J~),   gwj = (1/8)^3 * w3 * det(J~),
-// the arithmetic of repro_torch.core.geometry.jacobian_trilinear_at and
-// factors_from_jacobian.
-__device__ __forceinline__ Factors trilinear_factors(const float* v, float xi_i,
-                                                     float xi_j, float xi_k,
-                                                     float w) {
+// Paper Algorithm 3 at node (k, j, i), up to the adjugate: the unscaled
+// Jacobian J~ from the vertices (columns = d/dr, d/ds, d/dt), then
+// f.g** = adj(J~^T J~) and the return value det(J~) -- the arithmetic of
+// repro_torch.core.geometry.jacobian_trilinear_at and adjugate6.  A caller
+// that ignores the determinant (K4, K5) never computes it.
+__device__ __forceinline__ float trilinear_adjugate(const float* v, float xi_i,
+                                                    float xi_j, float xi_k,
+                                                    Factors& f) {
   const float lo_i = 1.f - xi_i, hi_i = 1.f + xi_i;
   const float lo_j = 1.f - xi_j, hi_j = 1.f + xi_j;
   float c0[3], c1[3], c2[3];
@@ -81,29 +118,34 @@ __device__ __forceinline__ Factors trilinear_factors(const float* v, float xi_i,
             hi_i * hi_j * (v[3 * 7 + a] - v[3 * 3 + a]) +
             lo_i * hi_j * (v[3 * 6 + a] - v[3 * 2 + a]);
   }
-  // J~[a][b] = column b, component a
-  const float det = c0[0] * (c1[1] * c2[2] - c1[2] * c2[1]) -
-                    c0[1] * (c1[0] * c2[2] - c1[2] * c2[0]) +
-                    c0[2] * (c1[0] * c2[1] - c1[1] * c2[0]);
   const float k00 = c0[0] * c0[0] + c0[1] * c0[1] + c0[2] * c0[2];
   const float k01 = c0[0] * c1[0] + c0[1] * c1[1] + c0[2] * c1[2];
   const float k02 = c0[0] * c2[0] + c0[1] * c2[1] + c0[2] * c2[2];
   const float k11 = c1[0] * c1[0] + c1[1] * c1[1] + c1[2] * c1[2];
   const float k12 = c1[0] * c2[0] + c1[1] * c2[1] + c1[2] * c2[2];
   const float k22 = c2[0] * c2[0] + c2[1] * c2[1] + c2[2] * c2[2];
-  const float gscale = 0.125f * w / det;
-  Factors f;
-  f.g00 = (k11 * k22 - k12 * k12) * gscale;
-  f.g01 = (k02 * k12 - k01 * k22) * gscale;
-  f.g02 = (k01 * k12 - k02 * k11) * gscale;
-  f.g11 = (k00 * k22 - k02 * k02) * gscale;
-  f.g12 = (k01 * k02 - k00 * k12) * gscale;
-  f.g22 = (k00 * k11 - k01 * k01) * gscale;
-  f.gwj = w * 0.001953125f * det;  // (1/8)^3
-  return f;
+  f.g00 = k11 * k22 - k12 * k12;
+  f.g01 = k02 * k12 - k01 * k22;
+  f.g02 = k01 * k12 - k02 * k11;
+  f.g11 = k00 * k22 - k02 * k02;
+  f.g12 = k01 * k02 - k00 * k12;
+  f.g22 = k00 * k11 - k01 * k01;
+  // J~[a][b] = column b, component a
+  return c0[0] * (c1[1] * c2[2] - c1[2] * c2[1]) -
+         c0[1] * (c1[0] * c2[2] - c1[2] * c2[0]) +
+         c0[2] * (c1[0] * c2[1] - c1[1] * c2[0]);
 }
 
-template <int N1, bool TRILINEAR>
+__device__ __forceinline__ void scale(Factors& f, float s) {
+  f.g00 *= s;
+  f.g01 *= s;
+  f.g02 *= s;
+  f.g11 *= s;
+  f.g12 *= s;
+  f.g22 *= s;
+}
+
+template <int N1, GeomSource SRC>
 __global__ void __launch_bounds__(N1 * N1 * N1)
     axhelm_kernel(const float* __restrict__ x, float* __restrict__ y,
                   const float* __restrict__ geom,
@@ -113,12 +155,14 @@ __global__ void __launch_bounds__(N1 * N1 * N1)
                   const float* __restrict__ xi, const float* __restrict__ w3,
                   int ncols, int helmholtz) {
   constexpr int NP = N1 * N1 * N1;
+  // words of per-element geometry staged in shared memory (K1 reads none)
+  constexpr int NG = uses_vertices(SRC) ? 24 : (SRC == kParallelepiped ? 7 : 0);
   __shared__ float s_d[N1 * N1];  // dhat(row, col), row-major
   __shared__ float s_x[NP];       // the current column of x
   __shared__ float s_r[NP];       // lam0 * G . grad, r component
   __shared__ float s_s[NP];
   __shared__ float s_t[NP];
-  __shared__ float s_v[24];       // trilinear: the element's vertices
+  __shared__ float s_g[24];       // the element's vertices or gelem
 
   const int node = threadIdx.x;
   const int i = node % N1;
@@ -128,14 +172,12 @@ __global__ void __launch_bounds__(N1 * N1 * N1)
   const int64_t nidx = e * NP + node;
 
   if (node < N1 * N1) s_d[node] = dhat[node];
-  if (TRILINEAR && node < 24) s_v[node] = geom[e * 24 + node];
+  if (node < NG) s_g[node] = geom[e * NG + node];
   __syncthreads();
 
   // This node's factors, loaded or recomputed once for all columns.
   Factors f;
-  if (TRILINEAR) {
-    f = trilinear_factors(s_v, xi[i], xi[j], xi[k], w3[node]);
-  } else {
+  if constexpr (SRC == kPrecomputed) {
     const float* p = geom + nidx * 7;
     f.g00 = p[0];
     f.g01 = p[1];
@@ -144,18 +186,34 @@ __global__ void __launch_bounds__(N1 * N1 * N1)
     f.g12 = p[4];
     f.g22 = p[5];
     f.gwj = helmholtz ? p[6] : 0.f;
+  } else if constexpr (SRC == kTrilinear) {
+    // G = (1/8) w3 adj(J~^T J~) / det(J~),  gwj = (1/8)^3 w3 det(J~)
+    const float w = w3[node];
+    const float det = trilinear_adjugate(s_g, xi[i], xi[j], xi[k], f);
+    scale(f, 0.125f * w / det);
+    f.gwj = w * 0.001953125f * det;  // (1/8)^3
+  } else if constexpr (SRC == kParallelepiped) {
+    const float w = w3[node];
+    f.g00 = s_g[0] * w;
+    f.g01 = s_g[1] * w;
+    f.g02 = s_g[2] * w;
+    f.g11 = s_g[3] * w;
+    f.g12 = s_g[4] * w;
+    f.g22 = s_g[5] * w;
+    f.gwj = s_g[6] * w;
+  } else {  // kMerged, kPartial: adj(K~) only, the scale is in the lam0 slot
+    trilinear_adjugate(s_g, xi[i], xi[j], xi[k], f);
+    f.gwj = 0.f;
   }
-  if (lam0 != nullptr) {
-    const float l = lam0[nidx];
-    f.g00 *= l;
-    f.g01 *= l;
-    f.g02 *= l;
-    f.g11 *= l;
-    f.g12 *= l;
-    f.g22 *= l;
-  }
+  if (lam0 != nullptr) scale(f, lam0[nidx]);
   float mass = 0.f;
-  if (helmholtz) mass = (lam1 != nullptr) ? lam1[nidx] * f.gwj : f.gwj;
+  if (helmholtz) {
+    if constexpr (SRC == kMerged) {
+      mass = lam1[nidx];  // Lam3 = gwj * lam1, precomputed
+    } else {
+      mass = (lam1 != nullptr) ? lam1[nidx] * f.gwj : f.gwj;
+    }
+  }
 
   const int row_r = (k * N1 + j) * N1;  // s_*[k][j][m] = s_*[row_r + m]
   for (int c = 0; c < ncols; ++c) {
@@ -192,7 +250,7 @@ __global__ void __launch_bounds__(N1 * N1 * N1)
   }
 }
 
-template <bool TRILINEAR>
+template <GeomSource SRC>
 int launch(const float* x, float* y, const float* geom, const float* lam0,
            const float* lam1, const float* dhat, const float* xi,
            const float* w3, int n1, int n_elem, int ncols, int helmholtz,
@@ -201,11 +259,11 @@ int launch(const float* x, float* y, const float* geom, const float* lam0,
   const dim3 grid(static_cast<unsigned>(n_elem));
   switch (n1) {
     case 4:
-      axhelm_kernel<4, TRILINEAR><<<grid, 4 * 4 * 4, 0, stream>>>(
+      axhelm_kernel<4, SRC><<<grid, 4 * 4 * 4, 0, stream>>>(
           x, y, geom, lam0, lam1, dhat, xi, w3, ncols, helmholtz);
       break;
     case 8:
-      axhelm_kernel<8, TRILINEAR><<<grid, 8 * 8 * 8, 0, stream>>>(
+      axhelm_kernel<8, SRC><<<grid, 8 * 8 * 8, 0, stream>>>(
           x, y, geom, lam0, lam1, dhat, xi, w3, ncols, helmholtz);
       break;
     default:
@@ -221,9 +279,9 @@ extern "C" int axhelm_precomputed_f32(const float* x, float* y,
                                       const float* lam1, const float* dhat,
                                       int n1, int n_elem, int ncols,
                                       int helmholtz, void* stream) {
-  return launch<false>(x, y, geom, lam0, lam1, dhat, nullptr, nullptr, n1,
-                       n_elem, ncols, helmholtz,
-                       static_cast<cudaStream_t>(stream));
+  return launch<kPrecomputed>(x, y, geom, lam0, lam1, dhat, nullptr, nullptr,
+                              n1, n_elem, ncols, helmholtz,
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int axhelm_trilinear_f32(const float* x, float* y,
@@ -232,6 +290,40 @@ extern "C" int axhelm_trilinear_f32(const float* x, float* y,
                                     const float* xi, const float* w3, int n1,
                                     int n_elem, int ncols, int helmholtz,
                                     void* stream) {
-  return launch<true>(x, y, verts, lam0, lam1, dhat, xi, w3, n1, n_elem,
-                      ncols, helmholtz, static_cast<cudaStream_t>(stream));
+  return launch<kTrilinear>(x, y, verts, lam0, lam1, dhat, xi, w3, n1, n_elem,
+                            ncols, helmholtz,
+                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int axhelm_parallelepiped_f32(const float* x, float* y,
+                                         const float* gelem,
+                                         const float* lam0, const float* lam1,
+                                         const float* dhat, const float* w3,
+                                         int n1, int n_elem, int ncols,
+                                         int helmholtz, void* stream) {
+  return launch<kParallelepiped>(x, y, gelem, lam0, lam1, dhat, nullptr, w3,
+                                 n1, n_elem, ncols, helmholtz,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// Helmholtz always: lam2 (Lam2) and lam3 (Lam3) must both be given.
+extern "C" int axhelm_merged_f32(const float* x, float* y, const float* verts,
+                                 const float* lam2, const float* lam3,
+                                 const float* dhat, const float* xi, int n1,
+                                 int n_elem, int ncols, void* stream) {
+  if (lam2 == nullptr || lam3 == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch<kMerged>(x, y, verts, lam2, lam3, dhat, xi, nullptr, n1,
+                         n_elem, ncols, 1, static_cast<cudaStream_t>(stream));
+}
+
+// Poisson always: gscale (gScale) must be given.
+extern "C" int axhelm_partial_f32(const float* x, float* y, const float* verts,
+                                  const float* gscale, const float* dhat,
+                                  const float* xi, int n1, int n_elem,
+                                  int ncols, void* stream) {
+  if (gscale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<kPartial>(x, y, verts, gscale, nullptr, dhat, xi, nullptr, n1,
+                          n_elem, ncols, 0, static_cast<cudaStream_t>(stream));
 }

@@ -29,10 +29,9 @@ from repro_torch.kernels.axhelm import ref as ref_mod
 __all__ = ["KERNEL_VARIANTS", "KERNEL_N1", "launch_counts",
            "reset_launch_counts", "axhelm", "reference"]
 
-KERNEL_VARIANTS = ("precomputed", "trilinear")
+KERNEL_VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged",
+                   "partial")
 KERNEL_N1 = (4, 8)   # the N1 = N + 1 instantiated in csrc/axhelm.cu
-# variants of the reference package's kernel that are not ported yet
-_NOT_PORTED = {"parallelepiped": "K3", "merged": "K4", "partial": "K5"}
 
 launch_counts = {v: 0 for v in KERNEL_VARIANTS}
 
@@ -44,12 +43,24 @@ def reset_launch_counts() -> None:
 
 def check_variant(variant: str) -> None:
     """Raise for a variant the port has no kernel for."""
-    if variant in _NOT_PORTED:
-        raise NotImplementedError(
-            f"axhelm variant {variant!r} (kernel {_NOT_PORTED[variant]}) is "
-            f"not ported yet: see ROADMAP.md, Queue 2 (TPU kernels to port)")
     if variant not in KERNEL_VARIANTS:
         raise ValueError(f"unknown axhelm variant {variant!r}")
+
+
+def _pin_equation(variant: str, lam0, lam1, helmholtz: bool) -> bool:
+    """merged is Helmholtz with Lam2/Lam3 in the lambda slots, partial is
+    Poisson with gScale in the lam0 slot: the equation they solve."""
+    if variant == "merged":
+        if lam0 is None or lam1 is None:
+            raise ValueError("merged requires lam0=Lam2 and lam1=Lam3 "
+                             "(see core.axhelm.setup_merged_lambdas)")
+        return True
+    if variant == "partial":
+        if lam0 is None or lam1 is not None:
+            raise ValueError("partial requires lam0=gScale and lam1=None "
+                             "(see core.axhelm.setup_partial_gscale)")
+        return False
+    return helmholtz
 
 
 def _as_batched(x: torch.Tensor) -> torch.Tensor:
@@ -75,11 +86,17 @@ def axhelm(x: torch.Tensor, basis: SpectralBasis, variant: str,
 
     x:    (E, N1,N1,N1), (E, d, N1,N1,N1) or (E, nrhs, d, N1,N1,N1) — every
           column reuses the element's single factor set.
-    geom: precomputed: (E, N1,N1,N1, 7)   [g00..g22, gwj] packed
-          trilinear:   (E, 8, 3)          vertices
+    geom: precomputed:    (E, N1,N1,N1, 7)   [g00..g22, gwj] packed
+          trilinear:      (E, 8, 3)          vertices
+          parallelepiped: (E, 7)             per-element scalars
+          merged:         (E, 8, 3)          vertices; lam0=Lam2, lam1=Lam3
+                          (setup_merged_lambdas, paper §4.1.1; Helmholtz)
+          partial:        (E, 8, 3)          vertices; lam0=gScale
+                          (setup_partial_gscale, paper §4.1.2; Poisson)
     lam0, lam1: optional per-node (E, N1,N1,N1) fields.
     """
     check_variant(variant)
+    helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
     xb = _as_batched(x)
     if xb.device.type == "cpu":
         y = reference(xb, basis, variant, geom, lam0, lam1, helmholtz)
@@ -100,9 +117,16 @@ def reference(x, basis: SpectralBasis, variant: str, geom, lam0=None,
     if variant == "precomputed":
         y = ref_mod.axhelm_precomputed(x, geom[..., :6], geom[..., 6], dhat,
                                        lam0, lam1, helmholtz)
-    else:
+    elif variant == "trilinear":
         y = ref_mod.axhelm_trilinear(x, geom, xi, w3, dhat, lam0, lam1,
                                      helmholtz)
+    elif variant == "parallelepiped":
+        y = ref_mod.axhelm_parallelepiped(x, geom, w3, dhat, lam0, lam1,
+                                          helmholtz)
+    elif variant == "merged":
+        y = ref_mod.axhelm_merged(x, geom, xi, dhat, lam0, lam1)
+    else:  # partial
+        y = ref_mod.axhelm_partial(x, geom, xi, dhat, lam0)
     return y[:, 0] if squeeze else y
 
 
@@ -126,7 +150,8 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1) -> None:
     if tuple(xb.shape[3:]) != (n1,) * 3:
         raise ValueError(f"axhelm: x has node axes {tuple(xb.shape[3:])}, "
                          f"expected {(n1,) * 3} for order {basis.n}")
-    want = (e, n1, n1, n1, 7) if variant == "precomputed" else (e, 8, 3)
+    want = {"precomputed": (e, n1, n1, n1, 7),
+            "parallelepiped": (e, 7)}.get(variant, (e, 8, 3))
     if tuple(geom.shape) != want:
         raise ValueError(f"axhelm {variant}: geom must have shape {want}, "
                          f"got {tuple(geom.shape)}")
@@ -168,13 +193,22 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz) -> torch.Tensor:
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         common = (_ptr(xb), _ptr(y), _ptr(geom), _ptr(lam0), _ptr(lam1),
                   _ptr(dhat))
+        sizes = (basis.n1, e, ncols)
         if variant == "precomputed":
-            rc = lib.axhelm_precomputed_f32(*common, basis.n1, e, ncols,
-                                            int(helmholtz), stream)
-        else:
+            rc = lib.axhelm_precomputed_f32(*common, *sizes, int(helmholtz),
+                                            stream)
+        elif variant == "trilinear":
             rc = lib.axhelm_trilinear_f32(*common, _ptr(xi), _ptr(w3),
-                                          basis.n1, e, ncols, int(helmholtz),
-                                          stream)
+                                          *sizes, int(helmholtz), stream)
+        elif variant == "parallelepiped":
+            rc = lib.axhelm_parallelepiped_f32(*common, _ptr(w3), *sizes,
+                                               int(helmholtz), stream)
+        elif variant == "merged":
+            rc = lib.axhelm_merged_f32(*common, _ptr(xi), *sizes, stream)
+        else:  # partial: gScale in the lam0 slot, no lam1
+            rc = lib.axhelm_partial_f32(_ptr(xb), _ptr(y), _ptr(geom),
+                                        _ptr(lam0), _ptr(dhat), _ptr(xi),
+                                        *sizes, stream)
     if rc != 0:
         raise RuntimeError(f"axhelm {variant} kernel launch failed with CUDA "
                            f"error {rc}")

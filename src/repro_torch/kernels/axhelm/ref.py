@@ -64,3 +64,43 @@ def axhelm_trilinear(x: torch.Tensor, verts: torch.Tensor, xi: torch.Tensor,
     factors = geometry.factors_from_jacobian(jt, w3, scale=geometry.JT_SCALE)
     return axhelm_precomputed(x, factors.g, factors.gwj, dhat, lam0, lam1,
                               helmholtz)
+
+
+def axhelm_merged(x: torch.Tensor, verts: torch.Tensor, xi: torch.Tensor,
+                  dhat: torch.Tensor, lam2: torch.Tensor,
+                  lam3: torch.Tensor) -> torch.Tensor:
+    """Paper §4.1.1 (kernel K4, Helmholtz): G = adj(K~)*Lam2, mass = Lam3.
+
+    lam2 = gScale*lambda0 and lam3 = GwJ*lambda1 are precomputed once
+    outside the solve (core.axhelm.setup_merged_lambdas).
+    """
+    adj = geometry.adjugate6(geometry.jacobian_trilinear_at(verts, xi))
+    return _core(x, adj * lam2[..., None], dhat, mass=lam3)
+
+
+def axhelm_partial(x: torch.Tensor, verts: torch.Tensor, xi: torch.Tensor,
+                   dhat: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
+    """Paper §4.1.2 (kernel K5, Poisson): recompute adj(K~), re-read
+    gScale = w3/(8 det) (core.axhelm.setup_partial_gscale)."""
+    adj = geometry.adjugate6(geometry.jacobian_trilinear_at(verts, xi))
+    return _core(x, adj * gscale[..., None], dhat)
+
+
+def axhelm_parallelepiped(x: torch.Tensor, gelem: torch.Tensor,
+                          w3: torch.Tensor, dhat: torch.Tensor,
+                          lam0: Optional[torch.Tensor] = None,
+                          lam1: Optional[torch.Tensor] = None,
+                          helmholtz: bool = False) -> torch.Tensor:
+    """Paper Alg. 4 (kernel K3). gelem: (E, 7) = [adjK/det x6, det]
+    (unweighted); the node's factors are gelem times its weight w3."""
+    g = gelem[:, None, None, None, :6] * w3[None, ..., None]
+    gwj = gelem[:, None, None, None, 6] * w3[None]
+    return axhelm_precomputed(x, g, gwj, dhat, lam0, lam1, helmholtz)
+
+
+def gelem_from_verts(verts: torch.Tensor) -> torch.Tensor:
+    """The 7 per-element scalars of Algorithm 4 from vertices: (E, 7)."""
+    j = geometry.jacobian_parallelepiped(verts)
+    f = geometry.factors_from_jacobian(
+        j, torch.ones((), dtype=verts.dtype, device=verts.device))
+    return torch.cat([f.g, f.gwj[..., None]], dim=-1)

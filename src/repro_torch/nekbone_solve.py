@@ -3,6 +3,9 @@
 Solves Poisson/Helmholtz on a box of trilinear elements with Jacobi PCG and
 the chosen axhelm variant; prints status / iterations / error / wall /
 GFLOPS / GDOFS, like `examples/nekbone_solve.py` in the reference package.
+Variants: precomputed, trilinear, parallelepiped (on an affinely deformed
+box, whose elements are parallelepipeds), merged (Helmholtz only) and
+partial (Poisson only).
 
 Run:  PYTHONPATH=src python -m repro_torch.nekbone_solve \
           [--elements 4 4 4] [--order 7] [--variant trilinear] \
@@ -29,7 +32,8 @@ def _parse_args(argv=None):
     ap.add_argument("--elements", type=int, nargs=3, default=[4, 4, 4])
     ap.add_argument("--order", type=int, default=7)
     ap.add_argument("--variant", default="trilinear",
-                    choices=["precomputed", "trilinear"])
+                    choices=["precomputed", "trilinear", "parallelepiped",
+                             "merged", "partial"])
     ap.add_argument("--equation", default="poisson",
                     choices=["poisson", "helmholtz"])
     ap.add_argument("--d", type=int, default=1, choices=[1, 3])
@@ -54,8 +58,11 @@ def main(argv=None):
     device = nekbone.resolve_device(args.device)
     helm = args.equation == "helmholtz"
     nx, ny, nz = args.elements
-    mesh = mesh_gen.deform_trilinear(
-        mesh_gen.box_mesh(nx, ny, nz, args.order), seed=3)
+    mesh = mesh_gen.box_mesh(nx, ny, nz, args.order)
+    if args.variant == "parallelepiped":
+        mesh = mesh_gen.deform_affine(mesh, seed=2)
+    else:
+        mesh = mesh_gen.deform_trilinear(mesh, seed=3)
     print(f"mesh: E={len(mesh.verts)} N={args.order} dofs={mesh.n_global} "
           f"variant={args.variant} eq={args.equation} d={args.d}")
     prob = nekbone.setup_problem(mesh, variant=args.variant, d=args.d,

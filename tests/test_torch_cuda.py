@@ -17,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import axhelm as core_axhelm
 from repro_torch.core import gather_scatter as gs
-from repro_torch.core import geometry, mesh_gen, nekbone
+from repro_torch.core import mesh_gen, nekbone
 from repro_torch.core.spectral import basis
 from repro_torch.kernels.axhelm import ops
 from repro_torch.resilience.status import SolveStatus
@@ -36,36 +37,45 @@ def card():
 
 
 def _operands(variant, n, e, ncols, helm, device, seed=0):
+    """x, geom and the lambda kwargs of one kernel call: random lam0/lam1
+    for Helmholtz, merged's Lam2/Lam3 of them, partial's gScale; the
+    parallelepiped kernel runs on an affinely deformed box."""
     rng = np.random.default_rng(seed)
     b = basis(n)
     n1 = b.n1
     nx = int(np.ceil(e ** (1 / 3)))
-    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(nx, nx, nx, n))
+    box = mesh_gen.box_mesh(nx, nx, nx, n)
+    mesh = mesh_gen.deform_affine(box, seed=2) \
+        if variant == "parallelepiped" else mesh_gen.deform_trilinear(box)
     verts = torch.as_tensor(mesh.verts[:e], dtype=torch.float32,
                             device=device)
-    if variant == "trilinear":
-        geom = verts.contiguous()
-    else:
-        f = geometry.factors_discrete(geometry.node_coords(verts, b), b)
-        geom = torch.cat([f.g, f.gwj[..., None]], dim=-1).contiguous()
     x = torch.as_tensor(rng.standard_normal((e, ncols, n1, n1, n1)),
                         dtype=torch.float32, device=device)
-    kw = {}
+    lams = {}
     if helm:
-        kw = dict(
+        lams = dict(
             lam0=torch.as_tensor(1 + 0.3 * rng.random((e, n1, n1, n1)),
                                  dtype=torch.float32, device=device),
             lam1=torch.as_tensor(0.5 + 0.2 * rng.random((e, n1, n1, n1)),
-                                 dtype=torch.float32, device=device),
-            helmholtz=True)
-    return b, x, geom, kw
+                                 dtype=torch.float32, device=device))
+    elem_ops, _, _ = core_axhelm.make_axhelm_elem_ops(
+        variant, b, verts, helmholtz=helm, dtype=torch.float32,
+        backend="cuda", device=device, **lams)
+    geom = elem_ops.pop("geom")
+    return b, x, geom, dict(elem_ops, helmholtz=helm)
+
+
+# merged is Helmholtz only and partial Poisson only
+_VARIANT_EQUATIONS = [(v, h) for v in ("precomputed", "trilinear",
+                                       "parallelepiped")
+                      for h in (False, True)] + [("merged", True),
+                                                 ("partial", False)]
 
 
 @pytest.mark.parametrize("ncols", [1, 3])
-@pytest.mark.parametrize("helm", [False, True])
 @pytest.mark.parametrize("n", [3, 7])
-@pytest.mark.parametrize("variant", ["precomputed", "trilinear"])
-def test_kernel_matches_plain_version(card, variant, n, helm, ncols):
+@pytest.mark.parametrize("variant,helm", _VARIANT_EQUATIONS)
+def test_kernel_matches_plain_version(card, variant, helm, n, ncols):
     b, x, geom, kw = _operands(variant, n, 37, ncols, helm, card)
     before = ops.launch_counts[variant]
     y = ops.axhelm(x, b, variant, geom, **kw)
@@ -76,18 +86,19 @@ def test_kernel_matches_plain_version(card, variant, n, helm, ncols):
     assert err <= RTOL32, err
 
 
-@pytest.mark.parametrize("variant", ["precomputed", "trilinear"])
+@pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
 def test_wrapper_refuses_what_the_kernel_does_not_take(card, variant):
-    b, x, geom, _ = _operands(variant, 7, 5, 2, False, card)
+    helm = variant == "merged"
+    b, x, geom, kw = _operands(variant, 7, 5, 2, helm, card)
     with pytest.raises(TypeError, match="float32 only"):
-        ops.axhelm(x.double(), b, variant, geom.double())
+        ops.axhelm(x.double(), b, variant, geom.double(), **kw)
     with pytest.raises(ValueError, match="contiguous"):
-        ops.axhelm(x.transpose(-1, -2), b, variant, geom)
+        ops.axhelm(x.transpose(-1, -2), b, variant, geom, **kw)
     with pytest.raises(ValueError, match="CUDA device"):
-        ops.axhelm(x, b, variant, geom.cpu())
-    b5, x5, geom5, _ = _operands(variant, 5, 5, 1, False, card)
+        ops.axhelm(x, b, variant, geom.cpu(), **kw)
+    b5, x5, geom5, kw5 = _operands(variant, 5, 5, 1, helm, card)
     with pytest.raises(ValueError, match="instantiated"):
-        ops.axhelm(x5, b5, variant, geom5)
+        ops.axhelm(x5, b5, variant, geom5, **kw5)
 
 
 def test_gather_index_add_is_not_bitwise_reproducible_but_exact(card):
@@ -110,17 +121,26 @@ def test_gather_index_add_is_not_bitwise_reproducible_but_exact(card):
     print(f"index_add_ bitwise identical over 5 runs: {identical}")
 
 
-@pytest.mark.parametrize("variant", ["precomputed", "trilinear"])
-def test_solve_through_kernels_matches_reference_backend(card, variant):
-    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(4, 4, 4, 7), seed=3)
+@pytest.mark.parametrize("variant,helm", [("precomputed", False),
+                                          ("trilinear", False),
+                                          ("parallelepiped", False),
+                                          ("merged", True),
+                                          ("partial", False)])
+def test_solve_through_kernels_matches_reference_backend(card, variant,
+                                                         helm):
+    box = mesh_gen.box_mesh(4, 4, 4, 7)
+    mesh = mesh_gen.deform_affine(box, seed=2) \
+        if variant == "parallelepiped" else \
+        mesh_gen.deform_trilinear(box, seed=3)
     results = {}
     for backend in ("cuda", "reference"):
-        prob = nekbone.setup_problem(mesh, variant=variant, backend=backend)
+        prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
+                                     backend=backend)
         assert prob.backend == backend and prob.device.type == "cuda"
         x_true = nekbone.random_solution(prob, seed=0)
         b = nekbone.rhs_from_solution(prob, x_true)
         ops.reset_launch_counts()
-        res = nekbone.solve(prob, b, tol=1e-6, max_iter=400)
+        res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
         launches = ops.launch_counts[variant]
         results[backend] = (int(res.iterations), int(res.status),
                             nekbone.manufactured_error(prob, res.x, x_true),

@@ -83,21 +83,29 @@ def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("variant", ["precomputed", "trilinear"])
+@pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
 def test_cuda_wrapper_refuses_fp64_and_non_cuda_tensors(variant):
     """Tensors that are not on the CPU take the kernel path, which checks
     before it launches (meta tensors stand in for card tensors here)."""
     b = basis(7)
-    geom_shape = (3, 8, 8, 8, 7) if variant == "precomputed" else (3, 8, 3)
+    geom_shape = {"precomputed": (3, 8, 8, 8, 7),
+                  "parallelepiped": (3, 7)}.get(variant, (3, 8, 3))
+    # merged reads Lam2/Lam3 and partial gScale from the lambda slots
+    slots = {"merged": ("lam0", "lam1"), "partial": ("lam0",)}.get(variant,
+                                                                  ())
+
+    def lams(dtype):
+        return {name: _meta((3, 8, 8, 8), dtype) for name in slots}
+
     with pytest.raises(TypeError, match="float32 only"):
         ops.axhelm(_meta((3, 8, 8, 8), torch.float64), b, variant,
-                   _meta(geom_shape, torch.float64))
+                   _meta(geom_shape, torch.float64), **lams(torch.float64))
     with pytest.raises(TypeError, match="float32 only"):
         ops.axhelm(_meta((3, 8, 8, 8), torch.float32), b, variant,
-                   _meta(geom_shape, torch.float64))
+                   _meta(geom_shape, torch.float64), **lams(torch.float32))
     with pytest.raises(ValueError, match="CUDA device"):
         ops.axhelm(_meta((3, 8, 8, 8), torch.float32), b, variant,
-                   _meta(geom_shape, torch.float32))
+                   _meta(geom_shape, torch.float32), **lams(torch.float32))
 
 
 def test_failed_build_raises_and_leaves_no_library(monkeypatch, tmp_path):

@@ -135,3 +135,23 @@ def test_geometry_matches_reference(x64, n):
     assert _rel(tgeom.reference_cube(), jgeom.reference_cube(jnp.float64)) \
         <= RTOL64
     assert tgeom.JT_SCALE == jgeom.JT_SCALE
+
+
+@pytest.mark.parametrize("n", [2, 3, 7])
+def test_parallelepiped_geometry_matches_reference(x64, n):
+    """Alg. 4's constant Jacobian, its weighted factors and the
+    parallelepiped test, on an affine mesh and on perturbed vertices."""
+    jb, tb = jspec.basis(n), tspec.basis(n)
+    affine = jmesh.deform_affine(jmesh.box_mesh(2, 1, 2, n), seed=2).verts
+    for v in (affine, _random_verts(n)):
+        jv, tv = jnp.asarray(v), _t(v)
+        assert _rel(tgeom.jacobian_parallelepiped(tv),
+                    jgeom.jacobian_parallelepiped(jv)) <= RTOL64
+        jf, tf = jgeom.factors_parallelepiped(jv, jb), \
+            tgeom.factors_parallelepiped(tv, tb)
+        assert _rel(tf.g, jf.g) <= RTOL64
+        assert _rel(tf.gwj, jf.gwj) <= RTOL64
+        np.testing.assert_array_equal(tgeom.is_parallelepiped(tv).numpy(),
+                                      np.asarray(jgeom.is_parallelepiped(jv)))
+    assert bool(tgeom.is_parallelepiped(_t(affine)).all())
+    assert not bool(tgeom.is_parallelepiped(_t(_random_verts(n))).any())

@@ -40,8 +40,12 @@ def _rel(a, b) -> float:
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
-def _mesh(shape=(2, 2, 2), order=3):
-    return jmesh.deform_trilinear(jmesh.box_mesh(*shape, order), seed=3)
+def _mesh(shape=(2, 2, 2), order=3, affine=False):
+    """The reference entry point's meshes: an affinely deformed box for
+    parallelepiped, a trilinear-deformed one for every other variant."""
+    box = jmesh.box_mesh(*shape, order)
+    return jmesh.deform_affine(box, seed=2) if affine else \
+        jmesh.deform_trilinear(box, seed=3)
 
 
 @pytest.mark.parametrize("trailing", [(), (3,)])
@@ -85,12 +89,13 @@ def test_gather_is_deterministic_on_cpu():
         assert torch.equal(tgs.gather(yl, ids, mesh.n_global), first)
 
 
-@pytest.mark.parametrize("variant", ["precomputed", "trilinear"])
+@pytest.mark.parametrize("variant", ["precomputed", "trilinear",
+                                     "parallelepiped"])
 @pytest.mark.parametrize("helm,d", [(False, 1), (True, 1), (True, 3)])
 def test_diagonals_match_reference(x64, variant, helm, d):
     """element_diagonal and the masked global Jacobi diagonal, with a
     per-node lam0 field inside the contraction."""
-    mesh = _mesh()
+    mesh = _mesh(affine=variant == "parallelepiped")
     jb, tb = jbasis(3), tbasis(3)
     rng = np.random.default_rng(3)
     lam0 = 1 + 0.3 * rng.random(mesh.global_ids.shape)
@@ -174,6 +179,68 @@ def test_solve_matches_reference(shape, helm, variant, setup):
     err = tnek.manufactured_error(prob, tres.x, torch.as_tensor(
         x_true, dtype=torch.float32))
     assert err < 1e-4
+
+
+@pytest.mark.parametrize("setup", ["port", "carried"])
+@pytest.mark.parametrize("variant,helm", [("parallelepiped", False),
+                                          ("parallelepiped", True),
+                                          ("merged", True),
+                                          ("partial", False)])
+def test_new_variant_solves_match_reference(variant, helm, setup):
+    """K3 on the affine 2^3 mesh, K4 (Helmholtz) and K5 (Poisson) on the
+    trilinear one: the same status as the reference package's solve,
+    iterations within +-1, x within 1e-4."""
+    mesh = _mesh(affine=variant == "parallelepiped")
+    x_true = np.random.default_rng(4).standard_normal(mesh.n_global)
+    tol, max_iter = 1e-6, 400
+    jres = _jax_solve(mesh, variant, helm, x_true, tol, max_iter)
+    if setup == "port":
+        prob = tnek.setup_problem(convert.mesh_from_numpy(mesh),
+                                  variant=variant, helmholtz=helm,
+                                  backend="cuda", device="cpu")
+    else:
+        prob = _carried_problem(mesh, variant, helm)
+    b = tnek.rhs_from_solution(prob, torch.as_tensor(x_true,
+                                                     dtype=torch.float32))
+    tres = tnek.solve(prob, b, tol=tol, max_iter=max_iter)
+    assert int(tres.status) == int(jres.status) == SolveStatus.CONVERGED
+    assert abs(int(tres.iterations) - int(jres.iterations)) <= 1
+    assert _rel(tres.x, jres.x) <= RTOL32
+
+
+@pytest.mark.parametrize("variant,equation", [
+    ("parallelepiped", "poisson"), ("parallelepiped", "helmholtz"),
+    ("merged", "helmholtz"), ("partial", "poisson")])
+def test_entry_point_runs_every_variant_on_the_cpu(variant, equation,
+                                                   capsys):
+    """`python -m repro_torch.nekbone_solve --device cpu` with the new
+    variants: the reference entry point's mesh and iteration count."""
+    from repro_torch import nekbone_solve
+
+    nekbone_solve.main(["--elements", "2", "2", "2", "--order", "3",
+                        "--variant", variant, "--equation", equation,
+                        "--tol", "1e-6", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"variant={variant} eq={equation}" in out
+    assert "status=CONVERGED" in out
+    iters = int(out.split("iters=")[1].split()[0])
+    mesh = _mesh(affine=variant == "parallelepiped")
+    x_true = np.random.default_rng(0).standard_normal(mesh.n_global)
+    jres = _jax_solve(mesh, variant, equation == "helmholtz", x_true, 1e-6,
+                      400)
+    assert abs(iters - int(jres.iterations)) <= 1
+
+
+@pytest.mark.parametrize("variant,equation,match", [
+    ("merged", "poisson", "Helmholtz only"),
+    ("partial", "helmholtz", "Poisson only")])
+def test_entry_point_refuses_the_wrong_equation(variant, equation, match):
+    from repro_torch import nekbone_solve
+
+    with pytest.raises(ValueError, match=match):
+        nekbone_solve.main(["--elements", "2", "2", "2", "--order", "3",
+                            "--variant", variant, "--equation", equation,
+                            "--device", "cpu"])
 
 
 def test_solve_maxiter_matches_reference():
