@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Drives the port's main path — the single-device Nekbone Jacobi-PCG solve
-with the hand-written axhelm CUDA kernels — through the entry points a user
-calls (`setup_problem`, `rhs_from_solution`, `solve`), once for each of the
-five axhelm variants, and holds every kernel against its plain PyTorch
+Drives the port's main paths — the single-device Nekbone Jacobi-PCG solve
+with the hand-written axhelm CUDA kernels, once for each of the five axhelm
+variants, and the mixed-precision `bf16_x32` refined solve through the
+bf16-storage kernels, with single and stacked right-hand sides — through
+the entry points a user calls (`setup_problem`, `rhs_from_solution`,
+`solve`), and holds every kernel, fp32 and bf16, against its plain PyTorch
 version on the card.  Phases, one line each:
 
   1. device   nvidia-smi name and power limit, torch and CUDA versions
@@ -15,6 +17,8 @@ version on the card.  Phases, one line each:
               only, Lam2/Lam3 of them; partial: Poisson only, gScale), c in
               {1, 3, nrhs*d = 2*3}, N1 in {4, 8}, an odd E = 37, and each
               variant's main-path shape; max|y_k - y_p| / max|y_p| <= 1e-4
+  3b. kernels_bf16  the same cases with bf16 storage, c in {1, 3, 6};
+              <= 8e-3 (one bf16 ulp of the largest entry)
   4. converge 8x8x8, N=7, kernels and reference backend: precomputed,
               trilinear and partial Poisson on the trilinear mesh,
               parallelepiped and precomputed Poisson on the affine mesh,
@@ -22,6 +26,20 @@ version on the card.  Phases, one line each:
               +-1 of the other backend and of the same operator reached
               through another variant, one kernel launch per operator
               application
+  4b. refine_8  8x8x8, N=7, bf16_x32 (Jacobi, max_iter 3000, b standard
+              normal from numpy seed 0, zero on the mask, norm 30 a
+              column), kernels and reference backend: at tol 0.03
+              precomputed, trilinear and partial Poisson, parallelepiped
+              Poisson on the affine mesh, merged Helmholtz (Dirichlet),
+              trilinear Poisson with nrhs 4 and unmasked trilinear
+              Helmholtz; trilinear Poisson at tol 1e-4; the gather's sums in
+              a fixed order.  Same status on both backends, iterations
+              within max(3, 5%) (not at the envelope's edge), the fp32 true
+              residual <= 1.5 tol when CONVERGED, one bf16 launch per inner
+              operator application; trilinear Poisson CONVERGED at tol 0.03
+              where the reference converges (nrhs 1, and 3 of the 4 columns
+              of nrhs 4) and STAGNATED at 1e-4, unmasked Helmholtz
+              STAGNATED
   5. config   the Nekbone config (16x16x16, N=7, fp32, Jacobi, 200
               iterations) through the kernels — the main path of each
               variant: precomputed, trilinear and partial Poisson,
@@ -30,12 +48,20 @@ version on the card.  Phases, one line each:
               status and iterations (+-1) of the reference backend (solved
               once), at MAXITER its final residual within 1%; ms per
               iteration (median and quartiles), GFLOPS, GDOFS, peak memory
+  5b. config_bf16  the main path of the bf16 slice: the config's trilinear
+              Dirichlet Poisson with precision="bf16_x32" at nrhs 1 and 4,
+              tol 3.0, 0.03 and 1e-4 (b as in 4b, max_iter 3000), beside the
+              fp32 solve of the same b; 5 timed solves each after a warm-up;
+              status, iterations and true residual of the reference backend
+              (solved once); CONVERGED at tol 3.0 with true residual <= 4.5
   6. timing   device time of each kernel (E=4096 and E=32768, N1=8,
               c=1; K1, K2, K3, K5 Poisson, K4 Helmholtz) from a replayed
               CUDA graph, and its time in eager calls back to back, beside
               its bound, the plain version's time and the share of a solve
-              iteration spent in it
-  7. the `kernels` line, then the card line, then the result line.
+              iteration spent in it; the same for each bf16 kernel beside
+              its fp32 twin
+  7. the `kernels` line (ten entry points, each launched on its main
+     path), then the card line, then the result line.
 
 Exits non-zero, printing no result, when a phase fails, when there is no
 CUDA device, or when it is not run from a checkout of the repository.
@@ -56,7 +82,11 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 RTOL_KERNEL = 1e-4
+# bf16 storage: kernel and plain version each round one fp32 result once
+RTOL_BF16 = 8e-3
 SOLVE_REPEATS = 7     # timed 16^3 kernel-backend solves per variant
+REFINED_REPEATS = 5   # timed 16^3 bf16_x32 solves per tolerance and nrhs
+REFINED_MAX_ITER = 3000
 SOURCE = "src/repro_torch/kernels/axhelm/csrc/axhelm.cu"
 _TPU_KERNEL = "src/repro/kernels/axhelm/kernel.py"
 REPLACES = {"precomputed": f"{_TPU_KERNEL}:122",
@@ -64,9 +94,10 @@ REPLACES = {"precomputed": f"{_TPU_KERNEL}:122",
             "parallelepiped": f"{_TPU_KERNEL}:132",
             "merged": f"{_TPU_KERNEL}:137",
             "partial": f"{_TPU_KERNEL}:154"}
-ENTRY = {v: f"axhelm_{v}_f32" for v in REPLACES}
 # in the order of the GeomSource enum of the CUDA source
 VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged", "partial")
+DTYPES = ("f32", "bf16")     # the storage types: entry-point suffixes
+WORD_BYTES = {"f32": 4, "bf16": 2}
 # the equations each kernel takes (helmholtz flag), and the one its main
 # path and its timing run solve
 EQUATIONS = {"precomputed": (False, True), "trilinear": (False, True),
@@ -80,6 +111,24 @@ MAIN_HELMHOLTZ = {v: v == "merged" for v in VARIANTS}
 # 700 iterations, error 1.97e-4): the error bound there is 1e-3, not 1e-5.
 CONVERGE_MAX_ITER = {False: 400, True: 1000}
 CONVERGE_ERROR = {False: 1e-5, True: 1e-3}
+# The columns of phase 4b's trilinear tol-0.03 solves that the JAX reference
+# converges (`scripts/reference_refine.py`, Pallas and reference backends
+# on the CPU): the nrhs-1 solve, and columns 1-3 of the nrhs-4 block; its
+# column 0 lies outside refinement's envelope and ends STAGNATED in the
+# reference too (true residual ~0.35 of a norm-30 b).
+MUST_CONVERGE_8 = {"trilinear": (0,), "trilinear/nrhs4": (1, 2, 3)}
+# Refined solves at the edge of refinement's envelope, whose iterations the
+# backends' agreement does not hold to max(3, 5%): where a sweep fails to
+# improve the true residual is set by rounding noise there, and the same
+# backend, run again on the same problem, stops one or more sweeps earlier
+# or later (`scripts/refine_spread.py` on the H100: 8^3 nrhs-4 column 2
+# converges after 137 or 157 iterations, trilinear at tol 1e-4 stagnates
+# after 136-179, the 16^3 nrhs-4 column 2 after 96-117; kernels and
+# reference backend stop after 138 and 53 on parallelepiped, 78 and 73 on
+# unmasked Helmholtz).  Their statuses and true residuals are still held.
+ENVELOPE_EDGE = {"8^3 trilinear/nrhs4", "8^3 parallelepiped",
+                 "8^3 trilinear/helmholtz_unmasked", "8^3 trilinear/tol1e-4",
+                 "16^3 nrhs=4 tol=0.03", "16^3 nrhs=4 tol=0.0001"}
 
 
 def fail(msg: str) -> None:
@@ -112,15 +161,16 @@ def adjugate_geometry_flops(n1: int) -> int:
 
 
 def axhelm_bound(variant: str, e: int, n1: int, helmholtz: bool = False,
-                 ncols: int = 1):
+                 ncols: int = 1, word: int = 4):
     """(bound_ms, bound_by, bytes, flops) of one call as the timing phase
     makes it (no user lambda fields): each input read once, the output
-    written once.  Geometry bytes per element: K1 the 6(+1) factor fields,
-    K2 24 vertex words, K3 7 words, K4 Lam2 + Lam3 + 24 words, K5
-    gScale + 24 words."""
+    written once, `word` bytes a value (4 for fp32, 2 for bf16 storage).
+    Geometry words per element: K1 the 6(+1) factor fields, K2 24 vertex
+    words, K3 7 words, K4 Lam2 + Lam3 + 24 words, K5 gScale + 24 words.
+    The operations are fp32 in both storage types."""
     nodes = e * n1 ** 3
-    nbytes = 4 * (2 * ncols * nodes)                       # x in, y out
-    nbytes += 4 * {"precomputed": (6 + helmholtz) * nodes,
+    nbytes = word * (2 * ncols * nodes)                    # x in, y out
+    nbytes += word * {"precomputed": (6 + helmholtz) * nodes,
                    "trilinear": 24 * e,
                    "parallelepiped": 7 * e,
                    "merged": 2 * nodes + 24 * e,
@@ -181,13 +231,15 @@ def main() -> None:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            # axhelm_kernel<N1, GeomSource> mangles as ILi<N1>E...GeomSourceE<n>E
-            k = re.search(r"axhelm_kernelILi(\d+)E.*?GeomSourceE?(\d+)E",
-                          m.group(1))
+            # axhelm_kernel<N1, GeomSource, T> mangles as
+            # ILi<N1>E...GeomSourceE<n>E<T>E, T = f or 13__nv_bfloat16
+            k = re.search(r"axhelm_kernelILi(\d+)E.*?GeomSourceE?(\d+)E"
+                          r"(f|\d+__nv_bfloat16)E", m.group(1))
             cur = {"kernel": m.group(1)}
             if k:
                 cur = {"variant": VARIANTS[int(k.group(2))],
-                       "n1": int(k.group(1))}
+                       "n1": int(k.group(1)),
+                       "dtype": "f32" if k.group(3) == "f" else "bf16"}
             inst.append(cur)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -201,10 +253,10 @@ def main() -> None:
             cur["smem_bytes"] = int(m.group(1)) if m else 0
     build_line = {"phase": "build", "library": str(lib_path.relative_to(ROOT)),
                   "seconds": build_s, "instantiations": inst}
-    reported = {(c.get("variant"), c.get("n1")) for c in inst
+    reported = {(c.get("variant"), c.get("n1"), c.get("dtype")) for c in inst
                 if "registers" in c}
-    missing = sorted({(v, n) for v in VARIANTS for n in ops.KERNEL_N1}
-                     - reported)
+    missing = sorted({(v, n, dt) for v in VARIANTS for n in ops.KERNEL_N1
+                      for dt in DTYPES} - reported)
     if missing:     # an unfamiliar ptxas format: show the report as it is
         build_line["ptxas"] = report
     emit(build_line)
@@ -212,31 +264,43 @@ def main() -> None:
 
     # 3. kernels against their plain versions ------------------------------
     rng = np.random.default_rng(2024)
-    worst = {v: 0.0 for v in VARIANTS}
-    cases = []
+    torch_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rtol = {"f32": RTOL_KERNEL, "bf16": RTOL_BF16}
+    entries = [(v, dt) for dt in DTYPES for v in VARIANTS]
 
-    def operands(variant, verts, b, helm, lam0=None, lam1=None):
+    def entry(variant, dt):
+        return ops.entry_point(variant, torch_dtype[dt])
+
+    worst = {entry(v, dt): 0.0 for v, dt in entries}
+    cases = {dt: [] for dt in DTYPES}
+
+    def operands(variant, verts, b, helm, lam0=None, lam1=None, dt="f32"):
         """geom and lambda-slot kwargs of one kernel call, assembled from
         vertices and the user's lambdas by the entry points' own
-        `make_axhelm_elem_ops`: merged takes Lam2/Lam3 of lam0/lam1,
-        partial gScale."""
+        `make_axhelm_elem_ops` in storage type `dt`: merged takes Lam2/Lam3
+        of lam0/lam1, partial gScale."""
         elem_ops, _, _ = core_axhelm.make_axhelm_elem_ops(
             variant, b, verts, lam0=lam0, lam1=lam1, helmholtz=helm,
-            dtype=torch.float32, backend="cuda", device=dev)
+            dtype=torch_dtype[dt], backend="cuda", device=dev)
         return elem_ops.pop("geom"), elem_ops
 
-    def check(variant, b, x, geom, label, **kw):
+    def check(variant, b, x, geom, label, dt="f32", **kw):
+        """One kernel call against its plain version; returns the largest
+        absolute difference (in fp32)."""
         y = ops.axhelm(x, b, variant, geom, **kw)
         torch.cuda.synchronize()
         y_p = ops.reference(x, b, variant, geom, **kw)
         torch.cuda.synchronize()
+        require(y.dtype == x.dtype, f"{label}: y is {y.dtype}")
+        y, y_p = y.float(), y_p.float()
         require(bool(torch.isfinite(y).all()), f"{label}: non-finite y")
         abs_err = float((y - y_p).abs().max())
         rel = abs_err / float(y_p.abs().max())
-        worst[variant] = max(worst[variant], rel)
-        cases.append({"case": label, "rel_err": rel})
-        require(rel <= RTOL_KERNEL, f"{label}: relative error {rel:.3e} > "
-                f"{RTOL_KERNEL}")
+        name = entry(variant, dt)
+        worst[name] = max(worst[name], rel)
+        cases[dt].append({"case": label, "rel_err": rel})
+        require(rel <= rtol[dt], f"{label}: relative error {rel:.3e} > "
+                f"{rtol[dt]}")
         return abs_err
 
     def mesh_for(variant, box):
@@ -245,33 +309,6 @@ def main() -> None:
         if variant == "parallelepiped":
             return mesh_gen.deform_affine(box, seed=2)
         return mesh_gen.deform_trilinear(box, seed=3)
-
-    e_odd = 37
-    for n1 in (4, 8):
-        b = basis(n1 - 1)
-        box = mesh_gen.box_mesh(4, 4, 3, n1 - 1)
-        node = (e_odd,) + (n1,) * 3
-        for variant in VARIANTS:
-            verts = torch.as_tensor(mesh_for(variant, box).verts[:e_odd],
-                                    dtype=torch.float32, device=dev)
-            for helm in EQUATIONS[variant]:
-                for nrhs, d in ((1, 1), (1, 3), (2, 3)):
-                    shape = (e_odd, nrhs, d) + (n1,) * 3
-                    x = torch.as_tensor(rng.standard_normal(shape),
-                                        dtype=torch.float32, device=dev)
-                    x = x[:, 0, 0] if d == 1 else (x[:, 0] if nrhs == 1
-                                                   else x)
-                    lam0 = torch.as_tensor(1 + 0.3 * rng.random(node),
-                                           dtype=torch.float32, device=dev)
-                    lam1 = torch.as_tensor(0.5 + 0.2 * rng.random(node),
-                                           dtype=torch.float32,
-                                           device=dev) if helm else None
-                    geom, kw = operands(variant, verts, b, helm, lam0, lam1)
-                    label = (f"{variant} N1={n1} E={e_odd} "
-                             f"{'helmholtz' if helm else 'poisson'} "
-                             f"nrhs={nrhs} d={d}")
-                    check(variant, b, x.contiguous(), geom, label,
-                          helmholtz=helm, **kw)
 
     nx, ny, nz = CONFIG.elements
     b_cfg = basis(CONFIG.order)
@@ -287,56 +324,93 @@ def main() -> None:
     n1 = b_cfg.n1
     main_abs = {}
 
-    def main_operands(variant, verts, helm):
+    def main_operands(variant, verts, helm, dt="f32"):
         """Operands of the main path's call, with setup_problem's scalar
         lambdas: none for Poisson, lam0=1 and lam1=0.1 for Helmholtz."""
         lams = (1.0, 0.1) if helm else (None, None)
-        return operands(variant, verts, b_cfg, helm, *lams)
+        return operands(variant, verts, b_cfg, helm, *lams, dt=dt)
 
-    for variant in VARIANTS:
-        helm = MAIN_HELMHOLTZ[variant]
-        verts = torch.as_tensor(cfg_mesh_for(variant).verts,
-                                dtype=torch.float32, device=dev)
-        geom, kw = main_operands(variant, verts, helm)
-        x = torch.as_tensor(rng.standard_normal((e_main,) + (n1,) * 3),
-                            dtype=torch.float32, device=dev)
-        main_abs[variant] = check(
-            variant, b_cfg, x, geom, f"{variant} main path E={e_main} "
-            f"N1={n1} {'helmholtz' if helm else 'poisson'} c=1",
-            helmholtz=helm, **kw)
-        del geom, kw, x, verts
-    emit({"phase": "kernels", "cases": len(cases), "tolerance": RTOL_KERNEL,
-          "worst_rel_err": worst, "main_path_abs_err": main_abs})
+    e_odd = 37
+    for dt in DTYPES:
+        for n1_case in (4, 8):
+            b = basis(n1_case - 1)
+            box = mesh_gen.box_mesh(4, 4, 3, n1_case - 1)
+            node = (e_odd,) + (n1_case,) * 3
+            for variant in VARIANTS:
+                verts = torch.as_tensor(mesh_for(variant, box).verts[:e_odd],
+                                        dtype=torch.float32, device=dev)
+                for helm in EQUATIONS[variant]:
+                    for nrhs, d in ((1, 1), (1, 3), (2, 3)):
+                        shape = (e_odd, nrhs, d) + (n1_case,) * 3
+                        x = torch.as_tensor(rng.standard_normal(shape),
+                                            dtype=torch_dtype[dt],
+                                            device=dev)
+                        x = x[:, 0, 0] if d == 1 else (x[:, 0] if nrhs == 1
+                                                       else x)
+                        lam0 = torch.as_tensor(1 + 0.3 * rng.random(node),
+                                               dtype=torch.float32,
+                                               device=dev)
+                        lam1 = torch.as_tensor(0.5 + 0.2 * rng.random(node),
+                                               dtype=torch.float32,
+                                               device=dev) if helm else None
+                        geom, kw = operands(variant, verts, b, helm, lam0,
+                                            lam1, dt=dt)
+                        label = (f"{entry(variant, dt)} N1={n1_case} "
+                                 f"E={e_odd} "
+                                 f"{'helmholtz' if helm else 'poisson'} "
+                                 f"nrhs={nrhs} d={d}")
+                        check(variant, b, x.contiguous(), geom, label, dt=dt,
+                              helmholtz=helm, **kw)
+        for variant in VARIANTS:
+            helm = MAIN_HELMHOLTZ[variant]
+            verts = torch.as_tensor(cfg_mesh_for(variant).verts,
+                                    dtype=torch.float32, device=dev)
+            geom, kw = main_operands(variant, verts, helm, dt=dt)
+            x = torch.as_tensor(rng.standard_normal((e_main,) + (n1,) * 3),
+                                dtype=torch_dtype[dt], device=dev)
+            name = entry(variant, dt)
+            main_abs[name] = check(
+                variant, b_cfg, x, geom, f"{name} main path E={e_main} "
+                f"N1={n1} {'helmholtz' if helm else 'poisson'} c=1", dt=dt,
+                helmholtz=helm, **kw)
+            del geom, kw, x, verts
+        emit({"phase": "kernels" if dt == "f32" else "kernels_bf16",
+              "cases": len(cases[dt]), "tolerance": rtol[dt],
+              "worst_rel_err": {entry(v, dt): worst[entry(v, dt)]
+                                for v in VARIANTS},
+              "main_path_abs_err": {entry(v, dt): main_abs[entry(v, dt)]
+                                    for v in VARIANTS}})
 
     # 4. converging solve at 8x8x8 ----------------------------------------
     def counted(prob):
-        """The problem with its global operator counting applications."""
-        box = {"n": 0}
+        """The problem with its global operators — `op`, and `op_lo` of a
+        bf16_x32 problem — counting their applications."""
+        box = {"op": 0, "op_lo": 0}
 
-        def op(x):
-            box["n"] += 1
-            return prob.op(x)
-        return prob._replace(op=op), box
+        def counting(name, fn):
+            def op(x):
+                box[name] += 1
+                return fn(x)
+            return op
+        prob = prob._replace(op=counting("op", prob.op))
+        if prob.op_lo is not None:
+            prob = prob._replace(op_lo=counting("op_lo", prob.op_lo))
+        return prob, box
 
-    def run_solve(mesh, variant, backend, tol, max_iter, helm=False,
-                  repeats=1):
-        """`repeats` solves of one problem, after one warm-up solve when
-        repeats > 1.  Every count is set to 0 just before each solve and
-        read just after it: through the kernels, one launch per operator
-        application; through the reference backend, none."""
-        prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
-                                     backend=backend)
-        require(prob.backend == backend, f"backend {prob.backend} != "
-                f"{backend}")
-        prob, box = counted(prob)
-        x_true = nekbone.random_solution(prob, seed=0)
-        b = nekbone.rhs_from_solution(prob, x_true)
+    def timed_solves(prob, box, variant, backend, b, tol, max_iter,
+                     repeats):
+        """`repeats` solves of b, after one warm-up solve when repeats > 1.
+        Every count is set to 0 just before each solve and read just after
+        it: through the kernels, one launch of the fp32 entry point per
+        application of `op` and one of the bf16 entry point per application
+        of `op_lo`; through the reference backend, none.  Returns the last
+        result, the wall times and the launch counts."""
         if repeats > 1:
             nekbone.solve(prob, b, tol=tol, max_iter=max_iter)    # warm-up
         walls = []
         for _ in range(repeats):
             torch.cuda.synchronize()
-            box["n"] = 0
+            box["op"] = box["op_lo"] = 0
             ops.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -344,21 +418,44 @@ def main() -> None:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             launches = dict(ops.launch_counts)
-            want = {v: (box["n"] if backend == "cuda" and v == variant
-                        else 0) for v in VARIANTS}
-            require(launches == want and box["n"] > 0,
-                    f"{variant}/{backend}: launches {launches} for "
-                    f"{box['n']} operator applications")
+            want = dict.fromkeys(launches, 0)
+            if backend == "cuda":
+                want[entry(variant, "f32")] = box["op"]
+                want[entry(variant, "bf16")] = box["op_lo"]
+            require(launches == want and box["op"] > 0 and
+                    (prob.op_lo is None or box["op_lo"] > 0),
+                    f"{variant}/{backend}: launches {launches} for the "
+                    f"operator applications {box}")
+        return res, walls, launches
+
+    def quartiles(walls, iters):
+        """q1, median, q3 of the ms per iteration over the timed solves."""
+        ms = sorted(w * 1e3 / max(iters, 1) for w in walls)
+        return statistics.quantiles(ms, n=4) if len(ms) > 1 else [ms[0]] * 3
+
+    def run_solve(mesh, variant, backend, tol, max_iter, helm=False,
+                  repeats=1):
+        """The manufactured-solution solve of one problem, `repeats` times
+        (see `timed_solves`)."""
+        prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
+                                     backend=backend)
+        require(prob.backend == backend, f"backend {prob.backend} != "
+                f"{backend}")
+        prob, box = counted(prob)
+        x_true = nekbone.random_solution(prob, seed=0)
+        b = nekbone.rhs_from_solution(prob, x_true)
+        res, walls, launches = timed_solves(prob, box, variant, backend, b,
+                                            tol, max_iter, repeats)
         iters = int(res.iterations)
-        ms = sorted(w * 1e3 / iters for w in walls)
-        q = statistics.quantiles(ms, n=4) if len(ms) > 1 else [ms[0]] * 3
+        q = quartiles(walls, iters)
         out = {"variant": variant, "backend": backend,
                "equation": "helmholtz" if helm else "poisson",
                "status": SolveStatus(int(res.status)).name,
                "iterations": iters, "residual": float(res.residual),
                "error": nekbone.manufactured_error(prob, res.x, x_true),
-               "applications": box["n"], "launches": launches[variant],
-               "solves_timed": len(ms), "ms_per_iteration": q[1],
+               "applications": box["op"],
+               "launches": launches[entry(variant, "f32")],
+               "solves_timed": len(walls), "ms_per_iteration": q[1],
                "ms_per_iteration_q1": q[0], "ms_per_iteration_q3": q[2],
                "max_memory_allocated": torch.cuda.max_memory_allocated()}
         require(bool(torch.isfinite(res.x).all()), f"{out}: non-finite x")
@@ -403,6 +500,128 @@ def main() -> None:
           "error_bound": CONVERGE_ERROR, "same_operator": same_operator,
           "solves": conv})
 
+    # 4b. the bf16_x32 refined solve at 8x8x8 ------------------------------
+    def norm30_rhs(mesh, nrhs):
+        """b of the reference's precision benchmark
+        (benchmarks/bench_nekbone.py): standard normal from numpy seed 0,
+        zero on the Dirichlet mask, each column normalised to 30."""
+        shape = (mesh.n_global,) if nrhs == 1 else (mesh.n_global, nrhs)
+        b = np.random.default_rng(0).standard_normal(shape).astype(
+            np.float32)
+        b[mesh.boundary] = 0.0
+        b = b / np.linalg.norm(b, axis=0) * 30.0
+        return torch.as_tensor(b, device=dev)
+
+    def run_refined(mesh, variant, backend, tol, nrhs=1, helm=False,
+                    dirichlet=True, repeats=1, precision="bf16_x32"):
+        """The Dirichlet (or unmasked) solve of `norm30_rhs`, `repeats`
+        times (see `timed_solves`), with the fp32 true residual of each
+        column; `precision=None` is the plain fp32 solve of the same b."""
+        prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
+                                     dirichlet=dirichlet, backend=backend,
+                                     precision=precision, nrhs=nrhs)
+        require(prob.backend == backend, f"backend {prob.backend} != "
+                f"{backend}")
+        op = prob.op
+        prob, box = counted(prob)
+        b = norm30_rhs(mesh, nrhs)
+        res, walls, launches = timed_solves(prob, box, variant, backend, b,
+                                            tol, REFINED_MAX_ITER, repeats)
+        require(bool(torch.isfinite(res.x).all()),
+                f"{variant}/{backend}: non-finite x")
+        iters = res.iterations.reshape(-1).tolist()
+        q = quartiles(walls, max(iters))
+        return {"variant": variant, "backend": backend,
+                "precision": precision or "fp32", "nrhs": nrhs, "tol": tol,
+                "equation": "helmholtz" if helm else "poisson",
+                "dirichlet": dirichlet,
+                "status": [SolveStatus(int(c)).name
+                           for c in res.status.reshape(-1)],
+                "iterations": iters,
+                "true_residual": torch.linalg.norm(
+                    b - op(res.x), dim=0).reshape(-1).tolist(),
+                "applications": dict(box),
+                "launches": {k: v for k, v in launches.items() if v},
+                "solves_timed": len(walls), "ms_per_iteration": q[1],
+                "ms_per_iteration_q1": q[0], "ms_per_iteration_q3": q[2],
+                "wall_s": statistics.median(walls),
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+    def op_lo_discrepancy(mesh, variant="trilinear"):
+        """||op_lo(x) - op(x)|| / ||op(x)|| of the bf16_x32 problem through
+        the kernels, x standard normal (numpy seed 0) rounded to bf16 and
+        zero on the mask: how far the bf16 operator lies from the fp32
+        one, which bounds what a refinement sweep can gain."""
+        prob = nekbone.setup_problem(mesh, variant=variant, backend="cuda",
+                                     precision="bf16_x32")
+        x = np.random.default_rng(0).standard_normal(mesh.n_global)
+        x[mesh.boundary] = 0.0
+        xb = torch.as_tensor(x, dtype=torch.bfloat16, device=dev)
+        y = prob.op(xb.float())
+        return float(torch.linalg.norm(prob.op_lo(xb).float() - y)
+                     / torch.linalg.norm(y))
+
+    def agree(k, r, what):
+        """The kernels' solve against the reference backend's: the same
+        status per column, iterations within max(3, 5%) (but at the
+        envelope's edge, see ENVELOPE_EDGE), and the fp32 true residual
+        within 1.5 tol wherever a column CONVERGED."""
+        require(k["status"] == r["status"],
+                f"{what}: statuses differ: {k} vs {r}")
+        for ik, ir in zip(k["iterations"], r["iterations"]):
+            require(what in ENVELOPE_EDGE or abs(ik - ir) <= max(3, 0.05 * ir),
+                    f"{what}: iterations differ: {k} vs {r}")
+        for run in (k, r):
+            for st, true in zip(run["status"], run["true_residual"]):
+                require(st != "CONVERGED" or true <= 1.5 * run["tol"],
+                        f"{what}: true residual {true} > 1.5 tol: {run}")
+
+    # (name, variant, mesh, helmholtz, dirichlet, nrhs, tol)
+    refine_runs = [
+        ("trilinear", "trilinear", "trilinear", False, True, 1, 0.03),
+        ("trilinear/nrhs4", "trilinear", "trilinear", False, True, 4, 0.03),
+        ("precomputed", "precomputed", "trilinear", False, True, 1, 0.03),
+        ("partial", "partial", "trilinear", False, True, 1, 0.03),
+        ("parallelepiped", "parallelepiped", "affine", False, True, 1, 0.03),
+        ("merged", "merged", "trilinear", True, True, 1, 0.03),
+        ("trilinear/helmholtz_unmasked", "trilinear", "trilinear", True,
+         False, 1, 0.03),
+        ("trilinear/tol1e-4", "trilinear", "trilinear", False, True, 1,
+         1e-4)]
+    refined8 = {}
+    # With the gather's atomics, the kernels' parallelepiped solve ends
+    # CONVERGED in some runs and STAGNATED in others: these comparisons run
+    # with the sums in a fixed order, so they compare the kernels, not the
+    # order of the atomics.
+    torch.use_deterministic_algorithms(True)
+    for name, variant, mesh_name, helm, dirichlet, nrhs, tol in refine_runs:
+        k, r = (run_refined(conv_meshes[mesh_name], variant, backend, tol,
+                            nrhs, helm=helm, dirichlet=dirichlet)
+                for backend in ("cuda", "reference"))
+        agree(k, r, f"8^3 {name}")
+        refined8[name] = {"kernel": k, "reference": r, "mesh": mesh_name}
+    torch.use_deterministic_algorithms(False)
+    for name, columns in MUST_CONVERGE_8.items():
+        for backend in ("kernel", "reference"):
+            run = refined8[name][backend]
+            require(all(run["status"][c] == "CONVERGED" for c in columns),
+                    f"8^3 bf16_x32 {name} at tol 0.03: {run}")
+    for name in ("trilinear/tol1e-4", "trilinear/helmholtz_unmasked"):
+        for backend in ("kernel", "reference"):
+            run = refined8[name][backend]
+            require(run["status"] == ["STAGNATED"],
+                    f"8^3 bf16_x32 {name}: {run}")
+    # the bf16 kernels of the other variants run on these 8^3 solves
+    bf16_launches = {v: refined8[v]["kernel"]["launches"][entry(v, "bf16")]
+                     for v in VARIANTS if v != "trilinear"}
+    emit({"phase": "refine_8", "mesh": "8x8x8", "order": CONFIG.order,
+          "dofs": conv_box.n_global, "max_iter": REFINED_MAX_ITER,
+          "rhs": "standard normal, numpy seed 0, zero on the mask, norm 30",
+          "deterministic_algorithms": True,
+          "op_lo_rel_diff": op_lo_discrepancy(conv_meshes["trilinear"]),
+          "iterations_not_compared": sorted(ENVELOPE_EDGE),
+          "solves": refined8})
+
     # 5. the config, through the kernels (the main path) -------------------
     # Every variant's main path: the kernel-backend solves are timed
     # SOLVE_REPEATS times (median and quartiles); the slow reference-backend
@@ -434,6 +653,40 @@ def main() -> None:
     emit({"phase": "config", "mesh": "x".join(map(str, CONFIG.elements)),
           "order": CONFIG.order, "elements": e_main,
           "dofs": cfg_box.n_global, "solves": config})
+
+    # 5b. the bf16 slice's main path: bf16_x32 on the config ---------------
+    # The config's trilinear Dirichlet Poisson, b as in 4b, at nrhs 1 and
+    # 4: the single-sweep tolerance 3.0 (0.1 |b|), 0.03 and 1e-4.  The
+    # bf16_x32 and fp32 kernel solves are timed REFINED_REPEATS times; the
+    # reference backend's bf16_x32 solve runs once.
+    cfg_tri = cfg_mesh_for("trilinear")
+    config_bf16 = {}
+    for nrhs in (1, 4):
+        for tol in (3.0, 0.03, 1e-4):
+            k = run_refined(cfg_tri, "trilinear", "cuda", tol, nrhs,
+                            repeats=REFINED_REPEATS)
+            f = run_refined(cfg_tri, "trilinear", "cuda", tol, nrhs,
+                            repeats=REFINED_REPEATS, precision=None)
+            r = run_refined(cfg_tri, "trilinear", "reference", tol, nrhs)
+            agree(k, r, f"16^3 nrhs={nrhs} tol={tol}")
+            if tol == 3.0:
+                require(set(k["status"]) == {"CONVERGED"} and
+                        max(k["true_residual"]) <= 4.5,
+                        f"16^3 bf16_x32 at tol 3.0: {k}")
+            config_bf16[f"nrhs={nrhs} tol={tol}"] = {
+                "kernel": k, "fp32": f, "reference": r}
+    bf16_launches["trilinear"] = \
+        config_bf16["nrhs=1 tol=3.0"]["kernel"]["launches"][
+            entry("trilinear", "bf16")]
+    emit({"phase": "config_bf16",
+          "mesh": "x".join(map(str, CONFIG.elements)),
+          "order": CONFIG.order, "dofs": cfg_box.n_global,
+          "max_iter": REFINED_MAX_ITER,
+          "op_lo_rel_diff": op_lo_discrepancy(cfg_tri),
+          "ms_per_iteration": "wall of one solve over its largest column "
+                              "iteration count (inner iterations for "
+                              "bf16_x32)",
+          "solves": config_bf16})
 
     # 6. kernel times -------------------------------------------------------
     def event_ms(fn, reps, warmup):
@@ -479,21 +732,22 @@ def main() -> None:
         equation = "helmholtz" if MAIN_HELMHOLTZ[variant] else "poisson"
         return f"{variant}/{equation}"
 
-    timing = {v: {} for v in VARIANTS}
+    timing = {entry(v, dt): {} for v, dt in entries}
     big_box = mesh_gen.box_mesh(32, 32, 32, CONFIG.order)
     big_meshes = {v: mesh_for(v, big_box) for v in ("trilinear",
                                                     "parallelepiped")}
     for e_label, meshes in (("e4096", cfg_meshes), ("e32768", big_meshes)):
         e = len(meshes["trilinear"].verts)
-        x = torch.as_tensor(rng.standard_normal((e,) + (n1,) * 3),
-                            dtype=torch.float32, device=dev)
-        for variant in VARIANTS:
+        x32 = torch.as_tensor(rng.standard_normal((e,) + (n1,) * 3),
+                              dtype=torch.float32, device=dev)
+        for variant, dt in entries:
+            x = x32.to(torch_dtype[dt])
             helm = MAIN_HELMHOLTZ[variant]
             mesh = meshes["parallelepiped" if variant == "parallelepiped"
                           else "trilinear"]
             verts = torch.as_tensor(mesh.verts, dtype=torch.float32,
                                     device=dev)
-            geom, kw = main_operands(variant, verts, helm)
+            geom, kw = main_operands(variant, verts, helm, dt=dt)
 
             def kernel():
                 return ops.axhelm(x, b_cfg, variant, geom, helmholtz=helm,
@@ -504,21 +758,21 @@ def main() -> None:
                                                       geom, helmholtz=helm,
                                                       **kw),
                                 reps=20, warmup=3)
-            bound_ms, bound_by, nbytes, flops = axhelm_bound(variant, e, n1,
-                                                             helm)
-            timing[variant][e_label] = {
+            bound_ms, bound_by, nbytes, flops = axhelm_bound(
+                variant, e, n1, helm, word=WORD_BYTES[dt])
+            timing[entry(variant, dt)][e_label] = {
                 "E": e, "equation": "helmholtz" if helm else "poisson",
                 "ms": ms, "ms_eager": ms_eager, "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
                 "bound_by": bound_by, "bytes": nbytes, "flops": flops,
                 "roofline_share": bound_ms / ms,
                 "GBps": nbytes / ms / 1e6, "GFLOPS": flops / ms / 1e6}
-            del geom, kw, verts
-        del x
+            del geom, kw, verts, x
+        del x32
         torch.cuda.empty_cache()
     for variant in VARIANTS:
         k = config[main_key(variant)]["kernel"]
-        k["axhelm_share"] = (timing[variant]["e4096"]["ms"]
+        k["axhelm_share"] = (timing[entry(variant, "f32")]["e4096"]["ms"]
                              * k["applications"]
                              / (k["ms_per_iteration"] * k["iterations"]))
     emit({"phase": "timing", "card": card,
@@ -533,23 +787,32 @@ def main() -> None:
                                for key, c in config.items()}})
 
     # 7. the kernels line, the card line, the result line -------------------
+    def main_path(variant, dt):
+        """Where an entry point's `launches` were counted."""
+        if dt == "f32":
+            return f"16^3 fp32 {main_key(variant)}"
+        if variant == "trilinear":
+            return "16^3 bf16_x32 trilinear/poisson nrhs=1 tol=3.0"
+        return f"8^3 bf16_x32 {main_key(variant)} tol=0.03"
+
     kernels = []
-    for variant in VARIANTS:
-        t = timing[variant]["e4096"]
+    for variant, dt in entries:
+        name = entry(variant, dt)
+        t, t_big = timing[name]["e4096"], timing[name]["e32768"]
+        launches = config[main_key(variant)]["kernel"]["launches"] \
+            if dt == "f32" else bf16_launches[variant]
         kernels.append({
-            "name": ENTRY[variant], "variant": variant, "route": "cuda",
-            "source": SOURCE, "replaces": REPLACES[variant],
-            "main_path": main_key(variant),
-            "launches": config[main_key(variant)]["kernel"]["launches"],
-            "max_abs_err": main_abs[variant],
-            "max_rel_err": worst[variant],
+            "name": name, "variant": variant, "storage": dt,
+            "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[variant],
+            "main_path": main_path(variant, dt), "launches": launches,
+            "max_abs_err": main_abs[name], "max_rel_err": worst[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
             "ms_eager": t["ms_eager"],
-            "ms_e32768": timing[variant]["e32768"]["ms"],
-            "bound_ms_e32768": timing[variant]["e32768"]["bound_ms"],
-            "plain_ms_e32768": timing[variant]["e32768"]["plain_ms"]})
+            "ms_e32768": t_big["ms"], "bound_ms_e32768": t_big["bound_ms"],
+            "plain_ms_e32768": t_big["plain_ms"]})
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} was not launched on "
                 f"the main path")

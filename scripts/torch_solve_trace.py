@@ -5,12 +5,15 @@ For each axhelm variant's main path on the Nekbone config mesh (16x16x16,
 N=7, fp32, Jacobi) through the CUDA kernels — precomputed, trilinear and
 partial Poisson, parallelepiped Poisson on the affinely deformed box,
 merged and trilinear Helmholtz — one solve of `--trace-iter` iterations
-under torch.profiler, after a warm-up solve:
+under torch.profiler, after a warm-up solve; then the bf16 slice's main
+path, the `bf16_x32` trilinear Poisson solve at nrhs 1 and 4 with b of
+norm 30 a column (zero on the mask, numpy seed 0) to tol 3.0, one whole
+refined solve (one sweep) each:
 device kernel time by kernel name, kernels launched per iteration, and
 the device's busy and idle share of the span from its first kernel to its
 last.  (The solve's ms per iteration is timed by chip_smoke.py, phase 5.)
 
-Prints one JSON line per variant, then the card's nvidia-smi name and
+Prints one JSON line per run, then the card's nvidia-smi name and
 power limit.  Needs a CUDA device; imports neither jax nor the reference
 package.
 
@@ -41,39 +44,57 @@ def main() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    import numpy as np
+
     from repro_torch.configs.nekbone import CONFIG
     from repro_torch.core import mesh_gen, nekbone
 
     box = mesh_gen.box_mesh(*CONFIG.elements, CONFIG.order)
     meshes = {"trilinear": mesh_gen.deform_trilinear(box, seed=3),
               "affine": mesh_gen.deform_affine(box, seed=2)}
-    runs = [("trilinear", False), ("precomputed", False),
-            ("parallelepiped", False), ("partial", False),
-            ("merged", True), ("trilinear", True)]
-    for variant, helm in runs:
+    # (variant, helmholtz, precision, nrhs)
+    runs = [("trilinear", False, None, 1), ("precomputed", False, None, 1),
+            ("parallelepiped", False, None, 1), ("partial", False, None, 1),
+            ("merged", True, None, 1), ("trilinear", True, None, 1),
+            ("trilinear", False, "bf16_x32", 1),
+            ("trilinear", False, "bf16_x32", 4)]
+    for variant, helm, precision, nrhs in runs:
         mesh = meshes["affine" if variant == "parallelepiped"
                       else "trilinear"]
         prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
-                                     backend="cuda")
-        x_true = nekbone.random_solution(prob, seed=0)
-        b = nekbone.rhs_from_solution(prob, x_true)
+                                     backend="cuda", precision=precision)
+        if precision is None:
+            x_true = nekbone.random_solution(prob, seed=0)
+            b = nekbone.rhs_from_solution(prob, x_true)
+            tol = CONFIG.tol
+        else:
+            shape = (mesh.n_global,) if nrhs == 1 else (mesh.n_global, nrhs)
+            b = np.random.default_rng(0).standard_normal(shape).astype(
+                np.float32)
+            b[mesh.boundary] = 0.0
+            b = torch.as_tensor(b / np.linalg.norm(b, axis=0) * 30.0,
+                                device="cuda")
+            tol = 3.0
 
         def run(max_iter):
-            res = nekbone.solve(prob, b, tol=CONFIG.tol, max_iter=max_iter)
+            res = nekbone.solve(prob, b, tol=tol, max_iter=max_iter)
             torch.cuda.synchronize()
             return res
 
-        run(args.trace_iter)                                 # warm-up
+        max_iter = args.trace_iter if precision is None else 3000
+        run(max_iter)                                        # warm-up
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            res = run(args.trace_iter)
+            res = run(max_iter)
             wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = [e for e in prof.events()
                    if e.device_type == DeviceType.CUDA]
+        iterations = int(res.iterations.max())
         line = {"variant": variant,
                 "equation": "helmholtz" if helm else "poisson",
-                "iterations": int(res.iterations), "host_wall_ms": wall_ms}
+                "precision": precision or "fp32", "nrhs": nrhs,
+                "iterations": iterations, "host_wall_ms": wall_ms}
         if not kernels:
             line["device"] = "not measured: the profiler saw no CUDA kernels"
         else:
@@ -87,14 +108,14 @@ def main() -> None:
             top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
             line.update({
                 "kernels_launched": len(kernels),
-                "kernels_per_iteration": len(kernels) / int(res.iterations),
+                "kernels_per_iteration": len(kernels) / iterations,
                 "device_busy_us": busy, "device_span_us": span,
                 "device_busy_share": busy / span,
                 "device_idle_share": 1 - busy / span,
                 "top_kernels": [{"name": n[:90], "count": c, "us": t}
                                 for n, (c, t) in top]})
         print(json.dumps(line), flush=True)
-        del prob, b, x_true
+        del prob, b
         torch.cuda.empty_cache()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -21,10 +21,15 @@ RHS batch; factors broadcast over the batch axes.
 
 Backends: "reference" (plain torch, any dtype and device), "cuda" (the
 hand-written kernels through `kernels.axhelm.ops`, which runs their plain
-versions on CPU tensors), and "auto" — "cuda" for float32 on a CUDA
-device, "reference" on the CPU; any other dtype on a CUDA device raises
+versions on CPU tensors), and "auto" — "cuda" for float32 and bfloat16 on
+a CUDA device, "reference" on the CPU; float64 on a CUDA device raises
 rather than leaving the kernels quietly.  Both backends take the same
 operands and share one plain version, `kernels/axhelm/ref.py`.
+
+bfloat16 is a storage type: the operator computes in float32 and rounds its
+output once (the reference's Pallas kernel semantics), and the setup
+products are computed in float32 from the bf16-rounded vertices and
+lambdas and rounded once (see `make_axhelm_elem_ops`).
 """
 
 from __future__ import annotations
@@ -184,10 +189,10 @@ def _resolve_backend(backend: Optional[str], dtype: torch.dtype,
     """Map a backend choice to a concrete implementation.
 
     None means "auto".  "auto" picks the CUDA kernels on a CUDA device and
-    the plain reference on the CPU.  The kernels take float32 only, so
-    another dtype raises for "cuda", and for "auto" on a CUDA device: the
-    plain version runs on the card only when the caller asks for it.  On
-    a CPU device "cuda" runs the kernels' plain versions.
+    the plain reference on the CPU.  The kernels store float32 or bfloat16,
+    so another dtype raises for "cuda", and for "auto" on a CUDA device:
+    the plain version runs on the card only when the caller asks for it.
+    On a CPU device "cuda" runs the kernels' plain versions.
     """
     if backend is None:
         backend = "auto"
@@ -197,14 +202,14 @@ def _resolve_backend(backend: Optional[str], dtype: torch.dtype,
     if backend == "auto":
         backend = "cuda" if torch.device(device).type == "cuda" \
             else "reference"
-        if backend == "cuda" and dtype != torch.float32:
+        if backend == "cuda" and dtype not in kops.KERNEL_DTYPES:
             raise ValueError(
                 f"axhelm backend 'auto' on a CUDA device runs the float32 "
-                f"kernels; got dtype {dtype} (pass backend='reference' to "
-                f"run the plain version on the card)")
-    elif backend == "cuda" and dtype != torch.float32:
-        raise ValueError(f"axhelm backend 'cuda' computes in float32 only; "
-                         f"got dtype {dtype} (use backend='reference')")
+                f"or bfloat16 kernels; got dtype {dtype} (pass "
+                f"backend='reference' to run the plain version on the card)")
+    elif backend == "cuda" and dtype not in kops.KERNEL_DTYPES:
+        raise ValueError(f"axhelm backend 'cuda' stores float32 or bfloat16 "
+                         f"only; got dtype {dtype} (use backend='reference')")
     return backend
 
 
@@ -248,6 +253,12 @@ def _setup_factors(variant: str, basis: SpectralBasis, verts,
     return geometry.factors_trilinear(verts, basis)
 
 
+def _setup_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype setup products are computed in: float32 for a sub-fp32
+    storage dtype (then rounded once), the storage dtype otherwise."""
+    return torch.float32 if torch.finfo(dtype).bits < 32 else dtype
+
+
 def make_axhelm(variant: str, basis: SpectralBasis, verts,
                 coords: Optional[torch.Tensor] = None,
                 lam0=None, lam1=None,
@@ -267,7 +278,9 @@ def make_axhelm(variant: str, basis: SpectralBasis, verts,
     elem_ops, elem_apply, backend_used = make_axhelm_elem_ops(
         variant, basis, verts, lam0=lam0, lam1=lam1, helmholtz=helmholtz,
         dtype=dtype, backend=backend, coords=coords, device=device)
-    factors = _setup_factors(variant, basis, verts, elem_ops)
+    factors = _setup_factors(variant, basis,
+                             verts.to(_setup_dtype(dtype)), elem_ops)
+    factors = GeomFactors(factors.g.to(dtype), factors.gwj.to(dtype))
 
     def apply(x):
         return elem_apply(x, elem_ops)
@@ -305,36 +318,52 @@ def make_axhelm_elem_ops(variant: str, basis: SpectralBasis, verts,
     Lambdas are contiguous per-node fields, scalars broadcast.  A lambda
     slot missing from the elem_ops handed to `apply` falls back to the
     one assembled here — Lam2/Lam3 and gScale for merged and partial.
+
+    With a bfloat16 `dtype` every setup product is computed in float32 from
+    the vertices and lambdas rounded to bfloat16 (the node coordinates of
+    `precomputed` in float32), and rounded to bfloat16 once.  The reference
+    computes them in bfloat16 arithmetic instead, and for `precomputed` at
+    N=7 that is broken: D-hat times bf16 coordinates cancels
+    catastrophically in `factors_discrete`, and on a 3x3x2 mesh its factors
+    are off by up to 30x and its bf16 operator 314% off the fp32 one.  The
+    port is held to the reference's documented invariant there (bf16
+    operator within 3% of the fp32 one), not to that output.
     """
     _validate_setup(variant, basis, verts, lam0, lam1, helmholtz)
     verts = torch.as_tensor(verts, dtype=dtype, device=device)
     device = verts.device
     backend = _resolve_backend(backend, dtype, device)
     node_shape = tuple(verts.shape[:-2]) + (basis.n1,) * 3
+    work = _setup_dtype(dtype)       # the setup products' arithmetic
 
+    def stored(a) -> torch.Tensor:
+        """Round to the storage dtype, then widen to the work dtype."""
+        return torch.as_tensor(a, dtype=dtype, device=device).to(work)
+
+    verts_w = verts.to(work)
     if variant == "precomputed":
-        if coords is None:
-            coords = geometry.node_coords(verts, basis)
-        coords = torch.as_tensor(coords, dtype=dtype, device=device)
+        # node coordinates stay at the work dtype: rounding them to bf16 is
+        # what breaks the reference's factors
+        coords = geometry.node_coords(verts_w, basis) if coords is None \
+            else torch.as_tensor(coords, dtype=work, device=device)
         factors = geometry.factors_discrete(coords, basis)
         geom = torch.cat([factors.g, factors.gwj[..., None]], dim=-1)
     elif variant == "parallelepiped":
-        geom = kref.gelem_from_verts(verts)
+        geom = kref.gelem_from_verts(verts_w)
     else:  # trilinear, merged, partial
-        geom = verts
+        geom = verts_w
     # the kernels take per-node lambda fields only: scalars broadcast
-    lams = {name: torch.as_tensor(lam, dtype=dtype, device=device)
-            .expand(node_shape)
+    lams = {name: stored(lam).expand(node_shape)
             for name, lam in (("lam0", lam0), ("lam1", lam1))
             if lam is not None}
     if variant == "merged":
-        ones = torch.ones(node_shape, dtype=dtype, device=device)
+        ones = torch.ones(node_shape, dtype=work, device=device)
         lams["lam0"], lams["lam1"] = setup_merged_lambdas(
-            verts, basis, lams.get("lam0", ones), lams.get("lam1", ones))
+            verts_w, basis, lams.get("lam0", ones), lams.get("lam1", ones))
     elif variant == "partial":
-        lams = {"lam0": setup_partial_gscale(verts, basis)}
-    lams = {name: lam.contiguous() for name, lam in lams.items()}
-    elem_ops = {"geom": geom.contiguous(), **lams}
+        lams = {"lam0": setup_partial_gscale(verts_w, basis)}
+    lams = {name: lam.to(dtype).contiguous() for name, lam in lams.items()}
+    elem_ops = {"geom": geom.to(dtype).contiguous(), **lams}
     element_op = kops.axhelm if backend == "cuda" else kops.reference
 
     def apply(x, elem_ops):

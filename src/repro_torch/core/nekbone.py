@@ -3,8 +3,10 @@
 Composes the matrix-free pipeline of Algorithm 1 (scatter -> axhelm ->
 gather) into a global SPD operator on unique dofs and runs PCG, mirroring
 the Nekbone proxy app (Poisson with a Dirichlet mask, or Helmholtz, which
-is SPD without masking).  Single device; the element-sharded solve, the
-stacked-RHS solve and the mixed-precision solve are later slices.
+is SPD without masking).  Single device: one right-hand side or a stack of
+them (block PCG), in float32 or in the mixed-precision ``bf16_x32`` mode
+(float32 outer refinement around bfloat16 inner sweeps).  The
+element-sharded solve is a later slice.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no card and no explicit device they raise.
@@ -20,15 +22,21 @@ import torch
 from repro_torch.core import axhelm as axhelm_mod
 from repro_torch.core import gather_scatter as gs
 from repro_torch.core.mesh_gen import BoxMesh
-from repro_torch.core.pcg import PCGResult, pcg
+from repro_torch.core.pcg import PCGResult, pcg, pcg_block, refine
 from repro_torch.core.spectral import SpectralBasis, basis as make_basis
 
-__all__ = ["NekboneProblem", "resolve_device", "setup_problem",
+__all__ = ["NekboneProblem", "PRECISIONS", "resolve_device", "setup_problem",
            "rhs_from_solution", "solve", "flop_count", "random_solution",
            "manufactured_error"]
 
+PRECISIONS = (None, "bf16_x32")
+
 
 class NekboneProblem(NamedTuple):
+    """`op`/`diag` are always at the problem's dtype; with
+    ``precision="bf16_x32"`` the bfloat16 operator of the inner refinement
+    sweeps is the extra ``op_lo``."""
+
     op: object                     # callable global operator A(x)
     diag: torch.Tensor             # diag(A) on global dofs (for Jacobi)
     mask: Optional[torch.Tensor]   # Dirichlet mask (None => no mask)
@@ -39,6 +47,8 @@ class NekboneProblem(NamedTuple):
     variant: str
     backend: str = "reference"
     device: torch.device = torch.device("cpu")
+    precision: Optional[str] = None  # None (plain) or "bf16_x32"
+    op_lo: object = None             # bf16 operator for the inner sweeps
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,27 +71,33 @@ def _global_op(element_op, mesh: BoxMesh, mask, device):
     """A(x) = M Q^T A_e Q M x + (I - M) x  (M = Dirichlet zero-mask).
 
     The identity on masked dofs keeps the operator SPD on the full vector
-    space so plain CG applies.  Accepts (Ng,) and (Ng, d): the component
-    axis moves next to the element axis so the element kernel sees
-    (E, d, N1^3) and shares its per-element geometry across components.
+    space so plain CG applies.  Accepts (Ng,), (Ng, d) and the stacked
+    (Ng, nrhs) and (Ng, d, nrhs): every axis after the dof axis is
+    flattened into c = d*nrhs columns, which move next to the element axis
+    so the element kernel sees (E, c, N1^3) and shares its per-element
+    geometry across all of them; the layout is restored on exit.
     """
     ids = torch.as_tensor(mesh.global_ids, dtype=torch.int64, device=device)
     ng = mesh.n_global
 
     def apply(x):
         x_in = x
-        vector = x.ndim > 1
+        bshape = tuple(x.shape[1:])
         if mask is not None:
             m = gs._expand_mask(mask, x)
             x = torch.where(m, torch.zeros((), dtype=x.dtype,
                                            device=x.device), x)
-        xl = gs.scatter(x, ids)                        # (E, N1,N1,N1[, d])
-        if vector:
-            xl = torch.movedim(xl, -1, 1).contiguous()  # (E, d, N1,N1,N1)
+        if bshape:
+            x = x.reshape(ng, -1)
+        xl = gs.scatter(x, ids)                        # (E, N1,N1,N1[, c])
+        if bshape:
+            xl = torch.movedim(xl, -1, 1).contiguous()  # (E, c, N1,N1,N1)
         yl = element_op(xl)
-        if vector:
+        if bshape:
             yl = torch.movedim(yl, 1, -1)
         y = gs.gather(yl, ids, ng)
+        if bshape:
+            y = y.reshape((ng,) + bshape)
         if mask is not None:
             y = torch.where(m, x_in, y)
         return y
@@ -116,7 +132,9 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
                   dirichlet: bool | None = None,
                   dtype: torch.dtype = torch.float32,
                   backend: str | None = None,
-                  device=None) -> NekboneProblem:
+                  device=None,
+                  nrhs: int | None = None,
+                  precision: str | None = None) -> NekboneProblem:
     """Build the global operator + Jacobi diagonal for a mesh/variant.
 
     `variant` is any of `core.axhelm.VARIANTS`; merged is Helmholtz only
@@ -127,9 +145,30 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     `backend` selects the element-kernel implementation ("reference",
     "cuda", or "auto"/None; see core.axhelm._resolve_backend) — with "cuda"
     every PCG iteration launches the hand-written axhelm kernel, and on a
-    CUDA device "auto" is "cuda" (float32 only).  `device`
+    CUDA device "auto" is "cuda" (float32 or bfloat16 storage).  `device`
     defaults to the CUDA device (see :func:`resolve_device`).
+
+    `nrhs` declares the RHS-batch width of later `solve` calls, as in the
+    reference; the operator takes any width, and the port has no block
+    size to tune for it, so nothing else depends on it.
+
+    `precision="bf16_x32"` builds the mixed-precision solve: `op`/`diag`
+    stay float32 (`dtype` must be float32, the outer precision) and a
+    second, bfloat16 operator over the same mesh and coefficients becomes
+    `op_lo` — vertices rounded fp64 -> fp32 -> bf16 and lambdas rounded to
+    bf16, as the reference rounds them.  `solve` then runs
+    `core.pcg.refine`.
     """
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected one "
+                         f"of {PRECISIONS}")
+    if precision == "bf16_x32" and dtype != torch.float32:
+        raise ValueError(
+            f"precision='bf16_x32' keeps the outer solve in float32 (the "
+            f"bf16 operator is the separate inner machinery); pass "
+            f"dtype=torch.float32, got {str(dtype).removeprefix('torch.')}")
+    if nrhs is not None and (int(nrhs) != nrhs or nrhs < 1):
+        raise ValueError(f"nrhs must be a positive integer, got {nrhs!r}")
     device = resolve_device(device)
     b = make_basis(mesh.order)
     verts = torch.as_tensor(mesh.verts, dtype=dtype, device=device)
@@ -146,13 +185,23 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     apply = _global_op(op.apply, mesh, mask, device)
     diag = _global_diag(mesh, b, op.factors, lam0, lam1, helmholtz, d, mask,
                         dtype, device)
+    op_lo_apply = None
+    if precision == "bf16_x32":
+        op_lo = axhelm_mod.make_axhelm(variant, b, verts, lam0=lam0,
+                                       lam1=lam1, helmholtz=helmholtz,
+                                       dtype=torch.bfloat16, backend=backend,
+                                       device=device)
+        op_lo_apply = _global_op(op_lo.apply, mesh, mask, device)
     return NekboneProblem(apply, diag, mask, mesh, b, d, helmholtz, variant,
-                          op.backend, device)
+                          op.backend, device, precision, op_lo_apply)
 
 
 def rhs_from_solution(problem: NekboneProblem,
                       x_true: torch.Tensor) -> torch.Tensor:
-    """Manufactured RHS b = A x_true (x_true zeroed on the mask first)."""
+    """Manufactured RHS b = A x_true (x_true zeroed on the mask first).
+
+    `x_true` may carry a trailing RHS-batch axis — (Ng, nrhs) or
+    (Ng, d, nrhs) — giving a stacked RHS for the block solve."""
     if problem.mask is not None:
         m = gs._expand_mask(problem.mask, x_true)
         x_true = torch.where(m, torch.zeros((), dtype=x_true.dtype,
@@ -164,28 +213,54 @@ def solve(problem: NekboneProblem, b_rhs: torch.Tensor,
           precond: str = "jacobi", tol: float = 1e-8, max_iter: int = 200,
           x0: Optional[torch.Tensor] = None,
           stagnation_window: int = 0) -> PCGResult:
-    """Solve A x = b (PCG) for one right-hand side: `b_rhs` is (Ng,) for
-    d=1 or (Ng, d) for vector problems.  The result's ``status`` reports
-    WHY the solve stopped (a `resilience.status.SolveStatus` code)."""
+    """Solve A x = b (PCG).
+
+    `b_rhs` is (Ng,) for d=1 or (Ng, d) for vector problems; one extra
+    trailing axis stacks nrhs right-hand sides — (Ng, nrhs) / (Ng, d, nrhs)
+    — solved together by block PCG (`core.pcg.pcg_block`): one operator
+    application for the whole block per iteration, per-column convergence,
+    and per-column iterations, residuals and statuses in the result.  A
+    trailing axis of size 1 takes the single-RHS path, so that degenerate
+    batch gives exactly the unbatched result.  A ``bf16_x32`` problem runs
+    `core.pcg.refine` with the bfloat16 operator `op_lo` and a bfloat16
+    Jacobi preconditioner for the inner sweeps, `stagnation_window` (or 5)
+    as their window.  The result's ``status`` reports WHY each solve or
+    column stopped (a `resilience.status.SolveStatus` code)."""
     if precond not in ("jacobi", "copy"):
         raise ValueError(f"unknown preconditioner {precond!r}")
     base = 1 if problem.d == 1 else 2
-    if b_rhs.ndim == base + 1:
-        raise NotImplementedError(
-            "stacked right-hand sides (block PCG) are not ported yet: see "
-            "ROADMAP.md, Queue 1 item 9 (multi-RHS)")
-    if b_rhs.ndim != base:
+    if b_rhs.ndim not in (base, base + 1):
         raise ValueError(
-            f"solve: b_rhs must be rank {base} for a d={problem.d} problem, "
-            f"got shape {tuple(b_rhs.shape)}")
+            f"solve: b_rhs must be rank {base} (single RHS) or {base + 1} "
+            f"(stacked RHS) for a d={problem.d} problem, got shape "
+            f"{tuple(b_rhs.shape)}")
+    batched = b_rhs.ndim == base + 1
+    if batched and b_rhs.shape[-1] == 1:
+        res = solve(problem, b_rhs[..., 0], precond=precond, tol=tol,
+                    max_iter=max_iter,
+                    x0=None if x0 is None else x0[..., 0],
+                    stagnation_window=stagnation_window)
+        return PCGResult(res.x[..., None], res.iterations[None],
+                         res.residual[None], res.initial_residual[None],
+                         res.breakdown[None], res.status[None])
+    refined = problem.precision == "bf16_x32"
     pre = None
     if precond == "jacobi":
         inv_diag = 1.0 / problem.diag
+        if refined:
+            inv_diag = inv_diag.to(torch.bfloat16)
+        if batched:
+            inv_diag = inv_diag[..., None]
 
         def pre(r):
             return inv_diag * r
-    return pcg(problem.op, b_rhs, x0=x0, precond=pre, tol=tol,
-               max_iter=max_iter, stagnation_window=stagnation_window)
+    if refined:
+        return refine(problem.op, problem.op_lo, b_rhs, x0=x0, precond=pre,
+                      tol=tol, max_iter=max_iter, batched=batched,
+                      inner_window=stagnation_window or 5)
+    runner = pcg_block if batched else pcg
+    return runner(problem.op, b_rhs, x0=x0, precond=pre, tol=tol,
+                  max_iter=max_iter, stagnation_window=stagnation_window)
 
 
 def flop_count(mesh: BoxMesh, d: int, helmholtz: bool, iterations: int) -> float:
@@ -215,11 +290,15 @@ def manufactured_error(problem: NekboneProblem, x: torch.Tensor,
 
 
 def random_solution(problem: NekboneProblem, seed: int = 0,
-                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    dtype: torch.dtype = torch.float32,
+                    nrhs: int = 1) -> torch.Tensor:
     """A standard-normal x_true on the problem's dofs, made with numpy from
-    `seed` so every backend and device sees the same numbers."""
+    `seed` so every backend and device sees the same numbers; with
+    ``nrhs > 1`` a stack of them on a trailing axis."""
     shape = (problem.mesh.n_global,) if problem.d == 1 else \
         (problem.mesh.n_global, problem.d)
+    if nrhs > 1:
+        shape = shape + (nrhs,)
     rng = np.random.default_rng(seed)
     return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
                            device=problem.device)

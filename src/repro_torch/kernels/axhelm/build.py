@@ -1,7 +1,9 @@
 """Build the axhelm CUDA kernels with ``nvcc`` and bind them with ctypes.
 
-The source ``csrc/axhelm.cu`` has a plain C interface (no PyTorch headers),
-so one ``nvcc`` call builds it in seconds.  The shared library lands in
+The source ``csrc/axhelm.cu`` has a plain C interface (no PyTorch headers;
+``<cuda_bf16.h>`` for the bf16 storage type), so one ``nvcc`` call builds
+all twenty instantiations (five variants, two storage types, N1 in {4, 8})
+in seconds.  The shared library lands in
 ``build/kernels/libaxhelm_<hash>.so`` at the repository root, keyed by the
 source and the flags, and is built at first use: nothing here runs at
 import.  A missing ``nvcc`` or a failed build raises; nothing falls back.
@@ -74,24 +76,29 @@ def build() -> Path:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The built library with every entry point's C signature declared."""
+    """The built library with the C signature of every entry point,
+    ``axhelm_<variant>_f32`` and ``axhelm_<variant>_bf16``, declared."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # x, y, geom, lam0, lam1, dhat | n1, n_elem, ncols, helmholtz | stream
-    lib.axhelm_precomputed_f32.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    lib.axhelm_precomputed_f32.restype = i32
-    # x, y, verts, lam0, lam1, dhat, xi, w3 | n1, n_elem, ncols, helmholtz | stream
-    lib.axhelm_trilinear_f32.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-    lib.axhelm_trilinear_f32.restype = i32
-    # x, y, gelem, lam0, lam1, dhat, w3 | n1, n_elem, ncols, helmholtz | stream
-    lib.axhelm_parallelepiped_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
-    lib.axhelm_parallelepiped_f32.restype = i32
-    # x, y, verts, lam2, lam3, dhat, xi | n1, n_elem, ncols | stream
-    lib.axhelm_merged_f32.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
-    lib.axhelm_merged_f32.restype = i32
-    # x, y, verts, gscale, dhat, xi | n1, n_elem, ncols | stream
-    lib.axhelm_partial_f32.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
-    lib.axhelm_partial_f32.restype = i32
+    for suffix in ("f32", "bf16"):
+        for variant, argtypes in (
+                # x, y, geom, lam0, lam1, dhat | n1, n_elem, ncols,
+                # helmholtz | stream
+                ("precomputed", [ptr] * 6 + [i32] * 4 + [ptr]),
+                # x, y, verts, lam0, lam1, dhat, xi, w3 | n1, n_elem, ncols,
+                # helmholtz | stream
+                ("trilinear", [ptr] * 8 + [i32] * 4 + [ptr]),
+                # x, y, gelem, lam0, lam1, dhat, w3 | n1, n_elem, ncols,
+                # helmholtz | stream
+                ("parallelepiped", [ptr] * 7 + [i32] * 4 + [ptr]),
+                # x, y, verts, lam2, lam3, dhat, xi | n1, n_elem, ncols |
+                # stream
+                ("merged", [ptr] * 7 + [i32] * 3 + [ptr]),
+                # x, y, verts, gscale, dhat, xi | n1, n_elem, ncols | stream
+                ("partial", [ptr] * 6 + [i32] * 3 + [ptr])):
+            fn = getattr(lib, f"axhelm_{variant}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = i32
     return lib
 
 

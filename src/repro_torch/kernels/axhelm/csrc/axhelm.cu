@@ -2,7 +2,8 @@
 // operator, with a plain C interface (bound from Python with ctypes).
 //
 // Replaces the TPU kernel repro/kernels/axhelm/kernel.py::_kernel, the body of
-// the one pl.pallas_call (kernel.py:233), in all five of its variants:
+// the one pl.pallas_call (kernel.py:233), in all five of its variants and both
+// of its storage types (entry points *_f32 and *_bf16):
 //   axhelm_precomputed_f32     K1, "precomputed" (kernel.py:122-125, paper
 //                              Alg. 2): the geometric factors are read from
 //                              memory;
@@ -53,7 +54,18 @@
 //     construction.  Tensor-core contractions (wgmma) and TMA staging, which
 //     the kernels need to get past the shared-memory load rate, are later work.
 //
-// Layouts (all fp32, contiguous, the element axis outermost):
+// Storage (the TPU kernel's bf16 path, kernel.py:27, :172): the storage type T
+// of x, y, geom, lam0 and lam1 is a template parameter, float or
+// __nv_bfloat16.  A bf16 load widens to fp32 (__bfloat162float), the shared
+// memory, the factors in registers and every FFMA stay fp32, and the single
+// store of y rounds to nearest even (__float2bfloat16_rn, what
+// Tensor.to(torch.bfloat16) does).  dhat, xi and w3 are fp32 arrays; for bf16
+// storage they hold the bf16-rounded values (ops.py:157-160 of the reference
+// rounds them to the storage type).  bf16 halves the x/y and geometry bytes,
+// which the bounds above scale by; the shared contraction is unchanged.
+//
+// Layouts (contiguous, the element axis outermost; x, y, geom and the lambda
+// fields in the storage type, dhat, xi and w3 in fp32):
 //   x, y   (E, ncols, N1^3)  node index i + N1*j + N1^2*k
 //   geom   precomputed:     (E, N1^3, 7) packed [g00 g01 g02 g11 g12 g22 gwj]
 //          trilinear, merged, partial: (E, 8, 3) vertices,
@@ -64,6 +76,7 @@
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() (0 on success).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -81,6 +94,16 @@ enum GeomSource : int {
 
 __host__ __device__ constexpr bool uses_vertices(GeomSource src) {
   return src == kTrilinear || src == kMerged || src == kPartial;
+}
+
+// Storage loads widen to fp32; the one store of y rounds once.
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 struct Factors {
@@ -145,12 +168,12 @@ __device__ __forceinline__ void scale(Factors& f, float s) {
   f.g22 *= s;
 }
 
-template <int N1, GeomSource SRC>
+template <int N1, GeomSource SRC, typename T>
 __global__ void __launch_bounds__(N1 * N1 * N1)
-    axhelm_kernel(const float* __restrict__ x, float* __restrict__ y,
-                  const float* __restrict__ geom,
-                  const float* __restrict__ lam0,
-                  const float* __restrict__ lam1,
+    axhelm_kernel(const T* __restrict__ x, T* __restrict__ y,
+                  const T* __restrict__ geom,
+                  const T* __restrict__ lam0,
+                  const T* __restrict__ lam1,
                   const float* __restrict__ dhat,
                   const float* __restrict__ xi, const float* __restrict__ w3,
                   int ncols, int helmholtz) {
@@ -172,20 +195,20 @@ __global__ void __launch_bounds__(N1 * N1 * N1)
   const int64_t nidx = e * NP + node;
 
   if (node < N1 * N1) s_d[node] = dhat[node];
-  if (node < NG) s_g[node] = geom[e * NG + node];
+  if (node < NG) s_g[node] = load(geom + e * NG + node);
   __syncthreads();
 
   // This node's factors, loaded or recomputed once for all columns.
   Factors f;
   if constexpr (SRC == kPrecomputed) {
-    const float* p = geom + nidx * 7;
-    f.g00 = p[0];
-    f.g01 = p[1];
-    f.g02 = p[2];
-    f.g11 = p[3];
-    f.g12 = p[4];
-    f.g22 = p[5];
-    f.gwj = helmholtz ? p[6] : 0.f;
+    const T* p = geom + nidx * 7;
+    f.g00 = load(p);
+    f.g01 = load(p + 1);
+    f.g02 = load(p + 2);
+    f.g11 = load(p + 3);
+    f.g12 = load(p + 4);
+    f.g22 = load(p + 5);
+    f.gwj = helmholtz ? load(p + 6) : 0.f;
   } else if constexpr (SRC == kTrilinear) {
     // G = (1/8) w3 adj(J~^T J~) / det(J~),  gwj = (1/8)^3 w3 det(J~)
     const float w = w3[node];
@@ -205,20 +228,20 @@ __global__ void __launch_bounds__(N1 * N1 * N1)
     trilinear_adjugate(s_g, xi[i], xi[j], xi[k], f);
     f.gwj = 0.f;
   }
-  if (lam0 != nullptr) scale(f, lam0[nidx]);
+  if (lam0 != nullptr) scale(f, load(lam0 + nidx));
   float mass = 0.f;
   if (helmholtz) {
     if constexpr (SRC == kMerged) {
-      mass = lam1[nidx];  // Lam3 = gwj * lam1, precomputed
+      mass = load(lam1 + nidx);  // Lam3 = gwj * lam1, precomputed
     } else {
-      mass = (lam1 != nullptr) ? lam1[nidx] * f.gwj : f.gwj;
+      mass = (lam1 != nullptr) ? load(lam1 + nidx) * f.gwj : f.gwj;
     }
   }
 
   const int row_r = (k * N1 + j) * N1;  // s_*[k][j][m] = s_*[row_r + m]
   for (int c = 0; c < ncols; ++c) {
     const int64_t off = (e * ncols + c) * NP + node;
-    const float xv = x[off];
+    const float xv = load(x + off);
     s_x[node] = xv;
     __syncthreads();
 
@@ -244,26 +267,26 @@ __global__ void __launch_bounds__(N1 * N1 * N1)
       yv = fmaf(s_d[m * N1 + j], s_s[(k * N1 + m) * N1 + i], yv);
       yv = fmaf(s_d[m * N1 + k], s_t[(m * N1 + j) * N1 + i], yv);
     }
-    y[off] = yv;
+    store(y + off, yv);
     // the next column's first barrier orders these reads of s_r, s_s, s_t
     // before that column's writes to them
   }
 }
 
-template <GeomSource SRC>
-int launch(const float* x, float* y, const float* geom, const float* lam0,
-           const float* lam1, const float* dhat, const float* xi,
-           const float* w3, int n1, int n_elem, int ncols, int helmholtz,
-           cudaStream_t stream) {
+template <GeomSource SRC, typename T>
+int launch(const T* x, T* y, const T* geom, const T* lam0, const T* lam1,
+           const float* dhat, const float* xi, const float* w3, int n1,
+           int n_elem, int ncols, int helmholtz, void* stream) {
   if (n_elem <= 0 || ncols <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(n_elem));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n1) {
     case 4:
-      axhelm_kernel<4, SRC><<<grid, 4 * 4 * 4, 0, stream>>>(
+      axhelm_kernel<4, SRC, T><<<grid, 4 * 4 * 4, 0, s>>>(
           x, y, geom, lam0, lam1, dhat, xi, w3, ncols, helmholtz);
       break;
     case 8:
-      axhelm_kernel<8, SRC><<<grid, 8 * 8 * 8, 0, stream>>>(
+      axhelm_kernel<8, SRC, T><<<grid, 8 * 8 * 8, 0, s>>>(
           x, y, geom, lam0, lam1, dhat, xi, w3, ncols, helmholtz);
       break;
     default:
@@ -274,56 +297,50 @@ int launch(const float* x, float* y, const float* geom, const float* lam0,
 
 }  // namespace
 
-extern "C" int axhelm_precomputed_f32(const float* x, float* y,
-                                      const float* geom, const float* lam0,
-                                      const float* lam1, const float* dhat,
-                                      int n1, int n_elem, int ncols,
-                                      int helmholtz, void* stream) {
-  return launch<kPrecomputed>(x, y, geom, lam0, lam1, dhat, nullptr, nullptr,
-                              n1, n_elem, ncols, helmholtz,
-                              static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int axhelm_trilinear_f32(const float* x, float* y,
-                                    const float* verts, const float* lam0,
-                                    const float* lam1, const float* dhat,
-                                    const float* xi, const float* w3, int n1,
-                                    int n_elem, int ncols, int helmholtz,
-                                    void* stream) {
-  return launch<kTrilinear>(x, y, verts, lam0, lam1, dhat, xi, w3, n1, n_elem,
-                            ncols, helmholtz,
-                            static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int axhelm_parallelepiped_f32(const float* x, float* y,
-                                         const float* gelem,
-                                         const float* lam0, const float* lam1,
-                                         const float* dhat, const float* w3,
-                                         int n1, int n_elem, int ncols,
-                                         int helmholtz, void* stream) {
-  return launch<kParallelepiped>(x, y, gelem, lam0, lam1, dhat, nullptr, w3,
-                                 n1, n_elem, ncols, helmholtz,
-                                 static_cast<cudaStream_t>(stream));
-}
-
-// Helmholtz always: lam2 (Lam2) and lam3 (Lam3) must both be given.
-extern "C" int axhelm_merged_f32(const float* x, float* y, const float* verts,
-                                 const float* lam2, const float* lam3,
-                                 const float* dhat, const float* xi, int n1,
-                                 int n_elem, int ncols, void* stream) {
-  if (lam2 == nullptr || lam3 == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// The five entry points for storage type T, named axhelm_<variant>_<SUFFIX>.
+// merged is Helmholtz always (lam2 = Lam2 and lam3 = Lam3 must be given),
+// partial Poisson always (gscale must be given).
+#define AXHELM_ENTRY_POINTS(T, SUFFIX)                                        \
+  extern "C" int axhelm_precomputed_##SUFFIX(                                 \
+      const T* x, T* y, const T* geom, const T* lam0, const T* lam1,         \
+      const float* dhat, int n1, int n_elem, int ncols, int helmholtz,        \
+      void* stream) {                                                         \
+    return launch<kPrecomputed, T>(x, y, geom, lam0, lam1, dhat, nullptr,     \
+                                   nullptr, n1, n_elem, ncols, helmholtz,     \
+                                   stream);                                   \
+  }                                                                           \
+  extern "C" int axhelm_trilinear_##SUFFIX(                                   \
+      const T* x, T* y, const T* verts, const T* lam0, const T* lam1,        \
+      const float* dhat, const float* xi, const float* w3, int n1,            \
+      int n_elem, int ncols, int helmholtz, void* stream) {                   \
+    return launch<kTrilinear, T>(x, y, verts, lam0, lam1, dhat, xi, w3, n1,   \
+                                 n_elem, ncols, helmholtz, stream);           \
+  }                                                                           \
+  extern "C" int axhelm_parallelepiped_##SUFFIX(                              \
+      const T* x, T* y, const T* gelem, const T* lam0, const T* lam1,        \
+      const float* dhat, const float* w3, int n1, int n_elem, int ncols,      \
+      int helmholtz, void* stream) {                                          \
+    return launch<kParallelepiped, T>(x, y, gelem, lam0, lam1, dhat,          \
+                                      nullptr, w3, n1, n_elem, ncols,         \
+                                      helmholtz, stream);                     \
+  }                                                                           \
+  extern "C" int axhelm_merged_##SUFFIX(                                      \
+      const T* x, T* y, const T* verts, const T* lam2, const T* lam3,        \
+      const float* dhat, const float* xi, int n1, int n_elem, int ncols,      \
+      void* stream) {                                                         \
+    if (lam2 == nullptr || lam3 == nullptr) {                                 \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    }                                                                         \
+    return launch<kMerged, T>(x, y, verts, lam2, lam3, dhat, xi, nullptr, n1, \
+                              n_elem, ncols, 1, stream);                      \
+  }                                                                           \
+  extern "C" int axhelm_partial_##SUFFIX(                                     \
+      const T* x, T* y, const T* verts, const T* gscale, const float* dhat,  \
+      const float* xi, int n1, int n_elem, int ncols, void* stream) {         \
+    if (gscale == nullptr) return static_cast<int>(cudaErrorInvalidValue);    \
+    return launch<kPartial, T>(x, y, verts, gscale, nullptr, dhat, xi,        \
+                               nullptr, n1, n_elem, ncols, 0, stream);        \
   }
-  return launch<kMerged>(x, y, verts, lam2, lam3, dhat, xi, nullptr, n1,
-                         n_elem, ncols, 1, static_cast<cudaStream_t>(stream));
-}
 
-// Poisson always: gscale (gScale) must be given.
-extern "C" int axhelm_partial_f32(const float* x, float* y, const float* verts,
-                                  const float* gscale, const float* dhat,
-                                  const float* xi, int n1, int n_elem,
-                                  int ncols, void* stream) {
-  if (gscale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<kPartial>(x, y, verts, gscale, nullptr, dhat, xi, nullptr, n1,
-                          n_elem, ncols, 0, static_cast<cudaStream_t>(stream));
-}
+AXHELM_ENTRY_POINTS(float, f32)
+AXHELM_ENTRY_POINTS(__nv_bfloat16, bf16)

@@ -10,9 +10,15 @@ given:
   * a CUDA tensor launches the hand-written kernel or raises — there is no
     fallback to the plain version.
 
+Storage is float32 or bfloat16 (the reference kernel's two storage types).
+At bfloat16 every operand, the constants D-hat, xi and w3 included, holds
+bf16-rounded values; the kernel and its plain version widen them to
+float32, compute in float32 and round the output once.
+
 One thread block per element needs no element padding, so there is no block
 size to choose and no tuner.  `launch_counts` counts the kernel launches of
-each variant, so a run can show that a solve went through the kernels.
+each entry point (`entry_point(variant, dtype)`, the C symbol), so a run can
+show that a solve went through the kernels it expects.
 """
 
 from __future__ import annotations
@@ -26,19 +32,28 @@ from repro_torch.core.spectral import SpectralBasis, basis as make_basis
 from repro_torch.kernels.axhelm import build
 from repro_torch.kernels.axhelm import ref as ref_mod
 
-__all__ = ["KERNEL_VARIANTS", "KERNEL_N1", "launch_counts",
-           "reset_launch_counts", "axhelm", "reference"]
+__all__ = ["KERNEL_VARIANTS", "KERNEL_N1", "KERNEL_DTYPES", "entry_point",
+           "launch_counts", "reset_launch_counts", "axhelm", "reference"]
 
 KERNEL_VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged",
                    "partial")
 KERNEL_N1 = (4, 8)   # the N1 = N + 1 instantiated in csrc/axhelm.cu
+# storage dtype -> the suffix of its entry points in csrc/axhelm.cu
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-launch_counts = {v: 0 for v in KERNEL_VARIANTS}
+
+def entry_point(variant: str, dtype: torch.dtype) -> str:
+    """The C symbol of one kernel, e.g. ``axhelm_trilinear_bf16``."""
+    return f"axhelm_{variant}_{KERNEL_DTYPES[dtype]}"
+
+
+launch_counts = {entry_point(v, dt): 0 for dt in KERNEL_DTYPES
+                 for v in KERNEL_VARIANTS}
 
 
 def reset_launch_counts() -> None:
-    for v in launch_counts:
-        launch_counts[v] = 0
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 def check_variant(variant: str) -> None:
@@ -108,12 +123,19 @@ def axhelm(x: torch.Tensor, basis: SpectralBasis, variant: str,
 def reference(x, basis: SpectralBasis, variant: str, geom, lam0=None,
               lam1=None, helmholtz=False):
     """The plain PyTorch version with the same operand convention
-    (including the RHS-batched (E, nrhs, d, N1^3) layout), on any device."""
+    (including the RHS-batched (E, nrhs, d, N1^3) layout), on any device.
+
+    With bfloat16 storage it has the kernel's semantics: every operand is
+    widened to float32, the arithmetic is float32 and the output is rounded
+    to bfloat16 once."""
     check_variant(variant)
     squeeze = x.ndim == 4
     if squeeze:
         x = x[:, None]
-    dhat, xi, w3 = _constants(basis.n, x.dtype, x.device)
+    storage = x.dtype
+    dhat, xi, w3 = _constants(basis.n, storage, x.device)
+    x, geom, lam0, lam1 = (None if t is None else t.to(dhat.dtype)
+                           for t in (x, geom, lam0, lam1))
     if variant == "precomputed":
         y = ref_mod.axhelm_precomputed(x, geom[..., :6], geom[..., 6], dhat,
                                        lam0, lam1, helmholtz)
@@ -127,19 +149,22 @@ def reference(x, basis: SpectralBasis, variant: str, geom, lam0=None,
         y = ref_mod.axhelm_merged(x, geom, xi, dhat, lam0, lam1)
     else:  # partial
         y = ref_mod.axhelm_partial(x, geom, xi, dhat, lam0)
+    y = y.to(storage)
     return y[:, 0] if squeeze else y
 
 
 def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1) -> None:
-    """Everything the CUDA kernel does not take raises here: another dtype
-    than float32, another device, a shape off the layout, a non-contiguous
-    tensor, or an order that is not instantiated."""
+    """Everything the CUDA kernel does not take raises here: a storage
+    dtype other than float32 or bfloat16, an operand whose dtype is not
+    x's, another device, a shape off the layout, a non-contiguous tensor,
+    or an order that is not instantiated."""
     named = [("x", xb), ("geom", geom), ("lam0", lam0), ("lam1", lam1)]
     named = [(n, t) for n, t in named if t is not None]
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"axhelm CUDA kernel takes float32 only; {name} "
-                            f"is {t.dtype}")
+        if xb.dtype not in KERNEL_DTYPES or t.dtype != xb.dtype:
+            raise TypeError(f"axhelm CUDA kernel takes float32 or bfloat16 "
+                            f"storage, every operand in x's dtype; {name} "
+                            f"is {t.dtype}, x is {xb.dtype}")
     for name, t in named:
         if t.device.type != "cuda" or t.device != xb.device:
             raise ValueError(f"axhelm CUDA kernel needs every operand on "
@@ -169,11 +194,17 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _constants(n: int, dtype: torch.dtype, device: torch.device):
-    """dhat (N1, N1), xi (N1,), w3 (N1, N1, N1), contiguous, in `dtype` on
-    `device` — made once, not copied from the host at every call."""
+def _constants(n: int, storage: torch.dtype, device: torch.device):
+    """dhat (N1, N1), xi (N1,), w3 (N1, N1, N1), contiguous, on `device`,
+    rounded to the storage dtype as the reference rounds them
+    (`repro.kernels.axhelm.ops`): in that dtype for float32 and wider, as
+    float32 arrays of the bf16-rounded values for bfloat16 storage — the
+    kernel's compute dtype.  Made once, not copied from the host at every
+    call."""
     b = make_basis(n)
-    return tuple(torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+    compute = storage if torch.finfo(storage).bits >= 32 else torch.float32
+    return tuple(torch.as_tensor(a, dtype=storage, device=device)
+                 .to(compute).contiguous()
                  for a in (b.dhat, b.points, b.w3))
 
 
@@ -187,30 +218,28 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz) -> torch.Tensor:
     e, ncols = xb.shape[0], xb.shape[1] * xb.shape[2]
     if e == 0 or ncols == 0:
         return y
-    lib = build.library()
-    dhat, xi, w3 = _constants(basis.n, torch.float32, xb.device)
+    name = entry_point(variant, xb.dtype)
+    fn = getattr(build.library(), name)
+    dhat, xi, w3 = _constants(basis.n, xb.dtype, xb.device)
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         common = (_ptr(xb), _ptr(y), _ptr(geom), _ptr(lam0), _ptr(lam1),
                   _ptr(dhat))
         sizes = (basis.n1, e, ncols)
         if variant == "precomputed":
-            rc = lib.axhelm_precomputed_f32(*common, *sizes, int(helmholtz),
-                                            stream)
+            rc = fn(*common, *sizes, int(helmholtz), stream)
         elif variant == "trilinear":
-            rc = lib.axhelm_trilinear_f32(*common, _ptr(xi), _ptr(w3),
-                                          *sizes, int(helmholtz), stream)
+            rc = fn(*common, _ptr(xi), _ptr(w3), *sizes, int(helmholtz),
+                    stream)
         elif variant == "parallelepiped":
-            rc = lib.axhelm_parallelepiped_f32(*common, _ptr(w3), *sizes,
-                                               int(helmholtz), stream)
+            rc = fn(*common, _ptr(w3), *sizes, int(helmholtz), stream)
         elif variant == "merged":
-            rc = lib.axhelm_merged_f32(*common, _ptr(xi), *sizes, stream)
+            rc = fn(*common, _ptr(xi), *sizes, stream)
         else:  # partial: gScale in the lam0 slot, no lam1
-            rc = lib.axhelm_partial_f32(_ptr(xb), _ptr(y), _ptr(geom),
-                                        _ptr(lam0), _ptr(dhat), _ptr(xi),
-                                        *sizes, stream)
+            rc = fn(_ptr(xb), _ptr(y), _ptr(geom), _ptr(lam0), _ptr(dhat),
+                    _ptr(xi), *sizes, stream)
     if rc != 0:
-        raise RuntimeError(f"axhelm {variant} kernel launch failed with CUDA "
-                           f"error {rc}")
-    launch_counts[variant] += 1
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{rc}")
+    launch_counts[name] += 1
     return y

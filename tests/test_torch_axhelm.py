@@ -412,18 +412,19 @@ def test_setup_validation_matches_reference(variant, helm, lam0_shape,
 
 def test_backend_resolution():
     f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    bf16, cuda = torch.bfloat16, torch.device("cuda")
     assert taxhelm._resolve_backend(None, f32, cpu) == "reference"
     assert taxhelm._resolve_backend("auto", f32, cpu) == "reference"
-    assert taxhelm._resolve_backend("auto", f32, torch.device("cuda")) \
-        == "cuda"
+    assert taxhelm._resolve_backend("auto", f32, cuda) == "cuda"
+    assert taxhelm._resolve_backend("auto", bf16, cuda) == "cuda"
     assert taxhelm._resolve_backend("auto", f64, cpu) == "reference"
     # on the card, "auto" never leaves the kernels quietly
     with pytest.raises(ValueError, match="backend='reference'"):
-        taxhelm._resolve_backend("auto", f64, torch.device("cuda"))
-    assert taxhelm._resolve_backend("reference", f64,
-                                    torch.device("cuda")) == "reference"
+        taxhelm._resolve_backend("auto", f64, cuda)
+    assert taxhelm._resolve_backend("reference", f64, cuda) == "reference"
     assert taxhelm._resolve_backend("cuda", f32, cpu) == "cuda"
-    with pytest.raises(ValueError, match="float32 only"):
+    assert taxhelm._resolve_backend("cuda", bf16, cpu) == "cuda"
+    with pytest.raises(ValueError, match="float32 or bfloat16 only"):
         taxhelm._resolve_backend("cuda", f64, cpu)
     with pytest.raises(ValueError, match="unknown axhelm backend"):
         taxhelm._resolve_backend("pallas", f32, cpu)

@@ -1,6 +1,8 @@
-"""Card tests of the port: the hand-written CUDA axhelm kernels against
-their plain PyTorch versions, the wrapper's refusals, the gather's
-run-to-run behaviour and a solve through the kernels.
+"""Card tests of the port: the hand-written CUDA axhelm kernels (float32
+and bfloat16 storage) against their plain PyTorch versions, the wrapper's
+refusals, the gather's run-to-run behaviour, and solves through the
+kernels: float32 single and stacked right-hand sides, and the
+mixed-precision bf16_x32 refinement.
 
 Every test carries the `cuda` marker and skips without a card; whether a
 card is present is decided in the `card` fixture, at run time.  This file
@@ -10,7 +12,10 @@ with PyTorch alone:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance for the kernels: max|y_kernel - y_plain| / max|y_plain| <= 1e-4
-(float32; the kernel sums in another order than the einsums).
+(float32; the kernel sums in another order than the einsums), and 8e-3 for
+bfloat16 storage (one bf16 ulp of the largest entry: both round one float32
+result once, and the other summation order can move it across a rounding
+boundary).
 """
 
 import numpy as np
@@ -27,6 +32,7 @@ from repro_torch.resilience.status import SolveStatus
 pytestmark = pytest.mark.cuda
 
 RTOL32 = 1e-4
+RTOL_BF16 = 8e-3
 
 
 @pytest.fixture
@@ -36,10 +42,11 @@ def card():
     return torch.device("cuda")
 
 
-def _operands(variant, n, e, ncols, helm, device, seed=0):
-    """x, geom and the lambda kwargs of one kernel call: random lam0/lam1
-    for Helmholtz, merged's Lam2/Lam3 of them, partial's gScale; the
-    parallelepiped kernel runs on an affinely deformed box."""
+def _operands(variant, n, e, ncols, helm, device, seed=0,
+              dtype=torch.float32):
+    """x, geom and the lambda kwargs of one kernel call, stored in `dtype`:
+    random lam0/lam1 for Helmholtz, merged's Lam2/Lam3 of them, partial's
+    gScale; the parallelepiped kernel runs on an affinely deformed box."""
     rng = np.random.default_rng(seed)
     b = basis(n)
     n1 = b.n1
@@ -59,10 +66,10 @@ def _operands(variant, n, e, ncols, helm, device, seed=0):
             lam1=torch.as_tensor(0.5 + 0.2 * rng.random((e, n1, n1, n1)),
                                  dtype=torch.float32, device=device))
     elem_ops, _, _ = core_axhelm.make_axhelm_elem_ops(
-        variant, b, verts, helmholtz=helm, dtype=torch.float32,
-        backend="cuda", device=device, **lams)
+        variant, b, verts, helmholtz=helm, dtype=dtype, backend="cuda",
+        device=device, **lams)
     geom = elem_ops.pop("geom")
-    return b, x, geom, dict(elem_ops, helmholtz=helm)
+    return b, x.to(dtype), geom, dict(elem_ops, helmholtz=helm)
 
 
 # merged is Helmholtz only and partial Poisson only
@@ -77,21 +84,41 @@ _VARIANT_EQUATIONS = [(v, h) for v in ("precomputed", "trilinear",
 @pytest.mark.parametrize("variant,helm", _VARIANT_EQUATIONS)
 def test_kernel_matches_plain_version(card, variant, helm, n, ncols):
     b, x, geom, kw = _operands(variant, n, 37, ncols, helm, card)
-    before = ops.launch_counts[variant]
+    name = ops.entry_point(variant, torch.float32)
+    before = ops.launch_counts[name]
     y = ops.axhelm(x, b, variant, geom, **kw)
     torch.cuda.synchronize()
-    assert ops.launch_counts[variant] == before + 1
+    assert ops.launch_counts[name] == before + 1
     y_plain = ops.reference(x, b, variant, geom, **kw)
     err = float((y - y_plain).abs().max() / y_plain.abs().max())
     assert err <= RTOL32, err
+
+
+@pytest.mark.parametrize("ncols", [1, 3, 6])
+@pytest.mark.parametrize("n", [3, 7])
+@pytest.mark.parametrize("variant,helm", _VARIANT_EQUATIONS)
+def test_bf16_kernel_matches_plain_version(card, variant, helm, n, ncols):
+    b, x, geom, kw = _operands(variant, n, 37, ncols, helm, card,
+                               dtype=torch.bfloat16)
+    name = ops.entry_point(variant, torch.bfloat16)
+    before = ops.launch_counts[name]
+    y = ops.axhelm(x, b, variant, geom, **kw)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    assert ops.launch_counts[name] == before + 1
+    y_plain = ops.reference(x, b, variant, geom, **kw).float()
+    err = float((y.float() - y_plain).abs().max() / y_plain.abs().max())
+    assert err <= RTOL_BF16, err
 
 
 @pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
 def test_wrapper_refuses_what_the_kernel_does_not_take(card, variant):
     helm = variant == "merged"
     b, x, geom, kw = _operands(variant, 7, 5, 2, helm, card)
-    with pytest.raises(TypeError, match="float32 only"):
+    with pytest.raises(TypeError, match="float32 or bfloat16 storage"):
         ops.axhelm(x.double(), b, variant, geom.double(), **kw)
+    with pytest.raises(TypeError, match="x's dtype"):
+        ops.axhelm(x.bfloat16(), b, variant, geom, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         ops.axhelm(x.transpose(-1, -2), b, variant, geom, **kw)
     with pytest.raises(ValueError, match="CUDA device"):
@@ -141,7 +168,8 @@ def test_solve_through_kernels_matches_reference_backend(card, variant,
         b = nekbone.rhs_from_solution(prob, x_true)
         ops.reset_launch_counts()
         res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
-        launches = ops.launch_counts[variant]
+        launches = ops.launch_counts[ops.entry_point(variant,
+                                                     torch.float32)]
         results[backend] = (int(res.iterations), int(res.status),
                             nekbone.manufactured_error(prob, res.x, x_true),
                             launches)
@@ -151,3 +179,62 @@ def test_solve_through_kernels_matches_reference_backend(card, variant,
     assert abs(it_k - it_r) <= 1
     assert err_k < 1e-4 and err_r < 1e-4
     assert n_k >= it_k + 1 and n_r == 0
+
+
+def test_stacked_rhs_solve_through_kernels(card):
+    """Block PCG on 3 stacked right-hand sides through the fp32 kernel: one
+    launch per block application, each column within +-1 iteration of its
+    own single-RHS solve."""
+    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(4, 4, 4, 7), seed=3)
+    prob = nekbone.setup_problem(mesh, variant="trilinear", nrhs=3,
+                                 backend="cuda", device=card)
+    x_true = nekbone.random_solution(prob, seed=0, nrhs=3)
+    b = nekbone.rhs_from_solution(prob, x_true)
+    ops.reset_launch_counts()
+    res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
+    launches = ops.launch_counts["axhelm_trilinear_f32"]
+    assert res.x.shape == b.shape and res.status.shape == (3,)
+    assert (res.status == SolveStatus.CONVERGED).all()
+    assert launches >= int(res.iterations.max()) + 1
+    for c in range(3):
+        single = nekbone.solve(prob, b[:, c], tol=1e-6, max_iter=1000)
+        assert abs(int(res.iterations[c]) - int(single.iterations)) <= 1
+    assert nekbone.manufactured_error(prob, res.x, x_true) < 1e-4
+
+
+def test_bf16_x32_solve_through_kernels_matches_reference_backend(card):
+    """The 8^3 N=7 mixed-precision trilinear Poisson solve at tol 0.03
+    (1e-3 of |b| = 30): CONVERGED on the bf16 kernel and on the reference
+    backend, iterations within max(3, 5%), the fp32 true residual within
+    1.5 tol, and one bf16 launch per inner operator application."""
+    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(8, 8, 8, 7), seed=3)
+    rng = np.random.default_rng(0)
+    b_np = rng.standard_normal(mesh.n_global)
+    b_np[mesh.boundary] = 0.0
+    b_np *= 30.0 / np.linalg.norm(b_np)
+    tol = 0.03
+    out = {}
+    for backend in ("cuda", "reference"):
+        prob = nekbone.setup_problem(mesh, variant="trilinear",
+                                     precision="bf16_x32", backend=backend,
+                                     device=card)
+        b = torch.as_tensor(b_np, dtype=torch.float32, device=card)
+        applications = {"n": 0}
+        op_lo = prob.op_lo
+
+        def counted(x):
+            applications["n"] += 1
+            return op_lo(x)
+        prob = prob._replace(op_lo=counted)
+        ops.reset_launch_counts()
+        res = nekbone.solve(prob, b, tol=tol, max_iter=3000)
+        true = float(torch.linalg.norm(b - prob.op(res.x)))
+        out[backend] = (int(res.status), int(res.iterations), true,
+                        ops.launch_counts["axhelm_trilinear_bf16"],
+                        applications["n"])
+    (st_k, it_k, true_k, n_k, app_k), (st_r, it_r, true_r, n_r, _) = \
+        out["cuda"], out["reference"]
+    assert st_k == st_r == SolveStatus.CONVERGED, out
+    assert abs(it_k - it_r) <= max(3, 0.05 * it_r), out
+    assert true_k <= 1.5 * tol and true_r <= 1.5 * tol, out
+    assert n_k == app_k >= it_k and n_r == 0, out

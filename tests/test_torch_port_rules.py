@@ -29,8 +29,13 @@ def _imported_modules(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+# the scripts that drive the port on the card
+PORT_SCRIPTS = [ROOT / "chip_smoke.py",
+                ROOT / "scripts" / "torch_solve_trace.py",
+                ROOT / "scripts" / "refine_spread.py"]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + PORT_SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import_in_source(path):
     for mod in _imported_modules(path):
@@ -56,6 +61,10 @@ x = nekbone.random_solution(prob, seed=0)
 res = nekbone.solve(prob, nekbone.rhs_from_solution(prob, x), tol=1e-6)
 assert SolveStatus(int(res.status)) is SolveStatus.CONVERGED, res.status
 assert nekbone.manufactured_error(prob, res.x, x) < 1e-4
+mixed = nekbone.setup_problem(mesh, precision="bf16_x32", device="cpu")
+xs = nekbone.random_solution(mixed, seed=1, nrhs=3)
+mres = nekbone.solve(mixed, nekbone.rhs_from_solution(mixed, xs), tol=1e-3)
+assert (mres.status == SolveStatus.CONVERGED).all(), mres.status
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print("ok", int(res.iterations))
 """
@@ -86,7 +95,8 @@ def _meta(shape, dtype):
 @pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
 def test_cuda_wrapper_refuses_fp64_and_non_cuda_tensors(variant):
     """Tensors that are not on the CPU take the kernel path, which checks
-    before it launches (meta tensors stand in for card tensors here)."""
+    before it launches (meta tensors stand in for card tensors here): the
+    storage is float32 or bfloat16, every operand in x's dtype."""
     b = basis(7)
     geom_shape = {"precomputed": (3, 8, 8, 8, 7),
                   "parallelepiped": (3, 7)}.get(variant, (3, 8, 3))
@@ -97,15 +107,22 @@ def test_cuda_wrapper_refuses_fp64_and_non_cuda_tensors(variant):
     def lams(dtype):
         return {name: _meta((3, 8, 8, 8), dtype) for name in slots}
 
-    with pytest.raises(TypeError, match="float32 only"):
+    with pytest.raises(TypeError, match="float32 or bfloat16 storage.*"
+                       "x is torch.float64, x is torch.float64"):
         ops.axhelm(_meta((3, 8, 8, 8), torch.float64), b, variant,
                    _meta(geom_shape, torch.float64), **lams(torch.float64))
-    with pytest.raises(TypeError, match="float32 only"):
+    with pytest.raises(TypeError, match="float32 or bfloat16 storage.*"
+                       "geom is torch.float64, x is torch.float32"):
         ops.axhelm(_meta((3, 8, 8, 8), torch.float32), b, variant,
                    _meta(geom_shape, torch.float64), **lams(torch.float32))
-    with pytest.raises(ValueError, match="CUDA device"):
-        ops.axhelm(_meta((3, 8, 8, 8), torch.float32), b, variant,
-                   _meta(geom_shape, torch.float32), **lams(torch.float32))
+    with pytest.raises(TypeError, match="geom is torch.float32, x is "
+                       "torch.bfloat16"):
+        ops.axhelm(_meta((3, 8, 8, 8), torch.bfloat16), b, variant,
+                   _meta(geom_shape, torch.float32), **lams(torch.bfloat16))
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="CUDA device"):
+            ops.axhelm(_meta((3, 8, 8, 8), dtype), b, variant,
+                       _meta(geom_shape, dtype), **lams(dtype))
 
 
 def test_failed_build_raises_and_leaves_no_library(monkeypatch, tmp_path):

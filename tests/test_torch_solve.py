@@ -259,10 +259,18 @@ def test_solve_maxiter_matches_reference():
 
 
 def test_solve_rejects_stacked_rhs():
-    mesh = convert.mesh_from_numpy(_mesh())
+    """A d=1 problem takes (Ng,) or the stacked (Ng, nrhs); a rank-3 RHS
+    raises the reference package's ValueError, with its message."""
+    jm = _mesh()
+    mesh = convert.mesh_from_numpy(jm)
     prob = tnek.setup_problem(mesh, variant="trilinear", device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-RHS"):
-        tnek.solve(prob, torch.zeros(mesh.n_global, 2))
+    b = np.zeros((mesh.n_global, 2, 2), np.float32)
+    with pytest.raises(ValueError, match="rank 1 .* or 2") as tres:
+        tnek.solve(prob, torch.as_tensor(b))
+    with pytest.raises(ValueError) as jres:
+        jnek.solve(jnek.setup_problem(jm, variant="trilinear"),
+                   jnp.asarray(b))
+    assert str(tres.value) == str(jres.value)
 
 
 def _both_pcg(op_np, b, **kw):
