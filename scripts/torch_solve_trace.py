@@ -7,7 +7,7 @@ partial Poisson, parallelepiped Poisson on the affinely deformed box,
 merged and trilinear Helmholtz — one solve of `--trace-iter` iterations
 under torch.profiler, after a warm-up solve; then the bf16 slice's main
 path, the `bf16_x32` trilinear Poisson solve at nrhs 1 and 4 with b of
-norm 30 a column (zero on the mask, numpy seed 0) to tol 3.0, one whole
+`nekbone.random_rhs` (norm 30 a column) to tol 3.0, one whole
 refined solve (one sweep) each:
 device kernel time by kernel name, kernels launched per iteration, and
 the device's busy and idle share of the span from its first kernel to its
@@ -44,8 +44,6 @@ def main() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import numpy as np
-
     from repro_torch.configs.nekbone import CONFIG
     from repro_torch.core import mesh_gen, nekbone
 
@@ -68,12 +66,7 @@ def main() -> None:
             b = nekbone.rhs_from_solution(prob, x_true)
             tol = CONFIG.tol
         else:
-            shape = (mesh.n_global,) if nrhs == 1 else (mesh.n_global, nrhs)
-            b = np.random.default_rng(0).standard_normal(shape).astype(
-                np.float32)
-            b[mesh.boundary] = 0.0
-            b = torch.as_tensor(b / np.linalg.norm(b, axis=0) * 30.0,
-                                device="cuda")
+            b = nekbone.random_rhs(prob, nrhs=nrhs)
             tol = 3.0
 
         def run(max_iter):

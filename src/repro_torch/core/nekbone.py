@@ -27,7 +27,7 @@ from repro_torch.core.spectral import SpectralBasis, basis as make_basis
 
 __all__ = ["NekboneProblem", "PRECISIONS", "resolve_device", "setup_problem",
            "rhs_from_solution", "solve", "flop_count", "random_solution",
-           "manufactured_error"]
+           "random_rhs", "manufactured_error"]
 
 PRECISIONS = (None, "bf16_x32")
 
@@ -302,3 +302,20 @@ def random_solution(problem: NekboneProblem, seed: int = 0,
     rng = np.random.default_rng(seed)
     return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
                            device=problem.device)
+
+
+def random_rhs(problem: NekboneProblem, nrhs: int = 1) -> torch.Tensor:
+    """The right-hand side of the reference's precision benchmark
+    (`benchmarks/bench_nekbone.py::precision_rows`): standard normal in
+    float32 from numpy seed 0, zero on the mesh's Dirichlet boundary (also
+    for an unmasked problem), each right-hand side scaled to 2-norm 30; with
+    ``nrhs > 1`` a stack of them on a trailing axis."""
+    shape = (problem.mesh.n_global,) if problem.d == 1 else \
+        (problem.mesh.n_global, problem.d)
+    if nrhs > 1:
+        shape = shape + (nrhs,)
+    b = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    b[np.asarray(problem.mesh.boundary)] = 0.0
+    axes = 0 if problem.d == 1 else (0, 1)
+    b = b / np.linalg.norm(b, axis=axes) * 30.0
+    return torch.as_tensor(b, device=problem.device)

@@ -42,6 +42,13 @@ __all__ = ["PCGResult", "pcg", "pcg_block", "refine"]
 # costing at most this many minus one gated iterations after convergence.
 _CHECK_EVERY = 8
 
+# `refine`'s fixed settings, the reference's defaults: the floor of the
+# adaptive inner tolerance, the most refinement sweeps, and the sweeps in a
+# row without a lower true residual that make a column STAGNATED.
+_INNER_TOL = 0.03
+_MAX_OUTER = 40
+_STALL_LIMIT = 1
+
 
 def _up(u: torch.Tensor) -> torch.Tensor:
     """Upcast sub-fp32 floats for reduction accumulation; fp32 and wider
@@ -278,30 +285,25 @@ def refine(a_hi, a_lo, b: torch.Tensor,
            precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
            tol: float = 1e-8,
            max_iter: int = 200,
-           dot: Optional[Callable[[torch.Tensor, torch.Tensor],
-                                  torch.Tensor]] = None,
            batched: bool = False,
-           lo_dtype: torch.dtype = torch.bfloat16,
-           inner_tol: float = 0.03,
-           inner_window: int = 5,
-           max_outer: int = 40,
-           stall_limit: int = 1) -> PCGResult:
-    """Mixed-precision iterative refinement: fp32 outer, `lo_dtype` inner.
+           inner_window: int = 5) -> PCGResult:
+    """Mixed-precision iterative refinement: fp32 outer, bfloat16 inner.
 
     The outer loop keeps ``x``, the TRUE residual ``r = b - a_hi(x)`` and
     the accumulated correction in fp32; each sweep solves ``A d = r/||r||``
     (normalised per column) with an inner :func:`pcg` / :func:`pcg_block`
-    on the reduced-precision operator ``a_lo``, iterates at `lo_dtype` and
-    reductions in fp32, and adds ``d * ||r||`` in fp32.  The inner target
-    is adaptive, ``clip(0.5 tol / max ||r||, inner_tol, 0.3)`` over the
-    active columns, with ``inner_window`` as the inner stagnation window.
-    Acceptance is monotone: a sweep that does not lower a column's true
-    ``rr`` is rolled back for that column, and after ``stall_limit`` such
-    sweeps in a row the column is STAGNATED; a non-finite ``rr`` rolls back
+    on the bfloat16 operator ``a_lo``, iterates in bfloat16 and reductions
+    in fp32 (full contractions, per column when `batched`), and adds
+    ``d * ||r||`` in fp32.  The inner target is adaptive,
+    ``clip(0.5 tol / max ||r||, _INNER_TOL, 0.3)`` over the active columns,
+    with ``inner_window`` as the inner stagnation window.  Acceptance is
+    monotone: a sweep that does not lower a column's true ``rr`` is rolled
+    back for that column, and after ``_STALL_LIMIT`` such sweeps in a row
+    the column is STAGNATED; a non-finite ``rr`` rolls back
     and flags DIVERGED.  A converged or flagged column gets a zero inner
     RHS and its fp32 state stops moving.  ``iterations`` counts the total
     inner iterations (reduced-precision operator applications) per column,
-    and the loop stops at ``max_iter`` of them, after ``max_outer`` sweeps,
+    and the loop stops at ``max_iter`` of them, after ``_MAX_OUTER`` sweeps,
     or when no column is live.
 
     The reference runs the loop as one while_loop with the inner tolerance
@@ -311,8 +313,7 @@ def refine(a_hi, a_lo, b: torch.Tensor,
     residual — and computes the inner tolerance from it in float32, as the
     reference does on the device.
     """
-    if dot is None:
-        dot = _column_dot if batched else _dot
+    dot = _column_dot if batched else _dot
     b32 = b.to(torch.float32)
     runner = pcg_block if batched else pcg
 
@@ -329,7 +330,7 @@ def refine(a_hi, a_lo, b: torch.Tensor,
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
 
-    for _ in range(max_outer):
+    for _ in range(_MAX_OUTER):
         active = (rr > tol2) & ~div & ~stag
         rnorm = torch.sqrt(rr)
         maxr = torch.where(active, rnorm, zero).max()
@@ -341,11 +342,11 @@ def refine(a_hi, a_lo, b: torch.Tensor,
         safe = torch.where(active & (rnorm > 0), rnorm, one)
         # a frozen column gets a zero inner RHS: its inner column converges
         # at iteration 0 and the block freeze keeps it out of the others
-        r_hat = torch.where(active, r / safe, zero).to(lo_dtype)
+        r_hat = torch.where(active, r / safe, zero).to(torch.bfloat16)
         f32 = np.float32
         itol = float(np.clip(f32(0.5) * np.sqrt(f32(tol2))
                              / f32(maxr_h if maxr_h > 0 else 1.0),
-                             f32(inner_tol), f32(0.3)))
+                             f32(_INNER_TOL), f32(0.3)))
         res = runner(a_lo, r_hat, precond=precond, tol=itol,
                      max_iter=max(max_iter - int(spent), 1), dot=dot,
                      stagnation_window=inner_window)
@@ -365,7 +366,7 @@ def refine(a_hi, a_lo, b: torch.Tensor,
         rr = torch.where(keep, rr, rr_new)
         stall = torch.where(active & ~keep, 0,
                             stall + worse.to(torch.int32))
-        stag = stag | (worse & (stall >= stall_limit))
+        stag = stag | (worse & (stall >= _STALL_LIMIT))
         it = it + torch.where(active, res.iterations, 0).to(torch.int32)
 
     brk = torch.zeros_like(div)

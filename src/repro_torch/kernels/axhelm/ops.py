@@ -33,7 +33,8 @@ from repro_torch.kernels.axhelm import build
 from repro_torch.kernels.axhelm import ref as ref_mod
 
 __all__ = ["KERNEL_VARIANTS", "KERNEL_N1", "KERNEL_DTYPES", "entry_point",
-           "launch_counts", "reset_launch_counts", "axhelm", "reference"]
+           "launch_counts", "reset_launch_counts", "axhelm", "reference",
+           "unrounded"]
 
 KERNEL_VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged",
                    "partial")
@@ -128,12 +129,28 @@ def reference(x, basis: SpectralBasis, variant: str, geom, lam0=None,
     With bfloat16 storage it has the kernel's semantics: every operand is
     widened to float32, the arithmetic is float32 and the output is rounded
     to bfloat16 once."""
+    return unrounded(x, basis, variant, geom, lam0, lam1,
+                     helmholtz).to(x.dtype)
+
+
+def unrounded(x, basis: SpectralBasis, variant: str, geom, lam0=None,
+              lam1=None, helmholtz=False,
+              compute: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The plain version before its one rounding to x's storage dtype.
+
+    Every operand, D-hat, xi and w3 as the storage dtype rounds them
+    included, is widened to `compute` — by default the kernel's compute
+    dtype (float32 for bfloat16 storage, x's own dtype otherwise).  With
+    ``compute=torch.float64`` and bfloat16 storage, rounding the result
+    gives the correctly rounded output that a kernel's float32 arithmetic
+    approximates."""
     check_variant(variant)
     squeeze = x.ndim == 4
     if squeeze:
         x = x[:, None]
-    storage = x.dtype
-    dhat, xi, w3 = _constants(basis.n, storage, x.device)
+    dhat, xi, w3 = _constants(basis.n, x.dtype, x.device)
+    if compute is not None:
+        dhat, xi, w3 = (t.to(compute) for t in (dhat, xi, w3))
     x, geom, lam0, lam1 = (None if t is None else t.to(dhat.dtype)
                            for t in (x, geom, lam0, lam1))
     if variant == "precomputed":
@@ -149,7 +166,6 @@ def reference(x, basis: SpectralBasis, variant: str, geom, lam0=None,
         y = ref_mod.axhelm_merged(x, geom, xi, dhat, lam0, lam1)
     else:  # partial
         y = ref_mod.axhelm_partial(x, geom, xi, dhat, lam0)
-    y = y.to(storage)
     return y[:, 0] if squeeze else y
 
 
