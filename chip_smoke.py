@@ -11,7 +11,11 @@ version on the card.  Phases, one line each:
 
   1. device   nvidia-smi name and power limit, torch and CUDA versions
   2. build    nvcc builds the kernels from the sources in this checkout;
-              registers, shared memory and spills of every instantiation
+              registers, shared memory and spills of every instantiation,
+              with the body each runs (K1, K3, K4: one thread per node; K2,
+              K5: one thread per node column, and their timing-only
+              one-thread-per-node `_rowwise` twins); no instantiation may
+              spill
   3. kernels  every kernel against its plain version: Poisson and
               Helmholtz with random per-node lam0/lam1 (merged: Helmholtz
               only, Lam2/Lam3 of them; partial: Poisson only, gScale), c in
@@ -73,7 +77,8 @@ version on the card.  Phases, one line each:
               CUDA graph, and its time in eager calls back to back, beside
               its bound, the plain version's time and the share of a solve
               iteration spent in it; the same for each bf16 kernel beside
-              its fp32 twin
+              its fp32 twin; K2 and K5 in turns with their one-thread-per-
+              node body (`ops.rowwise`: old, new, new, old)
   7. the `kernels` line (ten entry points, each launched on its main
      path), then the card line, then the result line.
 
@@ -102,7 +107,11 @@ RTOL_BF16 = 8e-3
 SOLVE_REPEATS = 7     # timed 16^3 kernel-backend solves per variant
 REFINED_REPEATS = 5   # timed 16^3 bf16_x32 solves per tolerance and nrhs
 REFINED_MAX_ITER = 3000
-SOURCE = "src/repro_torch/kernels/axhelm/csrc/axhelm.cu"
+_CSRC = "src/repro_torch/kernels/axhelm/csrc"
+# the body each entry point runs: one thread per node, or per node column
+BODY = {"precomputed": "node", "trilinear": "column",
+        "parallelepiped": "node", "merged": "node", "partial": "column"}
+SOURCE = {"node": f"{_CSRC}/axhelm.cu", "column": f"{_CSRC}/axhelm_column.cu"}
 _TPU_KERNEL = "src/repro/kernels/axhelm/kernel.py"
 REPLACES = {"precomputed": f"{_TPU_KERNEL}:122",
             "trilinear": f"{_TPU_KERNEL}:126",
@@ -322,6 +331,69 @@ def axhelm_bound(variant: str, e: int, n1: int, helmholtz: bool = False,
             "operations", nbytes, flops)
 
 
+def graph_ms(fn, reps: int = 50, replays: int = 5) -> float:
+    """Device time of one call: `reps` calls captured in one CUDA graph,
+    replayed `replays` times between CUDA events; the median replay over
+    `reps`.  Back-to-back eager calls can be bound by the wrapper's host
+    time (checks, ctypes), which a replay does not contain."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()                                                # warm-up
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def ptxas_instantiations(report: str):
+    """Per kernel instantiation of a `-Xptxas -v` report: its variant, body
+    ("node": axhelm_kernel, "column": axhelm_column_kernel), N1, storage
+    dtype, registers, shared memory and spill bytes; {"kernel": name} for
+    an entry function of another name."""
+    inst, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            # axhelm_kernel<N1, GeomSource, T> and axhelm_column_kernel<...>
+            # mangle as ILi<N1>E...GeomSourceE<n>E<T>E, T = f or
+            # 13__nv_bfloat16
+            k = re.search(r"axhelm_(column_)?kernelILi(\d+)E.*?GeomSourceE?"
+                          r"(\d+)E(f|\d+__nv_bfloat16)E", m.group(1))
+            cur = {"kernel": m.group(1)}
+            if k:
+                cur = {"variant": VARIANTS[int(k.group(3))],
+                       "body": "column" if k.group(1) else "node",
+                       "n1": int(k.group(2)),
+                       "dtype": "f32" if k.group(4) == "f" else "bf16"}
+            inst.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(m.group(1)) if m else 0
+    return inst
+
+
 def main() -> None:
     import torch
 
@@ -362,40 +434,25 @@ def main() -> None:
     build.library()
     build_s = time.perf_counter() - t0
     report = build.ptxas_report()
-    inst, cur = [], None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            # axhelm_kernel<N1, GeomSource, T> mangles as
-            # ILi<N1>E...GeomSourceE<n>E<T>E, T = f or 13__nv_bfloat16
-            k = re.search(r"axhelm_kernelILi(\d+)E.*?GeomSourceE?(\d+)E"
-                          r"(f|\d+__nv_bfloat16)E", m.group(1))
-            cur = {"kernel": m.group(1)}
-            if k:
-                cur = {"variant": VARIANTS[int(k.group(2))],
-                       "n1": int(k.group(1)),
-                       "dtype": "f32" if k.group(3) == "f" else "bf16"}
-            inst.append(cur)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and cur is not None:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur is not None:
-            cur["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes smem", line)
-            cur["smem_bytes"] = int(m.group(1)) if m else 0
+    inst = ptxas_instantiations(report)
     build_line = {"phase": "build", "library": str(lib_path.relative_to(ROOT)),
                   "seconds": build_s, "instantiations": inst}
-    reported = {(c.get("variant"), c.get("n1"), c.get("dtype")) for c in inst
-                if "registers" in c}
-    missing = sorted({(v, n, dt) for v in VARIANTS for n in ops.KERNEL_N1
-                      for dt in DTYPES} - reported)
+    reported = {(c.get("variant"), c.get("body"), c.get("n1"), c.get("dtype"))
+                for c in inst if "registers" in c}
+    # every entry point's body, and the one-thread-per-node twins of the
+    # column kernels that phase 6 times
+    expected = {(v, BODY[v], n, dt) for v in VARIANTS for n in ops.KERNEL_N1
+                for dt in DTYPES}
+    expected |= {(v, "node", n, dt) for v in ops.COLUMN_VARIANTS
+                 for n in ops.KERNEL_N1 for dt in DTYPES}
+    missing = sorted(expected - reported)
     if missing:     # an unfamiliar ptxas format: show the report as it is
         build_line["ptxas"] = report
+    spilled = [c for c in inst
+               if c.get("spill_stores", 0) or c.get("spill_loads", 0)]
     emit(build_line)
     require(not missing, f"no ptxas report for instantiations {missing}")
+    require(not spilled, f"instantiations spill registers: {spilled}")
 
     # 3. kernels against their plain versions ------------------------------
     rng = np.random.default_rng(2024)
@@ -920,32 +977,6 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
-    def graph_ms(fn, reps, replays):
-        """Device time of one call: `reps` calls captured in one CUDA graph,
-        replayed `replays` times between CUDA events; the median replay over
-        `reps`.  Back-to-back eager calls can be bound by the wrapper's host
-        time (checks, ctypes), which a replay does not contain."""
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        graph.replay()                                            # warm-up
-        times = []
-        for _ in range(replays):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            graph.replay()
-            stop.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(stop) / reps)
-        del graph
-        torch.cuda.empty_cache()
-        return statistics.median(times)
-
     def main_key(variant):
         equation = "helmholtz" if MAIN_HELMHOLTZ[variant] else "poisson"
         return f"{variant}/{equation}"
@@ -970,7 +1001,20 @@ def main() -> None:
             def kernel():
                 return ops.axhelm(x, b_cfg, variant, geom, helmholtz=helm,
                                   **kw)
-            ms = graph_ms(kernel, reps=50, replays=5)
+
+            def rowwise():
+                return ops.rowwise(x, b_cfg, variant, geom, helmholtz=helm,
+                                   **kw)
+            extra = {}
+            if variant in ops.COLUMN_VARIANTS:
+                # the column body and the node body it replaces, in turns
+                turns = [graph_ms(fn)
+                         for fn in (rowwise, kernel, kernel, rowwise)]
+                ms = (turns[1] + turns[2]) / 2
+                extra = {"ms_rowwise": (turns[0] + turns[3]) / 2,
+                         "turns_ms": turns}
+            else:
+                ms = graph_ms(kernel)
             ms_eager = event_ms(kernel, reps=200, warmup=20)
             plain_ms = event_ms(lambda: ops.reference(x, b_cfg, variant,
                                                       geom, helmholtz=helm,
@@ -984,7 +1028,11 @@ def main() -> None:
                 "bound_ms": bound_ms,
                 "bound_by": bound_by, "bytes": nbytes, "flops": flops,
                 "roofline_share": bound_ms / ms,
-                "GBps": nbytes / ms / 1e6, "GFLOPS": flops / ms / 1e6}
+                "GBps": nbytes / ms / 1e6, "GFLOPS": flops / ms / 1e6,
+                **extra}
+            if extra:
+                timing[entry(variant, dt)][e_label][
+                    "roofline_share_rowwise"] = bound_ms / extra["ms_rowwise"]
             del geom, kw, verts, x
         del x32
         torch.cuda.empty_cache()
@@ -994,7 +1042,10 @@ def main() -> None:
                              * k["applications"]
                              / (k["ms_per_iteration"] * k["iterations"]))
     emit({"phase": "timing", "card": card,
-          "ms": "CUDA graph of 50 calls, median of 5 replays",
+          "ms": "CUDA graph of 50 calls, median of 5 replays; K2 and K5: "
+                "the mean of two such medians, in turns with their "
+                "one-thread-per-node body (ms_rowwise, turns_ms: old, new, "
+                "new, old)",
           "ms_eager": "200 eager calls back to back, CUDA events",
           "library": "none: no single PyTorch call computes axhelm",
           "kernels": timing,
@@ -1021,7 +1072,7 @@ def main() -> None:
             if dt == "f32" else bf16_launches[variant]
         kernels.append({
             "name": name, "variant": variant, "storage": dt,
-            "route": "cuda", "source": SOURCE,
+            "route": "cuda", "source": SOURCE[BODY[variant]],
             "replaces": REPLACES[variant],
             "main_path": main_path(variant, dt), "launches": launches,
             "max_abs_err": main_abs[name], "max_rel_err": worst[name],

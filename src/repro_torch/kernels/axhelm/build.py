@@ -1,14 +1,17 @@
 """Build the axhelm CUDA kernels with ``nvcc`` and bind them with ctypes.
 
-The source ``csrc/axhelm.cu`` has a plain C interface (no PyTorch headers;
-``<cuda_bf16.h>`` for the bf16 storage type), so one ``nvcc`` call builds
-all twenty instantiations (five variants, two storage types, N1 in {4, 8})
-in seconds.  The shared library lands in
-``build/kernels/libaxhelm_<hash>.so`` at the repository root, keyed by the
-source and the flags, and is built at first use: nothing here runs at
-import.  A missing ``nvcc`` or a failed build raises; nothing falls back.
-The ``-Xptxas -v`` report (registers, shared memory and spills of every
-instantiation) is kept beside the library, see :func:`ptxas_report`.
+The sources under ``csrc/`` have a plain C interface (no PyTorch headers;
+``<cuda_bf16.h>`` for the bf16 storage type): ``axhelm.cu`` holds the
+one-thread-per-node body (K1, K3, K4, and K2/K5 as timing-only
+``*_rowwise`` entry points), ``axhelm_column.cu`` the one-thread-per-column
+body (K2, K5), both including ``axhelm_common.cuh``.  One ``nvcc -c`` per
+source runs at the same time, then one link makes the shared library,
+``build/kernels/libaxhelm_<hash>.so`` at the repository root, keyed by every
+source and header and the flags; a build takes seconds and happens at first
+use: nothing here runs at import.  A missing ``nvcc`` or a failed build
+raises; nothing falls back.  The ``-Xptxas -v`` report (registers, shared
+memory and spills of every instantiation) is kept beside the library, see
+:func:`ptxas_report`.
 """
 
 from __future__ import annotations
@@ -19,15 +22,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
-__all__ = ["SOURCE", "NVCC_FLAGS", "library_path", "build", "library",
-           "ptxas_report"]
+__all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "LINK_FLAGS", "SIGNATURES",
+           "symbol", "library_path", "build", "library", "ptxas_report"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "axhelm.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "axhelm.cu", _CSRC / "axhelm_column.cu")
+HEADERS = (_CSRC / "axhelm_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_TARGET = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_TARGET, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+LINK_FLAGS = (*_TARGET, "-shared")
 
 
 def _nvcc() -> str:
@@ -44,8 +52,11 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for path in SOURCES + HEADERS:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return _BUILD_DIR / f"libaxhelm_{digest}.so"
 
 
@@ -53,52 +64,93 @@ def _report_path() -> Path:
     return library_path().with_suffix(".ptxas.txt")
 
 
+def _run(procs) -> str:
+    """Wait for every nvcc process; raise on the first failure."""
+    outs = [(cmd, *p.communicate(), p.returncode) for cmd, p in procs]
+    for cmd, out, err, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed with exit code {rc}:\n"
+                               f"{' '.join(cmd)}\n{out}{err}")
+    return "".join(out + err for _, out, err, _ in outs)
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 @functools.cache
 def build() -> Path:
-    """Compile the kernels unless this source is already built; return the
-    library path.  The library is written under a temporary name and moved
-    into place, so a concurrent build never exposes a partial file."""
+    """Compile the kernels unless these sources are already built; return
+    the library path.  Every source compiles at the same time, into a
+    scratch directory that is removed afterwards; the library is linked
+    under a temporary name and moved into place, so a concurrent build
+    never exposes a partial file."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    _report_path().write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(prefix=f".{out.stem}.", dir=out.parent))
+    try:
+        objs = [work / f"{src.stem}.o" for src in SOURCES]
+        report = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)])
+                       for src, obj in zip(SOURCES, objs)])
+        tmp = work / out.name
+        _run([_start([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                      *map(str, objs)])])
+        _report_path().write_text(report)
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# The C argument types of each entry point, axhelm_<name>_<suffix> with the
+# "_rowwise" of a timing-only twin moved behind the suffix.
+SIGNATURES = {
+    # x, y, geom, lam0, lam1, dhat | n1, n_elem, ncols, helmholtz | stream
+    "precomputed": [_PTR] * 6 + [_I32] * 4 + [_PTR],
+    # x, y, verts, lam0, lam1, w3, consts (host) | n1, n_elem, ncols,
+    # helmholtz, elems_per_block, grid | stream
+    "trilinear": [_PTR] * 7 + [_I32] * 6 + [_PTR],
+    # x, y, gelem, lam0, lam1, dhat, w3 | n1, n_elem, ncols, helmholtz |
+    # stream
+    "parallelepiped": [_PTR] * 7 + [_I32] * 4 + [_PTR],
+    # x, y, verts, lam2, lam3, dhat, xi | n1, n_elem, ncols | stream
+    "merged": [_PTR] * 7 + [_I32] * 3 + [_PTR],
+    # x, y, verts, gscale, consts (host) | n1, n_elem, ncols,
+    # elems_per_block, grid | stream
+    "partial": [_PTR] * 5 + [_I32] * 5 + [_PTR],
+    # the one-thread-per-node body of K2 and K5, timing only:
+    # x, y, verts, lam0, lam1, dhat, xi, w3 | n1, n_elem, ncols, helmholtz |
+    # stream
+    "trilinear_rowwise": [_PTR] * 8 + [_I32] * 4 + [_PTR],
+    # x, y, verts, gscale, dhat, xi | n1, n_elem, ncols | stream
+    "partial_rowwise": [_PTR] * 6 + [_I32] * 3 + [_PTR],
+}
+
+
+def symbol(name: str, suffix: str) -> str:
+    """The C symbol of SIGNATURES entry `name` for storage `suffix`, e.g.
+    ``axhelm_partial_bf16_rowwise``."""
+    variant, _, body = name.partition("_")
+    return f"axhelm_{variant}_{suffix}" + (f"_{body}" if body else "")
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The built library with the C signature of every entry point,
-    ``axhelm_<variant>_f32`` and ``axhelm_<variant>_bf16``, declared."""
+    ``axhelm_<variant>_f32`` and ``axhelm_<variant>_bf16``, and of the
+    timing-only ``axhelm_{trilinear,partial}_<suffix>_rowwise``, declared."""
     lib = ctypes.CDLL(str(build()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for suffix in ("f32", "bf16"):
-        for variant, argtypes in (
-                # x, y, geom, lam0, lam1, dhat | n1, n_elem, ncols,
-                # helmholtz | stream
-                ("precomputed", [ptr] * 6 + [i32] * 4 + [ptr]),
-                # x, y, verts, lam0, lam1, dhat, xi, w3 | n1, n_elem, ncols,
-                # helmholtz | stream
-                ("trilinear", [ptr] * 8 + [i32] * 4 + [ptr]),
-                # x, y, gelem, lam0, lam1, dhat, w3 | n1, n_elem, ncols,
-                # helmholtz | stream
-                ("parallelepiped", [ptr] * 7 + [i32] * 4 + [ptr]),
-                # x, y, verts, lam2, lam3, dhat, xi | n1, n_elem, ncols |
-                # stream
-                ("merged", [ptr] * 7 + [i32] * 3 + [ptr]),
-                # x, y, verts, gscale, dhat, xi | n1, n_elem, ncols | stream
-                ("partial", [ptr] * 6 + [i32] * 3 + [ptr])):
-            fn = getattr(lib, f"axhelm_{variant}_{suffix}")
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, symbol(name, suffix))
             fn.argtypes = argtypes
-            fn.restype = i32
+            fn.restype = _I32
     return lib
 
 

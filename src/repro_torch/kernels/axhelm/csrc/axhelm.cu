@@ -1,15 +1,13 @@
 // axhelm.cu -- hand-written Hopper (sm_90a) kernels for the axhelm element
-// operator, with a plain C interface (bound from Python with ctypes).
+// operator, with a plain C interface (bound from Python with ctypes): the
+// one-thread-per-node body.
 //
 // Replaces the TPU kernel repro/kernels/axhelm/kernel.py::_kernel, the body of
-// the one pl.pallas_call (kernel.py:233), in all five of its variants and both
-// of its storage types (entry points *_f32 and *_bf16):
+// the one pl.pallas_call (kernel.py:233), in three of its five variants and
+// both of its storage types (entry points *_f32 and *_bf16):
 //   axhelm_precomputed_f32     K1, "precomputed" (kernel.py:122-125, paper
 //                              Alg. 2): the geometric factors are read from
 //                              memory;
-//   axhelm_trilinear_f32       K2, "trilinear" (kernel.py:126-131, Alg. 3):
-//                              the factors are recomputed at every node from
-//                              the element's 8 vertices;
 //   axhelm_parallelepiped_f32  K3, "parallelepiped" (kernel.py:132-136,
 //                              Alg. 4): G = gelem[:6]*w3 and gwj = gelem[6]*w3
 //                              from 7 words per element;
@@ -17,10 +15,14 @@
 //                              §4.1.1, Helmholtz only): G = adj(K~)*Lam2 and
 //                              mass = Lam3, with Lam2 = gScale*lam0 and
 //                              Lam3 = gwj*lam1 precomputed -- no determinant
-//                              and no division in the kernel;
-//   axhelm_partial_f32         K5, "partial" (kernel.py:154-157, §4.1.2,
-//                              Poisson only): G = adj(K~)*gScale, gScale =
-//                              w3/(8 det) re-read from memory.
+//                              and no division in the kernel.
+// K2 "trilinear" (kernel.py:126-131, Alg. 3) and K5 "partial" (kernel.py:
+// 154-157, §4.1.2) run the one-thread-per-column body of axhelm_column.cu.
+// This body still instantiates them, as the timing-only entry points
+// axhelm_trilinear_<T>_rowwise and axhelm_partial_<T>_rowwise, which the
+// Python wrapper never calls: chip_smoke.py times them beside the column
+// body.
+//
 // Per element e and column c (c runs over the nrhs*d columns, which all share
 // the element's factors):
 //   y = D^T [lam0 * G (D x)]  (+ mass * x for Helmholtz, mass = lam1 * gwj)
@@ -76,35 +78,13 @@
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cstdint>
+
+#include "axhelm_common.cuh"
 
 namespace {
 
-// Where a kernel takes its geometric factors from (the variants of _kernel).
-enum GeomSource : int {
-  kPrecomputed = 0,     // K1
-  kTrilinear = 1,       // K2
-  kParallelepiped = 2,  // K3
-  kMerged = 3,          // K4
-  kPartial = 4,         // K5
-};
-
-__host__ __device__ constexpr bool uses_vertices(GeomSource src) {
-  return src == kTrilinear || src == kMerged || src == kPartial;
-}
-
-// Storage loads widen to fp32; the one store of y rounds once.
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+using namespace axhelm_detail;
 
 struct Factors {
   float g00, g01, g02, g11, g12, g22, gwj;
@@ -297,7 +277,8 @@ int launch(const T* x, T* y, const T* geom, const T* lam0, const T* lam1,
 
 }  // namespace
 
-// The five entry points for storage type T, named axhelm_<variant>_<SUFFIX>.
+// The entry points for storage type T: axhelm_<variant>_<SUFFIX> for K1, K3
+// and K4, axhelm_<variant>_<SUFFIX>_rowwise (timing only) for K2 and K5.
 // merged is Helmholtz always (lam2 = Lam2 and lam3 = Lam3 must be given),
 // partial Poisson always (gscale must be given).
 #define AXHELM_ENTRY_POINTS(T, SUFFIX)                                        \
@@ -309,7 +290,7 @@ int launch(const T* x, T* y, const T* geom, const T* lam0, const T* lam1,
                                    nullptr, n1, n_elem, ncols, helmholtz,     \
                                    stream);                                   \
   }                                                                           \
-  extern "C" int axhelm_trilinear_##SUFFIX(                                   \
+  extern "C" int axhelm_trilinear_##SUFFIX##_rowwise(                         \
       const T* x, T* y, const T* verts, const T* lam0, const T* lam1,        \
       const float* dhat, const float* xi, const float* w3, int n1,            \
       int n_elem, int ncols, int helmholtz, void* stream) {                   \
@@ -334,7 +315,7 @@ int launch(const T* x, T* y, const T* geom, const T* lam0, const T* lam1,
     return launch<kMerged, T>(x, y, verts, lam2, lam3, dhat, xi, nullptr, n1, \
                               n_elem, ncols, 1, stream);                      \
   }                                                                           \
-  extern "C" int axhelm_partial_##SUFFIX(                                     \
+  extern "C" int axhelm_partial_##SUFFIX##_rowwise(                           \
       const T* x, T* y, const T* verts, const T* gscale, const float* dhat,  \
       const float* xi, int n1, int n_elem, int ncols, void* stream) {         \
     if (gscale == nullptr) return static_cast<int>(cudaErrorInvalidValue);    \

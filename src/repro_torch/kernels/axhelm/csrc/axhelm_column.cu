@@ -1,0 +1,446 @@
+// axhelm_column.cu -- the one-thread-per-column body of the axhelm kernels K2
+// and K5 for Hopper (sm_90a), with a plain C interface (bound from Python
+// with ctypes: kernels/axhelm/build.py, ops.py).
+//
+// Replaces the TPU kernel repro/kernels/axhelm/kernel.py::_kernel (the body of
+// the one pl.pallas_call, kernel.py:233) in two of its variants, for both
+// storage types (entry points *_f32 and *_bf16):
+//   axhelm_trilinear_f32  K2, "trilinear" (kernel.py:126-131, paper Alg. 3):
+//                         G = (1/8) w3 adj(K~) / det(J~), gwj = w3 det(J~)/512
+//                         recomputed from the element's 8 vertices;
+//   axhelm_partial_f32    K5, "partial" (kernel.py:154-157, §4.1.2, Poisson
+//                         only): G = adj(K~) * gScale, gScale = w3/(8 det)
+//                         read per node from the lam0 slot.
+// K~ = J~^T J~, J~ the unscaled trilinear Jacobian.  Per element e and column
+// c (c runs over the nrhs*d columns):
+//   y = D^T [lam0 * G (D x)]  (+ mass * x for K2 Helmholtz, mass = lam1 * gwj)
+// For these two variants it also replaces the one-thread-per-node body of
+// axhelm.cu, which stays built as their timing-only *_rowwise entry points.
+//
+// What bounds it on the H100 (chip_smoke.py::axhelm_bound; E = 4096, N1 = 8,
+// one column, fp32): K2 moves x, y and 24 vertex words an element and does
+// the contraction's 12 N1 + 15 FLOPs a node plus ~84 of geometry: bound by
+// fp32 CUDA-core arithmetic, 6.3 us.  K5 adds the gScale field and does ~66
+// FLOPs a node of geometry: bound by bytes, 7.6 us.  With bf16 storage both
+// are operation-bound (6.3 and 5.7 us).  What held the one-thread-per-node
+// body to 46-47 us was neither: every one of its six contractions read both
+// operands from shared memory, and each thread recomputed all of Alg. 3.
+//
+// Design:
+//   * One thread per node column along k: thread (i, j) of an element owns
+//     the N1 nodes (i, j, 0..N1-1).  k is the slowest node axis, so for each k
+//     a warp's loads of x and stores of y cover 32 consecutive words, and the
+//     geometry hoists best along k: the third Jacobian column c2 and k22
+//     depend on (i, j) only, the first two columns are affine in xi_k.
+//   * The thread's N1 values of x live in registers, so the t contraction
+//     reads no shared memory; its transpose reads back only the thread's own
+//     N1 t components (s_t, one load each: kept in registers they would hold
+//     N1 more through the forward pass, and the registers spill).  Only the
+//     r (i) and s (j) directions go through shared memory, one N1 x N1 slab
+//     (fixed k) at a time: s_x holds x, s_r and s_s the r and s components of
+//     lam0 G (D x).  Along r a thread reads N1 contiguous words, as N1/4
+//     float4 loads.
+//   * D-hat along the register axis: after unrolling, its index there is a
+//     compile-time constant, so D-hat and xi are passed by value as one
+//     __grid_constant__ kernel parameter (ColumnConsts: N1^2 + N1 floats).
+//     It lives in the constant bank and enters each FFMA as an operand, with
+//     no load instruction.  Not a __constant__ symbol: two streams, or an
+//     fp32 and a bf16 launch (whose D-hat values differ), would race on one.
+//     The C entry point takes a host pointer to the packed values (ops.py,
+//     _column_consts) and copies them into the parameter, so a launch captured
+//     in a CUDA graph keeps its own copy.  The D-hat rows a thread needs for
+//     the two shared-memory directions (D[i][:], D[j][:] forward, D[:][i],
+//     D[:][j] for the transpose) go to registers at the start of each pass,
+//     from two N1 x N1 copies in shared memory laid out for conflict-free
+//     reads; loaded once for the whole kernel they would live through both
+//     passes.
+//   * Alg. 3 hoisted: once per element, into shared memory, the 12 edge
+//     differences of the vertices (36 words); once per thread, the terms
+//     that do not vary along k (c0 = e0 + xi_k e1, c1 = f0 + xi_k f1, c2,
+//     k22); per node only the affine update, the five other entries of
+//     K = J~^T J~, adj(K) and, for K2, det(J~) and its scale with one
+//     reciprocal (MUFU.RCP through __fdividef: ~1 ulp, far inside the 1e-4
+//     budget).  The scale multiplies x_r, x_s, x_t (3 products) rather than
+//     the 6 factors.  K5 reads gScale per node, coalesced, in the storage
+//     type.  K2's Helmholtz mass, lam1 w3 det(J~)/512, is recomputed in the
+//     transpose pass, where x is still in s_x.
+//   * The factors are recomputed for each of the c columns, not kept: N1 x 6
+//     factors in registers would hold ~48 registers through the column loop
+//     and spill, and staging them in shared memory would cost 6 N1^3 words an
+//     element (12 KB at N1 = 8).  Recomputing costs ~60 instructions a node
+//     for each column beyond the first, against ~70 of the column's
+//     contraction.  The first column of x is loaded before the first
+//     barrier, each next one during the transpose pass of the one before.
+//   * Several elements a block: 128 threads, N1^2 threads an element (2
+//     elements at N1 = 8, 8 at N1 = 4), at most 128 registers a thread
+//     (__launch_bounds__ with 4 blocks an SM: 16 warps).  Measured on the
+//     H100 beside 256-thread blocks and 80- to 168-register caps, this was
+//     the fastest setting without spills (PERF.md).  The wrapper gives the
+//     grid, ceil(E / elements per block); the threads of absent elements in
+//     the ragged last block compute on the last element's data, reach every
+//     __syncthreads and store nothing.  Shared memory: 4 N1^3 + 36 words an
+//     element and 2 N1^2 a block, 16.8 KB a block at N1 = 8 (static, under
+//     48 KB).
+//   * FFMA in fp32 throughout, no tensor cores: at N1 = 8 a contraction is an
+//     8-deep product, TF32 alone misses the 1e-4 budget, and 3xTF32 would pay
+//     three products to beat this path (see PERF.md for what remains).
+//   * Storage T (float or __nv_bfloat16): loads widen to fp32, everything
+//     else is fp32, and the one store of y rounds to nearest even, as in
+//     axhelm.cu.  D-hat, xi and w3 hold the storage type's rounded values.
+//
+// Shared-memory wavefronts per element and column at N1 = 8, counted from the
+// code (a wavefront is one pass of the 32 banks; loads of one word that every
+// thread of a warp reads are broadcast):
+//   before (axhelm.cu, 512 threads = 16 warps an element): per m, forward
+//     s_d[i*N1+m] 2 (i and i+4 share a bank) and five more loads of 1 each:
+//     8 x 7 = 56; transpose 8 x 6 = 48; 4 stores: 108 a warp, 1,728 an
+//     element.
+//   after (this file, 64 threads = 2 warps an element): a warp stores its 8
+//     slab rows of x, r, s and t (32) and loads 4 N1 D-hat rows (32); per k,
+//     forward along r 2 float4 loads (at most 4 wavefronts each: a warp reads
+//     4 distinct 16-byte words) and along s 8 loads of 1: 8 x 16 = 128; the
+//     transpose the same, 128, and its own t components, 8: at most 328 a
+//     warp, 656 an element, 2.6x fewer (plus 36 broadcast reads of the edges
+//     a thread, once).
+//
+// Layouts (contiguous, the element axis outermost):
+//   x, y   (E, ncols, N1^3) in T, node index i + N1*j + N1^2*k
+//   verts  (E, 8, 3) in T, vertex = br + 2*bs + 4*bt
+//   lam0, lam1  (E, N1^3) in T or null (partial: lam0 = gScale)
+//   w3 (N1^3) fp32 on the device (trilinear only)
+//   consts (N1^2 + N1) fp32 on the host: D-hat row-major, then xi
+// Every entry point launches on the given stream, allocates nothing, and
+// returns cudaGetLastError() (0 on success).
+
+#include <cstdint>
+#include <cstring>
+
+#include "axhelm_common.cuh"
+
+namespace {
+
+using namespace axhelm_detail;
+
+constexpr int kColumnThreads = 128;  // threads a block (ops.COLUMN_THREADS)
+constexpr int kColumnMinBlocks = 4;  // blocks an SM: at most 128 registers
+
+template <int N1>
+__host__ __device__ constexpr int elems_per_block() {
+  return kColumnThreads / (N1 * N1);
+}
+
+// D-hat and xi by value: the kernel parameter that lives in the constant bank.
+template <int N1>
+struct ColumnConsts {
+  float d[N1 * N1];  // D-hat(row, col), row-major
+  float xi[N1];      // GLL points
+};
+
+// Edge q of the element's 12 (q / 4: the r, s or t direction; q % 4: which
+// of its four parallel edges, in the order of the other two bits): the
+// vertices at its ends, vertex = br + 2*bs + 4*bt.
+__device__ __forceinline__ void edge_vertices(int q, int& lo, int& hi) {
+  const int dir = q >> 2, p = q & 3;
+  lo = ((p >> dir) << (dir + 1)) | (p & ((1 << dir) - 1));
+  hi = lo | (1 << dir);
+}
+
+// The terms of Alg. 3 that do not vary along k in node column (i, j).
+struct ColumnTerms {
+  float e0[3], e1[3];  // J~ column 0 (d/dr) = e0 + xi_k e1
+  float f0[3], f1[3];  // J~ column 1 (d/ds) = f0 + xi_k f1
+  float c2[3];         // J~ column 2 (d/dt)
+  float k22;           // c2 . c2
+};
+
+// From the element's edge differences E[3q + a] (edge_vertices order) at
+// (r, s) = (xi_i, xi_j): column 0 from the vertex pairs differing in the r
+// bit, weighted at s = xi_j; column 1 from the s bit, at r = xi_i; column 2
+// from the t bit.
+__device__ __forceinline__ ColumnTerms column_terms(const float* E, float xi_i,
+                                                    float xi_j) {
+  const float lo_i = 1.f - xi_i, hi_i = 1.f + xi_i;
+  const float lo_j = 1.f - xi_j, hi_j = 1.f + xi_j;
+  ColumnTerms ct;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float ra = lo_j * E[3 * 0 + a] + hi_j * E[3 * 1 + a];  // t = -1
+    const float rb = lo_j * E[3 * 2 + a] + hi_j * E[3 * 3 + a];  // t = +1
+    ct.e0[a] = ra + rb;
+    ct.e1[a] = rb - ra;
+    const float sa = lo_i * E[3 * 4 + a] + hi_i * E[3 * 5 + a];
+    const float sb = lo_i * E[3 * 6 + a] + hi_i * E[3 * 7 + a];
+    ct.f0[a] = sa + sb;
+    ct.f1[a] = sb - sa;
+    ct.c2[a] = lo_j * (lo_i * E[3 * 8 + a] + hi_i * E[3 * 9 + a]) +
+               hi_j * (lo_i * E[3 * 10 + a] + hi_i * E[3 * 11 + a]);
+  }
+  ct.k22 = ct.c2[0] * ct.c2[0] + ct.c2[1] * ct.c2[1] + ct.c2[2] * ct.c2[2];
+  return ct;
+}
+
+// The affine update: J~ columns 0 and 1 at xi_k = t.
+__device__ __forceinline__ void jacobian_at(const ColumnTerms& ct, float t,
+                                            float* c0, float* c1) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    c0[a] = fmaf(t, ct.e1[a], ct.e0[a]);
+    c1[a] = fmaf(t, ct.f1[a], ct.f0[a]);
+  }
+}
+
+// det(J~), J~[a][b] = column b, component a.
+__device__ __forceinline__ float det_j(const float* c0, const float* c1,
+                                       const float* c2) {
+  return c0[0] * (c1[1] * c2[2] - c1[2] * c2[1]) -
+         c0[1] * (c1[0] * c2[2] - c1[2] * c2[0]) +
+         c0[2] * (c1[0] * c2[1] - c1[1] * c2[0]);
+}
+
+template <int N1, GeomSource SRC, typename T>
+__global__ void __launch_bounds__(kColumnThreads, kColumnMinBlocks)
+    axhelm_column_kernel(const T* __restrict__ x, T* __restrict__ y,
+                         const T* __restrict__ verts,
+                         const T* __restrict__ lam0,
+                         const T* __restrict__ lam1,
+                         const float* __restrict__ w3,
+                         const __grid_constant__ ColumnConsts<N1> cc,
+                         int n_elem, int ncols, int helmholtz) {
+  static_assert(SRC == kTrilinear || SRC == kPartial,
+                "the column body computes K2 and K5");
+  static_assert(N1 % 4 == 0, "rows along r are read as float4");
+  constexpr int NC = N1 * N1;  // threads (node columns) an element
+  constexpr int NP = N1 * NC;  // nodes an element
+  constexpr int EPB = elems_per_block<N1>();
+  static_assert(NC <= kColumnThreads, "one block holds a whole element");
+  __shared__ __align__(16) float s_x[EPB][NP];  // x, the current column
+  __shared__ __align__(16) float s_r[EPB][NP];  // lam0 G (D x), r component
+  __shared__ __align__(16) float s_s[EPB][NP];  // ... s component
+  __shared__ float s_t[EPB][NP];                // ... t component
+  __shared__ float s_e[EPB][36];                // edge q, component a: 3q + a
+  __shared__ float s_d[NC];                     // D-hat(m, n) at m N1 + n
+  __shared__ float s_dt[NC];                    // D-hat(n, m) at m N1 + n
+
+  const int le = threadIdx.x / NC;  // element within the block
+  const int col = threadIdx.x % NC;
+  const int i = col % N1, j = col / N1;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * EPB + le;
+  const bool live = e < n_elem;
+  const int64_t ev = live ? e : n_elem - 1;  // absent: compute, store nothing
+
+  // The first column of x, loaded before the first barrier so that its
+  // latency overlaps the staging below.
+  const int64_t node0 = ev * NP + col;  // node (i, j, 0)
+  float xk[N1];
+#pragma unroll
+  for (int k = 0; k < N1; ++k) {
+    xk[k] = load(x + ev * ncols * NP + col + k * NC);
+  }
+
+  // Alg. 3, per element: the 12 edge differences of the vertices.
+  for (int q = col; q < 36; q += NC) {
+    int lo, hi;
+    edge_vertices(q / 3, lo, hi);
+    const T* v = verts + ev * 24 + q % 3;
+    s_e[le][q] = load(v + 3 * hi) - load(v + 3 * lo);
+  }
+  // D-hat for the rows of the two shared-memory directions, laid out so
+  // that a warp reads each of them without a bank conflict.
+  if (threadIdx.x < NC) {
+    const int m = threadIdx.x / N1, n = threadIdx.x % N1;
+    s_d[threadIdx.x] = cc.d[threadIdx.x];
+    s_dt[n * N1 + m] = cc.d[threadIdx.x];
+  }
+  __syncthreads();
+
+  // Alg. 3, per node column.
+  const ColumnTerms ct = column_terms(s_e[le], cc.xi[i], cc.xi[j]);
+
+  for (int c = 0; c < ncols; ++c) {
+    const int64_t base = (ev * ncols + c) * NP + col;  // node (i, j, 0)
+#pragma unroll
+    for (int k = 0; k < N1; ++k) s_x[le][k * NC + col] = xk[k];
+    // also orders the previous column's reads of s_r, s_s before the writes
+    // below
+    __syncthreads();
+
+    float dri[N1], dsj[N1];  // D-hat(i, m), D-hat(j, m)
+#pragma unroll
+    for (int m = 0; m < N1; ++m) {
+      dri[m] = s_dt[m * N1 + i];
+      dsj[m] = s_dt[m * N1 + j];
+    }
+#pragma unroll
+    for (int k = 0; k < N1; ++k) {
+      // grad at node (i, j, k): x_r, x_s through shared memory, x_t in
+      // registers with D-hat from the constant bank
+      const float* slab = s_x[le] + k * NC;
+      const float4* row = reinterpret_cast<const float4*>(slab + j * N1);
+      float xr = 0.f, xs = 0.f, xt = 0.f;
+#pragma unroll
+      for (int q = 0; q < N1 / 4; ++q) {
+        const float4 v = row[q];
+        xr = fmaf(dri[4 * q + 0], v.x, xr);
+        xr = fmaf(dri[4 * q + 1], v.y, xr);
+        xr = fmaf(dri[4 * q + 2], v.z, xr);
+        xr = fmaf(dri[4 * q + 3], v.w, xr);
+      }
+#pragma unroll
+      for (int m = 0; m < N1; ++m) {
+        xs = fmaf(dsj[m], slab[m * N1 + i], xs);
+        xt = fmaf(cc.d[k * N1 + m], xk[m], xt);
+      }
+
+      // the factors at this node: the affine update, K, adj(K), the scale
+      float c0[3], c1[3];
+      jacobian_at(ct, cc.xi[k], c0, c1);
+      const float* c2 = ct.c2;
+      const float k00 = c0[0] * c0[0] + c0[1] * c0[1] + c0[2] * c0[2];
+      const float k01 = c0[0] * c1[0] + c0[1] * c1[1] + c0[2] * c1[2];
+      const float k02 = c0[0] * c2[0] + c0[1] * c2[1] + c0[2] * c2[2];
+      const float k11 = c1[0] * c1[0] + c1[1] * c1[1] + c1[2] * c1[2];
+      const float k12 = c1[0] * c2[0] + c1[1] * c2[1] + c1[2] * c2[2];
+      const float g00 = k11 * ct.k22 - k12 * k12;
+      const float g01 = k02 * k12 - k01 * ct.k22;
+      const float g02 = k01 * k12 - k02 * k11;
+      const float g11 = k00 * ct.k22 - k02 * k02;
+      const float g12 = k01 * k02 - k00 * k12;
+      const float g22 = k00 * k11 - k01 * k01;
+      float scale;
+      if constexpr (SRC == kTrilinear) {
+        // G = (1/8) w3 adj(K~) / det(J~): one reciprocal
+        scale = __fdividef(0.125f * w3[k * NC + col], det_j(c0, c1, c2));
+        if (lam0 != nullptr) scale *= load(lam0 + node0 + k * NC);
+      } else {  // kPartial: G = adj(K~) gScale, gScale in the lam0 slot
+        scale = load(lam0 + node0 + k * NC);
+      }
+      xr *= scale;
+      xs *= scale;
+      xt *= scale;
+      s_r[le][k * NC + col] = g00 * xr + g01 * xs + g02 * xt;
+      s_s[le][k * NC + col] = g01 * xr + g11 * xs + g12 * xt;
+      s_t[le][k * NC + col] = g02 * xr + g12 * xs + g22 * xt;
+    }
+    __syncthreads();
+    if (c + 1 < ncols) {  // the next column of x, in flight during this one
+#pragma unroll
+      for (int k = 0; k < N1; ++k) xk[k] = load(x + base + NP + k * NC);
+    }
+
+    // y = D_r^T s_r + D_s^T s_s + D_t^T gt (+ mass * x)
+    float dti[N1], dtj[N1];  // D-hat(m, i), D-hat(m, j)
+    float gt[N1];
+#pragma unroll
+    for (int m = 0; m < N1; ++m) {
+      gt[m] = s_t[le][m * NC + col];
+      dti[m] = s_d[m * N1 + i];
+      dtj[m] = s_d[m * N1 + j];
+    }
+#pragma unroll
+    for (int k = 0; k < N1; ++k) {
+      const float* slab_r = s_r[le] + k * NC;
+      const float* slab_s = s_s[le] + k * NC;
+      const float4* row = reinterpret_cast<const float4*>(slab_r + j * N1);
+      float yv = 0.f;
+      if constexpr (SRC == kTrilinear) {
+        if (helmholtz) {
+          // mass = lam1 gwj, gwj = (1/8)^3 w3 det(J~), recomputed here
+          // rather than held in registers through the forward pass; x is
+          // still in s_x
+          float c0[3], c1[3];
+          jacobian_at(ct, cc.xi[k], c0, c1);
+          float mass =
+              w3[k * NC + col] * 0.001953125f * det_j(c0, c1, ct.c2);
+          if (lam1 != nullptr) mass *= load(lam1 + node0 + k * NC);
+          yv = mass * s_x[le][k * NC + col];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < N1 / 4; ++q) {
+        const float4 v = row[q];
+        yv = fmaf(dti[4 * q + 0], v.x, yv);
+        yv = fmaf(dti[4 * q + 1], v.y, yv);
+        yv = fmaf(dti[4 * q + 2], v.z, yv);
+        yv = fmaf(dti[4 * q + 3], v.w, yv);
+      }
+#pragma unroll
+      for (int m = 0; m < N1; ++m) {
+        yv = fmaf(dtj[m], slab_s[m * N1 + i], yv);
+        yv = fmaf(cc.d[m * N1 + k], gt[m], yv);
+      }
+      if (live) store(y + base + k * NC, yv);
+    }
+    // the next column's first barrier orders these reads of s_r and s_s
+    // before that column's writes to them (of s_x a thread reads back only
+    // its own nodes)
+  }
+}
+
+template <int N1, GeomSource SRC, typename T>
+int launch_n1(const T* x, T* y, const T* verts, const T* lam0, const T* lam1,
+              const float* w3, const float* consts, int n_elem, int ncols,
+              int helmholtz, int elems_per_block_given, int grid,
+              cudaStream_t s) {
+  constexpr int EPB = elems_per_block<N1>();
+  // the wrapper's launch arithmetic must be this instantiation's
+  if (elems_per_block_given != EPB || grid != (n_elem + EPB - 1) / EPB) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ColumnConsts<N1> cc;
+  std::memcpy(&cc, consts, sizeof cc);
+  axhelm_column_kernel<N1, SRC, T><<<grid, kColumnThreads, 0, s>>>(
+      x, y, verts, lam0, lam1, w3, cc, n_elem, ncols, helmholtz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <GeomSource SRC, typename T>
+int launch_column(const T* x, T* y, const T* verts, const T* lam0,
+                  const T* lam1, const float* w3, const float* consts, int n1,
+                  int n_elem, int ncols, int helmholtz, int elems_per_block,
+                  int grid, void* stream) {
+  if (n_elem <= 0 || ncols <= 0 || consts == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n1) {
+    case 4:
+      return launch_n1<4, SRC, T>(x, y, verts, lam0, lam1, w3, consts,
+                                  n_elem, ncols, helmholtz, elems_per_block,
+                                  grid, s);
+    case 8:
+      return launch_n1<8, SRC, T>(x, y, verts, lam0, lam1, w3, consts,
+                                  n_elem, ncols, helmholtz, elems_per_block,
+                                  grid, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// The K2 and K5 entry points for storage type T.  trilinear takes w3 on the
+// device; partial is Poisson always (gscale must be given).  consts is the
+// host pointer to D-hat and xi; elems_per_block and grid are the wrapper's
+// (ops.column_launch), checked against this build.
+#define AXHELM_COLUMN_ENTRY_POINTS(T, SUFFIX)                                 \
+  extern "C" int axhelm_trilinear_##SUFFIX(                                   \
+      const T* x, T* y, const T* verts, const T* lam0, const T* lam1,        \
+      const float* w3, const float* consts, int n1, int n_elem, int ncols,    \
+      int helmholtz, int elems_per_block, int grid, void* stream) {           \
+    if (w3 == nullptr) return static_cast<int>(cudaErrorInvalidValue);        \
+    return launch_column<kTrilinear, T>(x, y, verts, lam0, lam1, w3, consts,  \
+                                        n1, n_elem, ncols, helmholtz,         \
+                                        elems_per_block, grid, stream);       \
+  }                                                                           \
+  extern "C" int axhelm_partial_##SUFFIX(                                     \
+      const T* x, T* y, const T* verts, const T* gscale, const float* consts, \
+      int n1, int n_elem, int ncols, int elems_per_block, int grid,           \
+      void* stream) {                                                         \
+    if (gscale == nullptr) return static_cast<int>(cudaErrorInvalidValue);    \
+    return launch_column<kPartial, T>(x, y, verts, gscale, nullptr, nullptr,  \
+                                      consts, n1, n_elem, ncols, 0,           \
+                                      elems_per_block, grid, stream);         \
+  }
+
+AXHELM_COLUMN_ENTRY_POINTS(float, f32)
+AXHELM_COLUMN_ENTRY_POINTS(__nv_bfloat16, bf16)

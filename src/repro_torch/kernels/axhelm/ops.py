@@ -15,10 +15,16 @@ At bfloat16 every operand, the constants D-hat, xi and w3 included, holds
 bf16-rounded values; the kernel and its plain version widen them to
 float32, compute in float32 and round the output once.
 
-One thread block per element needs no element padding, so there is no block
-size to choose and no tuner.  `launch_counts` counts the kernel launches of
-each entry point (`entry_point(variant, dtype)`, the C symbol), so a run can
-show that a solve went through the kernels it expects.
+Two kernel bodies: K1, K3 and K4 run one thread block per element
+(`csrc/axhelm.cu`); K2 and K5 (`COLUMN_VARIANTS`) run one thread per node
+column, several elements a block (`csrc/axhelm_column.cu`), and take their
+grid (`column_launch`) and D-hat and xi by value (`_column_consts`, a host
+array) from here.  Neither needs element padding: the column body masks its
+ragged last block.  `launch_counts` counts the kernel launches of each entry
+point (`entry_point(variant, dtype)`, the C symbol), so a run can show that a
+solve went through the kernels it expects.  `rowwise` launches K2 and K5 on
+the one-thread-per-node body, for timing beside the column body; `axhelm`
+never reaches it.
 """
 
 from __future__ import annotations
@@ -32,13 +38,17 @@ from repro_torch.core.spectral import SpectralBasis, basis as make_basis
 from repro_torch.kernels.axhelm import build
 from repro_torch.kernels.axhelm import ref as ref_mod
 
-__all__ = ["KERNEL_VARIANTS", "KERNEL_N1", "KERNEL_DTYPES", "entry_point",
-           "launch_counts", "reset_launch_counts", "axhelm", "reference",
+__all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "KERNEL_N1", "KERNEL_DTYPES",
+           "COLUMN_THREADS", "entry_point", "column_launch", "launch_counts",
+           "reset_launch_counts", "axhelm", "rowwise", "reference",
            "unrounded"]
 
 KERNEL_VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged",
                    "partial")
-KERNEL_N1 = (4, 8)   # the N1 = N + 1 instantiated in csrc/axhelm.cu
+# the variants whose entry points run the one-thread-per-column body
+COLUMN_VARIANTS = ("trilinear", "partial")
+KERNEL_N1 = (4, 8)   # the N1 = N + 1 instantiated in csrc/
+COLUMN_THREADS = 128  # threads a block of the column body (kColumnThreads)
 # storage dtype -> the suffix of its entry points in csrc/axhelm.cu
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -50,6 +60,14 @@ def entry_point(variant: str, dtype: torch.dtype) -> str:
 
 launch_counts = {entry_point(v, dt): 0 for dt in KERNEL_DTYPES
                  for v in KERNEL_VARIANTS}
+
+
+def column_launch(n1: int, n_elem: int) -> tuple[int, int]:
+    """(elements per block, grid) of the column body: N1^2 threads an
+    element, COLUMN_THREADS a block, and as many blocks as cover n_elem
+    elements (the last one may be ragged)."""
+    per_block = COLUMN_THREADS // (n1 * n1)
+    return per_block, -(-n_elem // per_block)
 
 
 def reset_launch_counts() -> None:
@@ -119,6 +137,21 @@ def axhelm(x: torch.Tensor, basis: SpectralBasis, variant: str,
     else:
         y = _launch(xb, basis, variant, geom, lam0, lam1, helmholtz)
     return y.reshape(x.shape)
+
+
+def rowwise(x: torch.Tensor, basis: SpectralBasis, variant: str,
+            geom: torch.Tensor, lam0: Optional[torch.Tensor] = None,
+            lam1: Optional[torch.Tensor] = None,
+            helmholtz: bool = False) -> torch.Tensor:
+    """K2 or K5 on the one-thread-per-node body of `csrc/axhelm.cu` (the
+    entry points' body before the column one), on CUDA tensors: timing
+    only, beside `axhelm`.  Counts no launch."""
+    if variant not in COLUMN_VARIANTS:
+        raise ValueError(f"rowwise runs {COLUMN_VARIANTS}, not {variant!r}")
+    helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
+    xb = _as_batched(x)
+    return _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
+                   rowwise=True).reshape(x.shape)
 
 
 def reference(x, basis: SpectralBasis, variant: str, geom, lam0=None,
@@ -224,25 +257,47 @@ def _constants(n: int, storage: torch.dtype, device: torch.device):
                  for a in (b.dhat, b.points, b.w3))
 
 
+@functools.lru_cache(maxsize=None)
+def _column_consts(n: int, storage: torch.dtype) -> torch.Tensor:
+    """The column body's by-value kernel parameter: D-hat row-major (N1^2
+    values), then xi (N1), float32 on the host, rounded as `_constants`
+    rounds them for the plain version.  The C entry point copies it into the
+    launch; cached, so the pointer stays valid."""
+    dhat, xi, _ = _constants(n, storage, torch.device("cpu"))
+    return torch.cat([dhat.reshape(-1), xi]).to(torch.float32).contiguous()
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz) -> torch.Tensor:
+def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
+            rowwise: bool = False) -> torch.Tensor:
+    """Launch the entry point of `variant`, or its timing-only `_rowwise`
+    twin, on x's current stream; count an entry point's launch."""
     _check_kernel_operands(xb, basis, variant, geom, lam0, lam1)
     y = torch.empty_like(xb)
     e, ncols = xb.shape[0], xb.shape[1] * xb.shape[2]
     if e == 0 or ncols == 0:
         return y
     name = entry_point(variant, xb.dtype)
-    fn = getattr(build.library(), name)
+    symbol = f"{name}_rowwise" if rowwise else name
+    fn = getattr(build.library(), symbol)
     dhat, xi, w3 = _constants(basis.n, xb.dtype, xb.device)
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         common = (_ptr(xb), _ptr(y), _ptr(geom), _ptr(lam0), _ptr(lam1),
                   _ptr(dhat))
         sizes = (basis.n1, e, ncols)
-        if variant == "precomputed":
+        if variant in COLUMN_VARIANTS and not rowwise:
+            consts = _ptr(_column_consts(basis.n, xb.dtype))
+            grid = column_launch(basis.n1, e)
+            if variant == "trilinear":
+                rc = fn(*common[:5], _ptr(w3), consts, *sizes,
+                        int(helmholtz), *grid, stream)
+            else:  # partial: gScale in the lam0 slot, no lam1
+                rc = fn(*common[:4], consts, *sizes, *grid, stream)
+        elif variant == "precomputed":
             rc = fn(*common, *sizes, int(helmholtz), stream)
         elif variant == "trilinear":
             rc = fn(*common, _ptr(xi), _ptr(w3), *sizes, int(helmholtz),
@@ -252,10 +307,10 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz) -> torch.Tensor:
         elif variant == "merged":
             rc = fn(*common, _ptr(xi), *sizes, stream)
         else:  # partial: gScale in the lam0 slot, no lam1
-            rc = fn(_ptr(xb), _ptr(y), _ptr(geom), _ptr(lam0), _ptr(dhat),
-                    _ptr(xi), *sizes, stream)
+            rc = fn(*common[:4], _ptr(dhat), _ptr(xi), *sizes, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+        raise RuntimeError(f"{symbol} kernel launch failed with CUDA error "
                            f"{rc}")
-    launch_counts[name] += 1
+    if not rowwise:
+        launch_counts[name] += 1
     return y

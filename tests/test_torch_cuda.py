@@ -1,8 +1,12 @@
 """Card tests of the port: the hand-written CUDA axhelm kernels (float32
-and bfloat16 storage) against their plain PyTorch versions, the wrapper's
-refusals, the gather's run-to-run behaviour, and solves through the
-kernels: float32 single and stacked right-hand sides, and the
-mixed-precision bf16_x32 refinement.
+and bfloat16 storage) against their plain PyTorch versions -- the K2 and
+K5 column body also at ragged block counts, against the correctly rounded
+result for bf16, and on a solve that must not reach its timing-only
+one-thread-per-node twins -- the wrapper's refusals, the gather's
+run-to-run behaviour, and solves through the kernels: float32 single and
+stacked right-hand sides (the comparison with the reference backend with
+the gather's sums in a fixed order), and the mixed-precision bf16_x32
+refinement.
 
 Every test carries the `cuda` marker and skips without a card; whether a
 card is present is decided in the `card` fixture, at run time.  This file
@@ -18,6 +22,11 @@ result once, and the other summation order can move it across a rounding
 boundary).
 """
 
+import contextlib
+import functools
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +37,9 @@ from repro_torch.core import mesh_gen, nekbone
 from repro_torch.core.spectral import basis
 from repro_torch.kernels.axhelm import ops
 from repro_torch.resilience.status import SolveStatus
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -148,6 +160,17 @@ def test_gather_index_add_is_not_bitwise_reproducible_but_exact(card):
     print(f"index_add_ bitwise identical over 5 runs: {identical}")
 
 
+@contextlib.contextmanager
+def _fixed_order():
+    """torch.use_deterministic_algorithms(True) inside, restored after."""
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved)
+
+
 @pytest.mark.parametrize("variant,helm", [("precomputed", False),
                                           ("trilinear", False),
                                           ("parallelepiped", False),
@@ -160,21 +183,27 @@ def test_solve_through_kernels_matches_reference_backend(card, variant,
         if variant == "parallelepiped" else \
         mesh_gen.deform_trilinear(box, seed=3)
     results = {}
-    for backend in ("cuda", "reference"):
-        prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
-                                     backend=backend)
-        assert prob.backend == backend and prob.device.type == "cuda"
-        x_true = nekbone.random_solution(prob, seed=0)
-        b = nekbone.rhs_from_solution(prob, x_true)
-        ops.reset_launch_counts()
-        res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
-        launches = ops.launch_counts[ops.entry_point(variant,
-                                                     torch.float32)]
-        results[backend] = (int(res.iterations), int(res.status),
-                            nekbone.manufactured_error(prob, res.x, x_true),
-                            launches)
+    # the gather's sums in a fixed order, so that the error this test reads
+    # is the same in every run (with atomics the merged case once read
+    # 1.054e-4 against its 1e-4 bound)
+    with _fixed_order():
+        for backend in ("cuda", "reference"):
+            prob = nekbone.setup_problem(mesh, variant=variant,
+                                         helmholtz=helm, backend=backend)
+            assert prob.backend == backend and prob.device.type == "cuda"
+            x_true = nekbone.random_solution(prob, seed=0)
+            b = nekbone.rhs_from_solution(prob, x_true)
+            ops.reset_launch_counts()
+            res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
+            launches = ops.launch_counts[ops.entry_point(variant,
+                                                         torch.float32)]
+            results[backend] = (
+                int(res.iterations), int(res.status),
+                nekbone.manufactured_error(prob, res.x, x_true), launches)
     (it_k, st_k, err_k, n_k), (it_r, st_r, err_r, n_r) = \
         results["cuda"], results["reference"]
+    print(f"{variant}: manufactured error {err_k:.6e} through the kernels, "
+          f"{err_r:.6e} through the reference backend")
     assert st_k == st_r == SolveStatus.CONVERGED
     assert abs(it_k - it_r) <= 1
     assert err_k < 1e-4 and err_r < 1e-4
@@ -238,3 +267,105 @@ def test_bf16_x32_solve_through_kernels_matches_reference_backend(card):
     assert abs(it_k - it_r) <= max(3, 0.05 * it_r), out
     assert true_k <= 1.5 * tol and true_r <= 1.5 * tol, out
     assert n_k == app_k >= it_k and n_r == 0, out
+
+
+# The column body (csrc/axhelm_column.cu) of K2 and K5: ragged blocks (2
+# elements a block at N1 = 8, 8 at N1 = 4), every column count the solves
+# use, and the per-node fields it reads (K2's lam0 and lam1, K5's gScale).
+_COLUMN_CASES = [("trilinear", False), ("trilinear", True),
+                 ("partial", False)]
+
+
+@functools.lru_cache(maxsize=None)
+def _column_mesh_verts(n, e):
+    """float32 vertices of the first e elements of a deformed box."""
+    nx = int(np.ceil(e ** (1 / 3)))
+    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(nx, nx, nx, n),
+                                     seed=3)
+    return np.ascontiguousarray(mesh.verts[:e], dtype=np.float32)
+
+
+def _column_operands(variant, helm, n, e, ncols, dtype, device):
+    """x (E, ncols, N1^3), geom and kwargs: K2 with a per-node lam0 field
+    (and lam1 for Helmholtz), K5 with its gScale."""
+    rng = np.random.default_rng(1000 * n + e + ncols)
+    b = basis(n)
+    n1 = b.n1
+    verts = torch.as_tensor(_column_mesh_verts(n, e), device=device)
+    x = torch.as_tensor(rng.standard_normal((e, ncols, n1, n1, n1)),
+                        dtype=torch.float32, device=device)
+    node = (e, n1, n1, n1)
+    lams = {}
+    if variant == "trilinear":
+        lams["lam0"] = torch.as_tensor(1 + 0.3 * rng.random(node),
+                                       dtype=torch.float32, device=device)
+        if helm:
+            lams["lam1"] = torch.as_tensor(0.5 + 0.2 * rng.random(node),
+                                           dtype=torch.float32,
+                                           device=device)
+    elem_ops, _, _ = core_axhelm.make_axhelm_elem_ops(
+        variant, b, verts, helmholtz=helm, dtype=dtype, backend="cuda",
+        device=device, **lams)
+    geom = elem_ops.pop("geom")
+    return b, x.to(dtype), geom, dict(elem_ops, helmholtz=helm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ncols", [1, 3, 6])
+@pytest.mark.parametrize("e", [1, 37, 4096 + 3])
+@pytest.mark.parametrize("n", [3, 7])
+@pytest.mark.parametrize("variant,helm", _COLUMN_CASES)
+def test_column_kernel_matches_plain_version(card, variant, helm, n, e,
+                                             ncols, dtype):
+    b, x, geom, kw = _column_operands(variant, helm, n, e, ncols, dtype,
+                                      card)
+    name = ops.entry_point(variant, dtype)
+    before = ops.launch_counts[name]
+    y = ops.axhelm(x, b, variant, geom, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts[name] == before + 1 and y.dtype == dtype
+    y_plain = ops.reference(x, b, variant, geom, **kw)
+    err = float((y.float() - y_plain.float()).abs().max()
+                / y_plain.float().abs().max())
+    assert err <= (RTOL32 if dtype == torch.float32 else RTOL_BF16), err
+    if dtype == torch.bfloat16:
+        # against the correctly rounded result, as chip_smoke.py phase 3b
+        exact = ops.unrounded(x, b, variant, geom, compute=torch.float64,
+                              **kw).to(torch.bfloat16)
+        d = chip_smoke.ulp_distance(y, exact)
+        floor = chip_smoke.ULP_ABS_FLOOR * float(exact.float().abs().max())
+        far = (d > 1) & ((y.float() - exact.float()).abs() > floor)
+        assert float((d != 0).float().mean()) <= chip_smoke.ULP_RATE_BOUND
+        assert int(far.sum()) == 0
+
+
+def test_solve_through_column_kernel_never_reaches_the_node_body(
+        card, monkeypatch):
+    """A trilinear solve launches axhelm_trilinear_f32 once per operator
+    application and none of the timing-only *_rowwise symbols."""
+    from repro_torch.kernels.axhelm import build
+
+    lib = build.library()
+    called = {}
+    for name in build.SIGNATURES:
+        for suffix in ops.KERNEL_DTYPES.values():
+            sym = build.symbol(name, suffix)
+            fn = getattr(lib, sym)
+
+            def counting(*args, _fn=fn, _sym=sym):
+                called[_sym] = called.get(_sym, 0) + 1
+                return _fn(*args)
+            monkeypatch.setattr(lib, sym, counting)
+    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(4, 4, 4, 7), seed=3)
+    prob = nekbone.setup_problem(mesh, variant="trilinear", backend="cuda",
+                                 device=card)
+    x_true = nekbone.random_solution(prob, seed=0)
+    b = nekbone.rhs_from_solution(prob, x_true)
+    ops.reset_launch_counts()
+    called.clear()
+    res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
+    assert res.status == SolveStatus.CONVERGED
+    assert set(called) == {"axhelm_trilinear_f32"}, called
+    assert called["axhelm_trilinear_f32"] == \
+        ops.launch_counts["axhelm_trilinear_f32"] >= int(res.iterations) + 1
