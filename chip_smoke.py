@@ -12,10 +12,10 @@ version on the card.  Phases, one line each:
   1. device   nvidia-smi name and power limit, torch and CUDA versions
   2. build    nvcc builds the kernels from the sources in this checkout;
               registers, shared memory and spills of every instantiation,
-              with the body each runs (K1, K3, K4: one thread per node; K2,
-              K5: one thread per node column, and their timing-only
-              one-thread-per-node `_rowwise` twins); no instantiation may
-              spill
+              with the body each runs (K1: one thread per node; K2, K5: one
+              thread per node column; K3, K4: one thread per node line; and
+              the timing-only one-thread-per-node `_rowwise` twins of
+              K2-K5); no instantiation may spill
   3. kernels  every kernel against its plain version: Poisson and
               Helmholtz with random per-node lam0/lam1 (merged: Helmholtz
               only, Lam2/Lam3 of them; partial: Poisson only, gScale), c in
@@ -77,8 +77,8 @@ version on the card.  Phases, one line each:
               CUDA graph, and its time in eager calls back to back, beside
               its bound, the plain version's time and the share of a solve
               iteration spent in it; the same for each bf16 kernel beside
-              its fp32 twin; K2 and K5 in turns with their one-thread-per-
-              node body (`ops.rowwise`: old, new, new, old)
+              its fp32 twin; K2-K5 in turns with their one-thread-per-node
+              body (`ops.rowwise`: old, new, new, old)
   7. the `kernels` line (ten entry points, each launched on its main
      path), then the card line, then the result line.
 
@@ -108,10 +108,12 @@ SOLVE_REPEATS = 7     # timed 16^3 kernel-backend solves per variant
 REFINED_REPEATS = 5   # timed 16^3 bf16_x32 solves per tolerance and nrhs
 REFINED_MAX_ITER = 3000
 _CSRC = "src/repro_torch/kernels/axhelm/csrc"
-# the body each entry point runs: one thread per node, or per node column
+# the body each entry point runs: one thread per node, per node column, or
+# per node line
 BODY = {"precomputed": "node", "trilinear": "column",
-        "parallelepiped": "node", "merged": "node", "partial": "column"}
-SOURCE = {"node": f"{_CSRC}/axhelm.cu", "column": f"{_CSRC}/axhelm_column.cu"}
+        "parallelepiped": "line", "merged": "line", "partial": "column"}
+SOURCE = {"node": f"{_CSRC}/axhelm.cu", "column": f"{_CSRC}/axhelm_column.cu",
+          "line": f"{_CSRC}/axhelm_line.cu"}
 _TPU_KERNEL = "src/repro/kernels/axhelm/kernel.py"
 REPLACES = {"precomputed": f"{_TPU_KERNEL}:122",
             "trilinear": f"{_TPU_KERNEL}:126",
@@ -362,22 +364,23 @@ def graph_ms(fn, reps: int = 50, replays: int = 5) -> float:
 
 def ptxas_instantiations(report: str):
     """Per kernel instantiation of a `-Xptxas -v` report: its variant, body
-    ("node": axhelm_kernel, "column": axhelm_column_kernel), N1, storage
-    dtype, registers, shared memory and spill bytes; {"kernel": name} for
-    an entry function of another name."""
+    ("node": axhelm_kernel, "column": axhelm_column_kernel, "line":
+    axhelm_line_kernel), N1, storage dtype, registers, shared memory and
+    spill bytes; {"kernel": name} for an entry function of another name."""
     inst, cur = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            # axhelm_kernel<N1, GeomSource, T> and axhelm_column_kernel<...>
-            # mangle as ILi<N1>E...GeomSourceE<n>E<T>E, T = f or
-            # 13__nv_bfloat16
-            k = re.search(r"axhelm_(column_)?kernelILi(\d+)E.*?GeomSourceE?"
-                          r"(\d+)E(f|\d+__nv_bfloat16)E", m.group(1))
+            # axhelm_kernel<N1, GeomSource, T>, axhelm_column_kernel<...> and
+            # axhelm_line_kernel<...> mangle as
+            # ILi<N1>E...GeomSourceE<n>E<T>E, T = f or 13__nv_bfloat16
+            k = re.search(r"axhelm_(column_|line_)?kernelILi(\d+)E.*?"
+                          r"GeomSourceE?(\d+)E(f|\d+__nv_bfloat16)E",
+                          m.group(1))
             cur = {"kernel": m.group(1)}
             if k:
                 cur = {"variant": VARIANTS[int(k.group(3))],
-                       "body": "column" if k.group(1) else "node",
+                       "body": (k.group(1) or "node_").rstrip("_"),
                        "n1": int(k.group(2)),
                        "dtype": "f32" if k.group(4) == "f" else "bf16"}
             inst.append(cur)
@@ -440,10 +443,10 @@ def main() -> None:
     reported = {(c.get("variant"), c.get("body"), c.get("n1"), c.get("dtype"))
                 for c in inst if "registers" in c}
     # every entry point's body, and the one-thread-per-node twins of the
-    # column kernels that phase 6 times
+    # column and line kernels that phase 6 times
     expected = {(v, BODY[v], n, dt) for v in VARIANTS for n in ops.KERNEL_N1
                 for dt in DTYPES}
-    expected |= {(v, "node", n, dt) for v in ops.COLUMN_VARIANTS
+    expected |= {(v, "node", n, dt) for v in ops.ROWWISE_VARIANTS
                  for n in ops.KERNEL_N1 for dt in DTYPES}
     missing = sorted(expected - reported)
     if missing:     # an unfamiliar ptxas format: show the report as it is
@@ -1006,8 +1009,9 @@ def main() -> None:
                 return ops.rowwise(x, b_cfg, variant, geom, helmholtz=helm,
                                    **kw)
             extra = {}
-            if variant in ops.COLUMN_VARIANTS:
-                # the column body and the node body it replaces, in turns
+            if variant in ops.ROWWISE_VARIANTS:
+                # the column or line body and the node body it replaced, in
+                # turns
                 turns = [graph_ms(fn)
                          for fn in (rowwise, kernel, kernel, rowwise)]
                 ms = (turns[1] + turns[2]) / 2
@@ -1042,7 +1046,7 @@ def main() -> None:
                              * k["applications"]
                              / (k["ms_per_iteration"] * k["iterations"]))
     emit({"phase": "timing", "card": card,
-          "ms": "CUDA graph of 50 calls, median of 5 replays; K2 and K5: "
+          "ms": "CUDA graph of 50 calls, median of 5 replays; K2-K5: "
                 "the mean of two such medians, in turns with their "
                 "one-thread-per-node body (ms_rowwise, turns_ms: old, new, "
                 "new, old)",

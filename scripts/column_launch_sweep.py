@@ -52,8 +52,12 @@ def main() -> None:
     out_dir = ROOT / "build" / "column_sweep"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    for name in ("axhelm.cu", "axhelm_common.cuh"):
-        shutil.copy(csrc / name, out_dir / name)
+    for path in build.SOURCES + build.HEADERS:
+        if path.name != "axhelm_column.cu":
+            shutil.copy(path, out_dir / path.name)
+    others = tuple(out_dir / p.name for p in build.SOURCES
+                   if p.name != "axhelm_column.cu")
+    headers = tuple(out_dir / p.name for p in build.HEADERS)
     lines = []
 
     def emit(obj):
@@ -72,8 +76,8 @@ def main() -> None:
             f"kColumnThreads = {shipped[0]};", f"kColumnThreads = {threads};")
             .replace(f"kColumnMinBlocks = {shipped[1]};",
                      f"kColumnMinBlocks = {blocks};"))
-        build.SOURCES = (out_dir / "axhelm.cu", path)
-        build.HEADERS = (out_dir / "axhelm_common.cuh",)
+        build.SOURCES = others + (path,)
+        build.HEADERS = headers
         build.build.cache_clear()
         build.library.cache_clear()
         ops.COLUMN_THREADS = threads

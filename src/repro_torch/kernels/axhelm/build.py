@@ -2,9 +2,10 @@
 
 The sources under ``csrc/`` have a plain C interface (no PyTorch headers;
 ``<cuda_bf16.h>`` for the bf16 storage type): ``axhelm.cu`` holds the
-one-thread-per-node body (K1, K3, K4, and K2/K5 as timing-only
-``*_rowwise`` entry points), ``axhelm_column.cu`` the one-thread-per-column
-body (K2, K5), both including ``axhelm_common.cuh``.  One ``nvcc -c`` per
+one-thread-per-node body (K1, and K2-K5 as timing-only ``*_rowwise`` entry
+points), ``axhelm_column.cu`` the one-thread-per-column body (K2, K5),
+``axhelm_line.cu`` the one-thread-per-line body (K3, K4), all three
+including ``axhelm_common.cuh``.  One ``nvcc -c`` per
 source runs at the same time, then one link makes the shared library,
 ``build/kernels/libaxhelm_<hash>.so`` at the repository root, keyed by every
 source and header and the flags; a build takes seconds and happens at first
@@ -29,7 +30,8 @@ __all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "LINK_FLAGS", "SIGNATURES",
            "symbol", "library_path", "build", "library", "ptxas_report"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "axhelm.cu", _CSRC / "axhelm_column.cu")
+SOURCES = (_CSRC / "axhelm.cu", _CSRC / "axhelm_column.cu",
+           _CSRC / "axhelm_line.cu")
 HEADERS = (_CSRC / "axhelm_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 _TARGET = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -116,18 +118,24 @@ SIGNATURES = {
     # x, y, verts, lam0, lam1, w3, consts (host) | n1, n_elem, ncols,
     # helmholtz, elems_per_block, grid | stream
     "trilinear": [_PTR] * 7 + [_I32] * 6 + [_PTR],
-    # x, y, gelem, lam0, lam1, dhat, w3 | n1, n_elem, ncols, helmholtz |
-    # stream
-    "parallelepiped": [_PTR] * 7 + [_I32] * 4 + [_PTR],
-    # x, y, verts, lam2, lam3, dhat, xi | n1, n_elem, ncols | stream
-    "merged": [_PTR] * 7 + [_I32] * 3 + [_PTR],
+    # x, y, gelem, lam0, lam1, w3, consts (host) | n1, n_elem, ncols,
+    # helmholtz, elems_per_block, grid | stream
+    "parallelepiped": [_PTR] * 7 + [_I32] * 6 + [_PTR],
+    # x, y, verts, lam2, lam3, consts (host) | n1, n_elem, ncols,
+    # elems_per_block, grid | stream
+    "merged": [_PTR] * 6 + [_I32] * 5 + [_PTR],
     # x, y, verts, gscale, consts (host) | n1, n_elem, ncols,
     # elems_per_block, grid | stream
     "partial": [_PTR] * 5 + [_I32] * 5 + [_PTR],
-    # the one-thread-per-node body of K2 and K5, timing only:
+    # the one-thread-per-node body of K2-K5, timing only:
     # x, y, verts, lam0, lam1, dhat, xi, w3 | n1, n_elem, ncols, helmholtz |
     # stream
     "trilinear_rowwise": [_PTR] * 8 + [_I32] * 4 + [_PTR],
+    # x, y, gelem, lam0, lam1, dhat, w3 | n1, n_elem, ncols, helmholtz |
+    # stream
+    "parallelepiped_rowwise": [_PTR] * 7 + [_I32] * 4 + [_PTR],
+    # x, y, verts, lam2, lam3, dhat, xi | n1, n_elem, ncols | stream
+    "merged_rowwise": [_PTR] * 7 + [_I32] * 3 + [_PTR],
     # x, y, verts, gscale, dhat, xi | n1, n_elem, ncols | stream
     "partial_rowwise": [_PTR] * 6 + [_I32] * 3 + [_PTR],
 }
@@ -144,7 +152,7 @@ def symbol(name: str, suffix: str) -> str:
 def library() -> ctypes.CDLL:
     """The built library with the C signature of every entry point,
     ``axhelm_<variant>_f32`` and ``axhelm_<variant>_bf16``, and of the
-    timing-only ``axhelm_{trilinear,partial}_<suffix>_rowwise``, declared."""
+    timing-only ``axhelm_<variant>_<suffix>_rowwise`` of K2-K5, declared."""
     lib = ctypes.CDLL(str(build()))
     for suffix in ("f32", "bf16"):
         for name, argtypes in SIGNATURES.items():

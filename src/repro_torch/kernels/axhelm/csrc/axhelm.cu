@@ -3,25 +3,20 @@
 // one-thread-per-node body.
 //
 // Replaces the TPU kernel repro/kernels/axhelm/kernel.py::_kernel, the body of
-// the one pl.pallas_call (kernel.py:233), in three of its five variants and
+// the one pl.pallas_call (kernel.py:233), in one of its five variants, for
 // both of its storage types (entry points *_f32 and *_bf16):
 //   axhelm_precomputed_f32     K1, "precomputed" (kernel.py:122-125, paper
 //                              Alg. 2): the geometric factors are read from
-//                              memory;
-//   axhelm_parallelepiped_f32  K3, "parallelepiped" (kernel.py:132-136,
-//                              Alg. 4): G = gelem[:6]*w3 and gwj = gelem[6]*w3
-//                              from 7 words per element;
-//   axhelm_merged_f32          K4, "merged" (kernel.py:137-153, paper
-//                              §4.1.1, Helmholtz only): G = adj(K~)*Lam2 and
-//                              mass = Lam3, with Lam2 = gScale*lam0 and
-//                              Lam3 = gwj*lam1 precomputed -- no determinant
-//                              and no division in the kernel.
+//                              memory.
 // K2 "trilinear" (kernel.py:126-131, Alg. 3) and K5 "partial" (kernel.py:
-// 154-157, §4.1.2) run the one-thread-per-column body of axhelm_column.cu.
-// This body still instantiates them, as the timing-only entry points
-// axhelm_trilinear_<T>_rowwise and axhelm_partial_<T>_rowwise, which the
-// Python wrapper never calls: chip_smoke.py times them beside the column
-// body.
+// 154-157, §4.1.2) run the one-thread-per-column body of axhelm_column.cu;
+// K3 "parallelepiped" (kernel.py:132-136, Alg. 4: G = gelem[:6]*w3 and
+// gwj = gelem[6]*w3 from 7 words per element) and K4 "merged" (kernel.py:
+// 137-153, §4.1.1, Helmholtz only: G = adj(K~)*Lam2 and mass = Lam3) the
+// one-thread-per-line body of axhelm_line.cu.  This body still instantiates
+// those four, as the timing-only entry points axhelm_<variant>_<T>_rowwise,
+// which the Python wrapper's axhelm never calls: chip_smoke.py times them
+// beside the bodies that replaced them.
 //
 // Per element e and column c (c runs over the nrhs*d columns, which all share
 // the element's factors):
@@ -277,8 +272,8 @@ int launch(const T* x, T* y, const T* geom, const T* lam0, const T* lam1,
 
 }  // namespace
 
-// The entry points for storage type T: axhelm_<variant>_<SUFFIX> for K1, K3
-// and K4, axhelm_<variant>_<SUFFIX>_rowwise (timing only) for K2 and K5.
+// The entry points for storage type T: axhelm_precomputed_<SUFFIX> for K1,
+// axhelm_<variant>_<SUFFIX>_rowwise (timing only) for K2-K5.
 // merged is Helmholtz always (lam2 = Lam2 and lam3 = Lam3 must be given),
 // partial Poisson always (gscale must be given).
 #define AXHELM_ENTRY_POINTS(T, SUFFIX)                                        \
@@ -297,7 +292,7 @@ int launch(const T* x, T* y, const T* geom, const T* lam0, const T* lam1,
     return launch<kTrilinear, T>(x, y, verts, lam0, lam1, dhat, xi, w3, n1,   \
                                  n_elem, ncols, helmholtz, stream);           \
   }                                                                           \
-  extern "C" int axhelm_parallelepiped_##SUFFIX(                              \
+  extern "C" int axhelm_parallelepiped_##SUFFIX##_rowwise(                     \
       const T* x, T* y, const T* gelem, const T* lam0, const T* lam1,        \
       const float* dhat, const float* w3, int n1, int n_elem, int ncols,      \
       int helmholtz, void* stream) {                                          \
@@ -305,7 +300,7 @@ int launch(const T* x, T* y, const T* geom, const T* lam0, const T* lam1,
                                       nullptr, w3, n1, n_elem, ncols,         \
                                       helmholtz, stream);                     \
   }                                                                           \
-  extern "C" int axhelm_merged_##SUFFIX(                                      \
+  extern "C" int axhelm_merged_##SUFFIX##_rowwise(                             \
       const T* x, T* y, const T* verts, const T* lam2, const T* lam3,        \
       const float* dhat, const float* xi, int n1, int n_elem, int ncols,      \
       void* stream) {                                                         \

@@ -15,16 +15,22 @@ At bfloat16 every operand, the constants D-hat, xi and w3 included, holds
 bf16-rounded values; the kernel and its plain version widen them to
 float32, compute in float32 and round the output once.
 
-Two kernel bodies: K1, K3 and K4 run one thread block per element
-(`csrc/axhelm.cu`); K2 and K5 (`COLUMN_VARIANTS`) run one thread per node
+Three kernel bodies.  K1 runs one thread block per element
+(`csrc/axhelm.cu`).  K2 and K5 (`COLUMN_VARIANTS`) run one thread per node
 column, several elements a block (`csrc/axhelm_column.cu`), and take their
 grid (`column_launch`) and D-hat and xi by value (`_column_consts`, a host
-array) from here.  Neither needs element padding: the column body masks its
-ragged last block.  `launch_counts` counts the kernel launches of each entry
-point (`entry_point(variant, dtype)`, the C symbol), so a run can show that a
-solve went through the kernels it expects.  `rowwise` launches K2 and K5 on
-the one-thread-per-node body, for timing beside the column body; `axhelm`
-never reaches it.
+array) from here.  K3 and K4 (`LINE_VARIANTS`) run one thread per node line
+in each direction, in persistent blocks that stage the next element's x
+(and K4's Lam2, Lam3) with 16-byte vector loads while they compute the
+current one (`csrc/axhelm_line.cu`); they take their grid (`line_launch`,
+from the card's SM count) and D-hat and xi by value as the column body
+does, and refuse a staged operand that is not 16-byte aligned.  None needs
+element padding: the column and line bodies mask their ragged last
+group.  `launch_counts` counts the kernel launches of each entry point
+(`entry_point(variant, dtype)`, the C symbol), so a run can show that a
+solve went through the kernels it expects.  `rowwise` launches K2-K5 on the
+one-thread-per-node body, for timing beside the bodies that replaced it;
+`axhelm` never reaches it.
 """
 
 from __future__ import annotations
@@ -38,8 +44,10 @@ from repro_torch.core.spectral import SpectralBasis, basis as make_basis
 from repro_torch.kernels.axhelm import build
 from repro_torch.kernels.axhelm import ref as ref_mod
 
-__all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "KERNEL_N1", "KERNEL_DTYPES",
-           "COLUMN_THREADS", "entry_point", "column_launch", "launch_counts",
+__all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
+           "ROWWISE_VARIANTS", "KERNEL_N1", "KERNEL_DTYPES",
+           "COLUMN_THREADS", "LINE_THREADS", "LINE_BLOCKS_PER_SM",
+           "entry_point", "column_launch", "line_launch", "launch_counts",
            "reset_launch_counts", "axhelm", "rowwise", "reference",
            "unrounded"]
 
@@ -47,8 +55,15 @@ KERNEL_VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged",
                    "partial")
 # the variants whose entry points run the one-thread-per-column body
 COLUMN_VARIANTS = ("trilinear", "partial")
+# the variants whose entry points run the one-thread-per-line body
+LINE_VARIANTS = ("parallelepiped", "merged")
+# the variants with a timing-only twin on the one-thread-per-node body
+ROWWISE_VARIANTS = COLUMN_VARIANTS + LINE_VARIANTS
 KERNEL_N1 = (4, 8)   # the N1 = N + 1 instantiated in csrc/
 COLUMN_THREADS = 128  # threads a block of the column body (kColumnThreads)
+LINE_THREADS = 64     # threads a block of the line body (kLineThreads)
+LINE_BLOCKS_PER_SM = 8  # resident line blocks an SM (kLineMinBlocks)
+STAGED_ALIGNMENT = 16  # bytes: the line body's vector loads need it
 # storage dtype -> the suffix of its entry points in csrc/axhelm.cu
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -68,6 +83,22 @@ def column_launch(n1: int, n_elem: int) -> tuple[int, int]:
     elements (the last one may be ragged)."""
     per_block = COLUMN_THREADS // (n1 * n1)
     return per_block, -(-n_elem // per_block)
+
+
+def line_launch(n1: int, n_elem: int, n_sm: int) -> tuple[int, int]:
+    """(elements per block, grid) of the line body: N1^2 threads an element,
+    LINE_THREADS a block, and persistent blocks, at most LINE_BLOCKS_PER_SM
+    an SM and at most one a group of elements; block b walks the groups b,
+    b + grid, ... (the last group may be ragged)."""
+    per_block = LINE_THREADS // (n1 * n1)
+    groups = -(-n_elem // per_block)
+    return per_block, min(groups, n_sm * LINE_BLOCKS_PER_SM)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def reset_launch_counts() -> None:
@@ -143,11 +174,11 @@ def rowwise(x: torch.Tensor, basis: SpectralBasis, variant: str,
             geom: torch.Tensor, lam0: Optional[torch.Tensor] = None,
             lam1: Optional[torch.Tensor] = None,
             helmholtz: bool = False) -> torch.Tensor:
-    """K2 or K5 on the one-thread-per-node body of `csrc/axhelm.cu` (the
-    entry points' body before the column one), on CUDA tensors: timing
-    only, beside `axhelm`.  Counts no launch."""
-    if variant not in COLUMN_VARIANTS:
-        raise ValueError(f"rowwise runs {COLUMN_VARIANTS}, not {variant!r}")
+    """K2-K5 on the one-thread-per-node body of `csrc/axhelm.cu` (the
+    entry points' body before the column and line ones), on CUDA tensors:
+    timing only, beside `axhelm`.  Counts no launch."""
+    if variant not in ROWWISE_VARIANTS:
+        raise ValueError(f"rowwise runs {ROWWISE_VARIANTS}, not {variant!r}")
     helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
     xb = _as_batched(x)
     return _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
@@ -259,12 +290,27 @@ def _constants(n: int, storage: torch.dtype, device: torch.device):
 
 @functools.lru_cache(maxsize=None)
 def _column_consts(n: int, storage: torch.dtype) -> torch.Tensor:
-    """The column body's by-value kernel parameter: D-hat row-major (N1^2
-    values), then xi (N1), float32 on the host, rounded as `_constants`
-    rounds them for the plain version.  The C entry point copies it into the
-    launch; cached, so the pointer stays valid."""
+    """The column and line bodies' by-value kernel parameter: D-hat
+    row-major (N1^2 values), then xi (N1), float32 on the host, rounded as
+    `_constants` rounds them for the plain version.  The C entry point
+    copies it into the launch; cached, so the pointer stays valid."""
     dhat, xi, _ = _constants(n, storage, torch.device("cpu"))
     return torch.cat([dhat.reshape(-1), xi]).to(torch.float32).contiguous()
+
+
+def _check_staged_alignment(variant, xb, lam0, lam1) -> None:
+    """Raise for an operand the line body stages with 16-byte vector loads
+    (x, and K4's Lam2 and Lam3) that is not STAGED_ALIGNMENT-byte aligned,
+    e.g. a contiguous view at an odd storage offset."""
+    staged = [("x", xb)]
+    if variant == "merged":
+        staged += [("lam0", lam0), ("lam1", lam1)]
+    for name, t in staged:
+        if t is not None and t.data_ptr() % STAGED_ALIGNMENT:
+            raise ValueError(
+                f"axhelm {variant} CUDA kernel stages {name} with vector "
+                f"loads, which need a {STAGED_ALIGNMENT}-byte-aligned "
+                f"address; {name} starts at {t.data_ptr():#x}")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -276,6 +322,8 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
     """Launch the entry point of `variant`, or its timing-only `_rowwise`
     twin, on x's current stream; count an entry point's launch."""
     _check_kernel_operands(xb, basis, variant, geom, lam0, lam1)
+    if variant in LINE_VARIANTS and not rowwise:
+        _check_staged_alignment(variant, xb, lam0, lam1)
     y = torch.empty_like(xb)
     e, ncols = xb.shape[0], xb.shape[1] * xb.shape[2]
     if e == 0 or ncols == 0:
@@ -297,6 +345,14 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
                         int(helmholtz), *grid, stream)
             else:  # partial: gScale in the lam0 slot, no lam1
                 rc = fn(*common[:4], consts, *sizes, *grid, stream)
+        elif variant in LINE_VARIANTS and not rowwise:
+            consts = _ptr(_column_consts(basis.n, xb.dtype))
+            grid = line_launch(basis.n1, e, _sm_count(xb.device))
+            if variant == "parallelepiped":
+                rc = fn(*common[:5], _ptr(w3), consts, *sizes,
+                        int(helmholtz), *grid, stream)
+            else:  # merged: Lam2, Lam3 in the lambda slots, Helmholtz
+                rc = fn(*common[:5], consts, *sizes, *grid, stream)
         elif variant == "precomputed":
             rc = fn(*common, *sizes, int(helmholtz), stream)
         elif variant == "trilinear":

@@ -224,6 +224,7 @@ def fake_card(monkeypatch):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(ops, "_sm_count", lambda d: 132)
     return lib
 
 
@@ -261,21 +262,23 @@ def test_wrapper_passes_each_entry_point_its_signature(fake_card, variant,
         assert consts in args
 
 
-@pytest.mark.parametrize("variant", ops.COLUMN_VARIANTS)
+@pytest.mark.parametrize("variant", ops.ROWWISE_VARIANTS)
 def test_rowwise_launches_the_timing_twin_and_counts_nothing(fake_card,
                                                              variant):
     b = tbasis(7)
-    kw = {"lam0": _meta((3, 8, 8, 8))} if variant == "partial" else {}
+    kw = {"partial": {"lam0": _meta((3, 8, 8, 8))},
+          "merged": {"lam0": _meta((3, 8, 8, 8)),
+                     "lam1": _meta((3, 8, 8, 8))}}.get(variant, {})
+    geom = _meta((3, 7) if variant == "parallelepiped" else (3, 8, 3))
     before = dict(ops.launch_counts)
-    ops.rowwise(_meta((3, 8, 8, 8)), b, variant, _meta((3, 8, 3)), **kw)
+    ops.rowwise(_meta((3, 8, 8, 8)), b, variant, geom, **kw)
     (name, args), = fake_card.calls
     assert name == build.symbol(f"{variant}_rowwise", "f32")
     assert len(args) == len(build.SIGNATURES[f"{variant}_rowwise"])
     assert ops.launch_counts == before
 
 
-@pytest.mark.parametrize("variant", ["precomputed", "parallelepiped",
-                                     "merged"])
+@pytest.mark.parametrize("variant", ["precomputed"])
 def test_rowwise_refuses_the_other_variants(variant):
     with pytest.raises(ValueError, match="rowwise runs"):
         ops.rowwise(_meta((3, 8, 8, 8)), tbasis(7), variant, _meta((3, 7)))
@@ -317,11 +320,17 @@ def test_ptxas_report_names_body_and_spills():
 
 def test_chip_smoke_bodies_follow_the_wrapper():
     """chip_smoke.py names the source of each kernel by the body its entry
-    point runs: the column body for exactly `ops.COLUMN_VARIANTS`."""
+    point runs: the column body for exactly `ops.COLUMN_VARIANTS`, the line
+    body for exactly `ops.LINE_VARIANTS`, the node body for the rest."""
     assert {v for v, body in chip_smoke.BODY.items() if body == "column"} \
         == set(ops.COLUMN_VARIANTS)
+    assert {v for v, body in chip_smoke.BODY.items() if body == "line"} \
+        == set(ops.LINE_VARIANTS)
+    assert {v for v, body in chip_smoke.BODY.items() if body == "node"} \
+        == set(ops.KERNEL_VARIANTS) - set(ops.ROWWISE_VARIANTS)
     assert set(chip_smoke.BODY) == set(ops.KERNEL_VARIANTS)
     for path in chip_smoke.SOURCE.values():
         assert (chip_smoke.ROOT / path).is_file()
     assert {p.name for p in build.SOURCES} == \
-        {chip_smoke.SOURCE[b].rsplit("/", 1)[1] for b in ("node", "column")}
+        {chip_smoke.SOURCE[b].rsplit("/", 1)[1]
+         for b in ("node", "column", "line")}

@@ -1,8 +1,9 @@
 """Card tests of the port: the hand-written CUDA axhelm kernels (float32
 and bfloat16 storage) against their plain PyTorch versions -- the K2 and
-K5 column body also at ragged block counts, against the correctly rounded
-result for bf16, and on a solve that must not reach its timing-only
-one-thread-per-node twins -- the wrapper's refusals, the gather's
+K5 column body and the K3 and K4 line body also at ragged block counts,
+against the correctly rounded result for bf16, and on solves that must not
+reach their timing-only one-thread-per-node twins -- the wrapper's
+refusals (a misaligned operand of the line body among them), the gather's
 run-to-run behaviour, and solves through the kernels: float32 single and
 stacked right-hand sides (the comparison with the reference backend with
 the gather's sums in a fixed order), and the mixed-precision bf16_x32
@@ -277,26 +278,30 @@ _COLUMN_CASES = [("trilinear", False), ("trilinear", True),
 
 
 @functools.lru_cache(maxsize=None)
-def _column_mesh_verts(n, e):
-    """float32 vertices of the first e elements of a deformed box."""
+def _column_mesh_verts(n, e, affine=False):
+    """float32 vertices of the first e elements of a deformed box (affinely
+    deformed for the parallelepiped kernel)."""
     nx = int(np.ceil(e ** (1 / 3)))
-    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(nx, nx, nx, n),
-                                     seed=3)
+    box = mesh_gen.box_mesh(nx, nx, nx, n)
+    mesh = mesh_gen.deform_affine(box, seed=2) if affine else \
+        mesh_gen.deform_trilinear(box, seed=3)
     return np.ascontiguousarray(mesh.verts[:e], dtype=np.float32)
 
 
 def _column_operands(variant, helm, n, e, ncols, dtype, device):
-    """x (E, ncols, N1^3), geom and kwargs: K2 with a per-node lam0 field
-    (and lam1 for Helmholtz), K5 with its gScale."""
+    """x (E, ncols, N1^3), geom and kwargs: K2 and K3 with a per-node lam0
+    field (and lam1 for Helmholtz), K4 with the Lam2/Lam3 of random lam0 and
+    lam1, K5 with its gScale."""
     rng = np.random.default_rng(1000 * n + e + ncols)
     b = basis(n)
     n1 = b.n1
-    verts = torch.as_tensor(_column_mesh_verts(n, e), device=device)
+    verts = torch.as_tensor(
+        _column_mesh_verts(n, e, variant == "parallelepiped"), device=device)
     x = torch.as_tensor(rng.standard_normal((e, ncols, n1, n1, n1)),
                         dtype=torch.float32, device=device)
     node = (e, n1, n1, n1)
     lams = {}
-    if variant == "trilinear":
+    if variant != "partial":
         lams["lam0"] = torch.as_tensor(1 + 0.3 * rng.random(node),
                                        dtype=torch.float32, device=device)
         if helm:
@@ -318,6 +323,12 @@ def _column_operands(variant, helm, n, e, ncols, dtype, device):
 @pytest.mark.parametrize("variant,helm", _COLUMN_CASES)
 def test_column_kernel_matches_plain_version(card, variant, helm, n, e,
                                              ncols, dtype):
+    _check_against_plain_version(card, variant, helm, n, e, ncols, dtype)
+
+
+def _check_against_plain_version(card, variant, helm, n, e, ncols, dtype):
+    """One kernel call against its plain version; for bf16 also against the
+    correctly rounded result, as chip_smoke.py phase 3b."""
     b, x, geom, kw = _column_operands(variant, helm, n, e, ncols, dtype,
                                       card)
     name = ops.entry_point(variant, dtype)
@@ -330,7 +341,6 @@ def test_column_kernel_matches_plain_version(card, variant, helm, n, e,
                 / y_plain.float().abs().max())
     assert err <= (RTOL32 if dtype == torch.float32 else RTOL_BF16), err
     if dtype == torch.bfloat16:
-        # against the correctly rounded result, as chip_smoke.py phase 3b
         exact = ops.unrounded(x, b, variant, geom, compute=torch.float64,
                               **kw).to(torch.bfloat16)
         d = chip_smoke.ulp_distance(y, exact)
@@ -369,3 +379,92 @@ def test_solve_through_column_kernel_never_reaches_the_node_body(
     assert set(called) == {"axhelm_trilinear_f32"}, called
     assert called["axhelm_trilinear_f32"] == \
         ops.launch_counts["axhelm_trilinear_f32"] >= int(res.iterations) + 1
+
+
+# The line body (csrc/axhelm_line.cu) of K3 and K4: persistent blocks over
+# ragged groups (2 elements a group at N1 = 8, 8 at N1 = 4), every column
+# count the solves use, K3 with per-node lam0 (and lam1), K4 with Lam2/Lam3.
+_LINE_CASES = [("parallelepiped", False), ("parallelepiped", True),
+               ("merged", True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ncols", [1, 3, 6])
+@pytest.mark.parametrize("e", [1, 37, 4096 + 3])
+@pytest.mark.parametrize("n", [3, 7])
+@pytest.mark.parametrize("variant,helm", _LINE_CASES)
+def test_line_kernel_matches_plain_version(card, variant, helm, n, e, ncols,
+                                           dtype):
+    _check_against_plain_version(card, variant, helm, n, e, ncols, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", ops.LINE_VARIANTS)
+def test_line_kernel_refuses_a_misaligned_operand(card, variant, dtype):
+    """The line body stages x (and K4's Lam2, Lam3) with 16-byte vector
+    loads: a contiguous view one value into its storage raises, and
+    launches nothing."""
+    helm = variant == "merged"
+    b, x, geom, kw = _column_operands(variant, helm, 7, 5, 1, dtype, card)
+    name = ops.entry_point(variant, dtype)
+    before = ops.launch_counts[name]
+    shifted = torch.empty(x.numel() + 1, dtype=dtype, device=card)[1:]
+    shifted = shifted.view(x.shape).copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        ops.axhelm(shifted, b, variant, geom, **kw)
+    if variant == "merged":
+        lam = torch.empty(kw["lam0"].numel() + 1, dtype=dtype,
+                          device=card)[1:].view(kw["lam0"].shape)
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            ops.axhelm(x, b, variant, geom, **dict(kw, lam0=lam.copy_(
+                kw["lam0"])))
+    assert ops.launch_counts[name] == before
+
+
+@pytest.mark.parametrize("variant,helm", [("parallelepiped", False),
+                                          ("merged", True)])
+def test_solve_through_line_kernel_never_reaches_the_node_body(
+        card, monkeypatch, variant, helm):
+    """An 8^3 parallelepiped (affine mesh) or merged solve launches its
+    line entry point once per operator application and no other symbol,
+    none of the timing-only *_rowwise among them."""
+    from repro_torch.kernels.axhelm import build
+
+    lib = build.library()
+    called = {}
+    for name in build.SIGNATURES:
+        for suffix in ops.KERNEL_DTYPES.values():
+            sym = build.symbol(name, suffix)
+            fn = getattr(lib, sym)
+
+            def counting(*args, _fn=fn, _sym=sym):
+                called[_sym] = called.get(_sym, 0) + 1
+                return _fn(*args)
+            monkeypatch.setattr(lib, sym, counting)
+    box = mesh_gen.box_mesh(8, 8, 8, 7)
+    mesh = mesh_gen.deform_affine(box, seed=2) \
+        if variant == "parallelepiped" else \
+        mesh_gen.deform_trilinear(box, seed=3)
+    prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
+                                 backend="cuda", device=card)
+    applications = {"n": 0}
+    op = prob.op
+
+    def counted(x):
+        applications["n"] += 1
+        return op(x)
+    prob = prob._replace(op=counted)
+    x_true = nekbone.random_solution(prob, seed=0)
+    b = nekbone.rhs_from_solution(prob, x_true)
+    symbol = ops.entry_point(variant, torch.float32)
+    ops.reset_launch_counts()
+    called.clear()
+    applications["n"] = 0
+    res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
+    assert res.status == SolveStatus.CONVERGED
+    assert set(called) == {symbol}, called
+    assert called[symbol] == ops.launch_counts[symbol] == \
+        applications["n"] >= int(res.iterations) + 1

@@ -33,7 +33,8 @@ def _imported_modules(path: Path):
 PORT_SCRIPTS = [ROOT / "chip_smoke.py",
                 ROOT / "scripts" / "torch_solve_trace.py",
                 ROOT / "scripts" / "refine_spread.py",
-                ROOT / "scripts" / "column_launch_sweep.py"]
+                ROOT / "scripts" / "column_launch_sweep.py",
+                ROOT / "scripts" / "line_staging_sweep.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + PORT_SCRIPTS,
