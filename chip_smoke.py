@@ -12,15 +12,19 @@ version on the card.  Phases, one line each:
   1. device   nvidia-smi name and power limit, torch and CUDA versions
   2. build    nvcc builds the kernels from the sources in this checkout;
               registers, shared memory and spills of every instantiation,
-              with the body each runs (K1: one thread per node; K2, K5: one
-              thread per node column; K3, K4: one thread per node line; and
-              the timing-only one-thread-per-node `_rowwise` twins of
-              K2-K5); no instantiation may spill
+              with the body each runs (K2, K5: one thread per node column;
+              K1, K3, K4: one thread per node line; every entry point's
+              generic body, N1 a runtime argument; and the timing-only
+              one-thread-per-node `_rowwise` twins of K1-K5); no
+              instantiation may spill
   3. kernels  every kernel against its plain version: Poisson and
               Helmholtz with random per-node lam0/lam1 (merged: Helmholtz
               only, Lam2/Lam3 of them; partial: Poisson only, gScale), c in
               {1, 3, nrhs*d = 2*3}, N1 in {4, 8}, an odd E = 37, and each
-              variant's main-path shape; max|y_k - y_p| / max|y_p| <= 1e-4
+              variant's main-path shape; the generic body the same way (c
+              in {1, 6}) at orders 1, 2, 5, 9 and 15, and at its main
+              path's shape (E = 4096, order 5); max|y_k - y_p| / max|y_p|
+              <= 1e-4
   3b. kernels_bf16  the same cases with bf16 storage, c in {1, 3, 6};
               <= 8e-3 (one bf16 ulp of the largest entry); and against
               the correctly rounded result (the plain version in float64,
@@ -31,10 +35,11 @@ version on the card.  Phases, one line each:
   4. converge 8x8x8, N=7, kernels and reference backend: precomputed,
               trilinear and partial Poisson on the trilinear mesh,
               parallelepiped and precomputed Poisson on the affine mesh,
-              merged and trilinear Helmholtz; CONVERGED, iterations within
-              +-1 of the other backend and of the same operator reached
-              through another variant, one kernel launch per operator
-              application
+              merged and trilinear Helmholtz; and at N=5 (the generic
+              body's main path) every variant on its main equation;
+              CONVERGED, iterations within +-1 of the other backend and of
+              the same operator reached through another variant, one
+              kernel launch per operator application
   4b. refine_8  8x8x8, N=7, bf16_x32 (Jacobi, max_iter 3000, b of
               `nekbone.random_rhs`: standard normal from numpy seed 0,
               zero on the boundary, norm 30 a column): at tol 0.03
@@ -57,7 +62,10 @@ version on the card.  Phases, one line each:
               STAGNATED at 1e-4, unmasked Helmholtz STAGNATED, through the
               kernels and the reference backend; the bf16 global operator
               through the kernels, the plain version and correctly
-              rounded, as counts of outputs 0, 1 and more ulps apart
+              rounded, as counts of outputs 0, 1 and more ulps apart;
+              refine_generic: every variant at N=5 (the bf16 generic
+              body's main path), tol 0.03, held to the ensemble the same
+              way
   5. config   the Nekbone config (16x16x16, N=7, fp32, Jacobi, 200
               iterations) through the kernels — the main path of each
               variant: precomputed, trilinear and partial Poisson,
@@ -77,10 +85,12 @@ version on the card.  Phases, one line each:
               CUDA graph, and its time in eager calls back to back, beside
               its bound, the plain version's time and the share of a solve
               iteration spent in it; the same for each bf16 kernel beside
-              its fp32 twin; K2-K5 in turns with their one-thread-per-node
-              body (`ops.rowwise`: old, new, new, old)
+              its fp32 twin; K1-K5 in turns with their one-thread-per-node
+              body (`ops.rowwise`: old, new, new, old); the generic body of
+              each (`ops.generic`) at orders 1, 2, 5, 9 and 15, E=4096
   7. the `kernels` line (ten entry points, each launched on its main
-     path), then the card line, then the result line.
+     path, and their ten generic bodies, launched on the order-5 solves),
+     then the card line, then the result line.
 
 Exits non-zero, printing no result, when a phase fails, when there is no
 CUDA device, or when it is not run from a checkout of the repository.
@@ -110,10 +120,14 @@ REFINED_MAX_ITER = 3000
 _CSRC = "src/repro_torch/kernels/axhelm/csrc"
 # the body each entry point runs: one thread per node, per node column, or
 # per node line
-BODY = {"precomputed": "node", "trilinear": "column",
+BODY = {"precomputed": "line", "trilinear": "column",
         "parallelepiped": "line", "merged": "line", "partial": "column"}
 SOURCE = {"node": f"{_CSRC}/axhelm.cu", "column": f"{_CSRC}/axhelm_column.cu",
-          "line": f"{_CSRC}/axhelm_line.cu"}
+          "line": f"{_CSRC}/axhelm_line.cu", "any": f"{_CSRC}/axhelm.cu"}
+# The orders the generic body (every N1 but the tuned bodies' 4 and 8) is
+# checked and timed at, and the one its main path (the order-5 solves) runs
+GENERIC_ORDERS = (1, 2, 5, 9, 15)
+GENERIC_MAIN_ORDER = 5
 _TPU_KERNEL = "src/repro/kernels/axhelm/kernel.py"
 REPLACES = {"precomputed": f"{_TPU_KERNEL}:122",
             "trilinear": f"{_TPU_KERNEL}:126",
@@ -365,23 +379,26 @@ def graph_ms(fn, reps: int = 50, replays: int = 5) -> float:
 def ptxas_instantiations(report: str):
     """Per kernel instantiation of a `-Xptxas -v` report: its variant, body
     ("node": axhelm_kernel, "column": axhelm_column_kernel, "line":
-    axhelm_line_kernel), N1, storage dtype, registers, shared memory and
-    spill bytes; {"kernel": name} for an entry function of another name."""
+    axhelm_line_kernel, "any": the generic axhelm_any_kernel), N1 (None for
+    the generic body, whose N1 is a runtime argument), storage dtype,
+    registers, shared memory and spill bytes; {"kernel": name} for an entry
+    function of another name."""
     inst, cur = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             # axhelm_kernel<N1, GeomSource, T>, axhelm_column_kernel<...> and
             # axhelm_line_kernel<...> mangle as
-            # ILi<N1>E...GeomSourceE<n>E<T>E, T = f or 13__nv_bfloat16
-            k = re.search(r"axhelm_(column_|line_)?kernelILi(\d+)E.*?"
-                          r"GeomSourceE?(\d+)E(f|\d+__nv_bfloat16)E",
+            # ILi<N1>E...GeomSourceE<n>E<T>E, T = f or 13__nv_bfloat16, and
+            # axhelm_any_kernel<GeomSource, T> as I...GeomSourceE<n>E<T>E
+            k = re.search(r"axhelm_(column_|line_|any_)?kernelI(?:Li(\d+)E)?"
+                          r".*?GeomSourceE?(\d+)E(f|\d+__nv_bfloat16)E",
                           m.group(1))
             cur = {"kernel": m.group(1)}
             if k:
                 cur = {"variant": VARIANTS[int(k.group(3))],
                        "body": (k.group(1) or "node_").rstrip("_"),
-                       "n1": int(k.group(2)),
+                       "n1": int(k.group(2)) if k.group(2) else None,
                        "dtype": "f32" if k.group(4) == "f" else "bf16"}
             inst.append(cur)
             continue
@@ -442,10 +459,12 @@ def main() -> None:
                   "seconds": build_s, "instantiations": inst}
     reported = {(c.get("variant"), c.get("body"), c.get("n1"), c.get("dtype"))
                 for c in inst if "registers" in c}
-    # every entry point's body, and the one-thread-per-node twins of the
-    # column and line kernels that phase 6 times
+    # every entry point's body, the generic body of every entry point, and
+    # the one-thread-per-node twins of the column and line kernels that
+    # phase 6 times
     expected = {(v, BODY[v], n, dt) for v in VARIANTS for n in ops.KERNEL_N1
                 for dt in DTYPES}
+    expected |= {(v, "any", None, dt) for v in VARIANTS for dt in DTYPES}
     expected |= {(v, "node", n, dt) for v in ops.ROWWISE_VARIANTS
                  for n in ops.KERNEL_N1 for dt in DTYPES}
     missing = sorted(expected - reported)
@@ -466,7 +485,13 @@ def main() -> None:
     def entry(variant, dt):
         return ops.entry_point(variant, torch_dtype[dt])
 
-    worst = {entry(v, dt): 0.0 for v, dt in entries}
+    def generic_name(variant, dt):
+        """The generic body's C symbol for an entry point."""
+        return f"{entry(variant, dt)}_any"
+
+    names = [entry(v, dt) for v, dt in entries] + \
+        [generic_name(v, dt) for v, dt in entries]
+    worst = dict.fromkeys(names, 0.0)
     cases = {dt: [] for dt in DTYPES}
 
     def operands(variant, verts, b, helm, lam0=None, lam1=None, dt="f32"):
@@ -479,8 +504,8 @@ def main() -> None:
             dtype=torch_dtype[dt], backend="cuda", device=dev)
         return elem_ops.pop("geom"), elem_ops
 
-    ulps = {entry(v, "bf16"): {"kernel": [0, 0, 0], "plain": [0, 0, 0]}
-            for v in VARIANTS}
+    ulps = {name(v, "bf16"): {"kernel": [0, 0, 0], "plain": [0, 0, 0]}
+            for v in VARIANTS for name in (entry, generic_name)}
 
     def rounding_check(name, y, y_p, x, b, variant, geom, label, kw):
         """A bf16 call's outputs against the correctly rounded ones: counts
@@ -507,20 +532,22 @@ def main() -> None:
     def check(variant, b, x, geom, label, dt="f32", **kw):
         """One kernel call against its plain version (and, for bf16, both
         against the correctly rounded result); returns the largest
-        absolute difference (in fp32)."""
+        absolute difference (in fp32).  At N1 in ops.KERNEL_N1 the call
+        runs the entry point's tuned body, at every other N1 its generic
+        body."""
         y = ops.axhelm(x, b, variant, geom, **kw)
         torch.cuda.synchronize()
         y_p = ops.reference(x, b, variant, geom, **kw)
         torch.cuda.synchronize()
         require(y.dtype == x.dtype, f"{label}: y is {y.dtype}")
+        name = entry(variant, dt) if b.n1 in ops.KERNEL_N1 else \
+            generic_name(variant, dt)
         if dt == "bf16":
-            rounding_check(entry(variant, dt), y, y_p, x, b, variant, geom,
-                           label, kw)
+            rounding_check(name, y, y_p, x, b, variant, geom, label, kw)
         y, y_p = y.float(), y_p.float()
         require(bool(torch.isfinite(y).all()), f"{label}: non-finite y")
         abs_err = float((y - y_p).abs().max())
         rel = abs_err / float(y_p.abs().max())
-        name = entry(variant, dt)
         worst[name] = max(worst[name], rel)
         cases[dt].append({"case": label, "rel_err": rel})
         require(rel <= rtol[dt], f"{label}: relative error {rel:.3e} > "
@@ -547,6 +574,11 @@ def main() -> None:
     e_main = len(cfg_box.verts)
     n1 = b_cfg.n1
     main_abs = {}
+    # the config's box at the generic body's main order (E = 4096, N = 5)
+    b_gen = basis(GENERIC_MAIN_ORDER)
+    gen_box = mesh_gen.box_mesh(nx, ny, nz, GENERIC_MAIN_ORDER)
+    gen_meshes = {v: mesh_for(v, gen_box) for v in ("trilinear",
+                                                    "parallelepiped")}
 
     def main_operands(variant, verts, helm, dt="f32"):
         """Operands of the main path's call, with setup_problem's scalar
@@ -585,25 +617,62 @@ def main() -> None:
                                  f"nrhs={nrhs} d={d}")
                         check(variant, b, x.contiguous(), geom, label, dt=dt,
                               helmholtz=helm, **kw)
+        # the generic body: every variant at the orders of GENERIC_ORDERS
+        for order in GENERIC_ORDERS:
+            b = basis(order)
+            n1_case = b.n1
+            box = mesh_gen.box_mesh(4, 4, 3, order)
+            node = (e_odd,) + (n1_case,) * 3
+            for variant in VARIANTS:
+                verts = torch.as_tensor(mesh_for(variant, box).verts[:e_odd],
+                                        dtype=torch.float32, device=dev)
+                for helm in EQUATIONS[variant]:
+                    for nrhs, d in ((1, 1), (2, 3)):
+                        shape = (e_odd, nrhs, d) + (n1_case,) * 3
+                        x = torch.as_tensor(rng.standard_normal(shape),
+                                            dtype=torch_dtype[dt],
+                                            device=dev)
+                        lam0 = torch.as_tensor(1 + 0.3 * rng.random(node),
+                                               dtype=torch.float32,
+                                               device=dev)
+                        lam1 = torch.as_tensor(0.5 + 0.2 * rng.random(node),
+                                               dtype=torch.float32,
+                                               device=dev) if helm else None
+                        geom, kw = operands(variant, verts, b, helm, lam0,
+                                            lam1, dt=dt)
+                        label = (f"{generic_name(variant, dt)} N1={n1_case} "
+                                 f"E={e_odd} "
+                                 f"{'helmholtz' if helm else 'poisson'} "
+                                 f"nrhs={nrhs} d={d}")
+                        check(variant, b, x, geom, label, dt=dt,
+                              helmholtz=helm, **kw)
         for variant in VARIANTS:
             helm = MAIN_HELMHOLTZ[variant]
-            verts = torch.as_tensor(cfg_mesh_for(variant).verts,
-                                    dtype=torch.float32, device=dev)
-            geom, kw = main_operands(variant, verts, helm, dt=dt)
-            x = torch.as_tensor(rng.standard_normal((e_main,) + (n1,) * 3),
-                                dtype=torch_dtype[dt], device=dev)
-            name = entry(variant, dt)
-            main_abs[name] = check(
-                variant, b_cfg, x, geom, f"{name} main path E={e_main} "
-                f"N1={n1} {'helmholtz' if helm else 'poisson'} c=1", dt=dt,
-                helmholtz=helm, **kw)
-            del geom, kw, x, verts
+            for b, mesh_of in ((b_cfg, cfg_mesh_for), (b_gen, None)):
+                mesh = mesh_of(variant) if mesh_of else gen_meshes[
+                    "parallelepiped" if variant == "parallelepiped"
+                    else "trilinear"]
+                verts = torch.as_tensor(mesh.verts, dtype=torch.float32,
+                                        device=dev)
+                lams = (1.0, 0.1) if helm else (None, None)
+                geom, kw = operands(variant, verts, b, helm, *lams, dt=dt)
+                x = torch.as_tensor(
+                    rng.standard_normal((e_main,) + (b.n1,) * 3),
+                    dtype=torch_dtype[dt], device=dev)
+                name = entry(variant, dt) if b is b_cfg else \
+                    generic_name(variant, dt)
+                main_abs[name] = check(
+                    variant, b, x, geom, f"{name} main path E={e_main} "
+                    f"N1={b.n1} {'helmholtz' if helm else 'poisson'} c=1",
+                    dt=dt, helmholtz=helm, **kw)
+                del geom, kw, x, verts
+        here = [name(v, dt) for name in (entry, generic_name)
+                for v in VARIANTS]
         line = {"phase": "kernels" if dt == "f32" else "kernels_bf16",
                 "cases": len(cases[dt]), "tolerance": rtol[dt],
-                "worst_rel_err": {entry(v, dt): worst[entry(v, dt)]
-                                  for v in VARIANTS},
-                "main_path_abs_err": {entry(v, dt): main_abs[entry(v, dt)]
-                                      for v in VARIANTS}}
+                "generic_orders": GENERIC_ORDERS,
+                "worst_rel_err": {k: worst[k] for k in here},
+                "main_path_abs_err": {k: main_abs[k] for k in here}}
         if dt == "bf16":
             line["ulps_from_correctly_rounded"] = {
                 "counts": "outputs 0, 1 and more ulps apart", **ulps}
@@ -691,8 +760,11 @@ def main() -> None:
         return out
 
     conv_box = mesh_gen.box_mesh(8, 8, 8, CONFIG.order)
+    conv_box5 = mesh_gen.box_mesh(8, 8, 8, GENERIC_MAIN_ORDER)
     conv_meshes = {"trilinear": mesh_for("trilinear", conv_box),
-                   "affine": mesh_for("parallelepiped", conv_box)}
+                   "affine": mesh_for("parallelepiped", conv_box),
+                   "trilinear5": mesh_for("trilinear", conv_box5),
+                   "affine5": mesh_for("parallelepiped", conv_box5)}
     # (name, variant, mesh, helmholtz); the pairs below reach one operator
     # through two variants
     conv_runs = [("precomputed", "precomputed", "trilinear", False),
@@ -702,6 +774,12 @@ def main() -> None:
                  ("merged", "merged", "trilinear", True),
                  ("precomputed/affine", "precomputed", "affine", False),
                  ("parallelepiped", "parallelepiped", "affine", False)]
+    # the generic body's main path: each variant at order 5 (N1 = 6), where
+    # no tuned body runs
+    conv_runs += [(f"{v}/order{GENERIC_MAIN_ORDER}", v,
+                   f"{'affine' if v == 'parallelepiped' else 'trilinear'}"
+                   f"{GENERIC_MAIN_ORDER}", MAIN_HELMHOLTZ[v])
+                  for v in VARIANTS]
     same_operator = [("merged", "trilinear/helmholtz"),
                      ("partial", "trilinear"),
                      ("parallelepiped", "precomputed/affine")]
@@ -724,8 +802,11 @@ def main() -> None:
                 conv[b_][backend]["iterations"]
             require(abs(ia - ib) <= 1, f"8^3 {backend} solves of one "
                     f"operator: {a} took {ia} iterations, {b_} {ib}")
-    emit({"phase": "converge", "mesh": "8x8x8", "order": CONFIG.order,
-          "dofs": conv_box.n_global, "max_iter": CONVERGE_MAX_ITER,
+    emit({"phase": "converge", "mesh": "8x8x8",
+          "order": {"tuned": CONFIG.order, "generic": GENERIC_MAIN_ORDER},
+          "dofs": {"tuned": conv_box.n_global,
+                   "generic": conv_box5.n_global},
+          "max_iter": CONVERGE_MAX_ITER,
           "error_bound": CONVERGE_ERROR, "same_operator": same_operator,
           "solves": conv})
 
@@ -887,6 +968,26 @@ def main() -> None:
     # the bf16 kernels of the other variants run on these 8^3 solves
     bf16_launches = {v: refined8[v]["kernel"]["launches"][entry(v, "bf16")]
                      for v in VARIANTS if v != "trilinear"}
+    # the bf16 generic body's main path: each variant's bf16_x32 solve at
+    # order 5, held to the plain version's ensemble as above
+    refined5 = {}
+    for variant in VARIANTS:
+        mesh_name = ("affine" if variant == "parallelepiped"
+                     else "trilinear") + str(GENERIC_MAIN_ORDER)
+        mesh = conv_meshes[mesh_name]
+        kw = {"helm": MAIN_HELMHOLTZ[variant]}
+        k = run_refined(mesh, variant, "cuda", 0.03, **kw)
+        with deterministic():
+            k_det = run_refined(mesh, variant, "cuda", 0.03, **kw)
+            members = ensemble(mesh, variant, 0.03, **kw)
+        robust = judge(f"8^3 order {GENERIC_MAIN_ORDER} {variant}", k, k_det,
+                       members, 0.03)
+        refined5[variant] = {"kernel": k, "kernel_deterministic": k_det,
+                             "ensemble": members, "robust": robust,
+                             "mesh": mesh_name}
+    emit({"phase": "refine_generic", "mesh": "8x8x8",
+          "order": GENERIC_MAIN_ORDER, "dofs": conv_box5.n_global,
+          "tol": 0.03, "solves": refined5})
     emit({"phase": "refine_8", "mesh": "8x8x8", "order": CONFIG.order,
           "dofs": conv_box.n_global, "max_iter": REFINED_MAX_ITER,
           "rhs": "nekbone.random_rhs: standard normal, numpy seed 0, zero "
@@ -1037,6 +1138,62 @@ def main() -> None:
             if extra:
                 timing[entry(variant, dt)][e_label][
                     "roofline_share_rowwise"] = bound_ms / extra["ms_rowwise"]
+            if variant == "precomputed":
+                # K1 on the four stacked columns of pcg_block and refine at
+                # nrhs 4, whose factor planes it loads again per column: in
+                # turns with the node body, against the bound that reads
+                # them once
+                x4 = torch.as_tensor(
+                    rng.standard_normal((e, 4, 1) + (n1,) * 3),
+                    dtype=torch.float32, device=dev).to(torch_dtype[dt])
+                turns4 = [graph_ms(lambda: fn(x4, b_cfg, variant, geom,
+                                              helmholtz=helm, **kw))
+                          for fn in (ops.rowwise, ops.axhelm, ops.axhelm,
+                                     ops.rowwise)]
+                bound4, by4, nbytes4, flops4 = axhelm_bound(
+                    variant, e, n1, helm, ncols=4, word=WORD_BYTES[dt])
+                ms4 = (turns4[1] + turns4[2]) / 2
+                timing[entry(variant, dt)][e_label]["ncols4"] = {
+                    "ms": ms4, "ms_rowwise": (turns4[0] + turns4[3]) / 2,
+                    "turns_ms": turns4, "bound_ms": bound4, "bound_by": by4,
+                    "bytes": nbytes4, "roofline_share": bound4 / ms4}
+                del x4
+            del geom, kw, verts, x
+        del x32
+        torch.cuda.empty_cache()
+    # the generic body at GENERIC_ORDERS: E = 4096 (the config's box at each
+    # order), c = 1, each variant's main equation, fp32 and bf16
+    timing_any = {generic_name(v, dt): {} for v, dt in entries}
+    for order in GENERIC_ORDERS:
+        b = basis(order)
+        box = mesh_gen.box_mesh(nx, ny, nz, order)
+        meshes = {v: mesh_for(v, box) for v in ("trilinear",
+                                                "parallelepiped")}
+        e = len(box.verts)
+        x32 = torch.as_tensor(rng.standard_normal((e,) + (b.n1,) * 3),
+                              dtype=torch.float32, device=dev)
+        for variant, dt in entries:
+            x = x32.to(torch_dtype[dt])
+            helm = MAIN_HELMHOLTZ[variant]
+            mesh = meshes["parallelepiped" if variant == "parallelepiped"
+                          else "trilinear"]
+            verts = torch.as_tensor(mesh.verts, dtype=torch.float32,
+                                    device=dev)
+            lams = (1.0, 0.1) if helm else (None, None)
+            geom, kw = operands(variant, verts, b, helm, *lams, dt=dt)
+            ms = graph_ms(lambda: ops.generic(x, b, variant, geom,
+                                              helmholtz=helm, **kw))
+            plain_ms = event_ms(lambda: ops.reference(x, b, variant, geom,
+                                                      helmholtz=helm, **kw),
+                                reps=5, warmup=1)
+            bound_ms, bound_by, nbytes, flops = axhelm_bound(
+                variant, e, b.n1, helm, word=WORD_BYTES[dt])
+            timing_any[generic_name(variant, dt)][f"order{order}"] = {
+                "E": e, "N1": b.n1,
+                "equation": "helmholtz" if helm else "poisson",
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+                "roofline_share": bound_ms / ms}
             del geom, kw, verts, x
         del x32
         torch.cuda.empty_cache()
@@ -1046,10 +1203,12 @@ def main() -> None:
                              * k["applications"]
                              / (k["ms_per_iteration"] * k["iterations"]))
     emit({"phase": "timing", "card": card,
-          "ms": "CUDA graph of 50 calls, median of 5 replays; K2-K5: "
+          "ms": "CUDA graph of 50 calls, median of 5 replays; K1-K5: "
                 "the mean of two such medians, in turns with their "
                 "one-thread-per-node body (ms_rowwise, turns_ms: old, new, "
-                "new, old)",
+                "new, old); the generic body (`generic`) alone; "
+                "ncols4: K1 at c = 4, in turns the same way",
+          "generic": timing_any,
           "ms_eager": "200 eager calls back to back, CUDA events",
           "library": "none: no single PyTorch call computes axhelm",
           "kernels": timing,
@@ -1086,6 +1245,29 @@ def main() -> None:
             "ms_eager": t["ms_eager"],
             "ms_e32768": t_big["ms"], "bound_ms_e32768": t_big["bound_ms"],
             "plain_ms_e32768": t_big["plain_ms"]})
+    for variant, dt in entries:
+        name = generic_name(variant, dt)
+        by_order = timing_any[name]
+        t = by_order[f"order{GENERIC_MAIN_ORDER}"]
+        key = f"{variant}/order{GENERIC_MAIN_ORDER}"
+        launches = conv[key]["kernel"]["launches"] if dt == "f32" else \
+            refined5[variant]["kernel"]["launches"].get(entry(variant, dt),
+                                                        0)
+        kernels.append({
+            "name": name, "variant": variant, "storage": dt,
+            "route": "cuda", "source": SOURCE["any"],
+            "replaces": REPLACES[variant],
+            "main_path": f"8^3 order {GENERIC_MAIN_ORDER} "
+                         f"{'fp32' if dt == 'f32' else 'bf16_x32 tol=0.03'} "
+                         f"{main_key(variant)}",
+            "launches": launches,
+            "max_abs_err": main_abs[name], "max_rel_err": worst[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "order": GENERIC_MAIN_ORDER,
+            "by_order": {o: {k: by_order[o][k] for k in
+                             ("ms", "plain_ms", "bound_ms", "bound_by")}
+                         for o in by_order}})
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} was not launched on "
                 f"the main path")

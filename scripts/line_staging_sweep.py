@@ -1,27 +1,36 @@
 #!/usr/bin/env python3
-"""Staging and launch settings of the K3/K4 line body on one GPU.
+"""Staging and launch settings of the K1/K3/K4 line body on one GPU.
 
-For each setting, `<stager>:<threads a block>:<blocks an SM>:<stages>`, it
-builds the three kernel sources into `build/line_sweep/` with
-`csrc/axhelm_line.cu` changed in four places: the `Stager` (how a stage's
-x, and K4's Lam2 and Lam3, reach shared memory), `kLineThreads` (also
-`ops.LINE_THREADS`), `kLineMinBlocks` (the `__launch_bounds__` blocks an
-SM, also `ops.LINE_BLOCKS_PER_SM`, the persistent grid's blocks an SM) and
-`kStages` (the x buffers; a stage is fetched kStages - 1 ahead).  Two
+For each K3/K4 setting, `<stager>:<threads a block>:<blocks an SM>:
+<stages>`, it builds the three kernel sources into `build/line_sweep/`
+with `csrc/axhelm_line.cu` changed in four places: the `Stager` (how a
+stage's x, and K4's Lam2 and Lam3, reach shared memory), `kLineThreads`
+(also `ops.LINE_THREADS`), `kLineMinBlocks` (the `__launch_bounds__` blocks
+an SM, also `ops.LINE_BLOCKS_PER_SM`, the persistent grid's blocks an SM)
+and `kStages` (the x buffers; a stage is fetched kStages - 1 ahead).  Two
 stagers: `loads`, the shipped one (16-byte vector loads into registers one
 stage ahead, stored to the buffer at the top of the stage; 2 stages only),
 and `bulk`, held here (1-D bulk copies with an mbarrier a buffer: TMA).
-The shipped source is not changed.
+A K1 setting, `<stager>:<threads>:<blocks>:<stages>:<factors>`, adds how
+K1's factor planes arrive: `loads`, the shipped way (coalesced loads from
+device memory where they are used), or `bulk`, held here (one 1-D bulk
+copy an element into a shared buffer a group ahead, kStages buffers with
+an mbarrier each), which `with_bulk_factors` patches into the source.  The
+shipped source is not changed.
 
-Per setting: the -Xptxas -v registers and spills of the line body, and K3
-and K4 against their plain version (fp32 and bf16, N1 in {4, 8}, E in {37,
-4099}, c in {1, 3}).  Then each kernel's time (K3 Poisson and K4
-Helmholtz, fp32 and bf16, E=4096 and E=32768, N1=8, c=1) from a replayed
-CUDA graph, the settings in turns (forward, then backward), beside the
-one-thread-per-node body.  Prints one JSON line per setting and per timing;
+Per setting: the -Xptxas -v registers and spills of the line body, and its
+kernels against their plain version (fp32 and bf16, N1 in {4, 8}, E in
+{37, 4099}, c in {1, 3}): K3 and K4 for a K3/K4 setting, K1 Poisson and
+Helmholtz for a K1 setting.  Then each kernel's time (K3 Poisson, K4
+Helmholtz and K1 Poisson, fp32 and bf16, E=4096 and E=32768, N1=8, c=1)
+from a replayed CUDA graph, the settings in turns (forward, then
+backward), beside the one-thread-per-node body.  A setting that does not
+build is reported and left out of the timings.  Prints one JSON line per
+setting and per timing;
 writes them all to chiprun_out/line_staging_sweep.json.
 
 Run:  python3 scripts/line_staging_sweep.py [--settings bulk:64:8:2,...]
+          [--k1-settings loads:64:8:2:bulk,...]
 """
 
 import argparse
@@ -143,6 +152,81 @@ struct Stager {
 _STAGER = re.compile(r"template <int N1, GeomSource SRC, typename T>\n"
                      r"struct Stager \{.*?\n\};\n", re.S)
 
+# K1's factor planes by bulk copies: group g's planes (six, seven for
+# Helmholtz: one contiguous span an element) into factor buffer fb, one
+# copy an element issued by warp 0 with the group's first column, completing
+# on the buffer's mbarrier, which the owners wait on at (B).  Each entry is
+# (anchor in the shipped source, the text that replaces it).
+_FACTOR_BUFFERS = """\
+  static constexpr int F_BUFS = SRC == kPrecomputed ? kStages : 1;
+  static constexpr int F_NODES = SRC == kPrecomputed ? NP : 1;
+  alignas(16) T f[F_BUFS][EPB][7 * F_NODES];  // K1's factor planes
+  uint64_t fbar[F_BUFS];  // the mbarrier of each factor buffer
+"""
+_FETCH_FACTORS = """\
+template <int N1, GeomSource SRC, typename T>
+__device__ __forceinline__ void fetch_factors(LineShared<N1, SRC, T>& sm,
+                                              const T* geom, int n_elem,
+                                              int g, int fb, int helmholtz) {
+  using Smem = LineShared<N1, SRC, T>;
+  if (threadIdx.x >= 32) return;
+  const uint32_t bytes = (helmholtz ? 7 : 6) * Smem::NP * sizeof(T);
+  if (threadIdx.x == 0) mbar_expect_bytes(&sm.fbar[fb], Smem::EPB * bytes);
+  __syncwarp();
+  if (threadIdx.x < Smem::EPB) {
+    const int64_t el = static_cast<int64_t>(g) * Smem::EPB + threadIdx.x;
+    const int64_t ev = el < n_elem ? el : n_elem - 1;
+    bulk_copy(sm.f[fb][threadIdx.x], geom + ev * 7 * Smem::NP, bytes,
+              &sm.fbar[fb]);
+  }
+}
+
+"""
+_KERNEL = "template <int N1, GeomSource SRC, typename T>\n__global__ void"
+BULK_FACTORS = [
+    ("  alignas(16) T lam[LAM_BUFS][EPB][2][LAM_NODES];\n",
+     "  alignas(16) T lam[LAM_BUFS][EPB][2][LAM_NODES];\n" + _FACTOR_BUFFERS),
+    (_KERNEL, _FETCH_FACTORS + _KERNEL),
+    ("  stager.init(sm);\n",
+     "  stager.init(sm);\n"
+     "  if constexpr (SRC == kPrecomputed) {\n"
+     "    if (threadIdx.x < kStages) mbar_init(&sm.fbar[threadIdx.x]);\n"
+     "  }\n"),
+    ("                   s % kStages, lg % kStages);\n",
+     "                   s % kStages, lg % kStages);\n"
+     "      if constexpr (SRC == kPrecomputed) {\n"
+     "        if (s % ncols == 0) {\n"
+     "          fetch_factors<N1, SRC, T>(sm, geom, n_elem, g, lg % kStages,\n"
+     "                                    helmholtz);\n"
+     "        }\n"
+     "      }\n"),
+    ("      if constexpr (SRC == kPrecomputed) fp = geom + ev * 7 * NP + t;\n",
+     "      if constexpr (SRC == kPrecomputed) {\n"
+     "        mbar_wait(&sm.fbar[fbuf], (lg / kStages) & 1);\n"
+     "        fp = sm.f[fbuf][le] + t;\n"
+     "      }\n"),
+    ("(SRC == kMerged && (misaligned(lam0) || misaligned(lam1)))",
+     "(SRC == kMerged && (misaligned(lam0) || misaligned(lam1))) ||\n"
+     "      (SRC == kPrecomputed && misaligned(geom))"),
+]
+
+
+def with_bulk_factors(text: str) -> str:
+    """The line body's source (its Stager already chosen) with K1's factor
+    planes staged by bulk copies; the mbarrier and bulk-copy primitives are
+    BULK_STAGER's, added before the kernel where the Stager brought none.
+    Each anchor must occur exactly once."""
+    if "mbar_init" not in text:
+        prims = BULK_STAGER[:BULK_STAGER.index(
+            "template <int N1, GeomSource SRC, typename T>")]
+        text = text.replace(_KERNEL, prims + _KERNEL, 1)
+    for anchor, new in BULK_FACTORS:
+        if text.count(anchor) != 1:
+            raise ValueError(f"anchor found {text.count(anchor)} times in "
+                             f"the line body: {anchor!r}")
+        text = text.replace(anchor, new)
+    return text
+
 
 def main() -> None:
     import torch
@@ -169,13 +253,21 @@ def main() -> None:
                                    text).group(1))
     shipped_stages = int(re.search(r"kStages = (\d+);", text).group(1))
     shipped = f"loads:{shipped_threads}:{shipped_blocks}:{shipped_stages}"
+    shipped_k1 = shipped + ":loads"
     ap = argparse.ArgumentParser()
     ap.add_argument("--settings", default="bulk:64:8:2,bulk:64:8:3,"
                     "loads:128:4:2,loads:64:8:2,loads:64:10:2,loads:64:12:2")
+    ap.add_argument("--k1-settings", default="loads:64:8:2:loads,"
+                    "loads:64:10:2:loads,loads:64:12:2:loads,"
+                    "loads:128:4:2:loads,loads:64:5:2:bulk,loads:64:6:2:bulk,"
+                    "bulk:64:6:2:bulk,bulk:64:8:2:loads")
     args = ap.parse_args()
-    settings = args.settings.split(",")
+    settings = [s for s in args.settings.split(",") if s]
     if shipped not in settings:
         settings.insert(0, shipped)
+    k1_settings = [s for s in args.k1_settings.split(",") if s]
+    if shipped_k1 not in k1_settings:
+        k1_settings.insert(0, shipped_k1)
     out_dir = ROOT / "build" / "line_sweep"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -194,19 +286,21 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=False).stdout.strip()
-    emit({"card": smi, "shipped": shipped, "settings": settings})
+    emit({"card": smi, "shipped": shipped, "settings": settings,
+          "shipped_k1": shipped_k1, "k1_settings": k1_settings})
 
     def use(setting):
-        name, threads, blocks, stages = setting.split(":")
-        path = out_dir / (f"axhelm_line_{name}_t{threads}_b{blocks}_"
-                          f"s{stages}.cu")
-        path.write_text(
-            _STAGER.sub(lambda _: stagers[name], text, count=1).replace(
-                f"kLineThreads = {shipped_threads};",
-                f"kLineThreads = {threads};").replace(
-                f"kLineMinBlocks = {shipped_blocks};",
-                f"kLineMinBlocks = {blocks};").replace(
-                f"kStages = {shipped_stages};", f"kStages = {stages};"))
+        name, threads, blocks, stages, *factors = setting.split(":")
+        source = _STAGER.sub(lambda _: stagers[name], text, count=1).replace(
+            f"kLineThreads = {shipped_threads};",
+            f"kLineThreads = {threads};").replace(
+            f"kLineMinBlocks = {shipped_blocks};",
+            f"kLineMinBlocks = {blocks};").replace(
+            f"kStages = {shipped_stages};", f"kStages = {stages};")
+        if factors == ["bulk"]:
+            source = with_bulk_factors(source)
+        path = out_dir / ("axhelm_line_" + setting.replace(":", "_") + ".cu")
+        path.write_text(source)
         build.SOURCES = others + (path,)
         build.HEADERS = headers
         build.build.cache_clear()
@@ -244,17 +338,25 @@ def main() -> None:
             return mesh_gen.deform_affine(box, seed=2)
         return mesh_gen.deform_trilinear(box, seed=3)
 
+    k1_cases = [("precomputed", False), ("precomputed", True)]
     small = {n: mesh_gen.box_mesh(17, 17, 15, n) for n in (3, 7)}
-    for setting in settings:
+    built = []
+    for setting in settings + k1_settings:
         use(setting)
-        build.build()
+        try:
+            build.build()
+        except RuntimeError as exc:   # e.g. static shared memory over 48 KB
+            emit({"setting": setting, "build_error": str(exc)[-600:]})
+            continue
+        built.append(setting)
         build.library()
         inst = [c for c in chip_smoke.ptxas_instantiations(
             build.ptxas_report()) if c.get("body") == "line"]
         worst = {}
         for n in (3, 7):
             for e in (37, 4099):
-                for variant, helm in cases:
+                for variant, helm in (k1_cases if setting in k1_settings
+                                      else cases):
                     mesh = mesh_for(variant, small[n])
                     for dt in (torch.float32, torch.bfloat16):
                         for ncols in (1, 3):
@@ -271,14 +373,17 @@ def main() -> None:
 
     for nx in (16, 32):
         box = mesh_gen.box_mesh(nx, nx, nx, 7)
-        for variant, helm in (("parallelepiped", False), ("merged", True)):
+        for variant, helm in (("parallelepiped", False), ("merged", True),
+                              ("precomputed", False)):
             mesh = mesh_for(variant, box)
             e = len(mesh.verts)
+            cells = [c for c in (k1_settings if variant == "precomputed"
+                                 else settings) if c in built]
             for dt in (torch.float32, torch.bfloat16):
                 b, x, geom, kw = operands(variant, mesh, e, 1, dt, helm)
                 times = {}
                 # in turns: the settings forward, then backward
-                for setting in settings + settings[::-1]:
+                for setting in cells + cells[::-1]:
                     use(setting)
                     times.setdefault(setting, []).append(chip_smoke.graph_ms(
                         lambda: ops.axhelm(x, b, variant, geom, **kw)))

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.mesh_gen import BoxMesh
-from repro_torch.kernels.axhelm.ref import gelem_from_verts
+from repro_torch.kernels.axhelm.ref import gelem_from_verts, planar_factors
 
 __all__ = ["mesh_from_numpy", "elem_ops_from_numpy"]
 
@@ -45,11 +45,13 @@ def mesh_from_numpy(mesh) -> BoxMesh:
 def elem_ops_from_numpy(variant: str, elem_ops: dict, device) -> dict:
     """The port's elem_ops {"geom", optional "lam0"/"lam1"} from the numpy
     arrays of the reference `make_axhelm_elem_ops`, whichever backend made
-    them: {"g", "gwj"} are packed into the (E, N1,N1,N1, 7) "geom";
-    {"verts"} becomes the "geom" of trilinear, merged and partial, and
+    them: {"g" (E, N1,N1,N1, 6), "gwj"} become the planar (E, 7, N1,N1,N1)
+    "geom" of precomputed (`ref.planar_factors`), and so does the kernel
+    backend's packed (E, N1,N1,N1, 7) "geom" of precomputed; {"verts"}
+    becomes the "geom" of trilinear, merged and partial, and
     parallelepiped's (E, 7) `gelem_from_verts`; merged's "lam2"/"lam3"
-    become "lam0"/"lam1" and partial's "gscale" becomes "lam0"; a kernel
-    backend's "geom" is kept.
+    become "lam0"/"lam1" and partial's "gscale" becomes "lam0"; any other
+    kernel backend's "geom" is kept.
 
     Each array becomes a contiguous tensor on `device` in the array's own
     dtype.  Key sets the variant does not read raise.  The reference
@@ -59,21 +61,23 @@ def elem_ops_from_numpy(variant: str, elem_ops: dict, device) -> dict:
     if variant not in _GEOM_KEYS:
         raise NotImplementedError(f"no elem_ops conversion for variant "
                                   f"{variant!r} yet")
-    arrays = {name: np.asarray(arr) for name, arr in elem_ops.items()}
+    arrays = {name: torch.from_numpy(np.array(arr))
+              for name, arr in elem_ops.items()}
     geom_keys = set(arrays) - _LAMBDA_KEYS
     if geom_keys not in _GEOM_KEYS[variant]:
         raise ValueError(f"{variant} elem_ops need one of the key sets "
                          f"{[sorted(k) for k in _GEOM_KEYS[variant]]} plus "
                          f"optional lam0/lam1, got {sorted(arrays)}")
     if "g" in arrays:
-        arrays["geom"] = np.concatenate(
-            [arrays.pop("g"), arrays.pop("gwj")[..., None]], axis=-1)
+        arrays["geom"] = planar_factors(arrays.pop("g"), arrays.pop("gwj"))
+    elif variant == "precomputed":          # the packed [g6, gwj]
+        packed = arrays["geom"]
+        arrays["geom"] = planar_factors(packed[..., :6], packed[..., 6])
     elif "verts" in arrays:
         verts = arrays.pop("verts")
-        arrays["geom"] = (gelem_from_verts(torch.tensor(verts)).numpy()
+        arrays["geom"] = (gelem_from_verts(verts)
                           if variant == "parallelepiped" else verts)
     for name, slot in _SLOT_NAMES.items():
         if name in arrays:
             arrays[slot] = arrays.pop(name)
-    return {name: torch.from_numpy(np.array(arr)).to(device).contiguous()
-            for name, arr in arrays.items()}
+    return {name: t.to(device).contiguous() for name, t in arrays.items()}

@@ -22,8 +22,9 @@ RHS batch; factors broadcast over the batch axes.
 Backends: "reference" (plain torch, any dtype and device), "cuda" (the
 hand-written kernels through `kernels.axhelm.ops`, which runs their plain
 versions on CPU tensors), and "auto" — "cuda" for float32 and bfloat16 on
-a CUDA device, "reference" on the CPU; float64 on a CUDA device raises
-rather than leaving the kernels quietly.  Both backends take the same
+a CUDA device, "reference" on the CPU; float64, or an order above the
+kernels' `N1_MAX - 1`, on a CUDA device raises at setup rather than
+leaving the kernels quietly.  Both backends take the same
 operands and share one plain version, `kernels/axhelm/ref.py`.
 
 bfloat16 is a storage type: the operator computes in float32 and rounds its
@@ -185,14 +186,16 @@ class AxhelmOp(NamedTuple):
 
 
 def _resolve_backend(backend: Optional[str], dtype: torch.dtype,
-                     device: torch.device) -> str:
+                     device: torch.device, n1: int) -> str:
     """Map a backend choice to a concrete implementation.
 
     None means "auto".  "auto" picks the CUDA kernels on a CUDA device and
     the plain reference on the CPU.  The kernels store float32 or bfloat16,
     so another dtype raises for "cuda", and for "auto" on a CUDA device:
     the plain version runs on the card only when the caller asks for it.
-    On a CPU device "cuda" runs the kernels' plain versions.
+    On a CPU device "cuda" runs the kernels' plain versions.  Likewise the
+    kernels run N1 = order + 1 up to `kops.N1_MAX`: a larger `n1` raises
+    for "auto" and "cuda" on a CUDA device.
     """
     if backend is None:
         backend = "auto"
@@ -210,6 +213,13 @@ def _resolve_backend(backend: Optional[str], dtype: torch.dtype,
     elif backend == "cuda" and dtype not in kops.KERNEL_DTYPES:
         raise ValueError(f"axhelm backend 'cuda' stores float32 or bfloat16 "
                          f"only; got dtype {dtype} (use backend='reference')")
+    if backend == "cuda" and torch.device(device).type == "cuda" \
+            and n1 > kops.N1_MAX:
+        raise ValueError(
+            f"the axhelm CUDA kernels run orders up to {kops.N1_MAX - 1} "
+            f"(N1_MAX = {kops.N1_MAX}: a block's shared memory holds no "
+            f"larger element); got order {n1 - 1} (pass "
+            f"backend='reference' to run the plain version on the card)")
     return backend
 
 
@@ -243,11 +253,10 @@ def _validate_setup(variant: str, basis: SpectralBasis, verts, lam0, lam1,
 def _setup_factors(variant: str, basis: SpectralBasis, verts,
                    elem_ops) -> GeomFactors:
     """The `GeomFactors` carried on `AxhelmOp` (for the Jacobi diagonal):
-    the precomputed variant's packed [g6, gwj] operand already holds them;
+    the precomputed variant's planar [g6, gwj] operand already holds them;
     merged and partial share the trilinear factors."""
     if variant == "precomputed":
-        geom = elem_ops["geom"]
-        return GeomFactors(geom[..., :6], geom[..., 6])
+        return GeomFactors(*kref.factors_of_planes(elem_ops["geom"]))
     if variant == "parallelepiped":
         return geometry.factors_parallelepiped(verts, basis)
     return geometry.factors_trilinear(verts, basis)
@@ -307,7 +316,8 @@ def make_axhelm_elem_ops(variant: str, basis: SpectralBasis, verts,
 
     elem_ops keys, the same for both backends, are the kernel's operands:
 
-      precomputed     geom = (E, N1,N1,N1, 7) packed [g6, gwj]; lam0/lam1
+      precomputed     geom = (E, 7, N1,N1,N1) planes [g6, gwj]
+                      (`kref.planar_factors`); lam0/lam1
       trilinear       geom = (E, 8, 3) vertices; lam0/lam1
       parallelepiped  geom = (E, 7) `gelem_from_verts`; lam0/lam1
       merged          geom = vertices; lam0 = Lam2, lam1 = Lam3
@@ -330,9 +340,11 @@ def make_axhelm_elem_ops(variant: str, basis: SpectralBasis, verts,
     operator within 3% of the fp32 one), not to that output.
     """
     _validate_setup(variant, basis, verts, lam0, lam1, helmholtz)
+    device = torch.as_tensor(verts).device if device is None \
+        else torch.device(device)
+    backend = _resolve_backend(backend, dtype, device, basis.n1)
     verts = torch.as_tensor(verts, dtype=dtype, device=device)
     device = verts.device
-    backend = _resolve_backend(backend, dtype, device)
     node_shape = tuple(verts.shape[:-2]) + (basis.n1,) * 3
     work = _setup_dtype(dtype)       # the setup products' arithmetic
 
@@ -347,7 +359,7 @@ def make_axhelm_elem_ops(variant: str, basis: SpectralBasis, verts,
         coords = geometry.node_coords(verts_w, basis) if coords is None \
             else torch.as_tensor(coords, dtype=work, device=device)
         factors = geometry.factors_discrete(coords, basis)
-        geom = torch.cat([factors.g, factors.gwj[..., None]], dim=-1)
+        geom = kref.planar_factors(factors.g, factors.gwj)
     elif variant == "parallelepiped":
         geom = kref.gelem_from_verts(verts_w)
     else:  # trilinear, merged, partial

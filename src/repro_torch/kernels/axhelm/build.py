@@ -2,9 +2,10 @@
 
 The sources under ``csrc/`` have a plain C interface (no PyTorch headers;
 ``<cuda_bf16.h>`` for the bf16 storage type): ``axhelm.cu`` holds the
-one-thread-per-node body (K1, and K2-K5 as timing-only ``*_rowwise`` entry
+generic body of every variant at any N1 (``*_any`` entry points) and the
+one-thread-per-node body (K1-K5 as timing-only ``*_rowwise`` entry
 points), ``axhelm_column.cu`` the one-thread-per-column body (K2, K5),
-``axhelm_line.cu`` the one-thread-per-line body (K3, K4), all three
+``axhelm_line.cu`` the one-thread-per-line body (K1, K3, K4), all three
 including ``axhelm_common.cuh``.  One ``nvcc -c`` per
 source runs at the same time, then one link makes the shared library,
 ``build/kernels/libaxhelm_<hash>.so`` at the repository root, keyed by every
@@ -113,8 +114,9 @@ _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 # The C argument types of each entry point, axhelm_<name>_<suffix> with the
 # "_rowwise" of a timing-only twin moved behind the suffix.
 SIGNATURES = {
-    # x, y, geom, lam0, lam1, dhat | n1, n_elem, ncols, helmholtz | stream
-    "precomputed": [_PTR] * 6 + [_I32] * 4 + [_PTR],
+    # x, y, geom (planar), lam0, lam1, consts (host) | n1, n_elem, ncols,
+    # helmholtz, elems_per_block, grid | stream
+    "precomputed": [_PTR] * 6 + [_I32] * 6 + [_PTR],
     # x, y, verts, lam0, lam1, w3, consts (host) | n1, n_elem, ncols,
     # helmholtz, elems_per_block, grid | stream
     "trilinear": [_PTR] * 7 + [_I32] * 6 + [_PTR],
@@ -127,7 +129,10 @@ SIGNATURES = {
     # x, y, verts, gscale, consts (host) | n1, n_elem, ncols,
     # elems_per_block, grid | stream
     "partial": [_PTR] * 5 + [_I32] * 5 + [_PTR],
-    # the one-thread-per-node body of K2-K5, timing only:
+    # the one-thread-per-node body, timing only:
+    # x, y, geom (planar), lam0, lam1, dhat | n1, n_elem, ncols, helmholtz |
+    # stream
+    "precomputed_rowwise": [_PTR] * 6 + [_I32] * 4 + [_PTR],
     # x, y, verts, lam0, lam1, dhat, xi, w3 | n1, n_elem, ncols, helmholtz |
     # stream
     "trilinear_rowwise": [_PTR] * 8 + [_I32] * 4 + [_PTR],
@@ -138,6 +143,13 @@ SIGNATURES = {
     "merged_rowwise": [_PTR] * 7 + [_I32] * 3 + [_PTR],
     # x, y, verts, gscale, dhat, xi | n1, n_elem, ncols | stream
     "partial_rowwise": [_PTR] * 6 + [_I32] * 3 + [_PTR],
+    # the generic body, any N1 up to ops.N1_MAX, one signature for all five:
+    # x, y, geom, lam0, lam1, dhat, xi, w3 | n1, n_elem, ncols, helmholtz |
+    # stream (merged: Lam2, Lam3 in the lambda slots; partial: gScale in
+    # lam0)
+    **{f"{variant}_any": [_PTR] * 8 + [_I32] * 4 + [_PTR]
+       for variant in ("precomputed", "trilinear", "parallelepiped",
+                       "merged", "partial")},
 }
 
 
@@ -151,8 +163,9 @@ def symbol(name: str, suffix: str) -> str:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The built library with the C signature of every entry point,
-    ``axhelm_<variant>_f32`` and ``axhelm_<variant>_bf16``, and of the
-    timing-only ``axhelm_<variant>_<suffix>_rowwise`` of K2-K5, declared."""
+    ``axhelm_<variant>_f32`` and ``axhelm_<variant>_bf16``, of the generic
+    body's ``axhelm_<variant>_<suffix>_any`` and of the timing-only
+    ``axhelm_<variant>_<suffix>_rowwise``, declared."""
     lib = ctypes.CDLL(str(build()))
     for suffix in ("f32", "bf16"):
         for name, argtypes in SIGNATURES.items():

@@ -1,10 +1,14 @@
-// axhelm_line.cu -- the one-thread-per-line body of the axhelm kernels K3 and
-// K4 for Hopper (sm_90a), with a plain C interface (bound from Python with
-// ctypes: kernels/axhelm/build.py, ops.py).
+// axhelm_line.cu -- the one-thread-per-line body of the axhelm kernels K1, K3
+// and K4 for Hopper (sm_90a), with a plain C interface (bound from Python
+// with ctypes: kernels/axhelm/build.py, ops.py).
 //
 // Replaces the TPU kernel repro/kernels/axhelm/kernel.py::_kernel (the body of
-// the one pl.pallas_call, kernel.py:233) in two of its variants, for both
-// storage types (entry points *_f32 and *_bf16):
+// the one pl.pallas_call, kernel.py:233) in three of its variants, for both
+// storage types (entry points *_f32 and *_bf16), at N1 = 4 and 8 (the
+// generic body of axhelm.cu runs every other N1):
+//   axhelm_precomputed_f32     K1, "precomputed" (kernel.py:122-125, paper
+//                              Alg. 2): the six factor planes G (and gwj for
+//                              Helmholtz) read from memory per node;
 //   axhelm_parallelepiped_f32  K3, "parallelepiped" (kernel.py:132-136, paper
 //                              Alg. 4): G = gelem[:6] w3, gwj = gelem[6] w3
 //                              from 7 words an element;
@@ -14,11 +18,13 @@
 // K~ = J~^T J~, J~ the unscaled trilinear Jacobian.  Per element e and column
 // c (c runs over the nrhs*d columns):
 //   y = D^T [lam0 G (D x)]  (+ mass x for Helmholtz)
-// For these two variants it also replaces the one-thread-per-node body of
+// For these three variants it also replaces the one-thread-per-node body of
 // axhelm.cu, which stays built as their timing-only *_rowwise entry points.
 //
 // What bounds it on the H100 (chip_smoke.py::axhelm_bound; E = 4096, N1 = 8,
-// one column, fp32): K3 moves x and y and 7 words an element: bound by bytes,
+// one column, fp32): K1 moves x and y and its 6 factor planes (7 for
+// Helmholtz), 8 N1^3 words an element for Poisson: bound by bytes, 20.0 us
+// (bf16 10.0 us).  K3 moves x and y and 7 words an element: bound by bytes,
 // 5.04 us.  K4 adds Lam2, Lam3 and 24 vertex words an element and ~66 FLOPs
 // a node of geometry: bound by bytes, 10.1 us.  With bf16 storage both are
 // operation-bound (3.47 and 5.88 us).  What held the one-thread-per-node body
@@ -59,7 +65,17 @@
 //     element into registers at the start of a group (broadcast loads),
 //     forms the edge differences and its column's terms, then per node
 //     jacobian_at, K and adj(K).  K3's is its 7 words, read the same way and
-//     folded into a scale of x_r, x_s, x_t per node.
+//     folded into a scale of x_r, x_s, x_t per node.  K1's are its factor
+//     planes, (E, 7, N1^3): the element's six G planes are one contiguous
+//     span of 6 N1^3 values (12 KB at N1 = 8 in fp32), gwj after them, read
+//     only for Helmholtz.  At (B) the owner loads its node's six (seven)
+//     factors straight from device memory at fixed k, 32 consecutive words
+//     a warp a plane, their latency hidden by the other resident warps.  It
+//     loads them again for each column of the element: from the second
+//     column on they may come from the cache, not from DRAM.  One 1-D bulk
+//     copy an element of its planes into a shared buffer a group ahead (TMA)
+//     was slower on the H100 (scripts/line_staging_sweep.py holds it;
+//     PERF.md).
 //   * Staging one stage ahead: persistent blocks (the grid is at most the
 //     SMs times the resident blocks, ops.line_launch) walk over groups of
 //     elements; a stage is one column of a group's elements (and, with the
@@ -294,8 +310,9 @@ __global__ void __launch_bounds__(kLineThreads, kLineMinBlocks)
                        const float* __restrict__ w3,
                        const __grid_constant__ LineConsts<N1> cc, int n_elem,
                        int ncols, int helmholtz) {
-  static_assert(SRC == kParallelepiped || SRC == kMerged,
-                "the line body computes K3 and K4");
+  static_assert(SRC == kPrecomputed || SRC == kParallelepiped ||
+                    SRC == kMerged,
+                "the line body computes K1, K3 and K4");
   static_assert(N1 % 4 == 0, "rows are read as 16-byte vectors");
   using Smem = LineShared<N1, SRC, T>;
   constexpr int NC = N1 * N1;  // threads (node columns) an element
@@ -324,7 +341,8 @@ __global__ void __launch_bounds__(kLineThreads, kLineMinBlocks)
   }
   // Stage number s of the block is column s % ncols of its group
   // blockIdx.x + (s / ncols) gridDim.x, in x buffer s % kStages and field
-  // buffer (s / ncols) % kStages.
+  // buffer (s / ncols) % kStages (K4's Lam2 and Lam3, fetched with the
+  // group's first column).
   auto fetch = [&](int s) {
     const int lg = s / ncols;
     const int g = blockIdx.x + lg * gridDim.x;
@@ -359,7 +377,7 @@ __global__ void __launch_bounds__(kLineThreads, kLineMinBlocks)
         }
       }
       ct = column_terms(ed, cc.xi[i], cc.xi[j]);
-    } else {
+    } else if constexpr (SRC == kParallelepiped) {
 #pragma unroll
       for (int q = 0; q < 7; ++q) ge[q] = load(geom + ev * 7 + q);
     }
@@ -422,6 +440,9 @@ __global__ void __launch_bounds__(kLineThreads, kLineMinBlocks)
       float yv[N1];
 #pragma unroll
       for (int n = 0; n < N1; ++n) yv[n] = 0.f;
+      // K1: the element's factor planes, plane p at fp[p NP]
+      const T* fp = nullptr;
+      if constexpr (SRC == kPrecomputed) fp = geom + ev * 7 * NP + t;
 #pragma unroll
       for (int k = 0; k < N1; ++k) {
         const int o = k * SP + t;
@@ -445,6 +466,21 @@ __global__ void __launch_bounds__(kLineThreads, kLineMinBlocks)
           g22 = k00 * k11 - k01 * k01;
           scale = load(&sm.lam[fbuf][le][0][k * NC + t]);
           mass = load(&sm.lam[fbuf][le][1][k * NC + t]);
+        } else if constexpr (SRC == kPrecomputed) {
+          // G (lam0), gwj (lam1) of the node
+          const T* q = fp + k * NC;
+          g00 = load(q);
+          g01 = load(q + NP);
+          g02 = load(q + 2 * NP);
+          g11 = load(q + 3 * NP);
+          g12 = load(q + 4 * NP);
+          g22 = load(q + 5 * NP);
+          const int64_t node = ev * NP + k * NC + t;
+          scale = lam0 != nullptr ? load(lam0 + node) : 1.f;
+          if (helmholtz) {
+            mass = load(q + 6 * NP);
+            if (lam1 != nullptr) mass *= load(lam1 + node);
+          }
         } else {
           // G = gelem[:6] w3 (lam0), gwj = gelem[6] w3 (lam1)
           g00 = ge[0];
@@ -565,11 +601,20 @@ int launch_line(const T* x, T* y, const T* geom, const T* lam0,
 
 }  // namespace
 
-// The K3 and K4 entry points for storage type T.  parallelepiped takes w3 on
-// the device; merged is Helmholtz always (lam2 = Lam2 and lam3 = Lam3 must be
-// given).  consts is the host pointer to D-hat and xi; elems_per_block and
-// grid are the wrapper's (ops.line_launch), checked against this build.
+// The K1, K3 and K4 entry points for storage type T.  precomputed takes the
+// planar factors (E, 7, N1^3); parallelepiped takes w3 on the device; merged
+// is Helmholtz always (lam2 = Lam2 and lam3 = Lam3 must be given).  consts
+// is the host pointer to D-hat and xi; elems_per_block and grid are the
+// wrapper's (ops.line_launch), checked against this build.
 #define AXHELM_LINE_ENTRY_POINTS(T, SUFFIX)                                   \
+  extern "C" int axhelm_precomputed_##SUFFIX(                                 \
+      const T* x, T* y, const T* geom, const T* lam0, const T* lam1,         \
+      const float* consts, int n1, int n_elem, int ncols, int helmholtz,      \
+      int elems_per_block, int grid, void* stream) {                          \
+    return launch_line<kPrecomputed, T>(x, y, geom, lam0, lam1, nullptr,      \
+                                        consts, n1, n_elem, ncols, helmholtz, \
+                                        elems_per_block, grid, stream);       \
+  }                                                                           \
   extern "C" int axhelm_parallelepiped_##SUFFIX(                              \
       const T* x, T* y, const T* gelem, const T* lam0, const T* lam1,        \
       const float* w3, const float* consts, int n1, int n_elem, int ncols,    \

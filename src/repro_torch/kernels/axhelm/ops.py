@@ -15,22 +15,31 @@ At bfloat16 every operand, the constants D-hat, xi and w3 included, holds
 bf16-rounded values; the kernel and its plain version widen them to
 float32, compute in float32 and round the output once.
 
-Three kernel bodies.  K1 runs one thread block per element
-(`csrc/axhelm.cu`).  K2 and K5 (`COLUMN_VARIANTS`) run one thread per node
-column, several elements a block (`csrc/axhelm_column.cu`), and take their
-grid (`column_launch`) and D-hat and xi by value (`_column_consts`, a host
-array) from here.  K3 and K4 (`LINE_VARIANTS`) run one thread per node line
-in each direction, in persistent blocks that stage the next element's x
-(and K4's Lam2, Lam3) with 16-byte vector loads while they compute the
+Bodies.  At N1 in `KERNEL_N1` (orders 3 and 7) each entry point runs a
+tuned body.  K2 and K5 (`COLUMN_VARIANTS`) run one thread per node column,
+several elements a block (`csrc/axhelm_column.cu`), and take their grid
+(`column_launch`) and D-hat and xi by value (`_column_consts`, a host
+array) from here.  K1, K3 and K4 (`LINE_VARIANTS`) run one thread per node
+line in each direction, in persistent blocks that stage the next element's
+x (and K4's Lam2, Lam3) with 16-byte vector loads while they compute the
 current one (`csrc/axhelm_line.cu`); they take their grid (`line_launch`,
 from the card's SM count) and D-hat and xi by value as the column body
-does, and refuse a staged operand that is not 16-byte aligned.  None needs
-element padding: the column and line bodies mask their ragged last
-group.  `launch_counts` counts the kernel launches of each entry point
-(`entry_point(variant, dtype)`, the C symbol), so a run can show that a
-solve went through the kernels it expects.  `rowwise` launches K2-K5 on the
-one-thread-per-node body, for timing beside the bodies that replaced it;
-`axhelm` never reaches it.
+does, and refuse a staged operand that is not 16-byte aligned.  K1 reads
+its factors from the planar (E, 7, N1,N1,N1) operand (`ref.planar_factors`).
+At every other N1 from 2 to `N1_MAX` (orders 1 to N1_MAX - 1) each entry
+point runs the generic body (`csrc/axhelm.cu`, the `*_any` symbols): one
+block an element walks its N1^3 nodes, N1 a runtime argument, with D-hat,
+x and the weighted gradient in dynamic shared memory
+(`generic_smem_bytes`); above N1_MAX that does not fit in a block's shared
+memory, and the wrapper raises.  None needs element padding: the column
+and line bodies mask their ragged last group.  `launch_counts` counts the
+kernel launches of each entry point (`entry_point(variant, dtype)`, the C
+symbol), whichever body it ran, so a run can show that a solve went through
+the kernels it expects.  Two timing-only twins count nothing and
+`axhelm` never reaches them: `rowwise` launches a variant on the
+one-thread-per-node body at N1 in KERNEL_N1, beside the bodies that
+replaced it, and `generic` the generic body at any N1, beside the tuned
+bodies.
 """
 
 from __future__ import annotations
@@ -45,25 +54,32 @@ from repro_torch.kernels.axhelm import build
 from repro_torch.kernels.axhelm import ref as ref_mod
 
 __all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
-           "ROWWISE_VARIANTS", "KERNEL_N1", "KERNEL_DTYPES",
+           "ROWWISE_VARIANTS", "KERNEL_N1", "N1_MAX", "KERNEL_DTYPES",
            "COLUMN_THREADS", "LINE_THREADS", "LINE_BLOCKS_PER_SM",
-           "entry_point", "column_launch", "line_launch", "launch_counts",
-           "reset_launch_counts", "axhelm", "rowwise", "reference",
-           "unrounded"]
+           "GENERIC_THREADS",
+           "entry_point", "column_launch", "line_launch", "generic_launch",
+           "generic_smem_bytes", "launch_counts", "reset_launch_counts",
+           "axhelm", "rowwise", "generic", "reference", "unrounded"]
 
 KERNEL_VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged",
                    "partial")
 # the variants whose entry points run the one-thread-per-column body
 COLUMN_VARIANTS = ("trilinear", "partial")
 # the variants whose entry points run the one-thread-per-line body
-LINE_VARIANTS = ("parallelepiped", "merged")
-# the variants with a timing-only twin on the one-thread-per-node body
-ROWWISE_VARIANTS = COLUMN_VARIANTS + LINE_VARIANTS
-KERNEL_N1 = (4, 8)   # the N1 = N + 1 instantiated in csrc/
+LINE_VARIANTS = ("precomputed", "parallelepiped", "merged")
+# the variants with a timing-only twin on the one-thread-per-node body:
+# every one
+ROWWISE_VARIANTS = KERNEL_VARIANTS
+KERNEL_N1 = (4, 8)   # the N1 = N + 1 of the tuned bodies in csrc/
 COLUMN_THREADS = 128  # threads a block of the column body (kColumnThreads)
 LINE_THREADS = 64     # threads a block of the line body (kLineThreads)
 LINE_BLOCKS_PER_SM = 8  # resident line blocks an SM (kLineMinBlocks)
 STAGED_ALIGNMENT = 16  # bytes: the line body's vector loads need it
+GENERIC_THREADS = 512  # most threads a block of the generic body
+# shared memory a block may use on the H100 (227 KB), which bounds the
+# generic body's N1: generic_smem_bytes(N1_MAX) fits, N1_MAX + 1 does not
+SMEM_PER_BLOCK = 232448
+N1_MAX = 24
 # storage dtype -> the suffix of its entry points in csrc/axhelm.cu
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -77,6 +93,22 @@ launch_counts = {entry_point(v, dt): 0 for dt in KERNEL_DTYPES
                  for v in KERNEL_VARIANTS}
 
 
+def generic_smem_bytes(n1: int) -> int:
+    """Dynamic shared memory of one generic-body block (kernel
+    `axhelm_any_kernel`): D-hat (N1^2 floats), 32 floats of element
+    geometry, and x and the three weighted gradient components (4 N1^3
+    floats)."""
+    return 4 * (n1 * n1 + 32 + 4 * n1 ** 3)
+
+
+def generic_launch(n1: int, n_elem: int) -> tuple[int, int, int]:
+    """(threads, grid, shared-memory bytes) of the generic body: one block
+    an element of at most GENERIC_THREADS threads, whole warps, each
+    thread walking the nodes t, t + threads, ... of its element."""
+    threads = min(GENERIC_THREADS, -(-n1 ** 3 // 32) * 32)
+    return threads, n_elem, generic_smem_bytes(n1)
+
+
 def column_launch(n1: int, n_elem: int) -> tuple[int, int]:
     """(elements per block, grid) of the column body: N1^2 threads an
     element, COLUMN_THREADS a block, and as many blocks as cover n_elem
@@ -88,8 +120,8 @@ def column_launch(n1: int, n_elem: int) -> tuple[int, int]:
 def line_launch(n1: int, n_elem: int, n_sm: int) -> tuple[int, int]:
     """(elements per block, grid) of the line body: N1^2 threads an element,
     LINE_THREADS a block, and persistent blocks, at most LINE_BLOCKS_PER_SM
-    an SM and at most one a group of elements; block b walks the groups b,
-    b + grid, ... (the last group may be ragged)."""
+    an SM and at most one a group of elements; block b walks the groups
+    b, b + grid, ... (the last group may be ragged)."""
     per_block = LINE_THREADS // (n1 * n1)
     groups = -(-n_elem // per_block)
     return per_block, min(groups, n_sm * LINE_BLOCKS_PER_SM)
@@ -151,7 +183,8 @@ def axhelm(x: torch.Tensor, basis: SpectralBasis, variant: str,
 
     x:    (E, N1,N1,N1), (E, d, N1,N1,N1) or (E, nrhs, d, N1,N1,N1) — every
           column reuses the element's single factor set.
-    geom: precomputed:    (E, N1,N1,N1, 7)   [g00..g22, gwj] packed
+    geom: precomputed:    (E, 7, N1,N1,N1)   planes g00..g22, gwj
+                          (`ref.planar_factors`)
           trilinear:      (E, 8, 3)          vertices
           parallelepiped: (E, 7)             per-element scalars
           merged:         (E, 8, 3)          vertices; lam0=Lam2, lam1=Lam3
@@ -174,15 +207,31 @@ def rowwise(x: torch.Tensor, basis: SpectralBasis, variant: str,
             geom: torch.Tensor, lam0: Optional[torch.Tensor] = None,
             lam1: Optional[torch.Tensor] = None,
             helmholtz: bool = False) -> torch.Tensor:
-    """K2-K5 on the one-thread-per-node body of `csrc/axhelm.cu` (the
-    entry points' body before the column and line ones), on CUDA tensors:
-    timing only, beside `axhelm`.  Counts no launch."""
+    """A variant on the one-thread-per-node body of `csrc/axhelm.cu` (the
+    entry points' body before the column and line ones), at N1 in
+    KERNEL_N1, on CUDA tensors: timing only, beside `axhelm`.  Counts no
+    launch."""
     if variant not in ROWWISE_VARIANTS:
         raise ValueError(f"rowwise runs {ROWWISE_VARIANTS}, not {variant!r}")
     helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
     xb = _as_batched(x)
     return _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
-                   rowwise=True).reshape(x.shape)
+                   twin="rowwise").reshape(x.shape)
+
+
+def generic(x: torch.Tensor, basis: SpectralBasis, variant: str,
+            geom: torch.Tensor, lam0: Optional[torch.Tensor] = None,
+            lam1: Optional[torch.Tensor] = None,
+            helmholtz: bool = False) -> torch.Tensor:
+    """A variant on the generic body of `csrc/axhelm.cu` at any N1 up to
+    N1_MAX, KERNEL_N1 included, on CUDA tensors: for tests and timing
+    beside `axhelm`, which takes the generic body only at the N1 the tuned
+    bodies lack.  Counts no launch."""
+    check_variant(variant)
+    helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
+    xb = _as_batched(x)
+    return _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
+                   twin="any").reshape(x.shape)
 
 
 def reference(x, basis: SpectralBasis, variant: str, geom, lam0=None,
@@ -218,8 +267,8 @@ def unrounded(x, basis: SpectralBasis, variant: str, geom, lam0=None,
     x, geom, lam0, lam1 = (None if t is None else t.to(dhat.dtype)
                            for t in (x, geom, lam0, lam1))
     if variant == "precomputed":
-        y = ref_mod.axhelm_precomputed(x, geom[..., :6], geom[..., 6], dhat,
-                                       lam0, lam1, helmholtz)
+        g, gwj = ref_mod.factors_of_planes(geom)
+        y = ref_mod.axhelm_precomputed(x, g, gwj, dhat, lam0, lam1, helmholtz)
     elif variant == "trilinear":
         y = ref_mod.axhelm_trilinear(x, geom, xi, w3, dhat, lam0, lam1,
                                      helmholtz)
@@ -233,11 +282,22 @@ def unrounded(x, basis: SpectralBasis, variant: str, geom, lam0=None,
     return y[:, 0] if squeeze else y
 
 
-def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1) -> None:
-    """Everything the CUDA kernel does not take raises here: a storage
-    dtype other than float32 or bfloat16, an operand whose dtype is not
-    x's, another device, a shape off the layout, a non-contiguous tensor,
-    or an order that is not instantiated."""
+def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
+                           twin: Optional[str] = None) -> None:
+    """Everything the CUDA kernel does not take raises here: an N1 above
+    N1_MAX, or, for the node body (`twin="rowwise"`), outside KERNEL_N1; a
+    storage dtype other than float32 or bfloat16, an operand whose dtype is
+    not x's, another device, a shape off the layout, or a non-contiguous
+    tensor."""
+    n1 = basis.n1
+    if not 2 <= n1 <= N1_MAX:
+        raise ValueError(f"axhelm CUDA kernels run N1 from 2 to N1_MAX = "
+                         f"{N1_MAX} (orders 1 to {N1_MAX - 1}): a block's "
+                         f"shared memory holds no larger element; got "
+                         f"N1={n1} (order {basis.n})")
+    if twin == "rowwise" and n1 not in KERNEL_N1:
+        raise ValueError(f"the one-thread-per-node body is instantiated for "
+                         f"N1 in {KERNEL_N1}, got N1={n1} (order {basis.n})")
     named = [("x", xb), ("geom", geom), ("lam0", lam0), ("lam1", lam1)]
     named = [(n, t) for n, t in named if t is not None]
     for name, t in named:
@@ -250,12 +310,11 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1) -> None:
             raise ValueError(f"axhelm CUDA kernel needs every operand on "
                              f"x's CUDA device; {name} is on {t.device}, x on "
                              f"{xb.device}")
-    n1 = basis.n1
     e = xb.shape[0]
     if tuple(xb.shape[3:]) != (n1,) * 3:
         raise ValueError(f"axhelm: x has node axes {tuple(xb.shape[3:])}, "
                          f"expected {(n1,) * 3} for order {basis.n}")
-    want = {"precomputed": (e, n1, n1, n1, 7),
+    want = {"precomputed": (e, 7, n1, n1, n1),
             "parallelepiped": (e, 7)}.get(variant, (e, 8, 3))
     if tuple(geom.shape) != want:
         raise ValueError(f"axhelm {variant}: geom must have shape {want}, "
@@ -268,9 +327,6 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1) -> None:
         if not t.is_contiguous():
             raise ValueError(f"axhelm CUDA kernel needs contiguous operands; "
                              f"{name} is not")
-    if n1 not in KERNEL_N1:
-        raise ValueError(f"axhelm CUDA kernel is instantiated for N1 in "
-                         f"{KERNEL_N1}, got N1={n1} (order {basis.n})")
 
 
 @functools.lru_cache(maxsize=None)
@@ -317,19 +373,32 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
+    """The body a launch runs: "column" or "line" (the tuned bodies, at N1
+    in KERNEL_N1), "any" (the generic body: any other N1, or the `generic`
+    twin) or "rowwise" (the node body of the `rowwise` twin)."""
+    if twin is not None:
+        return twin
+    if n1 not in KERNEL_N1:
+        return "any"
+    return "column" if variant in COLUMN_VARIANTS else "line"
+
+
 def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
-            rowwise: bool = False) -> torch.Tensor:
-    """Launch the entry point of `variant`, or its timing-only `_rowwise`
-    twin, on x's current stream; count an entry point's launch."""
-    _check_kernel_operands(xb, basis, variant, geom, lam0, lam1)
-    if variant in LINE_VARIANTS and not rowwise:
+            twin: Optional[str] = None) -> torch.Tensor:
+    """Launch `variant` on x's current stream, through the body `body_of`
+    names, and count an entry point's launch; a timing-only `twin`
+    ("rowwise" or "any") counts none."""
+    _check_kernel_operands(xb, basis, variant, geom, lam0, lam1, twin)
+    body = body_of(variant, basis.n1, twin)
+    if body == "line":
         _check_staged_alignment(variant, xb, lam0, lam1)
     y = torch.empty_like(xb)
     e, ncols = xb.shape[0], xb.shape[1] * xb.shape[2]
     if e == 0 or ncols == 0:
         return y
     name = entry_point(variant, xb.dtype)
-    symbol = f"{name}_rowwise" if rowwise else name
+    symbol = name if body in ("column", "line") else f"{name}_{body}"
     fn = getattr(build.library(), symbol)
     dhat, xi, w3 = _constants(basis.n, xb.dtype, xb.device)
     with torch.cuda.device(xb.device):
@@ -337,7 +406,10 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
         common = (_ptr(xb), _ptr(y), _ptr(geom), _ptr(lam0), _ptr(lam1),
                   _ptr(dhat))
         sizes = (basis.n1, e, ncols)
-        if variant in COLUMN_VARIANTS and not rowwise:
+        if body == "any":
+            rc = fn(*common, _ptr(xi), _ptr(w3), *sizes, int(helmholtz),
+                    stream)
+        elif body == "column":
             consts = _ptr(_column_consts(basis.n, xb.dtype))
             grid = column_launch(basis.n1, e)
             if variant == "trilinear":
@@ -345,12 +417,15 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
                         int(helmholtz), *grid, stream)
             else:  # partial: gScale in the lam0 slot, no lam1
                 rc = fn(*common[:4], consts, *sizes, *grid, stream)
-        elif variant in LINE_VARIANTS and not rowwise:
+        elif body == "line":
             consts = _ptr(_column_consts(basis.n, xb.dtype))
             grid = line_launch(basis.n1, e, _sm_count(xb.device))
             if variant == "parallelepiped":
                 rc = fn(*common[:5], _ptr(w3), consts, *sizes,
                         int(helmholtz), *grid, stream)
+            elif variant == "precomputed":
+                rc = fn(*common[:5], consts, *sizes, int(helmholtz), *grid,
+                        stream)
             else:  # merged: Lam2, Lam3 in the lambda slots, Helmholtz
                 rc = fn(*common[:5], consts, *sizes, *grid, stream)
         elif variant == "precomputed":
@@ -367,6 +442,6 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
     if rc != 0:
         raise RuntimeError(f"{symbol} kernel launch failed with CUDA error "
                            f"{rc}")
-    if not rowwise:
+    if twin is None:
         launch_counts[name] += 1
     return y

@@ -54,6 +54,19 @@ def axhelm_precomputed(x: torch.Tensor, g: torch.Tensor,
     return _core(x, g, dhat, lam0=lam0, mass=mass)
 
 
+def planar_factors(g: torch.Tensor, gwj: torch.Tensor) -> torch.Tensor:
+    """K1's operand: the (E, 7, N1,N1,N1) planes g00, g01, g02, g11, g12,
+    g22, gwj of g (E, N1,N1,N1, 6) and gwj (E, N1,N1,N1), contiguous.  An
+    element's six G planes are one span of 6 N1^3 values, gwj after them."""
+    return torch.cat([g.movedim(-1, 1), gwj[:, None]], dim=1).contiguous()
+
+
+def factors_of_planes(geom: torch.Tensor):
+    """(g (E, N1,N1,N1, 6), gwj (E, N1,N1,N1)) of K1's planar operand, as
+    views."""
+    return geom[:, :6].movedim(1, -1), geom[:, 6]
+
+
 def axhelm_trilinear(x: torch.Tensor, verts: torch.Tensor, xi: torch.Tensor,
                      w3: torch.Tensor, dhat: torch.Tensor,
                      lam0: Optional[torch.Tensor] = None,

@@ -73,6 +73,14 @@ def _geom(variant, n):
     return _f32(jnp.concatenate([f.g, f.gwj[..., None]], axis=-1))
 
 
+def _port_geom(variant, geom):
+    """The port's operand of the reference package's `geom`, carried
+    across by `convert`: precomputed's packed (E, N1,N1,N1, 7) becomes the
+    planar (E, 7, N1,N1,N1); the others are the same array."""
+    return convert.elem_ops_from_numpy(variant, {"geom": geom},
+                                       "cpu")["geom"]
+
+
 def _inputs(variant, n, coeff):
     """x (E, 2, 3, N1^3), geom and the lambda kwargs, all numpy float32.
     merged takes Lam2/Lam3 of the random lambdas and partial gScale, both
@@ -127,13 +135,13 @@ def _check_plain_version_against_pallas(n, variant, coeff, layout):
     idx = LAYOUTS[layout]
     y_pallas, y_oracle = (y[idx] for y in _jax_outputs(variant, n, coeff))
     y = tops.axhelm(torch.as_tensor(np.ascontiguousarray(x[idx])),
-                    tbasis(n), variant, torch.as_tensor(geom),
+                    tbasis(n), variant, _port_geom(variant, geom),
                     **_torch_kw(kw))
     assert tuple(y.shape) == x[idx].shape
     assert _rel(y, y_pallas) <= RTOL32
     assert _rel(y, y_oracle) <= RTOL32
     y_plain = tops.reference(torch.as_tensor(np.ascontiguousarray(x[idx])),
-                             tbasis(n), variant, torch.as_tensor(geom),
+                             tbasis(n), variant, _port_geom(variant, geom),
                              **_torch_kw(kw))
     assert torch.equal(y, y_plain)
 
@@ -190,7 +198,7 @@ def test_public_layouts_agree(variant):
     """(E, N1^3) and (E, 1, 1, N1^3), and (E, d, N1^3) and
     (E, 1, d, N1^3), are the same field: the same y, bit for bit."""
     x, geom, kw = _inputs(variant, 3, "helmholtz")
-    b, g, kw = tbasis(3), torch.as_tensor(geom), _torch_kw(kw)
+    b, g, kw = tbasis(3), _port_geom(variant, geom), _torch_kw(kw)
     xt = torch.as_tensor(x)
     y_s = tops.axhelm(xt[:, 0, 0].contiguous(), b, variant, g, **kw)
     y_sb = tops.axhelm(xt[:, :1, :1].contiguous(), b, variant, g, **kw)
@@ -229,6 +237,36 @@ def test_elem_ops_carried_across(variant, coeff, jax_backend, port_backend):
     xt = torch.as_tensor(x)
     assert _rel(t_apply(xt, carried), y_jax) <= RTOL32
     assert _rel(t_apply(xt, t_ops), y_jax) <= RTOL32
+
+
+@pytest.mark.parametrize("jax_backend", ["reference", "pallas"])
+def test_convert_lays_precomputed_factors_out_in_planes(jax_backend):
+    """The reference package's precomputed operands -- its reference
+    backend's g (E, N1,N1,N1, 6) and gwj, its Pallas backend's packed
+    (E, N1,N1,N1, 7) geom -- become the port's planar (E, 7, N1,N1,N1):
+    plane p is g[..., p], plane 6 gwj, exactly; on them the port's operator
+    gives the reference operator's y (<= 1e-4, float32)."""
+    n = 3
+    x, _, kw = _inputs("precomputed", n, "helmholtz")
+    helm = kw.pop("helmholtz")
+    verts = _verts(n)
+    j_ops, j_apply, _ = jax_axhelm.make_axhelm_elem_ops(
+        "precomputed", jbasis(n), jnp.asarray(verts), helmholtz=helm,
+        backend=jax_backend, dtype=jnp.float32, **_jax_kw(kw))
+    carried = convert.elem_ops_from_numpy(
+        "precomputed", {k: np.asarray(v) for k, v in j_ops.items()}, "cpu")
+    geom = carried["geom"]
+    assert tuple(geom.shape) == (len(verts), 7) + (n + 1,) * 3
+    assert geom.is_contiguous()
+    packed = np.concatenate([np.asarray(j_ops["g"]),
+                             np.asarray(j_ops["gwj"])[..., None]], axis=-1) \
+        if "g" in j_ops else np.asarray(j_ops["geom"])
+    for plane in range(7):
+        np.testing.assert_array_equal(geom[:, plane].numpy(),
+                                      packed[..., plane])
+    y = tops.axhelm(torch.as_tensor(x), tbasis(n), "precomputed", geom,
+                    helmholtz=helm, **_torch_kw(kw))
+    assert _rel(y, j_apply(jnp.asarray(x), j_ops)) <= RTOL32
 
 
 @pytest.mark.parametrize("jax_backend,port_backend",
@@ -413,18 +451,19 @@ def test_setup_validation_matches_reference(variant, helm, lam0_shape,
 def test_backend_resolution():
     f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
     bf16, cuda = torch.bfloat16, torch.device("cuda")
-    assert taxhelm._resolve_backend(None, f32, cpu) == "reference"
-    assert taxhelm._resolve_backend("auto", f32, cpu) == "reference"
-    assert taxhelm._resolve_backend("auto", f32, cuda) == "cuda"
-    assert taxhelm._resolve_backend("auto", bf16, cuda) == "cuda"
-    assert taxhelm._resolve_backend("auto", f64, cpu) == "reference"
+    n1 = 8                                          # order 7
+    assert taxhelm._resolve_backend(None, f32, cpu, n1) == "reference"
+    assert taxhelm._resolve_backend("auto", f32, cpu, n1) == "reference"
+    assert taxhelm._resolve_backend("auto", f32, cuda, n1) == "cuda"
+    assert taxhelm._resolve_backend("auto", bf16, cuda, n1) == "cuda"
+    assert taxhelm._resolve_backend("auto", f64, cpu, n1) == "reference"
     # on the card, "auto" never leaves the kernels quietly
     with pytest.raises(ValueError, match="backend='reference'"):
-        taxhelm._resolve_backend("auto", f64, cuda)
-    assert taxhelm._resolve_backend("reference", f64, cuda) == "reference"
-    assert taxhelm._resolve_backend("cuda", f32, cpu) == "cuda"
-    assert taxhelm._resolve_backend("cuda", bf16, cpu) == "cuda"
+        taxhelm._resolve_backend("auto", f64, cuda, n1)
+    assert taxhelm._resolve_backend("reference", f64, cuda, n1) == "reference"
+    assert taxhelm._resolve_backend("cuda", f32, cpu, n1) == "cuda"
+    assert taxhelm._resolve_backend("cuda", bf16, cpu, n1) == "cuda"
     with pytest.raises(ValueError, match="float32 or bfloat16 only"):
-        taxhelm._resolve_backend("cuda", f64, cpu)
+        taxhelm._resolve_backend("cuda", f64, cpu, n1)
     with pytest.raises(ValueError, match="unknown axhelm backend"):
-        taxhelm._resolve_backend("pallas", f32, cpu)
+        taxhelm._resolve_backend("pallas", f32, cpu, n1)

@@ -278,7 +278,7 @@ def test_rowwise_launches_the_timing_twin_and_counts_nothing(fake_card,
     assert ops.launch_counts == before
 
 
-@pytest.mark.parametrize("variant", ["precomputed"])
+@pytest.mark.parametrize("variant", ["bogus"])
 def test_rowwise_refuses_the_other_variants(variant):
     with pytest.raises(ValueError, match="rowwise runs"):
         ops.rowwise(_meta((3, 8, 8, 8)), tbasis(7), variant, _meta((3, 7)))

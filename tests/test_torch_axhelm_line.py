@@ -1,12 +1,15 @@
-"""The line body of the K3 (parallelepiped) and K4 (merged) axhelm kernels,
-`csrc/axhelm_line.cu`, on the CPU: what of it is not CUDA.
+"""The line body of the K1 (precomputed), K3 (parallelepiped) and K4
+(merged) axhelm kernels, `csrc/axhelm_line.cu`, on the CPU: what of it is
+not CUDA.
 
 * Its phases, written here in the kernel's order on its padded shared
   layout (the r and s lines and the node columns of an element, the
   factors applied by the column owner, the transposes on the lines, the
   three sums), against the reference package's jnp oracle: float64,
-  <= 1e-12 relative (the same formulas in another order), K3 Poisson and
-  Helmholtz with per-node lambdas and K4, N in {3, 7}.
+  <= 1e-12 relative (the same formulas in another order), K1 and K3
+  Poisson and Helmholtz with per-node lambdas (K1's factors read from its
+  planar (E, 7, N1^3) operand, plane p of node n at p N1^3 + n) and K4,
+  N in {3, 7}.
 * That the roles cover every line and column of an element once, and that
   the layout is free of bank conflicts at N1 = 8, as the source note counts.
 * The wrapper's persistent launch arithmetic (every element exactly once
@@ -18,6 +21,7 @@
 The kernels themselves run on the card only: tests/test_torch_cuda.py.
 """
 
+import re
 import sys
 from pathlib import Path
 
@@ -27,6 +31,7 @@ import pytest
 import torch
 
 from repro.core import axhelm as jax_axhelm
+from repro.core import geometry as jgeom
 from repro.core import mesh_gen as jmesh
 from repro.core.spectral import basis as jbasis
 from repro.kernels.axhelm import ops as jops
@@ -107,6 +112,11 @@ def line_body(x, dhat, xi, w3, variant, geom, lam0, lam1, helmholtz):
                     if variant == "merged":
                         g = adj[e, k, j, i]
                         scale, mass = lam0[e, node], lam1[e, node]
+                    elif variant == "precomputed":     # planar (E, 7, N1^3)
+                        g = geom[e, :6, node]
+                        scale = 1 if lam0 is None else lam0[e, node]
+                        mass = geom[e, 6, node] * (
+                            1 if lam1 is None else lam1[e, node])
                     else:
                         g = geom[e, :6]
                         scale = w3[node] * (1 if lam0 is None
@@ -134,21 +144,30 @@ def line_body(x, dhat, xi, w3, variant, geom, lam0, lam1, helmholtz):
 
 
 LINE_CASES = [("parallelepiped", False), ("parallelepiped", True),
-              ("merged", True)]
+              ("merged", True), ("precomputed", False), ("precomputed", True)]
 
 
 @pytest.mark.parametrize("n", [3, 7])
 @pytest.mark.parametrize("variant,helm", LINE_CASES)
 def test_line_phases_match_reference(x64, variant, helm, n):
-    """K3 with per-node lam0 (and lam1) fields, K4 with the reference's
-    Lam2/Lam3 of random lambdas; two columns an element."""
+    """K1 and K3 with per-node lam0 (and lam1) fields, K4 with the
+    reference's Lam2/Lam3 of random lambdas; two columns an element.  K1's
+    factors are the reference's discrete ones, laid out in planes for the
+    model and packed for the reference."""
     rng = np.random.default_rng(10 * n + helm)
     b = jbasis(n)
     n1 = b.n1
     box = jmesh.box_mesh(2, 1, 2, n)
+    ref_geom = None
     if variant == "parallelepiped":
         verts = np.asarray(jmesh.deform_affine(box, seed=2).verts)
         geom = np.asarray(jref.gelem_from_verts(jnp.asarray(verts)))
+    elif variant == "precomputed":
+        verts = jnp.asarray(jmesh.deform_trilinear(box, seed=3).verts)
+        f = jgeom.factors_discrete(jgeom.node_coords(verts, b), b)
+        ref_geom = np.concatenate([np.asarray(f.g),
+                                   np.asarray(f.gwj)[..., None]], axis=-1)
+        geom = np.moveaxis(ref_geom, -1, 1).reshape(len(verts), 7, -1)
     else:
         geom = np.asarray(jmesh.deform_trilinear(box, seed=3).verts)
     e = len(geom)
@@ -170,7 +189,8 @@ def test_line_phases_match_reference(x64, variant, helm, n):
     if lam1 is not None:
         kw["lam1"] = jnp.asarray(lam1.reshape((e,) + (n1,) * 3))
     ref = jops.reference(jnp.asarray(x.reshape(shape)), b, variant,
-                         jnp.asarray(geom), helmholtz=helm, **kw)
+                         jnp.asarray(geom if ref_geom is None else ref_geom),
+                         helmholtz=helm, **kw)
     assert _rel(ours.reshape(shape), ref) <= RTOL64
 
 
@@ -408,3 +428,39 @@ def test_sweep_finds_the_shipped_stager():
     assert "cp.async.bulk" in swapped and "\\n.reg" in swapped
     for name in ("kLineThreads = ", "kLineMinBlocks = ", "kStages = "):
         assert text.count(name) == 1
+
+
+def test_launch_constants_follow_the_source():
+    """The wrapper's launch arithmetic mirrors the line body's constants:
+    threads a block and blocks an SM (the sweep changes both sides)."""
+    text = (ROOT / chip_smoke.SOURCE["line"]).read_text()
+
+    def const(name):
+        return re.search(rf"{name} = (\w+);", text).group(1)
+    assert int(const("kLineThreads")) == ops.LINE_THREADS
+    assert int(const("kLineMinBlocks")) == ops.LINE_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("stager", ["loads", "bulk"])
+def test_sweep_patches_in_bulk_copied_factors(stager):
+    """The sweep's K1 bulk-factor option, which the shipped source does not
+    hold: every anchor of `with_bulk_factors` is in the line body once (with
+    either stager), its one set of mbarrier primitives lands before the
+    kernel, and the owners read the staged buffer in place of device
+    memory."""
+    text = (ROOT / chip_smoke.SOURCE["line"]).read_text()
+    assert "mbar_init" not in text and "bulk_copy(" not in text
+    if stager == "bulk":
+        text = line_staging_sweep._STAGER.sub(
+            lambda _: line_staging_sweep.BULK_STAGER, text, count=1)
+    patched = line_staging_sweep.with_bulk_factors(text)
+    assert patched.count("void mbar_init(") == 1
+    assert patched.count("void fetch_factors(") == 1
+    assert patched.index("void bulk_copy(") < \
+        patched.index("void fetch_factors(") < \
+        patched.index("__global__ void")
+    assert "fp = geom + ev * 7 * NP + t;" not in patched
+    assert "fp = sm.f[fbuf][le] + t;" in patched
+    assert "(SRC == kPrecomputed && misaligned(geom))" in patched
+    with pytest.raises(ValueError, match="anchor"):
+        line_staging_sweep.with_bulk_factors(patched)

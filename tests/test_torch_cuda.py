@@ -1,13 +1,15 @@
 """Card tests of the port: the hand-written CUDA axhelm kernels (float32
 and bfloat16 storage) against their plain PyTorch versions -- the K2 and
-K5 column body and the K3 and K4 line body also at ragged block counts,
-against the correctly rounded result for bf16, and on solves that must not
-reach their timing-only one-thread-per-node twins -- the wrapper's
-refusals (a misaligned operand of the line body among them), the gather's
-run-to-run behaviour, and solves through the kernels: float32 single and
-stacked right-hand sides (the comparison with the reference backend with
-the gather's sums in a fixed order), and the mixed-precision bf16_x32
-refinement.
+K5 column body and the K1, K3 and K4 line body also at ragged block
+counts, against the correctly rounded result for bf16, and on solves that
+must not reach their timing-only one-thread-per-node twins; the generic
+body of every variant at orders 1 to 15, and beside the tuned bodies at
+orders 3 and 7 -- the wrapper's refusals (a misaligned operand of the line
+body and an order above N1_MAX - 1 among them), the gather's run-to-run
+behaviour, and solves through the kernels: float32 single and stacked
+right-hand sides (the comparison with the reference backend with the
+gather's sums in a fixed order), order 5 through the generic body, and the
+mixed-precision bf16_x32 refinement.
 
 Every test carries the `cuda` marker and skips without a card; whether a
 card is present is decided in the `card` fixture, at run time.  This file
@@ -56,10 +58,11 @@ def card():
 
 
 def _operands(variant, n, e, ncols, helm, device, seed=0,
-              dtype=torch.float32):
+              dtype=torch.float32, backend="cuda"):
     """x, geom and the lambda kwargs of one kernel call, stored in `dtype`:
     random lam0/lam1 for Helmholtz, merged's Lam2/Lam3 of them, partial's
-    gScale; the parallelepiped kernel runs on an affinely deformed box."""
+    gScale; the parallelepiped kernel runs on an affinely deformed box.
+    The operands of both backends are the same."""
     rng = np.random.default_rng(seed)
     b = basis(n)
     n1 = b.n1
@@ -79,7 +82,7 @@ def _operands(variant, n, e, ncols, helm, device, seed=0,
             lam1=torch.as_tensor(0.5 + 0.2 * rng.random((e, n1, n1, n1)),
                                  dtype=torch.float32, device=device))
     elem_ops, _, _ = core_axhelm.make_axhelm_elem_ops(
-        variant, b, verts, helmholtz=helm, dtype=dtype, backend="cuda",
+        variant, b, verts, helmholtz=helm, dtype=dtype, backend=backend,
         device=device, **lams)
     geom = elem_ops.pop("geom")
     return b, x.to(dtype), geom, dict(elem_ops, helmholtz=helm)
@@ -136,9 +139,17 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card, variant):
         ops.axhelm(x.transpose(-1, -2), b, variant, geom, **kw)
     with pytest.raises(ValueError, match="CUDA device"):
         ops.axhelm(x, b, variant, geom.cpu(), **kw)
-    b5, x5, geom5, kw5 = _operands(variant, 5, 5, 1, helm, card)
-    with pytest.raises(ValueError, match="instantiated"):
-        ops.axhelm(x5, b5, variant, geom5, **kw5)
+    # every order up to N1_MAX - 1 runs (test_generic_body_*); above it the
+    # element does not fit in a block's shared memory: the wrapper raises,
+    # and so does setup on the card
+    n_big = ops.N1_MAX
+    bb, xb, geomb, kwb = _operands(variant, n_big, 2, 1, helm, card,
+                                   backend="reference")
+    with pytest.raises(ValueError, match="N1_MAX"):
+        ops.axhelm(xb, bb, variant, geomb, **kwb)
+    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(1, 1, 2, n_big))
+    with pytest.raises(ValueError, match="N1_MAX"):
+        nekbone.setup_problem(mesh, variant=variant, helmholtz=helm)
 
 
 def test_gather_index_add_is_not_bitwise_reproducible_but_exact(card):
@@ -381,11 +392,13 @@ def test_solve_through_column_kernel_never_reaches_the_node_body(
         ops.launch_counts["axhelm_trilinear_f32"] >= int(res.iterations) + 1
 
 
-# The line body (csrc/axhelm_line.cu) of K3 and K4: persistent blocks over
-# ragged groups (2 elements a group at N1 = 8, 8 at N1 = 4), every column
-# count the solves use, K3 with per-node lam0 (and lam1), K4 with Lam2/Lam3.
+# The line body (csrc/axhelm_line.cu) of K1, K3 and K4: persistent blocks
+# over ragged groups (1 element a group at N1 = 8, 4 at N1 = 4), every
+# column count the solves use, K1 and K3 with per-node lam0 (and lam1), K4
+# with Lam2/Lam3.
 _LINE_CASES = [("parallelepiped", False), ("parallelepiped", True),
-               ("merged", True)]
+               ("merged", True), ("precomputed", False),
+               ("precomputed", True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -397,6 +410,25 @@ _LINE_CASES = [("parallelepiped", False), ("parallelepiped", True),
 def test_line_kernel_matches_plain_version(card, variant, helm, n, e, ncols,
                                            dtype):
     _check_against_plain_version(card, variant, helm, n, e, ncols, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("helm", [False, True])
+def test_precomputed_line_kernel_takes_four_stacked_columns(card, helm,
+                                                           dtype):
+    """K1 on the (E, nrhs=4, d=1, N1^3) layout of pcg_block and refine at
+    nrhs 4: the four columns of an element, one stage each, each loading
+    the element's factor planes again."""
+    b, x, geom, kw = _column_operands("precomputed", helm, 7, 4099, 4,
+                                      dtype, card)
+    x = x[:, :, None].contiguous()
+    y = ops.axhelm(x, b, "precomputed", geom, **kw)
+    y_plain = ops.reference(x, b, "precomputed", geom, **kw)
+    assert y.shape == x.shape
+    err = float((y.float() - y_plain.float()).abs().max()
+                / y_plain.float().abs().max())
+    assert err <= (RTOL32 if dtype == torch.float32 else RTOL_BF16), err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -468,3 +500,77 @@ def test_solve_through_line_kernel_never_reaches_the_node_body(
     assert set(called) == {symbol}, called
     assert called[symbol] == ops.launch_counts[symbol] == \
         applications["n"] >= int(res.iterations) + 1
+
+
+# The generic body (csrc/axhelm.cu, the *_any symbols): every variant and
+# storage type at orders 1 to 15 (N1 = 2 to 16), through `ops.generic`, and
+# through `ops.axhelm` wherever N1 is not a tuned body's, where it must be
+# the same launch.
+_ALL_CASES = _LINE_CASES + [("trilinear", False), ("trilinear", True),
+                            ("partial", False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", range(1, 16))
+@pytest.mark.parametrize("variant,helm", _ALL_CASES)
+def test_generic_body_matches_plain_version(card, variant, helm, n, dtype):
+    b, x, geom, kw = _column_operands(variant, helm, n, 37, 2, dtype, card)
+    name = ops.entry_point(variant, dtype)
+    before = ops.launch_counts[name]
+    y = ops.generic(x, b, variant, geom, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts[name] == before and y.dtype == dtype
+    y_plain = ops.reference(x, b, variant, geom, **kw)
+    err = float((y.float() - y_plain.float()).abs().max()
+                / y_plain.float().abs().max())
+    assert err <= (RTOL32 if dtype == torch.float32 else RTOL_BF16), err
+    if b.n1 not in ops.KERNEL_N1:
+        assert torch.equal(ops.axhelm(x, b, variant, geom, **kw), y)
+        assert ops.launch_counts[name] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [3, 7])
+@pytest.mark.parametrize("variant,helm", _ALL_CASES)
+def test_generic_body_matches_tuned_bodies(card, variant, helm, n, dtype):
+    """At the tuned bodies' N1 the generic body computes what they do."""
+    b, x, geom, kw = _column_operands(variant, helm, n, 4099, 3, dtype,
+                                      card)
+    y = ops.generic(x, b, variant, geom, **kw).float()
+    y_tuned = ops.axhelm(x, b, variant, geom, **kw).float()
+    err = float((y - y_tuned).abs().max() / y_tuned.abs().max())
+    assert err <= (RTOL32 if dtype == torch.float32 else RTOL_BF16), err
+
+
+@pytest.mark.parametrize("variant,helm", [("precomputed", False),
+                                          ("trilinear", False),
+                                          ("parallelepiped", False),
+                                          ("merged", True),
+                                          ("partial", False)])
+def test_order_5_solve_runs_the_generic_body(card, variant, helm):
+    """`setup_problem` and `solve` at order 5 on the card: every operator
+    application one launch of the entry point (the generic body, N1 = 6),
+    and the iterations of the reference backend within +-1."""
+    box = mesh_gen.box_mesh(4, 4, 4, 5)
+    mesh = mesh_gen.deform_affine(box, seed=2) \
+        if variant == "parallelepiped" else \
+        mesh_gen.deform_trilinear(box, seed=3)
+    results = {}
+    with _fixed_order():
+        for backend in ("auto", "reference"):
+            prob = nekbone.setup_problem(mesh, variant=variant,
+                                         helmholtz=helm, backend=backend)
+            x_true = nekbone.random_solution(prob, seed=0)
+            b = nekbone.rhs_from_solution(prob, x_true)
+            ops.reset_launch_counts()
+            res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
+            results[prob.backend] = (
+                int(res.iterations), int(res.status),
+                ops.launch_counts[ops.entry_point(variant, torch.float32)])
+    (it_k, st_k, n_k), (it_r, st_r, n_r) = \
+        results["cuda"], results["reference"]
+    assert st_k == st_r == SolveStatus.CONVERGED
+    assert abs(it_k - it_r) <= 1
+    assert n_k >= it_k + 1 and n_r == 0

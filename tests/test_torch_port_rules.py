@@ -34,7 +34,8 @@ PORT_SCRIPTS = [ROOT / "chip_smoke.py",
                 ROOT / "scripts" / "torch_solve_trace.py",
                 ROOT / "scripts" / "refine_spread.py",
                 ROOT / "scripts" / "column_launch_sweep.py",
-                ROOT / "scripts" / "line_staging_sweep.py"]
+                ROOT / "scripts" / "line_staging_sweep.py",
+                ROOT / "scripts" / "main_path_turns.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + PORT_SCRIPTS,

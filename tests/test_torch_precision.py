@@ -109,12 +109,17 @@ def test_bf16_plain_version_matches_pallas_kernel(variant, helm, nrhs, d):
     n = 3
     x, ops = _kernel_inputs(variant, helm, n, nrhs, d)
     geom = ops.pop("geom")
+    # the reference's precomputed operand is packed (E, N1,N1,N1, 7), the
+    # port's planar (E, 7, N1,N1,N1)
+    j_geom = np.concatenate([np.moveaxis(geom[:, :6], 1, -1),
+                             geom[:, 6, ..., None]], axis=-1) \
+        if variant == "precomputed" else geom
     y_t = tops.axhelm(torch.as_tensor(x).to(BF16), tbasis(n), variant,
                       torch.as_tensor(geom).to(BF16), helmholtz=helm,
                       **{k: torch.as_tensor(v).to(BF16)
                          for k, v in ops.items()})
     y_j = jops.axhelm(jnp.asarray(x, jnp.bfloat16), jbasis(n), variant,
-                      jnp.asarray(geom, jnp.bfloat16), helmholtz=helm,
+                      jnp.asarray(j_geom, jnp.bfloat16), helmholtz=helm,
                       interpret=True,
                       **{k: jnp.asarray(v, jnp.bfloat16)
                          for k, v in ops.items()})
