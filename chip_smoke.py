@@ -6,8 +6,11 @@ with the hand-written axhelm CUDA kernels, once for each of the five axhelm
 variants, and the mixed-precision `bf16_x32` refined solve through the
 bf16-storage kernels, with single and stacked right-hand sides — through
 the entry points a user calls (`setup_problem`, `rhs_from_solution`,
-`solve`), and holds every kernel, fp32 and bf16, against its plain PyTorch
-version on the card.  Phases, one line each:
+`solve`, `resilience.retry.solve_resilient`), and holds every kernel, fp32
+and bf16, against its plain PyTorch version on the card.  Every solve runs
+its PCG loops as replayed CUDA graphs (`core.graphs`), as users run it,
+unless a phase says it runs one eagerly to compare.  Phases, one line
+each:
 
   1. device   nvidia-smi name and power limit, torch and CUDA versions
   2. build    nvcc builds the kernels from the sources in this checkout;
@@ -39,7 +42,8 @@ version on the card.  Phases, one line each:
               body's main path) every variant on its main equation;
               CONVERGED, iterations within +-1 of the other backend and of
               the same operator reached through another variant, one
-              kernel launch per operator application
+              kernel launch per operator application (a launch captured
+              in a graph counts once for every replay)
   4b. refine_8  8x8x8, N=7, bf16_x32 (Jacobi, max_iter 3000, b of
               `nekbone.random_rhs`: standard normal from numpy seed 0,
               zero on the boundary, norm 30 a column): at tol 0.03
@@ -47,15 +51,15 @@ version on the card.  Phases, one line each:
               Poisson on the affine mesh, merged Helmholtz (Dirichlet),
               trilinear Poisson with nrhs 4 and unmasked trilinear
               Helmholtz; trilinear Poisson at tol 1e-4.  Each through the
-              kernels as users run it, and again with the gather's sums in
-              a fixed order beside the ensemble of the plain version's
-              roundings (the reference backend, the correctly rounded
-              operator and 6 re-rounded ones, see WITNESS_SEEDS): the
-              fixed-order solve ends in a status some member ends in,
-              with iterations within max(3, 5%) of the members' range —
-              where all members agree, the same status and iterations as
-              the reference backend — and the users' solve in a status
-              some member ends in; the fp32 true residual <= 1.5 tol when
+              kernels as users run it (the gather sums in a fixed order,
+              so it repeats exactly) beside the ensemble of the plain
+              version's roundings, run eagerly (the reference backend, the
+              correctly rounded operator and 6 re-rounded ones, see
+              WITNESS_SEEDS): the solve ends in a status some member ends
+              in, with iterations within max(3, 5%) of the members' range
+              — where all members agree, the same status and iterations
+              as the reference backend; the fp32 true residual <= 1.5 tol
+              when
               CONVERGED, one bf16 launch per inner operator application;
               trilinear Poisson CONVERGED at tol 0.03 where the reference
               converges (nrhs 1, and 3 of the 4 columns of nrhs 4) and
@@ -70,16 +74,35 @@ version on the card.  Phases, one line each:
               iterations) through the kernels — the main path of each
               variant: precomputed, trilinear and partial Poisson,
               parallelepiped Poisson on the affinely deformed box, merged
-              and trilinear Helmholtz; 7 timed solves each after a warm-up;
-              status and iterations (+-1) of the reference backend (solved
-              once), at MAXITER its final residual within 1%; ms per
-              iteration (median and quartiles), GFLOPS, GDOFS, peak memory
+              and trilinear Helmholtz; captured and eager in turns (see
+              5c); status and iterations (+-1) of the reference backend
+              (solved once), at MAXITER its final residual within 1%; ms per
+              iteration of the captured solve (median and quartiles),
+              GFLOPS, GDOFS, peak memory
   5b. config_bf16  the main path of the bf16 slice: the config's trilinear
               Dirichlet Poisson with precision="bf16_x32" at nrhs 1 and 4,
               tol 3.0, 0.03 and 1e-4 (b as in 4b, max_iter 3000), beside the
-              fp32 solve of the same b; 5 timed solves each after a warm-up;
-              held to the plain version's ensemble as in 4b; CONVERGED at
-              tol 3.0 with true residual <= 4.5
+              fp32 solve of the same b; 5 timed solves each after a warm-up
+              (at tol 3.0 the bf16_x32 one in turns, see 5c); held to the
+              plain version's ensemble as in 4b; CONVERGED at tol 3.0 with
+              true residual <= 4.5
+  5c. graph   the captured solves of 5 (six fp32 main paths) and 5b (tol
+              3.0, nrhs 1 and 4) against the same solves run eagerly, in
+              turns (eager, captured, captured, eager): the same statuses
+              and iterations, x bitwise equal, no capture after the first
+              solve; ms per iteration of both (median, quartiles), graph
+              replays per iteration, capture times, peak memory of both
+  5d. reproducible  the 8^3 bf16_x32 parallelepiped solve at tol 0.03,
+              REPRODUCIBLE_RUNS times on two problems: one status, one
+              iteration count, bitwise equal x
+  5e. resilience  8^3 trilinear fp32 (tol 1e-6), captured: a NaN fault at
+              iteration 3 DIVERGED after 3 iterations, a bitflip fault a
+              failure status, `solve_resilient` clean in one attempt, a
+              transient fault cured by the restart rung, a persistent one
+              left failed by the default policy and cured by the backend
+              rung where the policy asks for it, and a fault in column 1
+              of an nrhs-4
+              block that leaves the other columns' iterations alone
   6. timing   device time of each kernel (E=4096 and E=32768, N1=8,
               c=1; K1, K2, K3, K5 Poisson, K4 Helmholtz) from a replayed
               CUDA graph, and its time in eager calls back to back, beside
@@ -87,7 +110,9 @@ version on the card.  Phases, one line each:
               iteration spent in it; the same for each bf16 kernel beside
               its fp32 twin; K1-K5 in turns with their one-thread-per-node
               body (`ops.rowwise`: old, new, new, old); the generic body of
-              each (`ops.generic`) at orders 1, 2, 5, 9 and 15, E=4096
+              each (`ops.generic`) at orders 1, 2, 5, 9 and 15, E=4096; the
+              gather at 16^3 in its fixed order in turns with index_add_
+              (c = 1 and 4), bitwise repeatable
   7. the `kernels` line (ten entry points, each launched on its main
      path, and their ten generic bodies, launched on the order-5 solves),
      then the card line, then the result line.
@@ -114,7 +139,10 @@ PEAK_FP32_FLOP_PER_S = 67e12
 RTOL_KERNEL = 1e-4
 # bf16 storage: kernel and plain version each round one fp32 result once
 RTOL_BF16 = 8e-3
-SOLVE_REPEATS = 7     # timed 16^3 kernel-backend solves per variant
+# timed solves a turn of `in_turns` (eager, captured, captured, eager)
+TURN_REPEATS = 4
+# the `reproducible` phase: 8^3 bf16_x32 parallelepiped solves at tol 0.03
+REPRODUCIBLE_RUNS = 8
 REFINED_REPEATS = 5   # timed 16^3 bf16_x32 solves per tolerance and nrhs
 REFINED_MAX_ITER = 3000
 _CSRC = "src/repro_torch/kernels/axhelm/csrc"
@@ -296,7 +324,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries the seconds since the
+    script started (`t_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -428,10 +463,13 @@ def main() -> None:
 
     from repro_torch.configs.nekbone import CONFIG
     from repro_torch.core import axhelm as core_axhelm
-    from repro_torch.core import mesh_gen, nekbone
+    from repro_torch.core import gather_scatter as gs
+    from repro_torch.core import graphs, mesh_gen, nekbone
     from repro_torch.core.spectral import basis
     from repro_torch.kernels.axhelm import build, ops
-    from repro_torch.resilience.status import SolveStatus
+    from repro_torch.resilience.inject import FaultSpec
+    from repro_torch.resilience.retry import RetryPolicy, solve_resilient
+    from repro_torch.resilience.status import SolveStatus, is_failure
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -682,12 +720,13 @@ def main() -> None:
     # 4. converging solve at 8x8x8 ----------------------------------------
     def counted(prob):
         """The problem with its global operators — `op`, and `op_lo` of a
-        bf16_x32 problem — counting their applications."""
+        bf16_x32 problem — counting their applications (once per replay
+        of a captured chunk that holds one, as the launches count)."""
         box = {"op": 0, "op_lo": 0}
 
         def counting(name, fn):
             def op(x):
-                box[name] += 1
+                graphs.count(box, name)
                 return fn(x)
             return op
         prob = prob._replace(op=counting("op", prob.op))
@@ -696,25 +735,29 @@ def main() -> None:
         return prob, box
 
     def timed_solves(prob, box, variant, backend, b, tol, max_iter,
-                     repeats):
-        """`repeats` solves of b, after one warm-up solve when repeats > 1.
-        Every count is set to 0 just before each solve and read just after
-        it: through the kernels, one launch of the fp32 entry point per
-        application of `op` and one of the bf16 entry point per application
-        of `op_lo`; through the reference backend, none.  Returns the last
-        result, the wall times and the launch counts."""
-        if repeats > 1:
-            nekbone.solve(prob, b, tol=tol, max_iter=max_iter)    # warm-up
-        walls = []
+                     repeats, capture=None, warmup=True):
+        """`repeats` solves of b (captured unless `capture` is False),
+        after one warm-up solve when `warmup` and repeats > 1.  Every count
+        is set to 0 just before each solve and read just after it: through
+        the kernels, one launch of the fp32 entry point per application of
+        `op` and one of the bf16 entry point per application of `op_lo`;
+        through the reference backend, none.  Returns the last result, the
+        wall times, the launch counts and the peak memory allocated."""
+        if warmup and repeats > 1:
+            nekbone.solve(prob, b, tol=tol, max_iter=max_iter,
+                          capture=capture)                        # warm-up
+        walls, peak = [], 0
         for _ in range(repeats):
             torch.cuda.synchronize()
             box["op"] = box["op_lo"] = 0
             ops.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            res = nekbone.solve(prob, b, tol=tol, max_iter=max_iter)
+            res = nekbone.solve(prob, b, tol=tol, max_iter=max_iter,
+                                capture=capture)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+            peak = max(peak, torch.cuda.max_memory_allocated())
             launches = dict(ops.launch_counts)
             want = dict.fromkeys(launches, 0)
             if backend == "cuda":
@@ -724,26 +767,93 @@ def main() -> None:
                     (prob.op_lo is None or box["op_lo"] > 0),
                     f"{variant}/{backend}: launches {launches} for the "
                     f"operator applications {box}")
-        return res, walls, launches
+        return res, walls, launches, peak
+
+    def in_turns(prob, box, variant, b, tol, max_iter):
+        """The captured solve and the explicit eager solve of one problem
+        through the kernels, in turns — eager, captured, captured, eager,
+        TURN_REPEATS timed solves a turn (`timed_solves`) — after one
+        warm-up solve of each (the captured one captures the loops).
+        Returns per mode the last result, every wall, the launches, the
+        applications and the peak memory; and the graph counts: loops
+        captured by the first captured solve, captured again by the timed
+        ones (0 when the cache works), replays, capture times."""
+        cache = prob.graphs
+        for capture in (False, True):
+            nekbone.solve(prob, b, tol=tol, max_iter=max_iter,
+                          capture=capture)
+        torch.cuda.synchronize()
+        first, replays0 = cache.captures, cache.replays
+        out = {mode: {"walls": [], "peak": 0}
+               for mode in ("eager", "captured")}
+        for capture in (False, True, True, False):
+            o = out["captured" if capture else "eager"]
+            o["res"], walls, o["launches"], peak = timed_solves(
+                prob, box, variant, "cuda", b, tol, max_iter, TURN_REPEATS,
+                capture=capture, warmup=False)
+            o["walls"] += walls
+            o["peak"] = max(o["peak"], peak)
+            o["applications"] = dict(box)
+        return out, {"captured_by_first_solve": first,
+                     "captured_by_repeats": cache.captures - first,
+                     "replays": cache.replays - replays0,
+                     "capture_ms": [1e3 * t for t in cache.capture_seconds],
+                     "memory_reserved": torch.cuda.memory_reserved()}
+
+    def graph_row(what, out, ginfo):
+        """The captured against the eager solve of `in_turns`: the same
+        statuses and iterations, x bitwise equal, nothing captured again;
+        ms per (largest column's) iteration, median and quartiles, of
+        both, replays per iteration, peak memory of both."""
+        cap, eag = out["captured"]["res"], out["eager"]["res"]
+        iters = int(cap.iterations.max())
+        rel = float((cap.x - eag.x).abs().max() / eag.x.abs().max())
+        bitwise = torch.equal(cap.x, eag.x)
+        require(torch.equal(cap.status, eag.status) and
+                torch.equal(cap.iterations, eag.iterations),
+                f"{what}: captured {cap.status.tolist()} / "
+                f"{cap.iterations.tolist()} against eager "
+                f"{eag.status.tolist()} / {eag.iterations.tolist()}")
+        require(bitwise, f"{what}: captured x differs from eager x, "
+                f"max rel {rel:.3e}")
+        require(ginfo["captured_by_first_solve"] >= 1 and
+                ginfo["captured_by_repeats"] == 0,
+                f"{what}: graph counts {ginfo}")
+        qc = quartiles(out["captured"]["walls"], iters)
+        qe = quartiles(out["eager"]["walls"], iters)
+        return {"status": [SolveStatus(int(c)).name
+                           for c in cap.status.reshape(-1)],
+                "iterations": cap.iterations.reshape(-1).tolist(),
+                "x_bitwise_equal": bitwise, "x_max_rel_diff": rel,
+                "ms_per_iteration": {"captured": qc[1], "eager": qe[1]},
+                "ms_per_iteration_q1_q3": {"captured": [qc[0], qc[2]],
+                                           "eager": [qe[0], qe[2]]},
+                "speedup_median": qe[1] / qc[1],
+                "solves_timed": len(out["captured"]["walls"]),
+                "replays_per_iteration": ginfo["replays"] / (
+                    len(out["captured"]["walls"]) * max(iters, 1)),
+                "max_memory_allocated": {"captured": out["captured"]["peak"],
+                                         "eager": out["eager"]["peak"]},
+                **ginfo}
 
     def quartiles(walls, iters):
         """q1, median, q3 of the ms per iteration over the timed solves."""
         ms = sorted(w * 1e3 / max(iters, 1) for w in walls)
         return statistics.quantiles(ms, n=4) if len(ms) > 1 else [ms[0]] * 3
 
-    def run_solve(mesh, variant, backend, tol, max_iter, helm=False,
-                  repeats=1):
-        """The manufactured-solution solve of one problem, `repeats` times
-        (see `timed_solves`)."""
+    def manufactured(mesh, variant, backend, helm=False):
+        """One problem (counting its operator's applications), its
+        manufactured solution and right-hand side."""
         prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
                                      backend=backend)
         require(prob.backend == backend, f"backend {prob.backend} != "
                 f"{backend}")
         prob, box = counted(prob)
         x_true = nekbone.random_solution(prob, seed=0)
-        b = nekbone.rhs_from_solution(prob, x_true)
-        res, walls, launches = timed_solves(prob, box, variant, backend, b,
-                                            tol, max_iter, repeats)
+        return prob, box, x_true, nekbone.rhs_from_solution(prob, x_true)
+
+    def solve_record(prob, variant, backend, helm, x_true, res, walls,
+                     launches, applications, peak):
         iters = int(res.iterations)
         q = quartiles(walls, iters)
         out = {"variant": variant, "backend": backend,
@@ -751,13 +861,23 @@ def main() -> None:
                "status": SolveStatus(int(res.status)).name,
                "iterations": iters, "residual": float(res.residual),
                "error": nekbone.manufactured_error(prob, res.x, x_true),
-               "applications": box["op"],
+               "applications": applications["op"],
                "launches": launches[entry(variant, "f32")],
                "solves_timed": len(walls), "ms_per_iteration": q[1],
                "ms_per_iteration_q1": q[0], "ms_per_iteration_q3": q[2],
-               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+               "max_memory_allocated": peak}
         require(bool(torch.isfinite(res.x).all()), f"{out}: non-finite x")
         return out
+
+    def run_solve(mesh, variant, backend, tol, max_iter, helm=False):
+        """The manufactured-solution solve of one problem, captured (see
+        `timed_solves`)."""
+        prob, box, x_true, b = manufactured(mesh, variant, backend, helm)
+        res, walls, launches, peak = timed_solves(prob, box, variant,
+                                                  backend, b, tol, max_iter,
+                                                  1)
+        return solve_record(prob, variant, backend, helm, x_true, res, walls,
+                            launches, box, peak)
 
     conv_box = mesh_gen.box_mesh(8, 8, 8, CONFIG.order)
     conv_box5 = mesh_gen.box_mesh(8, 8, 8, GENERIC_MAIN_ORDER)
@@ -811,14 +931,13 @@ def main() -> None:
           "solves": conv})
 
     # 4b. the bf16_x32 refined solve at 8x8x8 ------------------------------
-    def run_refined(mesh, variant, backend, tol, nrhs=1, helm=False,
-                    dirichlet=True, repeats=1, precision="bf16_x32",
-                    plain=None):
-        """The Dirichlet (or unmasked) solve of `nekbone.random_rhs`,
-        `repeats` times (see `timed_solves`), with the fp32 true residual
-        of each column; `precision=None` is the plain fp32 solve of the
-        same b, and `plain` builds the reference backend on that stand-in
-        for the plain version (see `rounding_witness`)."""
+    def refined_problem(mesh, variant, backend, nrhs=1, helm=False,
+                        dirichlet=True, precision="bf16_x32", plain=None):
+        """The Dirichlet (or unmasked) problem of `nekbone.random_rhs`,
+        counting its operators' applications; `precision=None` is the
+        plain fp32 problem, and `plain` builds the reference backend on
+        that stand-in for the plain version (see `rounding_witness`).
+        Returns the problem, its counts, b and the fp32 operator."""
         with plain_version(plain):
             prob = nekbone.setup_problem(mesh, variant=variant,
                                          helmholtz=helm, dirichlet=dirichlet,
@@ -828,9 +947,11 @@ def main() -> None:
                 f"{backend}")
         op = prob.op
         prob, box = counted(prob)
-        b = nekbone.random_rhs(prob, nrhs=nrhs)
-        res, walls, launches = timed_solves(prob, box, variant, backend, b,
-                                            tol, REFINED_MAX_ITER, repeats)
+        return prob, box, nekbone.random_rhs(prob, nrhs=nrhs), op
+
+    def refined_record(variant, backend, tol, nrhs, helm, dirichlet,
+                       precision, b, op, res, walls, launches, applications,
+                       peak):
         require(bool(torch.isfinite(res.x).all()),
                 f"{variant}/{backend}: non-finite x")
         iters = res.iterations.reshape(-1).tolist()
@@ -839,55 +960,58 @@ def main() -> None:
                 "precision": precision or "fp32", "nrhs": nrhs, "tol": tol,
                 "equation": "helmholtz" if helm else "poisson",
                 "dirichlet": dirichlet,
-                "deterministic": torch.are_deterministic_algorithms_enabled(),
                 "status": [SolveStatus(int(c)).name
                            for c in res.status.reshape(-1)],
                 "iterations": iters,
                 "true_residual": torch.linalg.norm(
                     b - op(res.x), dim=0).reshape(-1).tolist(),
-                "applications": dict(box),
+                "applications": dict(applications),
                 "launches": {k: v for k, v in launches.items() if v},
                 "solves_timed": len(walls), "ms_per_iteration": q[1],
                 "ms_per_iteration_q1": q[0], "ms_per_iteration_q3": q[2],
                 "wall_s": statistics.median(walls),
-                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+                "max_memory_allocated": peak}
 
-    @contextlib.contextmanager
-    def deterministic():
-        """The gather's sums in a fixed order: a solve repeats exactly."""
-        torch.use_deterministic_algorithms(True)
-        try:
-            yield
-        finally:
-            torch.use_deterministic_algorithms(False)
+    def run_refined(mesh, variant, backend, tol, nrhs=1, helm=False,
+                    dirichlet=True, repeats=1, precision="bf16_x32",
+                    plain=None, capture=None):
+        """The refined (or fp32) solve of `refined_problem`, `repeats`
+        times (see `timed_solves`), with the fp32 true residual of each
+        column."""
+        prob, box, b, op = refined_problem(mesh, variant, backend, nrhs,
+                                           helm, dirichlet, precision, plain)
+        res, walls, launches, peak = timed_solves(
+            prob, box, variant, backend, b, tol, REFINED_MAX_ITER, repeats,
+            capture=capture)
+        return refined_record(variant, backend, tol, nrhs, helm, dirichlet,
+                              precision, b, op, res, walls, launches, box,
+                              peak)
 
     def ensemble(mesh, variant, tol, **kw):
-        """The plain version's roundings of one refined solve, with the
-        gather's sums in a fixed order: the reference backend first, then
-        `witnesses()`."""
+        """The plain version's roundings of one refined solve: the
+        reference backend first, then `witnesses()`.  Run eagerly: the
+        re-rounding witnesses draw from their own generators, which a
+        captured chunk would not advance."""
         members = []
         for name, fn in [("reference", None)] + witnesses():
             run = run_refined(mesh, variant, "reference", tol, plain=fn,
-                              **kw)
+                              capture=False, **kw)
             members.append({"member": name, **{
                 key: run[key] for key in ("status", "iterations",
                                           "true_residual")}})
         return members
 
-    def judge(what, k, k_det, members, tol):
-        """The kernels' solves against the plain version's ensemble: the
-        deterministic one within `ensemble_verdict`, the status of the one
-        in the mode users run among the members' statuses, and every fp32
-        true residual within 1.5 tol wherever a column CONVERGED.  Returns
-        the per-column robustness of the ensemble."""
-        problems, robust = ensemble_verdict(k_det, members)
+    def judge(what, k, members, tol):
+        """The kernels' solve against the plain version's ensemble: within
+        `ensemble_verdict` (the gather sums in a fixed order, so the solve
+        users run is the one that repeats exactly), and every fp32 true
+        residual within 1.5 tol wherever a column CONVERGED.  Returns the
+        per-column robustness of the ensemble."""
+        problems, robust = ensemble_verdict(k, members)
         require(not problems, f"{what}: the kernels' solve against the "
-                f"plain version's roundings: {problems}: {k_det} vs "
+                f"plain version's roundings: {problems}: {k} vs "
                 f"{members}")
-        for c, st in enumerate(k["status"]):
-            require(st in [m["status"][c] for m in members],
-                    f"{what}: column {c} ends {st}: {k} vs {members}")
-        for run in [k, k_det] + members:
+        for run in [k] + members:
             for st, true in zip(run["status"], run["true_residual"]):
                 require(st != "CONVERGED" or true <= 1.5 * tol,
                         f"{what}: true residual {true} > 1.5 tol: {run}")
@@ -941,28 +1065,23 @@ def main() -> None:
         mesh = conv_meshes[mesh_name]
         kw = {"nrhs": nrhs, "helm": helm, "dirichlet": dirichlet}
         k = run_refined(mesh, variant, "cuda", tol, **kw)  # as users run it
-        with deterministic():
-            k_det = run_refined(mesh, variant, "cuda", tol, **kw)
-            members = ensemble(mesh, variant, tol, **kw)
-            key = f"{variant}/{mesh_name}/" \
-                  f"{'helmholtz' if helm else 'poisson'}/" \
-                  f"{'dirichlet' if dirichlet else 'unmasked'}"
-            if key not in ulps_8:
-                ulps_8[key] = op_lo_ulps(mesh, variant, helm, dirichlet)
-        robust = judge(f"8^3 {name}", k, k_det, members, tol)
-        refined8[name] = {"kernel": k, "kernel_deterministic": k_det,
-                          "ensemble": members, "robust": robust,
-                          "mesh": mesh_name}
+        members = ensemble(mesh, variant, tol, **kw)
+        key = f"{variant}/{mesh_name}/" \
+              f"{'helmholtz' if helm else 'poisson'}/" \
+              f"{'dirichlet' if dirichlet else 'unmasked'}"
+        if key not in ulps_8:
+            ulps_8[key] = op_lo_ulps(mesh, variant, helm, dirichlet)
+        robust = judge(f"8^3 {name}", k, members, tol)
+        refined8[name] = {"kernel": k, "ensemble": members,
+                          "robust": robust, "mesh": mesh_name}
     for name, columns in MUST_CONVERGE_8.items():
         case = refined8[name]
-        for run in (case["kernel"], case["kernel_deterministic"],
-                    case["ensemble"][0]):
+        for run in (case["kernel"], case["ensemble"][0]):
             require(all(run["status"][c] == "CONVERGED" for c in columns),
                     f"8^3 bf16_x32 {name} at tol 0.03: {run}")
     for name in ("trilinear/tol1e-4", "trilinear/helmholtz_unmasked"):
         case = refined8[name]
-        for run in (case["kernel"], case["kernel_deterministic"],
-                    case["ensemble"][0]):
+        for run in (case["kernel"], case["ensemble"][0]):
             require(run["status"] == ["STAGNATED"],
                     f"8^3 bf16_x32 {name}: {run}")
     # the bf16 kernels of the other variants run on these 8^3 solves
@@ -977,14 +1096,11 @@ def main() -> None:
         mesh = conv_meshes[mesh_name]
         kw = {"helm": MAIN_HELMHOLTZ[variant]}
         k = run_refined(mesh, variant, "cuda", 0.03, **kw)
-        with deterministic():
-            k_det = run_refined(mesh, variant, "cuda", 0.03, **kw)
-            members = ensemble(mesh, variant, 0.03, **kw)
-        robust = judge(f"8^3 order {GENERIC_MAIN_ORDER} {variant}", k, k_det,
+        members = ensemble(mesh, variant, 0.03, **kw)
+        robust = judge(f"8^3 order {GENERIC_MAIN_ORDER} {variant}", k,
                        members, 0.03)
-        refined5[variant] = {"kernel": k, "kernel_deterministic": k_det,
-                             "ensemble": members, "robust": robust,
-                             "mesh": mesh_name}
+        refined5[variant] = {"kernel": k, "ensemble": members,
+                             "robust": robust, "mesh": mesh_name}
     emit({"phase": "refine_generic", "mesh": "8x8x8",
           "order": GENERIC_MAIN_ORDER, "dofs": conv_box5.n_global,
           "tol": 0.03, "solves": refined5})
@@ -999,18 +1115,28 @@ def main() -> None:
           "solves": refined8})
 
     # 5. the config, through the kernels (the main path) -------------------
-    # Every variant's main path: the kernel-backend solves are timed
-    # SOLVE_REPEATS times (median and quartiles); the slow reference-backend
+    # Every variant's main path: the captured kernel-backend solve in turns
+    # with the same solve run eagerly (`in_turns`, median and quartiles of
+    # each; the captured one is the main path); the slow reference-backend
     # solve runs once, for its status, iterations and residual.  K2 runs
     # twice: Poisson (the config's own equation) and Helmholtz, K4's
     # yardstick.
     cfg_runs = [(v, MAIN_HELMHOLTZ[v]) for v in VARIANTS] + \
         [("trilinear", True)]
-    config = {}
+    config, graph_rows = {}, {}
     for variant, helm in cfg_runs:
         mesh = cfg_mesh_for(variant)
-        k = run_solve(mesh, variant, "cuda", CONFIG.tol, CONFIG.max_iter,
-                      helm=helm, repeats=SOLVE_REPEATS)
+        prob, box, x_true, b = manufactured(mesh, variant, "cuda", helm)
+        out, ginfo = in_turns(prob, box, variant, b, CONFIG.tol,
+                              CONFIG.max_iter)
+        cap = out["captured"]
+        k = solve_record(prob, variant, "cuda", helm, x_true, cap["res"],
+                         cap["walls"], cap["launches"], cap["applications"],
+                         cap["peak"])
+        key = f"{variant}/{k['equation']}"
+        graph_rows[f"16^3 fp32 {key}"] = graph_row(f"16^3 {key}", out,
+                                                   ginfo)
+        del prob, box, b, out
         r = run_solve(mesh, variant, "reference", CONFIG.tol,
                       CONFIG.max_iter, helm=helm)
         require(k["status"] == r["status"] and
@@ -1023,7 +1149,7 @@ def main() -> None:
         flops = nekbone.flop_count(mesh, 1, helm, 1)
         k["GFLOPS"] = flops / k["ms_per_iteration"] / 1e6
         k["GDOFS"] = mesh.n_global / k["ms_per_iteration"] / 1e6
-        config[f"{variant}/{k['equation']}"] = {
+        config[key] = {
             "kernel": k, "reference": r, "residual_rel_diff": rdiff,
             "mesh": "affine" if variant == "parallelepiped" else "trilinear"}
     emit({"phase": "config", "mesh": "x".join(map(str, CONFIG.elements)),
@@ -1033,27 +1159,38 @@ def main() -> None:
     # 5b. the bf16 slice's main path: bf16_x32 on the config ---------------
     # The config's trilinear Dirichlet Poisson, b as in 4b, at nrhs 1 and
     # 4: the single-sweep tolerance 3.0 (0.1 |b|), 0.03 and 1e-4.  The
-    # bf16_x32 and fp32 kernel solves are timed REFINED_REPEATS times; the
-    # fixed-order kernel solve and the plain version's ensemble run once.
+    # bf16_x32 and fp32 kernel solves are timed REFINED_REPEATS times, at
+    # tol 3.0 the bf16_x32 one in turns with its eager twin (`in_turns`);
+    # the plain version's ensemble runs once.
     cfg_tri = cfg_mesh_for("trilinear")
     config_bf16 = {}
     for nrhs, tol in CONFIG_BF16_RUNS:
-        k = run_refined(cfg_tri, "trilinear", "cuda", tol, nrhs,
-                        repeats=REFINED_REPEATS)
+        if tol == 3.0:
+            prob, box, b, op = refined_problem(cfg_tri, "trilinear", "cuda",
+                                               nrhs)
+            out, ginfo = in_turns(prob, box, "trilinear", b, tol,
+                                  REFINED_MAX_ITER)
+            cap = out["captured"]
+            k = refined_record("trilinear", "cuda", tol, nrhs, False, True,
+                               "bf16_x32", b, op, cap["res"], cap["walls"],
+                               cap["launches"], cap["applications"],
+                               cap["peak"])
+            graph_rows[f"16^3 bf16_x32 nrhs={nrhs} tol=3.0"] = graph_row(
+                f"16^3 bf16_x32 nrhs={nrhs}", out, ginfo)
+            del prob, box, b, out
+        else:
+            k = run_refined(cfg_tri, "trilinear", "cuda", tol, nrhs,
+                            repeats=REFINED_REPEATS)
         f = run_refined(cfg_tri, "trilinear", "cuda", tol, nrhs,
                         repeats=REFINED_REPEATS, precision=None)
-        with deterministic():
-            k_det = run_refined(cfg_tri, "trilinear", "cuda", tol, nrhs)
-            members = ensemble(cfg_tri, "trilinear", tol, nrhs=nrhs)
-        robust = judge(f"16^3 nrhs={nrhs} tol={tol}", k, k_det, members,
-                       tol)
+        members = ensemble(cfg_tri, "trilinear", tol, nrhs=nrhs)
+        robust = judge(f"16^3 nrhs={nrhs} tol={tol}", k, members, tol)
         if tol == 3.0:
             require(set(k["status"]) == {"CONVERGED"} and
                     max(k["true_residual"]) <= 4.5,
                     f"16^3 bf16_x32 at tol 3.0: {k}")
         config_bf16[f"nrhs={nrhs} tol={tol}"] = {
-            "kernel": k, "fp32": f, "kernel_deterministic": k_det,
-            "ensemble": members, "robust": robust}
+            "kernel": k, "fp32": f, "ensemble": members, "robust": robust}
     bf16_launches["trilinear"] = \
         config_bf16["nrhs=1 tol=3.0"]["kernel"]["launches"][
             entry("trilinear", "bf16")]
@@ -1066,6 +1203,119 @@ def main() -> None:
                               "iteration count (inner iterations for "
                               "bf16_x32)",
           "solves": config_bf16})
+
+    # 5c. graph: the captured solves against their eager twins -----------
+    emit({"phase": "graph", "card": card,
+          "turns": f"eager, captured, captured, eager; {TURN_REPEATS} timed "
+                   f"solves a turn after one warm-up solve of each mode",
+          "check_every": "one graph replay a chunk of 8 loop bodies",
+          "solves": graph_rows})
+
+    # 5d. reproducible: one outcome in REPRODUCIBLE_RUNS refined solves ----
+    # The 8^3 bf16_x32 parallelepiped solve sits at the edge of
+    # refinement's envelope, where the order of the gather's sums decided
+    # the outcome while they were atomic.  Runs on two problems (each
+    # captures its own graphs) and must agree bitwise.
+    runs = []
+    for trial in range(REPRODUCIBLE_RUNS):
+        if trial % (REPRODUCIBLE_RUNS // 2) == 0:
+            prob = nekbone.setup_problem(conv_meshes["affine"],
+                                         variant="parallelepiped",
+                                         backend="cuda", precision="bf16_x32")
+            b = nekbone.random_rhs(prob)
+        runs.append(nekbone.solve(prob, b, tol=0.03,
+                                  max_iter=REFINED_MAX_ITER))
+    outcomes = {(SolveStatus(int(r.status)).name, int(r.iterations))
+                for r in runs}
+    same_x = all(torch.equal(r.x, runs[0].x) for r in runs)
+    emit({"phase": "reproducible", "mesh": "8x8x8 affine",
+          "solve": "bf16_x32 parallelepiped, tol 0.03, random_rhs",
+          "runs": REPRODUCIBLE_RUNS, "outcomes": sorted(outcomes),
+          "x_bitwise_equal": same_x, "captures": prob.graphs.captures})
+    require(len(outcomes) == 1 and same_x,
+            f"8^3 bf16_x32 parallelepiped: {sorted(outcomes)} over "
+            f"{REPRODUCIBLE_RUNS} runs, x bitwise equal: {same_x}")
+    del runs, prob, b
+
+    # 5e. resilience: faults inside captured chunks, the retry ladder -----
+    res_mesh = conv_meshes["trilinear"]
+    prob, _, _, b = manufactured(res_mesh, "trilinear", "cuda")
+    tol_r, mi_r = 1e-6, 1000
+    clean = nekbone.solve(prob, b, tol=tol_r, max_iter=mi_r)
+    nan = nekbone.solve(prob, b, tol=tol_r, max_iter=mi_r,
+                        fault=FaultSpec(mode="nan", iteration=3))
+    flip = nekbone.solve(prob, b, tol=tol_r, max_iter=mi_r,
+                         fault=FaultSpec(mode="bitflip", iteration=2),
+                         stagnation_window=15)
+    reports = {
+        "clean": solve_resilient(prob, b, tol=tol_r, max_iter=mi_r),
+        "transient": solve_resilient(
+            prob, b, tol=tol_r, max_iter=mi_r,
+            fault=FaultSpec(mode="nan", iteration=5), persistent=False),
+        # the default policy has no backend rung: the kernels' failure
+        # stands; asked for, the rung answers with the plain version
+        "persistent_default": solve_resilient(
+            prob, b, tol=tol_r, max_iter=mi_r,
+            fault=FaultSpec(mode="nan", iteration=3), persistent=True),
+        "persistent": solve_resilient(
+            prob, b, RetryPolicy(backend_fallback=True), tol=tol_r,
+            max_iter=mi_r, fault=FaultSpec(mode="nan", iteration=3),
+            persistent=True)}
+    block = nekbone.setup_problem(res_mesh, variant="trilinear",
+                                  backend="cuda", nrhs=4)
+    bs = nekbone.rhs_from_solution(block, nekbone.random_solution(
+        block, seed=1, nrhs=4))
+    hit = nekbone.solve(block, bs, tol=tol_r, max_iter=mi_r,
+                        fault=FaultSpec(mode="nan", iteration=2, column=1))
+    unhit = nekbone.solve(block, bs, tol=tol_r, max_iter=mi_r)
+    resilience = {
+        "clean": [SolveStatus(int(clean.status)).name,
+                  int(clean.iterations)],
+        "nan@3": [SolveStatus(int(nan.status)).name, int(nan.iterations)],
+        "bitflip@2": [SolveStatus(int(flip.status)).name,
+                      int(flip.iterations)],
+        "batched_nan@2_column1": {
+            "status": [SolveStatus(int(c)).name for c in hit.status],
+            "iterations": hit.iterations.tolist(),
+            "clean_iterations": unhit.iterations.tolist()},
+        "captures": prob.graphs.captures + block.graphs.captures,
+        "replays": prob.graphs.replays + block.graphs.replays}
+    for name, rep in reports.items():
+        resilience[name] = {
+            "converged": rep.converged, "rung": list(rep.rung),
+            "attempts": [[a.rung, [SolveStatus(int(c)).name
+                                   for c in a.status],
+                          a.iterations.tolist(), a.true_residual.tolist()]
+                         for a in rep.attempts]}
+    emit({"phase": "resilience", "mesh": "8x8x8", "order": CONFIG.order,
+          "tol": tol_r, "solves": resilience})
+    require(SolveStatus(int(nan.status)) is SolveStatus.DIVERGED and
+            int(nan.iterations) == 3 and bool(torch.isfinite(nan.x).all()),
+            f"nan@3: {resilience['nan@3']}")
+    require(bool(is_failure(flip.status)), f"bitflip: {resilience}")
+    require(reports["clean"].converged and
+            [a.rung for a in reports["clean"].attempts] == ["initial"],
+            f"clean resilient solve: {resilience['clean']}")
+    require(reports["transient"].converged and
+            reports["transient"].rung == ("restart",),
+            f"transient fault: {resilience['transient']}")
+    require(not reports["persistent_default"].converged and
+            [a.rung for a in reports["persistent_default"].attempts] ==
+            ["initial", "restart"],
+            f"persistent fault, default policy: "
+            f"{resilience['persistent_default']}")
+    require(reports["persistent"].converged and
+            reports["persistent"].rung == ("backend:reference",) and
+            [a.rung for a in reports["persistent"].attempts] ==
+            ["initial", "restart", "backend:reference"],
+            f"persistent fault: {resilience['persistent']}")
+    require(hit.status.tolist() == [0, 2, 0, 0] and
+            int(hit.iterations[1]) == 2 and
+            hit.iterations[[0, 2, 3]].tolist() ==
+            unhit.iterations[[0, 2, 3]].tolist(),
+            f"batched fault: {resilience['batched_nan@2_column1']}")
+    del prob, b, block, bs
+    torch.cuda.empty_cache()
 
     # 6. kernel times -------------------------------------------------------
     def event_ms(fn, reps, warmup):
@@ -1202,7 +1452,57 @@ def main() -> None:
         k["axhelm_share"] = (timing[entry(variant, "f32")]["e4096"]["ms"]
                              * k["applications"]
                              / (k["ms_per_iteration"] * k["iterations"]))
+    # the gather and scatter of the global operator at 16^3 (E = 4096,
+    # N1 = 8), c = 1 and 4 columns, on the element kernels' (E, c, N1^3)
+    # layout, each a CUDA graph of 50 calls; the gather in turns with the
+    # index_add_ (atomics) it replaced; bound: each value read once and
+    # written once
+    ng = cfg_box.n_global
+    ids = torch.as_tensor(cfg_box.global_ids, dtype=torch.int64, device=dev)
+    plan = gs.gather_plan(cfg_box.global_ids, ng, dev)
+    gather_t = {}
+    for ncols in (1, 4):
+        yl = torch.as_tensor(rng.standard_normal(
+            (e_main, ncols) + (n1,) * 3), dtype=torch.float32, device=dev)
+        xg = torch.as_tensor(rng.standard_normal((ng, ncols)),
+                             dtype=torch.float32, device=dev)
+
+        def fixed():
+            if ncols == 1:
+                return gs.gather(yl[:, 0], ids, ng, plan)
+            return gs.gather_columns(yl, plan)
+
+        def atomics():
+            out = torch.zeros((ng, ncols), device=dev)
+            out.index_add_(0, ids.reshape(-1),
+                           torch.movedim(yl, 1, -1).reshape(-1, ncols))
+            return out[:, 0] if ncols == 1 else out
+
+        def scatter():
+            if ncols == 1:
+                return gs.scatter(xg[:, 0], ids)
+            return gs.scatter_columns(xg, ids)
+        turns = [graph_ms(fn) for fn in (atomics, fixed, fixed, atomics)]
+        nbytes = 4 * ncols * (e_main * n1 ** 3 + ng)
+        first = fixed()
+        gather_t[f"c{ncols}"] = {
+            "ms": (turns[1] + turns[2]) / 2,
+            "index_add_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns,
+            "scatter_ms": graph_ms(scatter),
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "repeats_bitwise": all(torch.equal(fixed(), first)
+                                   for _ in range(3)),
+            "max_abs_diff_index_add": float((first - atomics()).abs().max())}
+        require(gather_t[f"c{ncols}"]["repeats_bitwise"],
+                f"the gather is not bitwise reproducible: {gather_t}")
+        del yl, xg
+    plan_bytes = sum(t.numel() * t.element_size()
+                     for t in (plan.perm, plan.inv))
+    del ids, plan
     emit({"phase": "timing", "card": card,
+          "gather": {"plan_bytes": plan_bytes,
+                     "classes": "dofs by multiplicity 1, 2, 4, 8",
+                     **gather_t},
           "ms": "CUDA graph of 50 calls, median of 5 replays; K1-K5: "
                 "the mean of two such medians, in turns with their "
                 "one-thread-per-node body (ms_rowwise, turns_ms: old, new, "

@@ -6,7 +6,8 @@ repository (e.g. a `git archive` of an earlier commit unpacked into a
 gitignored directory, and the working tree), each in a process of its own
 with the tree's `src` first on the path, in the order old, new, new, old.
 Each process builds its tree's kernels (cached under the tree's `build/`),
-then for each of the six main paths (the five variants on their main
+then for each of the six main paths (as the tree runs them: a tree with
+`repro_torch.core.graphs` replays its PCG loops as CUDA graphs) (the five variants on their main
 equation, and trilinear Helmholtz) sets up the 16^3 N=7 problem of
 `configs/nekbone.py` through the kernels, solves it once to warm up and
 times 7 solves (host clock around each solve, ending in `synchronize()`):
@@ -49,6 +50,11 @@ def worker(tree: Path) -> dict:
     from repro_torch.core.spectral import basis
     from repro_torch.kernels.axhelm import build, ops
     from repro_torch.resilience.status import SolveStatus
+    try:    # a tree whose launches count once per graph replay
+        from repro_torch.core.graphs import count
+    except ImportError:
+        def count(counter, key):
+            counter[key] += 1
 
     t0 = time.perf_counter()
     build.library()
@@ -66,7 +72,7 @@ def worker(tree: Path) -> dict:
         op = prob.op
 
         def counted(x, _op=op):
-            applications["n"] += 1
+            count(applications, "n")
             return _op(x)
         prob = prob._replace(op=counted)
         b = nekbone.rhs_from_solution(prob,

@@ -4,18 +4,90 @@ Q is the sparse binary global-to-local matrix (Eq. 2); it is never built.
   scatter (Q):   global field (Ng[, d])            -> local (E, N1,N1,N1[, d])
   gather  (Q^T): local  (E, N1,N1,N1[, d])         -> global (Ng[, d]) sum
 
-The reference package leaves these to XLA; the port uses stock
-`index_select` and `index_add_`.  On CUDA `index_add_` sums with atomics, so
-the order in which the (up to 8) element contributions to a shared dof are
-added changes from run to run: the sum is exact to fp32 rounding but not
-bitwise reproducible.  The sharded exchange is not ported yet.
+The reference package leaves the gather to XLA (`segment_sum`), which on
+the CPU adds each dof's contributions one after another in ascending
+local-node order.  The port sums in that order on every device, so that a
+gather gives the same bits in every run, on the card and on the CPU, and
+the reference's bits on the CPU: a `GatherPlan`, built once from the
+global numbering, groups the dofs by multiplicity m (how many element
+nodes share the dof: 1 inside an element, 2 on a face, 4 on an edge, 8 at
+a vertex of a box mesh) and lists each dof's m local nodes in ascending
+order; the gather reads them with one `torch.gather` and adds each
+group's m values left to right (`ordered_sum`) — stock ops, no atomics.
+A field with trailing components (d, or an RHS batch) is gathered, and in
+the global operator also scattered (`scatter_columns`, `gather_columns`),
+column by column from a column-major copy, so that every read and write
+of the index gathers runs along contiguous memory: on CUDA, gathering rows
+of a few components (`index_select`, indexing, or `torch.gather` with a
+broadcast index) ran up to 25x slower (PERF.md).  The sharded exchange is
+not ported yet.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
+import numpy as np
 import torch
 
-__all__ = ["scatter", "gather", "dssum", "multiplicity"]
+__all__ = ["GatherPlan", "gather_plan", "ordered_sum", "scatter", "gather",
+           "scatter_columns", "gather_columns", "dssum", "multiplicity"]
+
+
+class GatherPlan(NamedTuple):
+    """The order of the gather's sums, on the device of its tensors.
+
+    perm:    (E N1^3,) local node positions (flat index into global_ids),
+             grouped by their dof's multiplicity (ascending), dof after dof
+             (ascending) within a group, and ascending within a dof.
+    inv:     (Ng,) each dof's row in the groups' concatenated sums.
+    classes: ((m, dofs with multiplicity m), ...), ascending m.
+    """
+
+    perm: torch.Tensor
+    inv: torch.Tensor
+    classes: tuple
+
+
+def gather_plan(global_ids, n_global: int, device=None) -> GatherPlan:
+    """Build the gather's plan from the numbering (numpy, at setup)."""
+    ids = np.asarray(global_ids.cpu() if isinstance(global_ids, torch.Tensor)
+                     else global_ids).reshape(-1).astype(np.int64)
+    if device is None:
+        device = global_ids.device if isinstance(global_ids, torch.Tensor) \
+            else torch.device("cpu")
+    counts = np.bincount(ids, minlength=n_global)
+    # stable: equal dofs keep their ascending positions
+    by_dof = np.argsort(ids, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    perm, order, classes = [], [], []
+    for m in np.unique(counts[counts > 0]):
+        dofs = np.nonzero(counts == m)[0]
+        perm.append(by_dof[starts[dofs][:, None] + np.arange(m)].reshape(-1))
+        order.append(dofs)
+        classes.append((int(m), len(dofs)))
+    order = np.concatenate(order)
+    inv = np.empty(n_global, dtype=np.int64)
+    inv[order] = np.arange(len(order))
+    return GatherPlan(torch.as_tensor(np.concatenate(perm), device=device),
+                      torch.as_tensor(inv, device=device), tuple(classes))
+
+
+def _dense(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`t` in `dtype`, contiguous: one copy where either differs, none
+    where neither does."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return torch.empty(t.shape, dtype=dtype, device=t.device).copy_(t)
+
+
+def ordered_sum(s: torch.Tensor) -> torch.Tensor:
+    """Sum the last axis of s left to right: ((s0 + s1) + s2) + ..., the
+    gather's order of addition."""
+    acc = s[..., 0]
+    for j in range(1, s.shape[-1]):
+        acc = acc + s[..., j]
+    return acc
 
 
 def scatter(x_global: torch.Tensor, global_ids: torch.Tensor) -> torch.Tensor:
@@ -23,9 +95,50 @@ def scatter(x_global: torch.Tensor, global_ids: torch.Tensor) -> torch.Tensor:
     return x_global[global_ids]
 
 
+def scatter_columns(x_global: torch.Tensor,
+                    global_ids: torch.Tensor) -> torch.Tensor:
+    """Q x for a field of c columns, (Ng, c) -> (E, c, N1,N1,N1): the
+    element kernels' layout, each column scattered from a column-major
+    copy.  The same values as `scatter` with the column axis moved."""
+    cols = x_global.shape[1]
+    local = torch.gather(_dense(x_global.t(), x_global.dtype), 1,
+                         global_ids.reshape(1, -1).expand(cols, -1))
+    return local.view((cols,) + tuple(global_ids.shape)).movedim(0, 1) \
+        .contiguous()
+
+
+def _gather_columns(vals: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
+    """(cols, E N1^3) contiguous -> (cols, Ng), in the plan's order."""
+    cols = vals.shape[0]
+    grouped = torch.gather(vals, 1, plan.perm.expand(cols, -1))
+    sums, start = [], 0
+    for m, n in plan.classes:
+        sums.append(ordered_sum(grouped[:, start:start + m * n].view(
+            cols, n, m)))
+        start += m * n
+    return torch.gather(torch.cat(sums, 1), 1, plan.inv.expand(cols, -1))
+
+
+def gather_columns(y_local: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
+    """Q^T y for the element kernels' layout, (E, c, N1,N1,N1) -> (Ng, c):
+    the same bits as `gather` of y with the column axis moved last."""
+    dt = y_local.dtype
+    vals = _dense(y_local.movedim(1, 0), _accumulation(dt))
+    out = _gather_columns(vals.view(y_local.shape[1], -1), plan)
+    return _dense(out.t(), dt)
+
+
+def _accumulation(dt: torch.dtype) -> torch.dtype:
+    """Sub-fp32 floats sum in fp32; other dtypes in themselves."""
+    if dt.is_floating_point and torch.finfo(dt).bits < 32:
+        return torch.float32
+    return dt
+
+
 def gather(y_local: torch.Tensor, global_ids: torch.Tensor,
-           n_global: int) -> torch.Tensor:
-    """Q^T y: sum element-local values into global dofs.
+           n_global: int, plan: Optional[GatherPlan] = None) -> torch.Tensor:
+    """Q^T y: sum element-local values into global dofs, in `plan`'s order
+    (built from `global_ids` when not given).
 
     `y_local` must be shaped like `global_ids` (scalar field) or like
     `global_ids` plus one trailing component axis (a d-vector field or an
@@ -44,15 +157,15 @@ def gather(y_local: torch.Tensor, global_ids: torch.Tensor,
             f"axes beyond global_ids; vector fields must pack components "
             f"into a single trailing axis (got shape {tuple(y_local.shape)} "
             f"vs ids {tuple(global_ids.shape)})")
+    if plan is None:
+        plan = gather_plan(global_ids, n_global, y_local.device)
     dt = y_local.dtype
-    acc_dt = torch.float32 if dt.is_floating_point and \
-        torch.finfo(dt).bits < 32 else dt
     trailing = tuple(y_local.shape[global_ids.ndim:])
-    vals = y_local.reshape((-1,) + trailing).to(acc_dt)
-    out = torch.zeros((n_global,) + trailing, dtype=acc_dt,
-                      device=y_local.device)
-    out.index_add_(0, global_ids.reshape(-1), vals)
-    return out.to(dt)
+    cols = int(np.prod(trailing))
+    # column-major (cols, E N1^3), in the accumulation dtype
+    vals = _dense(y_local.reshape(-1, cols).t(), _accumulation(dt))
+    out = _gather_columns(vals, plan)
+    return _dense(out.t().reshape((n_global,) + trailing), dt)
 
 
 def dssum(y_local: torch.Tensor, global_ids: torch.Tensor,
@@ -62,7 +175,8 @@ def dssum(y_local: torch.Tensor, global_ids: torch.Tensor,
 
 
 def multiplicity(global_ids: torch.Tensor, n_global: int) -> torch.Tensor:
-    """Number of elements sharing each global dof (gslib 'vmult')."""
+    """Number of elements sharing each global dof (gslib 'vmult').  Small
+    integers, exact in any order of addition."""
     ones = torch.ones(global_ids.numel(), dtype=torch.float32,
                       device=global_ids.device)
     out = torch.zeros(n_global, dtype=torch.float32, device=global_ids.device)

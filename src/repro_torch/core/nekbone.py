@@ -5,7 +5,10 @@ gather) into a global SPD operator on unique dofs and runs PCG, mirroring
 the Nekbone proxy app (Poisson with a Dirichlet mask, or Helmholtz, which
 is SPD without masking).  Single device: one right-hand side or a stack of
 them (block PCG), in float32 or in the mixed-precision ``bf16_x32`` mode
-(float32 outer refinement around bfloat16 inner sweeps).  The
+(float32 outer refinement around bfloat16 inner sweeps).  The PCG loops
+run on the card as replayed CUDA graphs, kept per problem
+(`NekboneProblem.graphs`, see `core.graphs`); `make_block_solver` is the
+reference's nrhs-polymorphic entry that captures once per RHS width.  The
 element-sharded solve is a later slice.
 
 Entry points run on the CUDA device unless the caller passes
@@ -21,13 +24,15 @@ import torch
 
 from repro_torch.core import axhelm as axhelm_mod
 from repro_torch.core import gather_scatter as gs
+from repro_torch.core.graphs import GraphCache
 from repro_torch.core.mesh_gen import BoxMesh
 from repro_torch.core.pcg import PCGResult, pcg, pcg_block, refine
 from repro_torch.core.spectral import SpectralBasis, basis as make_basis
+from repro_torch.resilience import inject
 
 __all__ = ["NekboneProblem", "PRECISIONS", "resolve_device", "setup_problem",
-           "rhs_from_solution", "solve", "flop_count", "random_solution",
-           "random_rhs", "manufactured_error"]
+           "rhs_from_solution", "solve", "make_block_solver", "flop_count",
+           "random_solution", "random_rhs", "manufactured_error"]
 
 PRECISIONS = (None, "bf16_x32")
 
@@ -35,7 +40,9 @@ PRECISIONS = (None, "bf16_x32")
 class NekboneProblem(NamedTuple):
     """`op`/`diag` are always at the problem's dtype; with
     ``precision="bf16_x32"`` the bfloat16 operator of the inner refinement
-    sweeps is the extra ``op_lo``."""
+    sweeps is the extra ``op_lo``.  ``graphs`` keeps the problem's solver
+    loops and their CUDA graphs between solves (shared by `_replace`d
+    copies, whose other operators get loops of their own)."""
 
     op: object                     # callable global operator A(x)
     diag: torch.Tensor             # diag(A) on global dofs (for Jacobi)
@@ -49,6 +56,7 @@ class NekboneProblem(NamedTuple):
     device: torch.device = torch.device("cpu")
     precision: Optional[str] = None  # None (plain) or "bf16_x32"
     op_lo: object = None             # bf16 operator for the inner sweeps
+    graphs: Optional[GraphCache] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,7 +75,8 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def _global_op(element_op, mesh: BoxMesh, mask, device):
+def _global_op(element_op, mesh: BoxMesh, mask, device,
+               plan: gs.GatherPlan):
     """A(x) = M Q^T A_e Q M x + (I - M) x  (M = Dirichlet zero-mask).
 
     The identity on masked dofs keeps the operator SPD on the full vector
@@ -75,7 +84,8 @@ def _global_op(element_op, mesh: BoxMesh, mask, device):
     (Ng, nrhs) and (Ng, d, nrhs): every axis after the dof axis is
     flattened into c = d*nrhs columns, which move next to the element axis
     so the element kernel sees (E, c, N1^3) and shares its per-element
-    geometry across all of them; the layout is restored on exit.
+    geometry across all of them; the layout is restored on exit.  The
+    gather sums in `plan`'s fixed order.
     """
     ids = torch.as_tensor(mesh.global_ids, dtype=torch.int64, device=device)
     ng = mesh.n_global
@@ -88,16 +98,11 @@ def _global_op(element_op, mesh: BoxMesh, mask, device):
             x = torch.where(m, torch.zeros((), dtype=x.dtype,
                                            device=x.device), x)
         if bshape:
-            x = x.reshape(ng, -1)
-        xl = gs.scatter(x, ids)                        # (E, N1,N1,N1[, c])
-        if bshape:
-            xl = torch.movedim(xl, -1, 1).contiguous()  # (E, c, N1,N1,N1)
-        yl = element_op(xl)
-        if bshape:
-            yl = torch.movedim(yl, 1, -1)
-        y = gs.gather(yl, ids, ng)
-        if bshape:
-            y = y.reshape((ng,) + bshape)
+            xl = gs.scatter_columns(x.reshape(ng, -1), ids)  # (E, c, N1^3)
+            y = gs.gather_columns(element_op(xl), plan).reshape(
+                (ng,) + bshape)
+        else:
+            y = gs.gather(element_op(gs.scatter(x, ids)), ids, ng, plan)
         if mask is not None:
             y = torch.where(m, x_in, y)
         return y
@@ -106,7 +111,8 @@ def _global_op(element_op, mesh: BoxMesh, mask, device):
 
 
 def _global_diag(mesh: BoxMesh, b: SpectralBasis, factors, lam0, lam1,
-                 helmholtz: bool, d: int, mask, dtype, device) -> torch.Tensor:
+                 helmholtz: bool, d: int, mask, dtype, device,
+                 plan: gs.GatherPlan) -> torch.Tensor:
     """Jacobi diagonal on global dofs from per-element factor arrays."""
     node_shape = (len(mesh.verts),) + (b.n1,) * 3
     lam0n = None if lam0 is None else torch.as_tensor(
@@ -117,7 +123,7 @@ def _global_diag(mesh: BoxMesh, b: SpectralBasis, factors, lam0, lam1,
         factors, torch.as_tensor(b.dhat, dtype=dtype, device=device),
         lam0=lam0n, lam1=lam1n, helmholtz=helmholtz)
     ids = torch.as_tensor(mesh.global_ids, dtype=torch.int64, device=device)
-    diag = gs.gather(dl, ids, mesh.n_global)
+    diag = gs.gather(dl, ids, mesh.n_global, plan)
     if d > 1:
         diag = diag[:, None].expand(mesh.n_global, d)
     if mask is not None:
@@ -182,18 +188,20 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     op = axhelm_mod.make_axhelm(variant, b, verts, lam0=lam0, lam1=lam1,
                                 helmholtz=helmholtz, dtype=dtype,
                                 backend=backend, device=device)
-    apply = _global_op(op.apply, mesh, mask, device)
+    plan = gs.gather_plan(mesh.global_ids, mesh.n_global, device)
+    apply = _global_op(op.apply, mesh, mask, device, plan)
     diag = _global_diag(mesh, b, op.factors, lam0, lam1, helmholtz, d, mask,
-                        dtype, device)
+                        dtype, device, plan)
     op_lo_apply = None
     if precision == "bf16_x32":
         op_lo = axhelm_mod.make_axhelm(variant, b, verts, lam0=lam0,
                                        lam1=lam1, helmholtz=helmholtz,
                                        dtype=torch.bfloat16, backend=backend,
                                        device=device)
-        op_lo_apply = _global_op(op_lo.apply, mesh, mask, device)
+        op_lo_apply = _global_op(op_lo.apply, mesh, mask, device, plan)
     return NekboneProblem(apply, diag, mask, mesh, b, d, helmholtz, variant,
-                          op.backend, device, precision, op_lo_apply)
+                          op.backend, device, precision, op_lo_apply,
+                          GraphCache())
 
 
 def rhs_from_solution(problem: NekboneProblem,
@@ -212,7 +220,8 @@ def rhs_from_solution(problem: NekboneProblem,
 def solve(problem: NekboneProblem, b_rhs: torch.Tensor,
           precond: str = "jacobi", tol: float = 1e-8, max_iter: int = 200,
           x0: Optional[torch.Tensor] = None,
-          stagnation_window: int = 0) -> PCGResult:
+          stagnation_window: int = 0, fault=None,
+          capture: Optional[bool] = None) -> PCGResult:
     """Solve A x = b (PCG).
 
     `b_rhs` is (Ng,) for d=1 or (Ng, d) for vector problems; one extra
@@ -225,7 +234,15 @@ def solve(problem: NekboneProblem, b_rhs: torch.Tensor,
     `core.pcg.refine` with the bfloat16 operator `op_lo` and a bfloat16
     Jacobi preconditioner for the inner sweeps, `stagnation_window` (or 5)
     as their window.  The result's ``status`` reports WHY each solve or
-    column stopped (a `resilience.status.SolveStatus` code)."""
+    column stopped (a `resilience.status.SolveStatus` code).
+
+    `x0` warm-starts the iteration.  `fault` (a
+    `resilience.inject.FaultSpec`) corrupts one operator application inside
+    the loop — of `op_lo` on a ``bf16_x32`` problem, where it recurs every
+    sweep; the test harness of `resilience`, None in production.  On a card
+    the loops run as CUDA graphs kept in ``problem.graphs``, so a repeat
+    solve of the same shape captures nothing; ``capture=False`` runs them
+    eagerly, for comparisons."""
     if precond not in ("jacobi", "copy"):
         raise ValueError(f"unknown preconditioner {precond!r}")
     base = 1 if problem.d == 1 else 2
@@ -239,28 +256,89 @@ def solve(problem: NekboneProblem, b_rhs: torch.Tensor,
         res = solve(problem, b_rhs[..., 0], precond=precond, tol=tol,
                     max_iter=max_iter,
                     x0=None if x0 is None else x0[..., 0],
-                    stagnation_window=stagnation_window)
+                    stagnation_window=stagnation_window, fault=fault,
+                    capture=capture)
         return PCGResult(res.x[..., None], res.iterations[None],
                          res.residual[None], res.initial_residual[None],
                          res.breakdown[None], res.status[None])
     refined = problem.precision == "bf16_x32"
+    # the functions a solve makes from the problem are memoized with its
+    # loops, so that a repeat solve finds the loop (and graph) it captured
+    graphs = problem.graphs if problem.graphs is not None else GraphCache()
     pre = None
     if precond == "jacobi":
-        inv_diag = 1.0 / problem.diag
-        if refined:
-            inv_diag = inv_diag.to(torch.bfloat16)
-        if batched:
-            inv_diag = inv_diag[..., None]
-
-        def pre(r):
-            return inv_diag * r
+        # keyed by the diagonal's id; the memo holds the diagonal, so the
+        # id stays its own
+        _, pre = graphs.memo(
+            ("jacobi", id(problem.diag), refined, batched),
+            lambda: (problem.diag, _jacobi(problem.diag, refined, batched)))
+    op = problem.op_lo if refined else problem.op
+    if fault is not None:
+        op = graphs.memo(("fault", op, fault), lambda: inject.wrap_operator(
+            op, fault, problem.mesh.global_ids))
     if refined:
-        return refine(problem.op, problem.op_lo, b_rhs, x0=x0, precond=pre,
+        return refine(problem.op, op, b_rhs, x0=x0, precond=pre,
                       tol=tol, max_iter=max_iter, batched=batched,
-                      inner_window=stagnation_window or 5)
+                      inner_window=stagnation_window or 5, graphs=graphs,
+                      capture=capture)
     runner = pcg_block if batched else pcg
-    return runner(problem.op, b_rhs, x0=x0, precond=pre, tol=tol,
-                  max_iter=max_iter, stagnation_window=stagnation_window)
+    return runner(op, b_rhs, x0=x0, precond=pre, tol=tol,
+                  max_iter=max_iter, stagnation_window=stagnation_window,
+                  graphs=graphs, capture=capture)
+
+
+def _jacobi(diag: torch.Tensor, refined: bool, batched: bool):
+    """The Jacobi preconditioner r -> r / diag(A), in bfloat16 for the
+    inner sweeps of a ``bf16_x32`` solve."""
+    inv_diag = 1.0 / diag
+    if refined:
+        inv_diag = inv_diag.to(torch.bfloat16)
+    if batched:
+        inv_diag = inv_diag[..., None]
+
+    def pre(r):
+        return inv_diag * r
+
+    return pre
+
+
+def make_block_solver(problem: NekboneProblem, *, precond: str = "jacobi",
+                      tol: float = 1e-8, max_iter: int = 200,
+                      stagnation_window: int = 0, on_capture=None):
+    """An nrhs-polymorphic solve entry for padded RHS blocks, the
+    reference's `make_block_solver`.
+
+    Returns ``solve_block(b_blk, x0_blk) -> PCGResult`` with the solver's
+    settings closed over.  Each RHS width gets its loop, and on a card its
+    CUDA graph, once, in ``problem.graphs``; every later call of that width
+    replays it.  `x0_blk` is required (zeros for a cold start, which the
+    loop treats as ``x0=None``).  A zero-padded column converges at
+    iteration 0 and block PCG's freeze keeps it from perturbing live
+    columns, so callers may pad a block to a bucket width.
+
+    ``on_capture(shape)``, if given, is called with the block's shape when
+    a call captured a graph — on the CPU, where nothing is captured, when
+    it built a width's loop — and never on a call that replays: the
+    counterpart of the reference's ``on_trace``.
+    """
+    if problem.graphs is None:
+        problem = problem._replace(graphs=GraphCache())
+    graphs = problem.graphs
+
+    def made():
+        return graphs.captures if problem.device.type == "cuda" \
+            else graphs.builds
+
+    def solve_block(b_blk: torch.Tensor, x0_blk: torch.Tensor) -> PCGResult:
+        before = made()
+        res = solve(problem, b_blk, precond=precond, tol=tol,
+                    max_iter=max_iter, x0=x0_blk,
+                    stagnation_window=stagnation_window)
+        if on_capture is not None and made() > before:
+            on_capture(tuple(b_blk.shape))
+        return res
+
+    return solve_block
 
 
 def flop_count(mesh: BoxMesh, d: int, helmholtz: bool, iterations: int) -> float:

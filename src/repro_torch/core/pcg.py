@@ -1,24 +1,38 @@
 """Preconditioned conjugate gradients (Nekbone's PCG, Figure 2).
 
 The operator is supplied as a closure `A(x)` over global dofs (gather o
-axhelm o scatter).  Preconditioners: none and Jacobi (inverse diagonal).
-`pcg_block` solves nrhs stacked right-hand sides (trailing axis) with
-per-column alpha/beta and a freeze mask; `refine` is the mixed-precision
-solve: fp32 outer residual and correction around reduced-precision inner
-`pcg`/`pcg_block` sweeps.
+axhelm o scatter), or as `A(x, it)` when it advertises
+``takes_iteration = True``: it then receives the loop's iteration counter,
+a tensor on the device (-1 for the initial residual), which is how the
+fault harness of `resilience.inject` strikes one chosen iteration.
+Preconditioners: none and Jacobi (inverse diagonal).  `pcg_block` solves
+nrhs stacked right-hand sides (trailing axis) with per-column alpha/beta
+and a freeze mask; `refine` is the mixed-precision solve: fp32 outer
+residual and correction around reduced-precision inner `pcg`/`pcg_block`
+sweeps.
 
-The reference runs the loop as one `jax.lax.while_loop`.  PyTorch runs
-eagerly, so the port runs the body as a Python loop whose state stays on
-the device: an ``active`` flag — the while_loop's ``cond`` — is computed on
-the device at the top of every iteration and gates every update with
-``torch.where``, exactly as the reference body gates on ``bad``/``hurt``.
-An inactive iteration therefore changes nothing, and a converged solve
-reports the same iteration count as the reference.  The host reads the
-flag only every ``_CHECK_EVERY`` iterations (one device sync each), so up
-to ``_CHECK_EVERY - 1`` gated iterations may run after the solve stops;
-they cost operator applications, not correctness.  The loop body has no
-host sync and no data-dependent Python branch, so it can later be captured
-in a CUDA graph unchanged.
+The reference runs each loop as one `jax.lax.while_loop`, compiled once.
+The port keeps a loop's state on the device in fixed tensors — the
+iterates, the carried scalars, and the loop's inputs, the squared
+tolerance and the iteration budget — and runs the loop in chunks of
+``_CHECK_EVERY`` bodies that update that state in place.  An ``active``
+flag — the while_loop's ``cond`` — is computed on the device at the top of
+every body and gates every update with ``torch.where``, exactly as the
+reference body gates on ``bad``/``hurt``: an inactive body changes nothing,
+and a converged solve reports the reference's iteration count.  After each
+chunk the host reads the flag (one device sync), so up to
+``_CHECK_EVERY - 1`` gated bodies may run after the solve stops; they cost
+operator applications, not correctness.
+
+On a CUDA device a loop's chunk runs once eagerly as the warm-up, is
+captured as a CUDA graph and is replayed for every later chunk
+(`core.graphs`); a `GraphCache` passed as ``graphs`` keeps the loop for
+the next solve of the same operator, preconditioner, inner product,
+shape, dtype and stagnation window.  A chunk holds no Python number that
+changes between solves (the tolerance and budget are device scalars of
+the state), so a replay with another tolerance is exact.  On the CPU, and
+on a card where the caller passes ``capture=False``, the same chunk runs
+eagerly; ``capture=True`` on the CPU raises.
 
 Health monitoring lives INSIDE the loop, on the scalars it already
 reduces: the carried ``rr`` going NaN/Inf rolls the step back and flags
@@ -30,16 +44,16 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
-import numpy as np
 import torch
 
+from repro_torch.core.graphs import GraphCache
 from repro_torch.resilience.status import classify
 
 __all__ = ["PCGResult", "pcg", "pcg_block", "refine"]
 
-# Iterations between host reads of the device-side `active` flag: each read
-# drains the launch queue once, so rarer reads keep the card busier while
-# costing at most this many minus one gated iterations after convergence.
+# Bodies a chunk runs between host reads of the device-side `active` flag:
+# each read drains the queue once, so rarer reads keep the card busier
+# while costing at most this many minus one gated bodies after convergence.
 _CHECK_EVERY = 8
 
 # `refine`'s fixed settings, the reference's defaults: the floor of the
@@ -48,6 +62,8 @@ _CHECK_EVERY = 8
 _INNER_TOL = 0.03
 _MAX_OUTER = 40
 _STALL_LIMIT = 1
+
+_INIT_ITER = -1  # the iteration index of the initial-residual application
 
 
 def _up(u: torch.Tensor) -> torch.Tensor:
@@ -65,6 +81,23 @@ def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _column_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Per-column dots of stacked fields: every axis but the last."""
     return (_up(u) * _up(v)).sum(dim=tuple(range(u.ndim - 1)))
+
+
+def _identity(r: torch.Tensor) -> torch.Tensor:
+    return r
+
+
+def _iter_op(a_op):
+    """`a_op` in the (x, iteration) calling convention: an operator that
+    advertises ``takes_iteration = True`` as it is, any other one wrapped
+    to ignore the counter."""
+    if getattr(a_op, "takes_iteration", False):
+        return a_op
+
+    def wrapped(x, it):
+        return a_op(x)
+
+    return wrapped
 
 
 class PCGResult(NamedTuple):
@@ -86,55 +119,20 @@ class PCGResult(NamedTuple):
     status: torch.Tensor           # int32 SolveStatus code
 
 
-def pcg(a_op: Callable[[torch.Tensor], torch.Tensor],
-        b: torch.Tensor,
-        x0: Optional[torch.Tensor] = None,
-        precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-        tol: float = 1e-8,
-        max_iter: int = 200,
-        stagnation_window: int = 0,
-        dot: Optional[Callable[[torch.Tensor, torch.Tensor],
-                               torch.Tensor]] = None,
-        ) -> PCGResult:
-    """Solve A x = b with (preconditioned) CG; stop when ``r.r <= tol^2``.
+def _pcg_body(a2, precond, dot, window: int):
+    """`pcg`'s gated body and its cond over a state dict `s`, with the
+    loop's inputs and constants in `c`."""
 
-    Inner products are full contractions (or `dot`), accumulated in fp32
-    even for reduced-precision iterates; the iterates stay in b's dtype.
-    `stagnation_window` > 0 additionally stops the solve with
-    ``SolveStatus.STAGNATED`` when ``rr`` makes no new minimum for that
-    many counted iterations (0, the default, disables the check).
-    """
-    if dot is None:
-        dot = _dot
-    if precond is None:
-        def precond(r):
-            return r
-    dev = b.device
+    def cond(s, c):
+        return ((s["it"] < c["max_iter"]) & (s["rr"] > c["tol2"])
+                & ~s["brk"] & ~s["div"] & ~s["stag"])
 
-    x = torch.zeros_like(b) if x0 is None else x0
-    r = b - a_op(x)
-    z = precond(r)
-    p = z
-    rz = dot(r, z)
-    rr = dot(r, r)
-    r0 = torch.sqrt(rr)
-    tol2 = tol * tol
-    zero = torch.zeros((), dtype=rr.dtype, device=dev)
-    one = torch.ones((), dtype=rr.dtype, device=dev)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    brk = torch.zeros((), dtype=torch.bool, device=dev)
-    div = torch.zeros((), dtype=torch.bool, device=dev)
-    stag = torch.zeros((), dtype=torch.bool, device=dev)
-    stall = torch.zeros((), dtype=torch.int32, device=dev)
-    best = rr
-
-    # Every active body either advances `it` or raises a flag that ends the
-    # solve, so max_iter bodies cover every reachable state.
-    for step in range(max_iter):
-        active = (it < max_iter) & (rr > tol2) & ~brk & ~div & ~stag
-        if step % _CHECK_EVERY == 0 and not bool(active):
-            break
-        ap = a_op(p)
+    def body(s, c):
+        x, r, z, p, rz, rr, it = (s[k] for k in ("x", "r", "z", "p", "rz",
+                                                 "rr", "it"))
+        zero, one, tol2 = c["zero"], c["one"], c["tol2"]
+        active = cond(s, c)
+        ap = a2(p, it)
         pap = dot(p, ap)
         # Lanczos breakdown: p.Ap <= 0 with the residual still above
         # tolerance means A is not SPD along p — freeze and flag.
@@ -150,99 +148,54 @@ def pcg(a_op: Callable[[torch.Tensor], torch.Tensor],
         # the whole step back so x stays the last finite iterate.
         hurt = ~torch.isfinite(rr_new)
         keep = hurt | ~active
-        x = torch.where(keep, x, x_new)
-        r = torch.where(keep, r, r_new)
-        z = torch.where(keep, z, z_new)
         rz2 = torch.where(keep, rz, rz_new)
         rr2 = torch.where(keep, rr, rr_new)
         beta = torch.where(bad | hurt, zero,
                            rz_new / torch.where(rz != 0, rz, one))
-        p = torch.where(bad | keep, p, z_new + beta.to(p.dtype) * p)
         advanced = active & ~bad & ~hurt
         # stagnation: iterations since the last new rr minimum
-        improved = rr2 < best
-        stall = torch.where(improved, 0, stall + advanced.to(torch.int32))
-        best = torch.minimum(best, rr2)
-        if stagnation_window > 0:
-            stag = stag | (advanced & (stall >= stagnation_window)
-                           & (rr2 > tol2))
-        div = div | (active & hurt)
-        brk = torch.where(active, bad, brk)
-        rz, rr = rz2, rr2
-        it = it + advanced.to(torch.int32)
+        improved = rr2 < s["best"]
+        stall = torch.where(improved, 0,
+                            s["stall"] + advanced.to(torch.int32))
+        stag = s["stag"]
+        if window > 0:
+            stag = stag | (advanced & (stall >= window) & (rr2 > tol2))
+        return {"x": torch.where(keep, x, x_new),
+                "r": torch.where(keep, r, r_new),
+                "z": torch.where(keep, z, z_new),
+                "p": torch.where(bad | keep, p, z_new + beta.to(p.dtype) * p),
+                "rz": rz2, "rr": rr2,
+                "it": it + advanced.to(torch.int32),
+                "brk": torch.where(active, bad, s["brk"]),
+                "div": s["div"] | (active & hurt), "stag": stag,
+                "stall": stall, "best": torch.minimum(s["best"], rr2)}
 
-    status = classify(rr, tol2, brk, div, stag)
-    return PCGResult(x, it, torch.sqrt(rr), r0, brk, status)
+    return body, cond
 
 
-def pcg_block(a_op: Callable[[torch.Tensor], torch.Tensor],
-              b: torch.Tensor,
-              x0: Optional[torch.Tensor] = None,
-              precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-              tol: float = 1e-8,
-              max_iter: int = 200,
-              dot: Optional[Callable[[torch.Tensor, torch.Tensor],
-                                     torch.Tensor]] = None,
-              stagnation_window: int = 0,
-              ) -> PCGResult:
-    """Solve A X = B for nrhs stacked right-hand sides (trailing axis).
+def _block_body(a2, precond, dot, window: int):
+    """`pcg_block`'s gated body and its cond: ``nb`` counts the bodies run,
+    the reference's trailing global counter, and caps them at the budget
+    as its cond does (``it[-1] < max_iter``)."""
 
-    Each column runs the iteration of :func:`pcg` with its own alpha/beta;
-    the operator is applied once per iteration to the whole block.  A
-    column whose carried ``rr`` met the tolerance, or that broke down
-    (``p.Ap <= 0`` while active), diverged (its step rolled back) or
-    stagnated, is frozen (alpha 0, search direction kept) with its own
-    `SolveStatus` code, while the other columns go on; the solve ends when
-    no column is live or after ``max_iter`` iterations.  `dot` must return
-    per-column values of shape (nrhs,) (default: every axis but the last,
-    in fp32).  ``iterations``, ``residual``, ``initial_residual``,
-    ``breakdown`` and ``status`` are per column; ``iterations`` counts the
-    iterations each column advanced.
+    def live_of(s, c):
+        return (s["rr"] > c["tol2"]) & ~s["brk"] & ~s["div"] & ~s["stag"]
 
-    As in :func:`pcg`, the loop runs eagerly with its state on the device:
-    ``on`` — the reference while_loop's ``cond`` — gates a whole body, the
-    host reads it every ``_CHECK_EVERY`` iterations, and a body after the
-    end changes nothing.
-    """
-    if dot is None:
-        dot = _column_dot
-    if precond is None:
-        def precond(r):
-            return r
-    dev = b.device
+    def cond(s, c):
+        return live_of(s, c).any() & (s["nb"] < c["max_iter"])
 
-    x = torch.zeros_like(b) if x0 is None else x0
-    r = b - a_op(x)
-    z = precond(r)
-    p = z
-    rz = dot(r, z)
-    rr = dot(r, r)
-    r0 = torch.sqrt(rr)
-    tol2 = tol * tol
-    nrhs = b.shape[-1]
-    zero = torch.zeros((), dtype=rr.dtype, device=dev)
-    one = torch.ones((), dtype=rr.dtype, device=dev)
-    it = torch.zeros((nrhs,), dtype=torch.int32, device=dev)
-    brk = torch.zeros((nrhs,), dtype=torch.bool, device=dev)
-    div = torch.zeros_like(brk)
-    stag = torch.zeros_like(brk)
-    stall = torch.zeros_like(it)
-    best = rr
-
-    # the reference's cond also caps its count of bodies run at max_iter,
-    # which the range below already does
-    for step in range(max_iter):
-        live = (rr > tol2) & ~brk & ~div & ~stag       # (nrhs,)
-        on = live.any()
-        if step % _CHECK_EVERY == 0 and not bool(on):
-            break
+    def body(s, c):
+        x, r, z, p, rz, rr, nb = (s[k] for k in ("x", "r", "z", "p", "rz",
+                                                 "rr", "nb"))
+        zero, one, tol2 = c["zero"], c["one"], c["tol2"]
+        live = live_of(s, c)                              # (nrhs,)
+        on = live.any() & (nb < c["max_iter"])
         active = live & on
-        ap = a_op(p)
+        ap = a2(p, nb)
         pap = dot(p, ap)
         # Lanczos breakdown on an active column: freeze it and flag it; the
         # healthy columns go on
         bad = active & (pap <= 0.0)
-        brk = brk | bad
         active = active & ~bad
         alpha = torch.where(active, rz / torch.where(pap > 0, pap, one),
                             zero)
@@ -255,29 +208,189 @@ def pcg_block(a_op: Callable[[torch.Tensor], torch.Tensor],
         # divergence: an active column's rr went non-finite; roll THAT
         # column's step back and flag it
         hurt = active & ~torch.isfinite(rr_new)
-        div = div | hurt
         keep = hurt | ~on
-        x = torch.where(keep, x, x_new)
-        r = torch.where(keep, r, r_new)
-        z = torch.where(keep, z, z_new)
-        rz2 = torch.where(keep, rz, rz_new)
         rr2 = torch.where(keep, rr, rr_new)
         advanced = active & ~hurt
         beta = torch.where(advanced,
                            rz_new / torch.where(rz != 0, rz, one), zero)
-        p = torch.where(advanced, z + beta.to(p.dtype) * p, p)
         # stagnation: per-column iterations since a new rr minimum
-        improved = rr2 < best
-        stall = torch.where(improved, 0, stall + advanced.to(torch.int32))
-        best = torch.minimum(best, rr2)
-        if stagnation_window > 0:
-            stag = stag | (advanced & (stall >= stagnation_window)
-                           & (rr2 > tol2))
-        rz, rr = rz2, rr2
-        it = it + advanced.to(torch.int32)
+        improved = rr2 < s["best"]
+        stall = torch.where(improved, 0,
+                            s["stall"] + advanced.to(torch.int32))
+        stag = s["stag"]
+        if window > 0:
+            stag = stag | (advanced & (stall >= window) & (rr2 > tol2))
+        z = torch.where(keep, z, z_new)
+        return {"x": torch.where(keep, x, x_new),
+                "r": torch.where(keep, r, r_new), "z": z,
+                "p": torch.where(advanced, z + beta.to(p.dtype) * p, p),
+                "rz": torch.where(keep, rz, rz_new), "rr": rr2,
+                "it": s["it"] + advanced.to(torch.int32),
+                "brk": s["brk"] | bad, "div": s["div"] | hurt,
+                "stag": stag, "stall": stall,
+                "best": torch.minimum(s["best"], rr2),
+                "nb": nb + on.to(torch.int32)}
 
-    status = classify(rr, tol2, brk, div, stag)
-    return PCGResult(x, it, torch.sqrt(rr), r0, brk, status)
+    return body, cond
+
+
+_BODIES = {"pcg": _pcg_body, "pcg_block": _block_body}
+
+
+def _set(t: torch.Tensor, value) -> None:
+    """Write a Python number or a device scalar into `t` (no host sync)."""
+    if isinstance(value, torch.Tensor):
+        t.copy_(value)
+    else:
+        t.fill_(value)
+
+
+class _Loop:
+    """One loop's state in fixed tensors — the storage every replay of its
+    graph reads and writes — and its chunk of ``_CHECK_EVERY`` bodies."""
+
+    def __init__(self, body, cond, state: dict) -> None:
+        self.body, self.cond = body, cond
+        self.state = {k: torch.empty_like(v) for k, v in state.items()}
+        rr = state["rr"]
+        self.consts = {
+            "tol2": torch.zeros((), dtype=rr.dtype, device=rr.device),
+            "max_iter": torch.zeros((), dtype=torch.int32, device=rr.device),
+            "zero": torch.zeros((), dtype=rr.dtype, device=rr.device),
+            "one": torch.ones((), dtype=rr.dtype, device=rr.device)}
+        self.flag = torch.zeros((), dtype=torch.bool, device=rr.device)
+        self.graph = None
+
+    def load(self, state: dict, tol2, max_iter) -> None:
+        """Copy a solve's first state and inputs in; set the flag."""
+        for k, v in state.items():
+            self.state[k].copy_(v)
+        _set(self.consts["tol2"], tol2)
+        _set(self.consts["max_iter"], max_iter)
+        self.flag.copy_(self.cond(self.state, self.consts))
+
+    def chunk(self) -> None:
+        """``_CHECK_EVERY`` bodies, written back into the fixed state."""
+        s = dict(self.state)
+        for _ in range(_CHECK_EVERY):
+            s = self.body(s, self.consts)
+        for k, v in s.items():
+            self.state[k].copy_(v)
+        self.flag.copy_(self.cond(s, self.consts))
+
+    def run(self, chunks: int, capture: bool, cache: GraphCache) -> None:
+        """Up to `chunks` chunks, reading the flag on the host before each:
+        replayed from the graph when `capture`, else eagerly."""
+        for _ in range(chunks):
+            if not bool(self.flag):
+                break
+            if not capture:
+                self.chunk()
+            elif self.graph is None:
+                self.graph = cache.capture(self.chunk)
+            else:
+                cache.replay(self.graph)
+
+
+def _solve(kind: str, a_op, b: torch.Tensor, x0, precond, dot, tol2,
+           max_iter, budget: int, window: int,
+           graphs: Optional[GraphCache], capture: Optional[bool]
+           ) -> PCGResult:
+    """Run `pcg` (kind "pcg") or `pcg_block` on the loop of `graphs` for
+    this key.  `tol2` and `max_iter` are the loop's inputs (Python numbers
+    or device scalars); `budget` is the host's bound on the bodies."""
+    dev = b.device
+    if capture is None:
+        capture = dev.type == "cuda"
+    elif capture and dev.type != "cuda":
+        raise ValueError(f"capture=True needs a CUDA tensor; b is on {dev}")
+    precond = _identity if precond is None else precond
+    if dot is None:
+        dot = _dot if kind == "pcg" else _column_dot
+    a2 = _iter_op(a_op)
+
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - a2(x, torch.full((), _INIT_ITER, dtype=torch.int32, device=dev))
+    z = precond(r)
+    rz = dot(r, z)
+    rr = dot(r, r)
+    r0 = torch.sqrt(rr)
+    ints = torch.zeros(rr.shape, dtype=torch.int32, device=dev)
+    flags = torch.zeros(rr.shape, dtype=torch.bool, device=dev)
+    state = {"x": x, "r": r, "z": z, "p": z, "rz": rz, "rr": rr, "it": ints,
+             "brk": flags, "div": flags, "stag": flags, "stall": ints,
+             "best": rr}
+    if kind == "pcg_block":
+        state["nb"] = torch.zeros((), dtype=torch.int32, device=dev)
+    cache = GraphCache() if graphs is None else graphs
+    key = (kind, a_op, precond, dot, tuple(b.shape), b.dtype, dev, window)
+    loop = cache.loop(key, lambda: _Loop(*_BODIES[kind](a2, precond, dot,
+                                                         window), state))
+    loop.load(state, tol2, max_iter)
+    loop.run(-(-budget // _CHECK_EVERY), capture, cache)
+    s = loop.state
+    status = classify(s["rr"], loop.consts["tol2"], s["brk"], s["div"],
+                      s["stag"])
+    return PCGResult(s["x"].clone(), s["it"].clone(), torch.sqrt(s["rr"]),
+                     r0, s["brk"].clone(), status)
+
+
+def pcg(a_op: Callable,
+        b: torch.Tensor,
+        x0: Optional[torch.Tensor] = None,
+        precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        tol: float = 1e-8,
+        max_iter: int = 200,
+        stagnation_window: int = 0,
+        dot: Optional[Callable[[torch.Tensor, torch.Tensor],
+                               torch.Tensor]] = None,
+        graphs: Optional[GraphCache] = None,
+        capture: Optional[bool] = None,
+        ) -> PCGResult:
+    """Solve A x = b with (preconditioned) CG; stop when ``r.r <= tol^2``.
+
+    Inner products are full contractions (or `dot`), accumulated in fp32
+    even for reduced-precision iterates; the iterates stay in b's dtype.
+    `stagnation_window` > 0 additionally stops the solve with
+    ``SolveStatus.STAGNATED`` when ``rr`` makes no new minimum for that
+    many counted iterations (0, the default, disables the check).
+    `graphs` keeps the loop (and on a card its graph) for later solves;
+    `capture` (default: on a CUDA device) replays the chunk as a CUDA
+    graph, ``False`` runs it eagerly (see the module docstring).
+    """
+    return _solve("pcg", a_op, b, x0, precond, dot, tol * tol, max_iter,
+                  max_iter, stagnation_window, graphs, capture)
+
+
+def pcg_block(a_op: Callable,
+              b: torch.Tensor,
+              x0: Optional[torch.Tensor] = None,
+              precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+              tol: float = 1e-8,
+              max_iter: int = 200,
+              dot: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                     torch.Tensor]] = None,
+              stagnation_window: int = 0,
+              graphs: Optional[GraphCache] = None,
+              capture: Optional[bool] = None,
+              ) -> PCGResult:
+    """Solve A X = B for nrhs stacked right-hand sides (trailing axis).
+
+    Each column runs the iteration of :func:`pcg` with its own alpha/beta;
+    the operator is applied once per iteration to the whole block.  A
+    column whose carried ``rr`` met the tolerance, or that broke down
+    (``p.Ap <= 0`` while active), diverged (its step rolled back) or
+    stagnated, is frozen (alpha 0, search direction kept) with its own
+    `SolveStatus` code, while the other columns go on; the solve ends when
+    no column is live or after ``max_iter`` bodies (an iteration-aware
+    operator receives that body count).  `dot` must return per-column
+    values of shape (nrhs,) (default: every axis but the last, in fp32).
+    ``iterations``, ``residual``, ``initial_residual``, ``breakdown`` and
+    ``status`` are per column; ``iterations`` counts the iterations each
+    column advanced.  `graphs` and `capture` as in :func:`pcg`.
+    """
+    return _solve("pcg_block", a_op, b, x0, precond, dot, tol * tol,
+                  max_iter, max_iter, stagnation_window, graphs, capture)
 
 
 def refine(a_hi, a_lo, b: torch.Tensor,
@@ -286,7 +399,9 @@ def refine(a_hi, a_lo, b: torch.Tensor,
            tol: float = 1e-8,
            max_iter: int = 200,
            batched: bool = False,
-           inner_window: int = 5) -> PCGResult:
+           inner_window: int = 5,
+           graphs: Optional[GraphCache] = None,
+           capture: Optional[bool] = None) -> PCGResult:
     """Mixed-precision iterative refinement: fp32 outer, bfloat16 inner.
 
     The outer loop keeps ``x``, the TRUE residual ``r = b - a_hi(x)`` and
@@ -306,16 +421,17 @@ def refine(a_hi, a_lo, b: torch.Tensor,
     and the loop stops at ``max_iter`` of them, after ``_MAX_OUTER`` sweeps,
     or when no column is live.
 
-    The reference runs the loop as one while_loop with the inner tolerance
-    and budget as device scalars.  The port's inner `pcg` takes them as
-    Python numbers, so each sweep reads one small tensor on the host —
-    whether a column is live, the iterations spent and the largest active
-    residual — and computes the inner tolerance from it in float32, as the
-    reference does on the device.
+    As in the reference, the inner tolerance and budget are computed on
+    the device, in float32, and enter the inner loop as device scalars, so
+    every sweep replays the one captured inner chunk (`graphs`,
+    `capture` as in :func:`pcg`).  The outer loop runs eagerly and reads
+    one small tensor on the host per sweep: whether a column is live, and
+    the iterations spent.
     """
     dot = _column_dot if batched else _dot
     b32 = b.to(torch.float32)
-    runner = pcg_block if batched else pcg
+    kind = "pcg_block" if batched else "pcg"
+    cache = GraphCache() if graphs is None else graphs
 
     x = torch.zeros_like(b32) if x0 is None else x0.to(torch.float32)
     r = (b32 - a_hi(x)).to(torch.float32)
@@ -329,27 +445,29 @@ def refine(a_hi, a_lo, b: torch.Tensor,
     stall = torch.zeros_like(it)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
+    # the inner target's numerator, 0.5 tol, in float32 as the reference
+    # computes it
+    half_tol = 0.5 * torch.sqrt(torch.full((), tol2, dtype=torch.float32,
+                                           device=dev))
 
     for _ in range(_MAX_OUTER):
         active = (rr > tol2) & ~div & ~stag
         rnorm = torch.sqrt(rr)
         maxr = torch.where(active, rnorm, zero).max()
         # the sweep's one host read
-        live, spent, maxr_h = torch.stack(
-            [active.any().float(), it.max().float(), maxr]).tolist()
+        live, spent = torch.stack([active.any().to(torch.int32),
+                                   it.max()]).tolist()
         if not live or spent >= max_iter:
             break
         safe = torch.where(active & (rnorm > 0), rnorm, one)
         # a frozen column gets a zero inner RHS: its inner column converges
         # at iteration 0 and the block freeze keeps it out of the others
         r_hat = torch.where(active, r / safe, zero).to(torch.bfloat16)
-        f32 = np.float32
-        itol = float(np.clip(f32(0.5) * np.sqrt(f32(tol2))
-                             / f32(maxr_h if maxr_h > 0 else 1.0),
-                             f32(_INNER_TOL), f32(0.3)))
-        res = runner(a_lo, r_hat, precond=precond, tol=itol,
-                     max_iter=max(max_iter - int(spent), 1), dot=dot,
-                     stagnation_window=inner_window)
+        itol = torch.clamp(half_tol / torch.where(maxr > 0, maxr, one),
+                           _INNER_TOL, 0.3)
+        res = _solve(kind, a_lo, r_hat, None, precond, dot, itol * itol,
+                     torch.clamp(max_iter - it.max(), min=1),
+                     max_iter - spent, inner_window, cache, capture)
         d = res.x.to(torch.float32) * torch.where(active, rnorm, zero)
         x_new = x + d
         r_new = (b32 - a_hi(x_new)).to(torch.float32)

@@ -35,7 +35,8 @@ memory, and the wrapper raises.  None needs element padding: the column
 and line bodies mask their ragged last group.  `launch_counts` counts the
 kernel launches of each entry point (`entry_point(variant, dtype)`, the C
 symbol), whichever body it ran, so a run can show that a solve went through
-the kernels it expects.  Two timing-only twins count nothing and
+the kernels it expects; a launch captured into a solver loop's CUDA graph
+counts once for every replay of the graph (`core.graphs.count`).  Two timing-only twins count nothing and
 `axhelm` never reaches them: `rowwise` launches a variant on the
 one-thread-per-node body at N1 in KERNEL_N1, beside the bodies that
 replaced it, and `generic` the generic body at any N1, beside the tuned
@@ -49,6 +50,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.core.spectral import SpectralBasis, basis as make_basis
 from repro_torch.kernels.axhelm import build
 from repro_torch.kernels.axhelm import ref as ref_mod
@@ -443,5 +445,5 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
         raise RuntimeError(f"{symbol} kernel launch failed with CUDA error "
                            f"{rc}")
     if twin is None:
-        launch_counts[name] += 1
+        graphs.count(launch_counts, name)
     return y

@@ -17,7 +17,16 @@ single-RHS path) and adds iters/column and wall/rhs to the result line.
 
 --backend auto drives the hand-written CUDA axhelm kernel inside the PCG
 loop on a card and the plain PyTorch reference on the CPU.  --device
-defaults to the card; --device cpu runs the whole solve on the CPU.
+defaults to the card; --device cpu runs the whole solve on the CPU.  On
+the card the PCG loop runs as a replayed CUDA graph, captured by the
+warm-up solve.
+
+--inject MODE@ITER corrupts one operator application inside the loop
+(`resilience.inject.FaultSpec`: nan@3, bitflip@2); --resilient solves
+through `resilience.retry.solve_resilient` (true-residual verification and
+the restart -> precision ladder of the default policy; the backend rung,
+which answers with the plain version in place of the kernels, is opt-in
+through `RetryPolicy(backend_fallback=True)`) and prints each attempt.
 """
 
 from __future__ import annotations
@@ -25,9 +34,12 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.core import mesh_gen, nekbone
+from repro_torch.resilience.inject import FaultSpec
+from repro_torch.resilience.retry import solve_resilient
 from repro_torch.resilience.status import SolveStatus
 
 
@@ -52,6 +64,16 @@ def _parse_args(argv=None):
                          "reference (plain torch), or auto")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
+    ap.add_argument("--resilient", action="store_true",
+                    help="run through resilience.retry.solve_resilient: "
+                         "true-residual verification plus the restart -> "
+                         "precision ladder (the default policy: the "
+                         "backend rung, which answers with the plain "
+                         "version, is opt-in through RetryPolicy); prints "
+                         "the per-attempt audit trail")
+    ap.add_argument("--inject", default=None, metavar="MODE@ITER",
+                    help="fault injection: corrupt one operator "
+                         "application, e.g. 'nan@3' or 'bitflip@2'")
     return ap.parse_args(argv)
 
 
@@ -60,8 +82,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _host(a):
+    """A solve's (tensor) or a report's (numpy) per-column values, on the
+    host."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
 def main(argv=None):
     args = _parse_args(argv)
+    fault = None
+    if args.inject is not None:
+        mode, _, it = args.inject.partition("@")
+        fault = FaultSpec(mode=mode, iteration=int(it) if it else 3)
     device = nekbone.resolve_device(args.device)
     helm = args.equation == "helmholtz"
     nx, ny, nz = args.elements
@@ -82,23 +114,37 @@ def main(argv=None):
     x_true = nekbone.random_solution(prob, seed=0, nrhs=args.nrhs)
     b = nekbone.rhs_from_solution(prob, x_true)
 
-    def run():
-        return nekbone.solve(prob, b, tol=args.tol, max_iter=args.max_iter)
+    if args.resilient:
+        t0 = time.perf_counter()
+        res = solve_resilient(prob, b, tol=args.tol, max_iter=args.max_iter,
+                              fault=fault)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        for a in res.attempts:
+            print(f"attempt rung={a.rung} columns={list(a.columns)} "
+                  f"status={[SolveStatus(int(s)).name for s in a.status]} "
+                  f"true_residual="
+                  f"{np.array2string(a.true_residual, precision=2)}")
+        print(f"resilient: converged={res.converged} rung={list(res.rung)}")
+    else:
+        def run():
+            return nekbone.solve(prob, b, tol=args.tol,
+                                 max_iter=args.max_iter, fault=fault)
 
-    run()                       # warm-up: kernel build, allocator
-    _sync(device)
-    t0 = time.perf_counter()
-    res = run()
-    _sync(device)
-    dt = time.perf_counter() - t0
+        run()                   # warm-up: kernel build, graph capture
+        _sync(device)
+        t0 = time.perf_counter()
+        res = run()
+        _sync(device)
+        dt = time.perf_counter() - t0
 
-    iters_all = [int(i) for i in res.iterations.reshape(-1)]
+    iters_all = [int(i) for i in np.ravel(_host(res.iterations))]
     iters = max(iters_all)
     err = nekbone.manufactured_error(prob, res.x, x_true)
     # useful FLOPs: each column pays for the iterations it ran
     flops = sum(nekbone.flop_count(mesh, args.d, helm, it)
                 for it in iters_all)
-    status = [SolveStatus(int(s)).name for s in res.status.reshape(-1)]
+    status = [SolveStatus(int(s)).name for s in np.ravel(_host(res.status))]
     msg = (f"status={status if len(status) > 1 else status[0]} "
            f"iters={iters} error={err:.2e} wall={dt:.3f}s "
            f"GFLOPS={flops / dt / 1e9:.2f} "

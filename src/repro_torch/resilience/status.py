@@ -15,7 +15,7 @@ import enum
 
 import torch
 
-__all__ = ["SolveStatus", "classify"]
+__all__ = ["SolveStatus", "classify", "is_failure"]
 
 
 class SolveStatus(enum.IntEnum):
@@ -52,3 +52,8 @@ def classify(rr: torch.Tensor, tol2: float, breakdown: torch.Tensor,
                          status)
     status = torch.where(breakdown, code(SolveStatus.BREAKDOWN), status)
     return torch.where(diverged, code(SolveStatus.DIVERGED), status)
+
+
+def is_failure(status) -> torch.Tensor:
+    """True where a status code needs recovery (anything but CONVERGED)."""
+    return torch.as_tensor(status) != SolveStatus.CONVERGED

@@ -7,9 +7,12 @@ body of every variant at orders 1 to 15, and beside the tuned bodies at
 orders 3 and 7 -- the wrapper's refusals (a misaligned operand of the line
 body and an order above N1_MAX - 1 among them), the gather's run-to-run
 behaviour, and solves through the kernels: float32 single and stacked
-right-hand sides (the comparison with the reference backend with the
-gather's sums in a fixed order), order 5 through the generic body, and the
-mixed-precision bf16_x32 refinement.
+right-hand sides (the comparison with the reference backend), order 5
+through the generic body, and the mixed-precision bf16_x32 refinement;
+the solver loops as replayed CUDA graphs — bitwise equal to the same
+loops run eagerly, no host sync in a replay, one capture per loop, a
+fault striking inside a replayed chunk — and the resilient solve letting
+a kernel failure raise.
 
 Every test carries the `cuda` marker and skips without a card; whether a
 card is present is decided in the `card` fixture, at run time.  This file
@@ -25,7 +28,6 @@ result once, and the other summation order can move it across a rounding
 boundary).
 """
 
-import contextlib
 import functools
 import sys
 from pathlib import Path
@@ -36,7 +38,7 @@ import torch
 
 from repro_torch.core import axhelm as core_axhelm
 from repro_torch.core import gather_scatter as gs
-from repro_torch.core import mesh_gen, nekbone
+from repro_torch.core import graphs, mesh_gen, nekbone
 from repro_torch.core.spectral import basis
 from repro_torch.kernels.axhelm import ops
 from repro_torch.resilience.status import SolveStatus
@@ -152,11 +154,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card, variant):
         nekbone.setup_problem(mesh, variant=variant, helmholtz=helm)
 
 
-def test_gather_index_add_is_not_bitwise_reproducible_but_exact(card):
-    """`index_add_` on CUDA sums with atomics: the order of the up to 8
-    contributions to a shared dof varies from run to run.  The sums agree
-    with the float64 sum to fp32 rounding; bitwise identity is not
-    promised (the test records it but does not require it)."""
+def test_gather_is_bitwise_reproducible_and_exact(card):
+    """The gather no longer sums with `index_add_` (whose atomics changed
+    the order of the up to 8 contributions to a shared dof from run to
+    run): it sums in its plan's fixed order, so repeated gathers are
+    bitwise identical, equal to the same gather on the CPU, and agree with
+    the float64 sum to fp32 rounding."""
     mesh = mesh_gen.box_mesh(8, 8, 8, 7)
     ids = torch.as_tensor(mesh.global_ids, dtype=torch.int64, device=card)
     rng = np.random.default_rng(1)
@@ -168,19 +171,9 @@ def test_gather_index_add_is_not_bitwise_reproducible_but_exact(card):
     runs = [gs.gather(yl64.float(), ids, mesh.n_global) for _ in range(5)]
     for r in runs:
         assert bool(((r.double() - exact).abs() <= bound).all())
-    identical = all(torch.equal(r, runs[0]) for r in runs)
-    print(f"index_add_ bitwise identical over 5 runs: {identical}")
-
-
-@contextlib.contextmanager
-def _fixed_order():
-    """torch.use_deterministic_algorithms(True) inside, restored after."""
-    saved = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(saved)
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    on_cpu = gs.gather(yl64.float().cpu(), ids.cpu(), mesh.n_global)
+    assert torch.equal(runs[0].cpu(), on_cpu)
 
 
 @pytest.mark.parametrize("variant,helm", [("precomputed", False),
@@ -195,23 +188,22 @@ def test_solve_through_kernels_matches_reference_backend(card, variant,
         if variant == "parallelepiped" else \
         mesh_gen.deform_trilinear(box, seed=3)
     results = {}
-    # the gather's sums in a fixed order, so that the error this test reads
-    # is the same in every run (with atomics the merged case once read
+    # the gather sums in a fixed order, so the error this test reads is the
+    # same in every run (with index_add_'s atomics the merged case once read
     # 1.054e-4 against its 1e-4 bound)
-    with _fixed_order():
-        for backend in ("cuda", "reference"):
-            prob = nekbone.setup_problem(mesh, variant=variant,
-                                         helmholtz=helm, backend=backend)
-            assert prob.backend == backend and prob.device.type == "cuda"
-            x_true = nekbone.random_solution(prob, seed=0)
-            b = nekbone.rhs_from_solution(prob, x_true)
-            ops.reset_launch_counts()
-            res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
-            launches = ops.launch_counts[ops.entry_point(variant,
-                                                         torch.float32)]
-            results[backend] = (
-                int(res.iterations), int(res.status),
-                nekbone.manufactured_error(prob, res.x, x_true), launches)
+    for backend in ("cuda", "reference"):
+        prob = nekbone.setup_problem(mesh, variant=variant,
+                                     helmholtz=helm, backend=backend)
+        assert prob.backend == backend and prob.device.type == "cuda"
+        x_true = nekbone.random_solution(prob, seed=0)
+        b = nekbone.rhs_from_solution(prob, x_true)
+        ops.reset_launch_counts()
+        res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
+        launches = ops.launch_counts[ops.entry_point(variant,
+                                                     torch.float32)]
+        results[backend] = (
+            int(res.iterations), int(res.status),
+            nekbone.manufactured_error(prob, res.x, x_true), launches)
     (it_k, st_k, err_k, n_k), (it_r, st_r, err_r, n_r) = \
         results["cuda"], results["reference"]
     print(f"{variant}: manufactured error {err_k:.6e} through the kernels, "
@@ -264,7 +256,7 @@ def test_bf16_x32_solve_through_kernels_matches_reference_backend(card):
         op_lo = prob.op_lo
 
         def counted(x):
-            applications["n"] += 1
+            graphs.count(applications, "n")   # once per replay, too
             return op_lo(x)
         prob = prob._replace(op_lo=counted)
         ops.reset_launch_counts()
@@ -361,10 +353,10 @@ def _check_against_plain_version(card, variant, helm, n, e, ncols, dtype):
         assert int(far.sum()) == 0
 
 
-def test_solve_through_column_kernel_never_reaches_the_node_body(
-        card, monkeypatch):
-    """A trilinear solve launches axhelm_trilinear_f32 once per operator
-    application and none of the timing-only *_rowwise symbols."""
+def _count_library_calls(monkeypatch):
+    """Wrap every symbol of the kernel library in a call counter; returns
+    the counts by symbol (calls made by the host: a graph's replay makes
+    none)."""
     from repro_torch.kernels.axhelm import build
 
     lib = build.library()
@@ -378,18 +370,52 @@ def test_solve_through_column_kernel_never_reaches_the_node_body(
                 called[_sym] = called.get(_sym, 0) + 1
                 return _fn(*args)
             monkeypatch.setattr(lib, sym, counting)
+    return called
+
+
+def _solve_calls_only(prob, symbol, called):
+    """Solve as users do (captured: warm-up and capture call the library,
+    replays do not) and require that no symbol but `symbol` was called and
+    that its launches, credited once per replay, equal the operator's
+    applications; then solve eagerly, where every launch is one call of
+    `symbol`."""
+    applications = {"n": 0}
+    op = prob.op
+
+    def counted(x):
+        graphs.count(applications, "n")       # once per replay, too
+        return op(x)
+    prob = prob._replace(op=counted)
+    x_true = nekbone.random_solution(prob, seed=0)
+    b = nekbone.rhs_from_solution(prob, x_true)
+    for capture in (True, False):
+        ops.reset_launch_counts()
+        called.clear()
+        applications["n"] = 0
+        replays = prob.graphs.replays
+        res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000,
+                            capture=capture)
+        assert res.status == SolveStatus.CONVERGED
+        assert set(called) == {symbol}, (capture, called)
+        assert ops.launch_counts[symbol] == applications["n"] >= \
+            int(res.iterations) + 1, capture
+        if capture:
+            assert prob.graphs.replays > replays
+        else:
+            assert prob.graphs.replays == replays
+            assert called[symbol] == applications["n"]
+
+
+def test_solve_through_column_kernel_never_reaches_the_node_body(
+        card, monkeypatch):
+    """A trilinear solve launches axhelm_trilinear_f32 once per operator
+    application and none of the timing-only *_rowwise symbols, captured
+    as users run it and eagerly."""
+    called = _count_library_calls(monkeypatch)
     mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(4, 4, 4, 7), seed=3)
     prob = nekbone.setup_problem(mesh, variant="trilinear", backend="cuda",
                                  device=card)
-    x_true = nekbone.random_solution(prob, seed=0)
-    b = nekbone.rhs_from_solution(prob, x_true)
-    ops.reset_launch_counts()
-    called.clear()
-    res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
-    assert res.status == SolveStatus.CONVERGED
-    assert set(called) == {"axhelm_trilinear_f32"}, called
-    assert called["axhelm_trilinear_f32"] == \
-        ops.launch_counts["axhelm_trilinear_f32"] >= int(res.iterations) + 1
+    _solve_calls_only(prob, "axhelm_trilinear_f32", called)
 
 
 # The line body (csrc/axhelm_line.cu) of K1, K3 and K4: persistent blocks
@@ -462,44 +488,16 @@ def test_solve_through_line_kernel_never_reaches_the_node_body(
         card, monkeypatch, variant, helm):
     """An 8^3 parallelepiped (affine mesh) or merged solve launches its
     line entry point once per operator application and no other symbol,
-    none of the timing-only *_rowwise among them."""
-    from repro_torch.kernels.axhelm import build
-
-    lib = build.library()
-    called = {}
-    for name in build.SIGNATURES:
-        for suffix in ops.KERNEL_DTYPES.values():
-            sym = build.symbol(name, suffix)
-            fn = getattr(lib, sym)
-
-            def counting(*args, _fn=fn, _sym=sym):
-                called[_sym] = called.get(_sym, 0) + 1
-                return _fn(*args)
-            monkeypatch.setattr(lib, sym, counting)
+    none of the timing-only *_rowwise among them, captured as users run it
+    and eagerly."""
+    called = _count_library_calls(monkeypatch)
     box = mesh_gen.box_mesh(8, 8, 8, 7)
     mesh = mesh_gen.deform_affine(box, seed=2) \
         if variant == "parallelepiped" else \
         mesh_gen.deform_trilinear(box, seed=3)
     prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
                                  backend="cuda", device=card)
-    applications = {"n": 0}
-    op = prob.op
-
-    def counted(x):
-        applications["n"] += 1
-        return op(x)
-    prob = prob._replace(op=counted)
-    x_true = nekbone.random_solution(prob, seed=0)
-    b = nekbone.rhs_from_solution(prob, x_true)
-    symbol = ops.entry_point(variant, torch.float32)
-    ops.reset_launch_counts()
-    called.clear()
-    applications["n"] = 0
-    res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
-    assert res.status == SolveStatus.CONVERGED
-    assert set(called) == {symbol}, called
-    assert called[symbol] == ops.launch_counts[symbol] == \
-        applications["n"] >= int(res.iterations) + 1
+    _solve_calls_only(prob, ops.entry_point(variant, torch.float32), called)
 
 
 # The generic body (csrc/axhelm.cu, the *_any symbols): every variant and
@@ -558,19 +556,175 @@ def test_order_5_solve_runs_the_generic_body(card, variant, helm):
         if variant == "parallelepiped" else \
         mesh_gen.deform_trilinear(box, seed=3)
     results = {}
-    with _fixed_order():
-        for backend in ("auto", "reference"):
-            prob = nekbone.setup_problem(mesh, variant=variant,
-                                         helmholtz=helm, backend=backend)
-            x_true = nekbone.random_solution(prob, seed=0)
-            b = nekbone.rhs_from_solution(prob, x_true)
-            ops.reset_launch_counts()
-            res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
-            results[prob.backend] = (
-                int(res.iterations), int(res.status),
-                ops.launch_counts[ops.entry_point(variant, torch.float32)])
+    for backend in ("auto", "reference"):
+        prob = nekbone.setup_problem(mesh, variant=variant,
+                                     helmholtz=helm, backend=backend)
+        x_true = nekbone.random_solution(prob, seed=0)
+        b = nekbone.rhs_from_solution(prob, x_true)
+        ops.reset_launch_counts()
+        res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
+        results[prob.backend] = (
+            int(res.iterations), int(res.status),
+            ops.launch_counts[ops.entry_point(variant, torch.float32)])
     (it_k, st_k, n_k), (it_r, st_r, n_r) = \
         results["cuda"], results["reference"]
     assert st_k == st_r == SolveStatus.CONVERGED
     assert abs(it_k - it_r) <= 1
     assert n_k >= it_k + 1 and n_r == 0
+
+
+# The solver loops as CUDA graphs (core/graphs.py, core/pcg.py): each loop's
+# chunk of _CHECK_EVERY bodies is warmed up, captured once and replayed.
+
+def _solve_problem(card, precision=None, order=7, nrhs=1, variant="trilinear"):
+    """A 4^3 trilinear Poisson problem through the kernels and its b: the
+    manufactured one for fp32, `nekbone.random_rhs` for bf16_x32."""
+    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(4, 4, 4, order),
+                                     seed=3)
+    prob = nekbone.setup_problem(mesh, variant=variant, backend="cuda",
+                                 device=card, precision=precision)
+    if precision:
+        return prob, nekbone.random_rhs(prob, nrhs=nrhs)
+    x_true = nekbone.random_solution(prob, seed=0, nrhs=nrhs)
+    return prob, nekbone.rhs_from_solution(prob, x_true)
+
+
+# (name, precision, nrhs, tol): pcg, pcg_block and refine's inner sweeps
+_LOOPS = [("pcg", None, 1, 1e-6), ("pcg_block", None, 3, 1e-6),
+          ("refine", "bf16_x32", 1, 1e-3),
+          ("refine_block", "bf16_x32", 3, 1e-3)]
+
+
+@pytest.mark.parametrize("name,precision,nrhs,tol", _LOOPS,
+                         ids=[c[0] for c in _LOOPS])
+def test_captured_solve_equals_eager_solve(card, name, precision, nrhs, tol):
+    """The replayed loop gives the eager loop's bits: x, statuses,
+    iterations, and the kernel launches (counted once per replay)."""
+    prob, b = _solve_problem(card, precision, nrhs=nrhs)
+    out = {}
+    for capture in (False, True, True):
+        ops.reset_launch_counts()
+        res = nekbone.solve(prob, b, tol=tol, max_iter=1000,
+                            capture=capture)
+        torch.cuda.synchronize()
+        out.setdefault(capture, []).append((res, dict(ops.launch_counts)))
+    eager, eager_launches = out[False][0]
+    for res, launches in out[True]:
+        assert torch.equal(res.x, eager.x)
+        assert torch.equal(res.iterations, eager.iterations)
+        assert torch.equal(res.status, eager.status)
+        assert launches == eager_launches
+    if precision is None:
+        assert (eager.status == SolveStatus.CONVERGED).all()
+    assert prob.graphs.captures == 1
+    assert prob.graphs.replays > 0
+
+
+def test_replay_makes_no_host_sync(card):
+    """A replay of a captured chunk, under sync debug mode "error": no
+    operation in it waits for the device (only the flag read between
+    chunks does, outside the replay)."""
+    prob, b = _solve_problem(card)
+    nekbone.solve(prob, b, tol=1e-6, max_iter=1000)
+    (loop,) = prob.graphs.loops.values()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            prob.graphs.replay(loop.graph)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_no_recapture_on_repeat_or_new_tolerance(card):
+    """A repeat solve, a solve at another tolerance, and refine's sweeps
+    (a new inner tolerance in each) replay the graphs captured first."""
+    prob, b = _solve_problem(card)
+    first = nekbone.solve(prob, b, tol=1e-3, max_iter=1000)
+    assert prob.graphs.captures == 1
+    tight = nekbone.solve(prob, b, tol=1e-7, max_iter=1000)
+    assert prob.graphs.captures == 1
+    assert int(tight.iterations) > int(first.iterations)
+    fresh = nekbone.solve(prob, b, tol=1e-7, max_iter=1000, capture=False)
+    assert torch.equal(tight.x, fresh.x)
+    mixed, bm = _solve_problem(card, "bf16_x32")
+    for tol in (0.03, 1e-3, 1e-4):
+        nekbone.solve(mixed, bm, tol=tol, max_iter=3000)
+    assert mixed.graphs.captures == 1
+    assert len(mixed.graphs.capture_seconds) == 1
+
+
+def test_block_solver_captures_once_per_width(card):
+    prob, _ = _solve_problem(card)
+    shapes = []
+    solve_block = nekbone.make_block_solver(prob, tol=1e-6, max_iter=1000,
+                                            on_capture=shapes.append)
+    for width in (2, 4, 2, 4, 1, 1):
+        b = nekbone.rhs_from_solution(
+            prob, nekbone.random_solution(prob, seed=width, nrhs=width))
+        b = b.reshape(b.shape[0], width)        # width 1 is a block too
+        res = solve_block(b, torch.zeros_like(b))
+        assert (res.status == SolveStatus.CONVERGED).all()
+    ng = prob.mesh.n_global
+    assert shapes == [(ng, 2), (ng, 4), (ng, 1)]
+
+
+@pytest.mark.parametrize("variant,helm", [("trilinear", False),
+                                          ("merged", True)])
+def test_order_5_solve_captured_through_the_generic_body(card, variant,
+                                                         helm):
+    """At order 5 every launch is the generic body's, which opts in to
+    its dynamic shared memory at every launch: inside a capture too."""
+    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(4, 4, 4, 5), seed=3)
+    prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
+                                 backend="cuda", device=card)
+    b = nekbone.rhs_from_solution(prob, nekbone.random_solution(prob))
+    name = ops.entry_point(variant, torch.float32)
+    results = []
+    for capture in (True, False):
+        ops.reset_launch_counts()
+        results.append((nekbone.solve(prob, b, tol=1e-6, max_iter=1000,
+                                      capture=capture),
+                         ops.launch_counts[name]))
+    (cap, n_cap), (eager, n_eager) = results
+    assert prob.graphs.captures == 1
+    assert int(cap.status) == SolveStatus.CONVERGED
+    assert torch.equal(cap.x, eager.x) and n_cap == n_eager > 0
+
+
+@pytest.mark.parametrize("iteration", [3, 11])
+def test_fault_strikes_inside_a_captured_chunk(card, iteration):
+    """A NaN at iteration 3 (in the warm-up chunk on the first solve, in a
+    replay on the second) or 11 (in a replay): DIVERGED at that iteration,
+    x the eager faulted solve's bits."""
+    from repro_torch.resilience.inject import FaultSpec
+
+    prob, b = _solve_problem(card)
+    spec = FaultSpec(mode="nan", iteration=iteration)
+    eager = nekbone.solve(prob, b, tol=1e-6, max_iter=1000, fault=spec,
+                          capture=False)
+    for _ in range(2):
+        res = nekbone.solve(prob, b, tol=1e-6, max_iter=1000, fault=spec)
+        assert int(res.status) == SolveStatus.DIVERGED
+        assert int(res.iterations) == iteration
+        assert torch.equal(res.x, eager.x)
+    assert prob.graphs.captures == 1
+
+
+def test_kernel_failure_propagates_through_solve_resilient(card,
+                                                           monkeypatch):
+    """solve_resilient acts on statuses only: a kernel launch that fails
+    raises through it."""
+    from repro_torch.kernels.axhelm import build
+    from repro_torch.resilience.retry import solve_resilient
+
+    prob, b = _solve_problem(card)
+
+    class Failing:
+        def __getattr__(self, symbol):
+            return lambda *args: 1            # cudaErrorInvalidValue
+
+    monkeypatch.setattr(build, "library", lambda: Failing())
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        solve_resilient(prob, b, tol=1e-6, max_iter=1000)

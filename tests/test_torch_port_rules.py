@@ -68,6 +68,18 @@ mixed = nekbone.setup_problem(mesh, precision="bf16_x32", device="cpu")
 xs = nekbone.random_solution(mixed, seed=1, nrhs=3)
 mres = nekbone.solve(mixed, nekbone.rhs_from_solution(mixed, xs), tol=1e-3)
 assert (mres.status == SolveStatus.CONVERGED).all(), mres.status
+from repro_torch.resilience.inject import FaultSpec
+from repro_torch.resilience.retry import solve_resilient
+b = nekbone.rhs_from_solution(prob, x)
+rep = solve_resilient(prob, b, tol=1e-6, fault=FaultSpec(iteration=2),
+                      persistent=False)
+assert rep.converged and rep.rung == ("restart",), rep.rung
+widths = []
+block = nekbone.make_block_solver(prob, tol=1e-6, on_capture=widths.append)
+for w in (2, 2):
+    bb = nekbone.rhs_from_solution(prob, nekbone.random_solution(prob, nrhs=w))
+    block(bb, bb * 0)
+assert widths == [(mesh.n_global, 2)], widths
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print("ok", int(res.iterations))
 """
@@ -76,6 +88,25 @@ print("ok", int(res.iterations))
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_solve_resilient_catches_no_exception():
+    """The retry ladder acts on solve statuses only: no `try` in
+    `solve_resilient` (nested functions included), so a kernel that fails
+    to build or launch raises through it."""
+    tree = ast.parse((PORT / "resilience" / "retry.py").read_text())
+    (fn,) = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+             and n.name == "solve_resilient"]
+    assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)]
+
+
+def test_graph_code_catches_no_capture_failure():
+    """A capture or replay that fails raises: the loop and graph modules
+    have no `except` that could turn one into an eager fallback."""
+    for rel in ("core/graphs.py", "core/pcg.py"):
+        tree = ast.parse((PORT / rel).read_text())
+        assert not [n for n in ast.walk(tree)
+                    if isinstance(n, ast.ExceptHandler)], rel
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):

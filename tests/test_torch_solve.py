@@ -115,10 +115,13 @@ def test_diagonals_match_reference(x64, variant, helm, d):
     jd = jnek._global_diag(mesh, jb, jop.factors, jnp.asarray(lam0), lam1,
                            helm, d, None if mask is None
                            else jnp.asarray(mask), jnp.float64)
-    td = tnek._global_diag(convert.mesh_from_numpy(mesh), tb, top.factors,
+    tmesh = convert.mesh_from_numpy(mesh)
+    td = tnek._global_diag(tmesh, tb, top.factors,
                            torch.as_tensor(lam0), lam1, helm, d,
                            None if mask is None else torch.as_tensor(mask),
-                           torch.float64, CPU)
+                           torch.float64, CPU,
+                           tgs.gather_plan(tmesh.global_ids, tmesh.n_global,
+                                           CPU))
     assert _rel(td, jd) <= RTOL64
 
 
@@ -147,9 +150,11 @@ def _carried_problem(mesh, variant, helm):
         dtype=torch.float32, backend="cuda", device=CPU)
     factors = taxhelm._setup_factors(variant, tb, verts, carried)
     mask = None if helm else torch.as_tensor(tmesh.boundary)
-    op = tnek._global_op(lambda x: t_apply(x, carried), tmesh, mask, CPU)
+    plan = tgs.gather_plan(tmesh.global_ids, tmesh.n_global, CPU)
+    op = tnek._global_op(lambda x: t_apply(x, carried), tmesh, mask, CPU,
+                         plan)
     diag = tnek._global_diag(tmesh, tb, factors, lam0, lam1, helm, 1, mask,
-                             torch.float32, CPU)
+                             torch.float32, CPU, plan)
     return tnek.NekboneProblem(op, diag, mask, tmesh, tb, 1, helm, variant,
                                backend, CPU)
 
