@@ -103,6 +103,22 @@ each:
               rung where the policy asks for it, and a fault in column 1
               of an nrhs-4
               block that leaves the other columns' iterations alone
+  5f. sharded  the element-sharded solve (`setup_problem(shard_ctx=)`) on
+              gloo ranks, all on this one card (`distributed.launch.spawn`;
+              NCCL needs a card per rank): every kernel at the element
+              counts a shard gives it, against its plain version; then S=2
+              (slab) and S=4 (the 2x2x1 box) ranks each repeat phase 4's
+              six fp32 8^3 solves (the single-device kernel solve's status,
+              iterations +-1, manufactured error < 1e-3, the same x on every
+              rank, a repeat bitwise equal), at S=2 also the bf16_x32
+              trilinear solve (tol 0.03: CONVERGED, true residual <= 1.5
+              tol) and drop_exchange on shard 1 at iteration 2 under the
+              ladder (rungs initial, restart; converged), and the config's
+              trilinear solve (200 iterations) within SHARDED_RESIDUAL_BOUND
+              and SHARDED_X_BOUND of the single-device eager one; ms per
+              iteration on every rank, interface dofs and bytes an exchange,
+              peak memory a rank, launches summed over the ranks.  gloo on
+              one card: no multi-card number
   6. timing   device time of each kernel (E=4096 and E=32768, N1=8,
               c=1; K1, K2, K3, K5 Poisson, K4 Helmholtz) from a replayed
               CUDA graph, and its time in eager calls back to back, beside
@@ -114,7 +130,8 @@ each:
               gather at 16^3 in its fixed order in turns with index_add_
               (c = 1 and 4), bitwise repeatable
   7. the `kernels` line (ten entry points, each launched on its main
-     path, and their ten generic bodies, launched on the order-5 solves),
+     path and, as `launches_sharded`, on the sharded one, and their ten
+     generic bodies, launched on the order-5 solves),
      then the card line, then the result line.
 
 Exits non-zero, printing no result, when a phase fails, when there is no
@@ -128,6 +145,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -200,6 +218,22 @@ CONFIG_BF16_RUNS = [(nrhs, tol) for nrhs in (1, 4) for tol in (3.0, 0.03,
 # column 0 lies outside refinement's envelope and ends STAGNATED in the
 # reference too (true residual ~0.35 of a norm-30 b).
 MUST_CONVERGE_8 = {"trilinear": (0,), "trilinear/nrhs4": (1, 2, 3)}
+# The `sharded` phase: (shards, grid) of each spawn of gloo ranks on the one
+# card, the 1-D slab and the (2, 2, 1) box; the phase 4 solves it repeats
+# on every spawn (name, variant, helmholtz); its 16^3 bounds against the
+# single-device eager solve after CONFIG.max_iter iterations (the final
+# residual's relative difference and the iterates' relative L2 distance;
+# PERF.md gives the spread scripts/sharded_spread.py measured at 8^3).
+SHARDED = ((2, None), (4, (2, 2, 1)))
+SHARDED_RUNS = [("precomputed", "precomputed", False),
+                ("trilinear", "trilinear", False),
+                ("partial", "partial", False),
+                ("trilinear/helmholtz", "trilinear", True),
+                ("merged", "merged", True),
+                ("parallelepiped", "parallelepiped", False)]
+SHARDED_RESIDUAL_BOUND = 0.01
+SHARDED_X_BOUND = 1e-3
+SHARDED_TIMEOUT_S = 300       # the gloo group's bound on one collective
 # A bf16 kernel against the correctly rounded result (its plain version in
 # float64, rounded once): at most this share of its outputs may round to
 # another bf16 value, and none may lie more than one bf16 ulp away unless
@@ -449,6 +483,127 @@ def ptxas_instantiations(report: str):
     return inst
 
 
+def sharded_rank(rank: int, world: int, grid, plan: dict) -> dict:
+    """One gloo rank of the `sharded` phase (module level: the spawned
+    ranks import it).  Every launch count is set to 0 before the rank
+    drives the sharded main path and read after it.  `plan` carries the
+    device (None: the card), the mesh sizes, the single-device numbers it
+    is compared with and the files of the 16^3 right-hand side and
+    single-device solution."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.core import mesh_gen, nekbone
+    from repro_torch.distributed.context import make_solver_ctx
+    from repro_torch.kernels.axhelm import ops
+    from repro_torch.resilience.inject import FaultSpec
+    from repro_torch.resilience.retry import solve_resilient
+    from repro_torch.resilience.status import SolveStatus
+
+    ctx = make_solver_ctx(devices=world, grid=grid, device=plan["device"])
+    dev = ctx.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def mesh_of(variant, n):
+        box = mesh_gen.box_mesh(n, n, n, plan["order"])
+        if variant == "parallelepiped":
+            return mesh_gen.deform_affine(box, seed=2)
+        return mesh_gen.deform_trilinear(box, seed=3)
+
+    def timed(prob, b, **kw):
+        sync()
+        t0 = time.perf_counter()
+        res = nekbone.solve(prob, b, **kw)
+        sync()
+        return res, time.perf_counter() - t0
+
+    def name_of(status):
+        return [SolveStatus(int(c)).name for c in status.reshape(-1)]
+
+    out = {"rank": rank, "device": str(dev), "solves": {}}
+    ops.reset_launch_counts()
+    for name, variant, helm in SHARDED_RUNS:
+        prob = nekbone.setup_problem(mesh_of(variant, plan["n_conv"]),
+                                     variant=variant, helmholtz=helm,
+                                     backend=plan["backend"], shard_ctx=ctx)
+        x_true = nekbone.random_solution(prob, seed=0)
+        b = nekbone.rhs_from_solution(prob, x_true)
+        res, wall = timed(prob, b, tol=1e-8,
+                          max_iter=plan["max_iter"][helm])
+        row = {"status": name_of(res.status)[0],
+               "iterations": int(res.iterations),
+               "error": nekbone.manufactured_error(prob, res.x, x_true),
+               "ms_per_iteration": wall * 1e3 / max(int(res.iterations), 1),
+               "x_sha1": hashlib.sha1(res.x.cpu().numpy().tobytes())
+               .hexdigest()}
+        if name == "trilinear":
+            again, _ = timed(prob, b, tol=1e-8,
+                             max_iter=plan["max_iter"][helm])
+            row["repeat_bitwise"] = torch.equal(res.x, again.x)
+            out["partition"] = {
+                "grid": list(prob.partition.grid),
+                "elements_per_shard": prob.partition.e_per_shard,
+                "interface_dofs": prob.partition.n_shared,
+                "interface_dofs_here": int(
+                    prob.partition.shared_present[rank].sum())}
+        out["solves"][name] = row
+    if plan["extras"]:
+        # the bf16_x32 refined solve, and a lost exchange under the ladder
+        mesh = mesh_of("trilinear", plan["n_conv"])
+        prob = nekbone.setup_problem(mesh, variant="trilinear",
+                                     backend=plan["backend"],
+                                     precision="bf16_x32", shard_ctx=ctx)
+        b = nekbone.random_rhs(prob)
+        res, wall = timed(prob, b, tol=0.03, max_iter=REFINED_MAX_ITER)
+        out["refined"] = {
+            "status": name_of(res.status), "tol": 0.03,
+            "iterations": res.iterations.reshape(-1).tolist(),
+            "true_residual": float(torch.linalg.norm(b - prob.op(res.x))),
+            "ms_per_iteration": wall * 1e3 / max(int(res.iterations), 1)}
+        prob = nekbone.setup_problem(mesh, variant="trilinear",
+                                     backend=plan["backend"], shard_ctx=ctx)
+        b = nekbone.rhs_from_solution(prob, nekbone.random_solution(prob))
+        rep = solve_resilient(
+            prob, b, tol=1e-6, max_iter=1000, persistent=False,
+            fault=FaultSpec(mode="drop_exchange", iteration=2, shard=1))
+        out["drop_exchange"] = {
+            "converged": rep.converged, "rung": list(rep.rung),
+            "attempts": [[a.rung, name_of(torch.as_tensor(a.status)),
+                          a.iterations.tolist(), a.true_residual.tolist()]
+                         for a in rep.attempts]}
+    cfg = plan["config"]
+    ref = torch.load(cfg["path"])
+    prob = nekbone.setup_problem(mesh_of("trilinear", cfg["n"]),
+                                 variant="trilinear",
+                                 backend=plan["backend"], shard_ctx=ctx)
+    b, x_ref = ref["b"].to(dev), ref["x"].to(dev)
+    timed(prob, b, tol=cfg["tol"], max_iter=cfg["max_iter"])    # warm-up
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    res, wall = timed(prob, b, tol=cfg["tol"], max_iter=cfg["max_iter"])
+    part = prob.partition
+    out["config"] = {
+        "status": name_of(res.status)[0], "iterations": int(res.iterations),
+        "residual": float(res.residual),
+        "residual_rel_diff": abs(float(res.residual) - ref["residual"])
+        / ref["residual"],
+        "x_rel_l2": float(torch.linalg.norm(res.x - x_ref)
+                          / torch.linalg.norm(x_ref)),
+        "ms_per_iteration": wall * 1e3 / max(int(res.iterations), 1),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
+        if dev.type == "cuda" else None,
+        "elements_per_shard": part.e_per_shard,
+        "interface_dofs": part.n_shared,
+        "interface_dofs_here": int(part.shared_present[rank].sum()),
+        "bytes_per_exchange": 4 * part.n_shared}
+    out["launches"] = {k: v for k, v in ops.launch_counts.items() if v}
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -466,6 +621,7 @@ def main() -> None:
     from repro_torch.core import gather_scatter as gs
     from repro_torch.core import graphs, mesh_gen, nekbone
     from repro_torch.core.spectral import basis
+    from repro_torch.distributed.launch import spawn
     from repro_torch.kernels.axhelm import build, ops
     from repro_torch.resilience.inject import FaultSpec
     from repro_torch.resilience.retry import RetryPolicy, solve_resilient
@@ -1317,6 +1473,134 @@ def main() -> None:
     del prob, b, block, bs
     torch.cuda.empty_cache()
 
+    # 5f. sharded: the element-sharded solve on gloo ranks on this card ----
+    # Every kernel at the element counts a shard gives it (EP = E / S on
+    # these boxes), against its plain version; then for each (S, grid) of
+    # SHARDED one spawn of S ranks, all on this card, that repeats phase 4's
+    # six fp32 solves at 8^3 (status of the single-device kernel solve,
+    # iterations +-1, error < 1e-3), at S = 2 also the bf16_x32 trilinear
+    # solve and a lost exchange under the retry ladder, and the config's
+    # trilinear solve (CONFIG.max_iter iterations) against the
+    # single-device eager one.  gloo on one card: these times are no
+    # multi-card number.
+    shard_e = sorted({len(conv_box.verts) // s for s, _ in SHARDED}
+                     | {e_main // s for s, _ in SHARDED})
+    for e_shard in shard_e:
+        xs = torch.as_tensor(rng.standard_normal((e_shard,) + (n1,) * 3),
+                             dtype=torch.float32, device=dev)
+        for variant in VARIANTS:
+            helm = MAIN_HELMHOLTZ[variant]
+            verts = torch.as_tensor(cfg_mesh_for(variant).verts[:e_shard],
+                                    dtype=torch.float32, device=dev)
+            for dt in DTYPES:
+                geom, kw = main_operands(variant, verts, helm, dt=dt)
+                check(variant, b_cfg, xs.to(torch_dtype[dt]), geom,
+                      f"sharded E={e_shard} {variant} {dt}", dt=dt,
+                      helmholtz=helm, **kw)
+        del xs
+    sharded_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_sharded.")
+    ref_prob = nekbone.setup_problem(cfg_tri, variant="trilinear",
+                                     backend="cuda")
+    b_cfg_rhs = nekbone.rhs_from_solution(ref_prob, nekbone.random_solution(
+        ref_prob, seed=0))
+    ref_res = nekbone.solve(ref_prob, b_cfg_rhs, tol=CONFIG.tol,
+                            max_iter=CONFIG.max_iter, capture=False)
+    ref_path = str(Path(sharded_dir.name) / "config_ref.pt")
+    torch.save({"b": b_cfg_rhs.cpu(), "x": ref_res.x.cpu(),
+                "residual": float(ref_res.residual)}, ref_path)
+    del ref_prob, b_cfg_rhs
+    plan = {"device": None, "backend": "cuda", "order": CONFIG.order,
+            "n_conv": 8, "max_iter": CONVERGE_MAX_ITER,
+            "config": {"path": ref_path, "n": nx, "tol": CONFIG.tol,
+                       "max_iter": CONFIG.max_iter}}
+    sharded, sharded_launches = {}, dict.fromkeys(ops.launch_counts, 0)
+    for shards, grid in SHARDED:
+        key = f"S={shards} " + ("slab" if grid is None
+                                else "x".join(map(str, grid)))
+        t0 = time.perf_counter()
+        per_rank = spawn(sharded_rank, shards, (grid, {
+            **plan, "extras": shards == 2}), backend="gloo",
+            timeout_s=SHARDED_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        first = per_rank[0]
+        for name, _, _ in SHARDED_RUNS:
+            single = conv[name]["kernel"]
+            rows = [r["solves"][name] for r in per_rank]
+            for r in rows:
+                require(r["status"] == single["status"] and
+                        abs(r["iterations"] - single["iterations"]) <= 1 and
+                        r["error"] < 1e-3,
+                        f"sharded {key} {name}: {r} against the single-"
+                        f"device kernel solve {single}")
+            require(len({(r["status"], r["iterations"], r["x_sha1"])
+                         for r in rows}) == 1,
+                    f"sharded {key} {name}: ranks disagree: {rows}")
+        require(first["solves"]["trilinear"]["repeat_bitwise"],
+                f"sharded {key}: a repeat solve changed x")
+        if shards == 2:
+            ref8 = first["refined"]
+            require(ref8["status"] == ["CONVERGED"] and
+                    ref8["true_residual"] <= 1.5 * ref8["tol"],
+                    f"sharded {key} bf16_x32: {ref8}")
+            drop = first["drop_exchange"]
+            require(drop["converged"] and
+                    [a[0] for a in drop["attempts"]] ==
+                    ["initial", "restart"],
+                    f"sharded {key} drop_exchange: {drop}")
+        launches = dict.fromkeys(ops.launch_counts, 0)
+        for r in per_rank:
+            c = r["config"]
+            require(c["residual_rel_diff"] <= SHARDED_RESIDUAL_BOUND and
+                    c["x_rel_l2"] <= SHARDED_X_BOUND,
+                    f"sharded {key} 16^3: {c} against the single-device "
+                    f"eager solve (residual {float(ref_res.residual)})")
+            for k, v in r["launches"].items():
+                launches[k] += v
+                sharded_launches[k] += v
+        sharded[key] = {
+            "wall_s": wall, "partition_8": first["partition"],
+            "solves_8": {name: {k: first["solves"][name][k] for k in
+                                ("status", "iterations", "error")}
+                         | {"single_device": [
+                             conv[name]["kernel"]["status"],
+                             conv[name]["kernel"]["iterations"]],
+                            "ms_per_iteration_by_rank": [
+                                r["solves"][name]["ms_per_iteration"]
+                                for r in per_rank]}
+                         for name, _, _ in SHARDED_RUNS},
+            "refined_8": first.get("refined"),
+            "drop_exchange_8": first.get("drop_exchange"),
+            "config_16": {
+                **{k: first["config"][k] for k in (
+                    "status", "iterations", "residual", "residual_rel_diff",
+                    "x_rel_l2", "elements_per_shard", "interface_dofs",
+                    "bytes_per_exchange")},
+                "ms_per_iteration_by_rank": [r["config"]["ms_per_iteration"]
+                                             for r in per_rank],
+                "interface_dofs_by_rank": [
+                    r["config"]["interface_dofs_here"] for r in per_rank],
+                "max_memory_allocated_by_rank": [
+                    r["config"]["max_memory_allocated"] for r in per_rank]},
+            "launches_all_ranks": {k: v for k, v in launches.items()
+                                   if v}}
+    sharded_dir.cleanup()
+    emit({"phase": "sharded", "dist_backend": "gloo", "card": card,
+          "ranks_on": "every rank on cuda:0 (one card): gloo all-reduces "
+                      "through host memory; no multi-card (NCCL) number",
+          "single_device_16": {"residual": float(ref_res.residual),
+                               "iterations": int(ref_res.iterations),
+                               "mode": "eager"},
+          "bounds_16": {"residual_rel_diff": SHARDED_RESIDUAL_BOUND,
+                        "x_rel_l2": SHARDED_X_BOUND},
+          "runs": sharded})
+    for v in VARIANTS:
+        require(sharded_launches[entry(v, "f32")] > 0,
+                f"{entry(v, 'f32')} was not launched on the sharded path")
+    require(sharded_launches[entry("trilinear", "bf16")] > 0,
+            "the bf16 trilinear kernel was not launched on the sharded path")
+    del ref_res
+    torch.cuda.empty_cache()
+
     # 6. kernel times -------------------------------------------------------
     def event_ms(fn, reps, warmup):
         for _ in range(warmup):
@@ -1538,6 +1822,7 @@ def main() -> None:
             "route": "cuda", "source": SOURCE[BODY[variant]],
             "replaces": REPLACES[variant],
             "main_path": main_path(variant, dt), "launches": launches,
+            "launches_sharded": sharded_launches[name],
             "max_abs_err": main_abs[name], "max_rel_err": worst[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

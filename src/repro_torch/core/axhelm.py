@@ -59,6 +59,7 @@ __all__ = [
     "element_diagonal",
     "make_axhelm",
     "make_axhelm_elem_ops",
+    "setup_factors",
 ]
 
 VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged", "partial")
@@ -250,16 +251,24 @@ def _validate_setup(variant: str, basis: SpectralBasis, verts, lam0, lam1,
                 f"{tuple(lam.shape)}")
 
 
-def _setup_factors(variant: str, basis: SpectralBasis, verts,
-                   elem_ops) -> GeomFactors:
-    """The `GeomFactors` carried on `AxhelmOp` (for the Jacobi diagonal):
-    the precomputed variant's planar [g6, gwj] operand already holds them;
+def setup_factors(variant: str, basis: SpectralBasis, verts,
+                  dtype: torch.dtype, elem_ops=None) -> GeomFactors:
+    """The `GeomFactors` of `variant` that `AxhelmOp` carries for the
+    Jacobi diagonal: computed in the setup dtype from `verts` rounded to
+    `dtype`, then rounded to `dtype` once.  The precomputed variant reads
+    them from the planar [g6, gwj] operand of `elem_ops` when given;
     merged and partial share the trilinear factors."""
-    if variant == "precomputed":
-        return GeomFactors(*kref.factors_of_planes(elem_ops["geom"]))
-    if variant == "parallelepiped":
-        return geometry.factors_parallelepiped(verts, basis)
-    return geometry.factors_trilinear(verts, basis)
+    verts = torch.as_tensor(verts, dtype=dtype).to(_setup_dtype(dtype))
+    if variant == "precomputed" and elem_ops is not None:
+        factors = GeomFactors(*kref.factors_of_planes(elem_ops["geom"]))
+    elif variant == "precomputed":
+        factors = geometry.factors_discrete(
+            geometry.node_coords(verts, basis), basis)
+    elif variant == "parallelepiped":
+        factors = geometry.factors_parallelepiped(verts, basis)
+    else:
+        factors = geometry.factors_trilinear(verts, basis)
+    return GeomFactors(factors.g.to(dtype), factors.gwj.to(dtype))
 
 
 def _setup_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -287,9 +296,7 @@ def make_axhelm(variant: str, basis: SpectralBasis, verts,
     elem_ops, elem_apply, backend_used = make_axhelm_elem_ops(
         variant, basis, verts, lam0=lam0, lam1=lam1, helmholtz=helmholtz,
         dtype=dtype, backend=backend, coords=coords, device=device)
-    factors = _setup_factors(variant, basis,
-                             verts.to(_setup_dtype(dtype)), elem_ops)
-    factors = GeomFactors(factors.g.to(dtype), factors.gwj.to(dtype))
+    factors = setup_factors(variant, basis, verts, dtype, elem_ops)
 
     def apply(x):
         return elem_apply(x, elem_ops)

@@ -19,8 +19,17 @@ the global operator also scattered (`scatter_columns`, `gather_columns`),
 column by column from a column-major copy, so that every read and write
 of the index gathers runs along contiguous memory: on CUDA, gathering rows
 of a few components (`index_select`, indexing, or `torch.gather` with a
-broadcast index) ran up to 25x slower (PERF.md).  The sharded exchange is
-not ported yet.
+broadcast index) ran up to 25x slower (PERF.md).
+
+On a sharded mesh each rank gathers its shard's elements into its local
+dof space in the same fixed order (a plan over the shard's `local_ids`
+that leaves out the trash slot), then one `all_reduce` of the process
+group sums the interface dofs — the shared face, edge and corner dofs of
+the partition, never the whole field — in float32 (`exchange_shared`;
+the reference's `gather_sharded` is `gather` then `exchange_shared`, which
+the shard operator of `nekbone` calls in turn, since a dropped exchange
+keeps the partials between them).  See `mesh_gen.partition_elements` for
+the index sets.
 """
 
 from __future__ import annotations
@@ -29,9 +38,11 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["GatherPlan", "gather_plan", "ordered_sum", "scatter", "gather",
-           "scatter_columns", "gather_columns", "dssum", "multiplicity"]
+           "scatter_columns", "gather_columns", "dssum", "multiplicity",
+           "shared_contrib", "apply_shared", "exchange_shared"]
 
 
 class GatherPlan(NamedTuple):
@@ -41,7 +52,9 @@ class GatherPlan(NamedTuple):
              grouped by their dof's multiplicity (ascending), dof after dof
              (ascending) within a group, and ascending within a dof.
     inv:     (Ng,) each dof's row in the groups' concatenated sums.
-    classes: ((m, dofs with multiplicity m), ...), ascending m.
+    classes: ((m, dofs with multiplicity m), ...), ascending m; m = 0 is
+             the dofs that gather nothing (a shard's padding slots and its
+             trash slot), whose sums are zero.
     """
 
     perm: torch.Tensor
@@ -49,8 +62,11 @@ class GatherPlan(NamedTuple):
     classes: tuple
 
 
-def gather_plan(global_ids, n_global: int, device=None) -> GatherPlan:
-    """Build the gather's plan from the numbering (numpy, at setup)."""
+def gather_plan(global_ids, n_global: int, device=None,
+                skip: Optional[int] = None) -> GatherPlan:
+    """Build the gather's plan from the numbering (numpy, at setup).  The
+    contributions to dof `skip` (a shard's trash slot) are left out: its
+    sum is zero."""
     ids = np.asarray(global_ids.cpu() if isinstance(global_ids, torch.Tensor)
                      else global_ids).reshape(-1).astype(np.int64)
     if device is None:
@@ -60,8 +76,10 @@ def gather_plan(global_ids, n_global: int, device=None) -> GatherPlan:
     # stable: equal dofs keep their ascending positions
     by_dof = np.argsort(ids, kind="stable")
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    if skip is not None:
+        counts[skip] = 0
     perm, order, classes = [], [], []
-    for m in np.unique(counts[counts > 0]):
+    for m in np.unique(counts):
         dofs = np.nonzero(counts == m)[0]
         perm.append(by_dof[starts[dofs][:, None] + np.arange(m)].reshape(-1))
         order.append(dofs)
@@ -113,6 +131,9 @@ def _gather_columns(vals: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
     grouped = torch.gather(vals, 1, plan.perm.expand(cols, -1))
     sums, start = [], 0
     for m, n in plan.classes:
+        if m == 0:
+            sums.append(vals.new_zeros((cols, n)))
+            continue
         sums.append(ordered_sum(grouped[:, start:start + m * n].view(
             cols, n, m)))
         start += m * n
@@ -188,3 +209,38 @@ def _expand_mask(mask: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if y.ndim == mask.ndim:
         return mask
     return mask.reshape(tuple(mask.shape) + (1,) * (y.ndim - mask.ndim))
+
+
+def shared_contrib(y_dofs: torch.Tensor, shared_idx: torch.Tensor,
+                   shared_present: torch.Tensor) -> torch.Tensor:
+    """This shard's partial sums at the interface dofs, zero where absent.
+
+    y_dofs: (L[, c]) the shard's local dof values; shared_idx: (NS,) local
+    slots (the trash slot where absent); shared_present: (NS,) bool.
+    """
+    vals = y_dofs[shared_idx]
+    return torch.where(_expand_mask(shared_present, vals), vals,
+                       torch.zeros((), dtype=vals.dtype, device=vals.device))
+
+
+def apply_shared(y_dofs: torch.Tensor, shared_idx: torch.Tensor,
+                 summed: torch.Tensor) -> torch.Tensor:
+    """A copy of `y_dofs` with the summed interface values written back into
+    their local slots.  Absent interface dofs carry the trash slot, so
+    their writes land there (its value is never read unmasked)."""
+    out = y_dofs.clone()
+    out[shared_idx] = summed.to(y_dofs.dtype)
+    return out
+
+
+def exchange_shared(y_dofs: torch.Tensor, shared_idx: torch.Tensor,
+                    shared_present: torch.Tensor, group) -> torch.Tensor:
+    """Sum the interface dofs' partials across the ranks of `group`: one
+    `all_reduce` of the (NS[, c]) interface buffer — the whole RHS batch
+    rides along as its columns.  Sub-fp32 partials are widened to fp32,
+    summed and rounded once (the gather's accumulation rule, which also
+    keeps bfloat16 off the wire)."""
+    contrib = shared_contrib(y_dofs, shared_idx, shared_present)
+    buf = _dense(contrib, _accumulation(contrib.dtype))
+    dist.all_reduce(buf, group=group)
+    return apply_shared(y_dofs, shared_idx, buf)

@@ -8,8 +8,17 @@ them (block PCG), in float32 or in the mixed-precision ``bf16_x32`` mode
 (float32 outer refinement around bfloat16 inner sweeps).  The PCG loops
 run on the card as replayed CUDA graphs, kept per problem
 (`NekboneProblem.graphs`, see `core.graphs`); `make_block_solver` is the
-reference's nrhs-polymorphic entry that captures once per RHS width.  The
-element-sharded solve is a later slice.
+reference's nrhs-polymorphic entry that captures once per RHS width.
+
+With a `distributed.context.SolverShardCtx` the same pipeline runs
+element-sharded, one `torch.distributed` rank per shard: every rank builds
+the same partition (1-D slabs or Cartesian sub-boxes) and keeps its own
+shard's elements, the gather becomes the shard's local gather plus one
+`all_reduce` of the interface dofs, and PCG's dots sum the owned dofs and
+all-reduce the partials.  A solve takes the replicated global right-hand
+side and returns the same global x on every rank.  Every rank issues the
+same collectives in the same order: each stop decision of the loops comes
+from all-reduced values.  The sharded loops run eagerly.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no card and no explicit device they raise.
@@ -21,16 +30,20 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import axhelm as axhelm_mod
 from repro_torch.core import gather_scatter as gs
 from repro_torch.core.graphs import GraphCache
-from repro_torch.core.mesh_gen import BoxMesh
-from repro_torch.core.pcg import PCGResult, pcg, pcg_block, refine
+from repro_torch.core.mesh_gen import (BoxMesh, MeshPartition,
+                                       partition_elements)
+from repro_torch.core.pcg import (PCGResult, owned_dot, pcg, pcg_block,
+                                  refine)
 from repro_torch.core.spectral import SpectralBasis, basis as make_basis
 from repro_torch.resilience import inject
 
-__all__ = ["NekboneProblem", "PRECISIONS", "resolve_device", "setup_problem",
+__all__ = ["NekboneProblem", "ShardedNekboneProblem", "PRECISIONS",
+           "resolve_device", "setup_problem",
            "rhs_from_solution", "solve", "make_block_solver", "flop_count",
            "random_solution", "random_rhs", "manufactured_error"]
 
@@ -56,6 +69,38 @@ class NekboneProblem(NamedTuple):
     device: torch.device = torch.device("cpu")
     precision: Optional[str] = None  # None (plain) or "bf16_x32"
     op_lo: object = None             # bf16 operator for the inner sweeps
+    graphs: Optional[GraphCache] = None
+
+
+class ShardedNekboneProblem(NamedTuple):
+    """One rank's element-sharded Nekbone problem (`setup_problem(
+    shard_ctx=)`).
+
+    `op` has global-field semantics (Ng[, d] -> Ng[, d]) and runs this
+    rank's shard of the scatter -> axhelm -> gather pipeline with the
+    interface exchange; every rank must call it together.  `diag` and
+    `mask` are global, as on one device.  `run_pcg` (and, for
+    ``precision="bf16_x32"``, `run_refined`) runs the whole loop on the
+    shard and returns a `PCGResult` whose `x` is reassembled on the global
+    dofs, the same on every rank.  `graphs` keeps the solver loops between
+    solves, as `NekboneProblem.graphs` does.
+    """
+
+    op: object                     # global-semantics A(x), collective
+    diag: torch.Tensor             # diag(A) on global dofs
+    mask: Optional[torch.Tensor]   # Dirichlet mask on global dofs
+    mesh: BoxMesh
+    basis: SpectralBasis
+    d: int
+    helmholtz: bool
+    variant: str
+    backend: str
+    device: torch.device
+    shard_ctx: object              # distributed.context.SolverShardCtx
+    partition: MeshPartition
+    run_pcg: object                # (b, tol, max_iter, ...) -> PCGResult
+    precision: Optional[str] = None
+    run_refined: object = None     # fp32-outer / bf16-inner sharded runner
     graphs: Optional[GraphCache] = None
 
 
@@ -140,7 +185,8 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
                   backend: str | None = None,
                   device=None,
                   nrhs: int | None = None,
-                  precision: str | None = None) -> NekboneProblem:
+                  precision: str | None = None,
+                  shard_ctx=None):
     """Build the global operator + Jacobi diagonal for a mesh/variant.
 
     `variant` is any of `core.axhelm.VARIANTS`; merged is Helmholtz only
@@ -157,6 +203,13 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     `nrhs` declares the RHS-batch width of later `solve` calls, as in the
     reference; the operator takes any width, and the port has no block
     size to tune for it, so nothing else depends on it.
+
+    `shard_ctx` (a `distributed.context.SolverShardCtx` from
+    `make_solver_ctx`, one per rank) partitions the elements over the
+    ranks of its group — as linear slabs, or as the Cartesian sub-boxes of
+    ``shard_ctx.grid`` — and returns this rank's `ShardedNekboneProblem`
+    on ``shard_ctx.device``; every rank of the group must call it with the
+    same arguments.  ``shard_ctx=None`` takes the single-device path.
 
     `precision="bf16_x32"` builds the mixed-precision solve: `op`/`diag`
     stay float32 (`dtype` must be float32, the outer precision) and a
@@ -175,6 +228,11 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
             f"dtype=torch.float32, got {str(dtype).removeprefix('torch.')}")
     if nrhs is not None and (int(nrhs) != nrhs or nrhs < 1):
         raise ValueError(f"nrhs must be a positive integer, got {nrhs!r}")
+    if shard_ctx is not None:
+        if device is not None and torch.device(device) != shard_ctx.device:
+            raise ValueError(f"device {device} differs from the shard's "
+                             f"device {shard_ctx.device}")
+        device = shard_ctx.device
     device = resolve_device(device)
     b = make_basis(mesh.order)
     verts = torch.as_tensor(mesh.verts, dtype=dtype, device=device)
@@ -185,6 +243,12 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     if dirichlet is None:
         dirichlet = not helmholtz  # Poisson needs the mask to be SPD
     mask = torch.as_tensor(mesh.boundary, device=device) if dirichlet else None
+    if shard_ctx is not None and shard_ctx.n_shards > 1:
+        part = partition_elements(mesh, shard_ctx.n_shards,
+                                  grid=shard_ctx.grid)
+        return _setup_problem_sharded(mesh, b, variant, d, helmholtz, lam0,
+                                      lam1, mask, dtype, backend, shard_ctx,
+                                      part, precision)
     op = axhelm_mod.make_axhelm(variant, b, verts, lam0=lam0, lam1=lam1,
                                 helmholtz=helmholtz, dtype=dtype,
                                 backend=backend, device=device)
@@ -202,6 +266,243 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     return NekboneProblem(apply, diag, mask, mesh, b, d, helmholtz, variant,
                           op.backend, device, precision, op_lo_apply,
                           GraphCache())
+
+
+def _partition_lam_field(lam, part: MeshPartition, shard: int) -> np.ndarray:
+    """Shard `shard`'s slots of an (E, N1, N1, N1) lambda field, in the
+    partition's element order (`elem_perm`, interface first), with its dead
+    padding slots set to 1.0 (any finite value works: their outputs land
+    in the trash slot)."""
+    lam = np.asarray(lam.cpu() if isinstance(lam, torch.Tensor) else lam)
+    perm = part.elem_perm[shard]                 # (EP,); -1 on dead slots
+    vals = lam[np.where(perm >= 0, perm, 0)]
+    vals[perm < 0] = 1.0
+    return vals
+
+
+def _setup_problem_sharded(mesh: BoxMesh, b: SpectralBasis, variant: str,
+                           d: int, helmholtz: bool, lam0, lam1, mask,
+                           dtype: torch.dtype, backend, ctx,
+                           part: MeshPartition, precision
+                           ) -> ShardedNekboneProblem:
+    """This rank's shard: its element operator (and, for ``bf16_x32``, a
+    second bfloat16 one over the same shard), the global Jacobi diagonal of
+    the whole mesh, and the runners."""
+    device, shard = ctx.device, ctx.rank
+    node_shape = (len(mesh.verts),) + (b.n1,) * 3
+    lam_sh = []
+    for name, lam in (("lam0", lam0), ("lam1", lam1)):
+        if lam is not None and getattr(lam, "ndim", 0) > 0:
+            if tuple(lam.shape) != node_shape:
+                raise ValueError(
+                    f"{name} must be a scalar or a per-node (E, N1, N1, N1) "
+                    f"field of shape {node_shape} (the unpartitioned mesh "
+                    f"layout), got {tuple(lam.shape)}")
+            lam = _partition_lam_field(lam, part, shard)
+        lam_sh.append(lam)
+    verts = torch.as_tensor(part.verts[shard], dtype=dtype, device=device)
+    elem_ops, elem_apply, backend_used = axhelm_mod.make_axhelm_elem_ops(
+        variant, b, verts, lam0=lam_sh[0], lam1=lam_sh[1],
+        helmholtz=helmholtz, dtype=dtype, backend=backend, device=device)
+    # the diagonal of the whole mesh, as on one device
+    factors = axhelm_mod.setup_factors(
+        variant, b, torch.as_tensor(mesh.verts, device=device), dtype)
+    diag = _global_diag(mesh, b, factors, lam0, lam1, helmholtz, d, mask,
+                        dtype, device, gs.gather_plan(
+                            mesh.global_ids, mesh.n_global, device))
+    apply_lo = None
+    if precision == "bf16_x32":
+        ops_lo, elem_apply_lo, _ = axhelm_mod.make_axhelm_elem_ops(
+            variant, b, verts, lam0=lam_sh[0], lam1=lam_sh[1],
+            helmholtz=helmholtz, dtype=torch.bfloat16, backend=backend,
+            device=device)
+
+        def apply_lo(x):
+            return elem_apply_lo(x, ops_lo)
+
+    def apply(x):
+        return elem_apply(x, elem_ops)
+
+    graphs = GraphCache()
+    op, run_pcg, run_refined = _build_sharded_runner(
+        part, ctx, apply, apply_lo, mask, diag, d, mesh.n_global, graphs)
+    return ShardedNekboneProblem(op, diag, mask, mesh, b, d, helmholtz,
+                                 variant, backend_used, device, ctx, part,
+                                 run_pcg, precision, run_refined, graphs)
+
+
+def _build_sharded_runner(part: MeshPartition, ctx, elem_apply,
+                          elem_apply_lo, mask, diag: torch.Tensor, d: int,
+                          n_global: int, graphs: GraphCache):
+    """Wire this rank's shard of the pipeline: index sets on its device,
+    the shard operator with the interface exchange, and the runners, whose
+    loops `graphs` keeps.
+
+    The collectives are the interface `all_reduce` of each operator
+    application (`gs.exchange_shared`), the `all_reduce` of each PCG dot
+    (`owned_dot`) and the one of `globalize`.  Returns ``(apply_global,
+    run_pcg, run_refined)``; the last is None without a bfloat16 operator.
+    """
+    shard, dev, group = ctx.rank, ctx.device, ctx.group
+    nl = part.n_local
+
+    def rows(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a[shard]), dtype=dtype,
+                               device=dev)
+
+    lid = rows(part.local_ids, torch.int64)
+    # the shard's fixed-order gather; the trash slot gathers nothing
+    plan = gs.gather_plan(part.local_ids[shard], nl, dev, skip=nl - 1)
+    sidx = rows(part.shared_idx, torch.int64)
+    spres = rows(part.shared_present)
+    l2g = rows(part.local_to_global, torch.int64)
+    own, val = rows(part.owned_mask), rows(part.valid_mask)
+    own_slots = torch.as_tensor(np.flatnonzero(part.owned_mask[shard]),
+                                device=dev)
+    own_g = l2g[own_slots]
+    diag_loc = diag[l2g]
+    mask_loc = None if mask is None else mask[l2g]
+    expand = gs._expand_mask
+    dots = {batched: owned_dot(own, group, batched)
+            for batched in (False, True)}
+
+    def zero(t):
+        return torch.zeros((), dtype=t.dtype, device=t.device)
+
+    def localize(xg):
+        xl = xg[l2g]
+        return torch.where(expand(val, xl), xl, zero(xl))
+
+    def globalize(xl):
+        # every dof has one owner: one index_add_ a rank, then the
+        # all_reduce adds zeros to it elsewhere — exact
+        acc = gs._accumulation(xl.dtype)
+        out = torch.zeros((n_global,) + tuple(xl.shape[1:]), dtype=acc,
+                          device=xl.device)
+        out.index_add_(0, own_g, xl[own_slots].to(acc))
+        dist.all_reduce(out, group=group)
+        return out.to(xl.dtype)
+
+    def make_a_op(apply_fn):
+        """The shard operator of one element operator."""
+
+        def a_op_local(x, it=None, fault=None, fdof=None):
+            """This shard's A(x): mask -> scatter -> axhelm -> local gather
+            -> interface exchange (+ mask), on (L[, ...]) local fields;
+            trailing axes are flattened into the c columns of one
+            exchange.  `fault` strikes on its shard when the device
+            counter `it` reaches its iteration: nan/bitflip poison the
+            local dof `fdof` after all masking; drop_exchange keeps the
+            shard's pre-exchange partials (a lost message: its shared dofs
+            miss every remote contribution).  Every rank still takes part
+            in the exchange."""
+            x_in = x
+            bshape = tuple(x.shape[1:])
+            if mask_loc is not None:
+                m = expand(mask_loc, x)
+                x = torch.where(m, zero(x), x)
+            if bshape:
+                xl = gs.scatter_columns(x.reshape(nl, -1), lid)
+                y_pre = gs.gather_columns(apply_fn(xl), plan)
+            else:
+                y_pre = gs.gather(apply_fn(gs.scatter(x, lid)), lid, nl,
+                                  plan)
+            y = gs.exchange_shared(y_pre, sidx, spres, group)
+            fire = None
+            if fault is not None and fault.shard == shard:
+                fire = it == fault.iteration
+                if fault.mode == "drop_exchange":
+                    y = torch.where(fire, y_pre, y)
+            if bshape:
+                y = y.reshape((nl,) + bshape)
+            if mask_loc is not None:
+                y = torch.where(m, x_in, y)
+            # dead-element and padding slots stay exactly zero
+            y = torch.where(expand(val, y), y, zero(y))
+            if fire is not None and fault.mode != "drop_exchange":
+                y = inject.poison(y, fdof, fire, fault)
+            return y
+
+        return a_op_local
+
+    a_op_local = make_a_op(elem_apply)
+    a_op_lo_local = None if elem_apply_lo is None else make_a_op(
+        elem_apply_lo)
+
+    def apply_global(xg):
+        return globalize(a_op_local(localize(xg)))
+
+    def validate_fault(fault):
+        """The fault's checks, the same on every rank, and its local dof
+        (None for drop_exchange)."""
+        if not 0 <= fault.shard < part.n_shards:
+            raise ValueError(f"fault.shard {fault.shard} out of range for "
+                             f"{part.n_shards} shards")
+        if fault.mode == "drop_exchange":
+            return None
+        fdof = inject.fault_dof(part.local_ids[fault.shard], fault)
+        if part.elem_perm[fault.shard, fault.element] < 0:
+            raise ValueError(
+                f"fault.element {fault.element} is a dead padding slot on "
+                f"shard {fault.shard}: pick a live element")
+        return fdof
+
+    def operator(fault, lo: bool):
+        """The iteration-aware faulted shard operator (memoized), or the
+        plain one."""
+        base = a_op_lo_local if lo else a_op_local
+        if fault is None:
+            return base
+
+        def make():
+            fdof = validate_fault(fault)
+
+            def a_op(x, it):
+                return base(x, it=it, fault=fault, fdof=fdof)
+
+            a_op.takes_iteration = True
+            return a_op
+
+        return graphs.memo(("sharded_fault", lo, fault), make)
+
+    def preconditioner(precond, refined, batched):
+        if precond != "jacobi":
+            return None
+        return graphs.memo(("sharded_jacobi", refined, batched),
+                           lambda: _jacobi(diag_loc, refined, batched))
+
+    def run_pcg(b_global, tol, max_iter, precond="jacobi", x0=None,
+                stagnation_window=0, fault=None):
+        batched = b_global.ndim > (2 if d > 1 else 1)
+        runner = pcg_block if batched else pcg
+        res = runner(operator(fault, False), localize(b_global),
+                     x0=None if x0 is None else localize(x0),
+                     precond=preconditioner(precond, False, batched),
+                     tol=tol, max_iter=max_iter, dot=dots[batched],
+                     stagnation_window=stagnation_window, graphs=graphs,
+                     capture=False)
+        return res._replace(x=globalize(res.x))
+
+    run_refined = None
+    if a_op_lo_local is not None:
+        def run_refined(b_global, tol, max_iter, precond="jacobi", x0=None,
+                        stagnation_window=0, fault=None):
+            """The whole refine loop on the shard: fp32 outer residual
+            through the full-precision shard operator, bf16 inner sweeps
+            through the bf16 one (which a `fault` strikes in every
+            sweep)."""
+            batched = b_global.ndim > (2 if d > 1 else 1)
+            res = refine(
+                a_op_local, operator(fault, True),
+                localize(b_global.to(torch.float32)),
+                x0=None if x0 is None else localize(x0.to(torch.float32)),
+                precond=preconditioner(precond, True, batched),
+                tol=tol, max_iter=max_iter, dot=dots[batched],
+                batched=batched, inner_window=stagnation_window or 5,
+                graphs=graphs, capture=False)
+            return res._replace(x=globalize(res.x))
+
+    return apply_global, run_pcg, run_refined
 
 
 def rhs_from_solution(problem: NekboneProblem,
@@ -242,7 +543,12 @@ def solve(problem: NekboneProblem, b_rhs: torch.Tensor,
     sweep; the test harness of `resilience`, None in production.  On a card
     the loops run as CUDA graphs kept in ``problem.graphs``, so a repeat
     solve of the same shape captures nothing; ``capture=False`` runs them
-    eagerly, for comparisons."""
+    eagerly, for comparisons.
+
+    A `ShardedNekboneProblem` runs its shard's loop on every rank (each
+    rank calls `solve` with the same replicated `b_rhs`) and returns the
+    global x on every rank; its loops run eagerly (``capture=True``
+    raises: capturing the sharded loop is not ported yet)."""
     if precond not in ("jacobi", "copy"):
         raise ValueError(f"unknown preconditioner {precond!r}")
     base = 1 if problem.d == 1 else 2
@@ -262,6 +568,13 @@ def solve(problem: NekboneProblem, b_rhs: torch.Tensor,
                          res.residual[None], res.initial_residual[None],
                          res.breakdown[None], res.status[None])
     refined = problem.precision == "bf16_x32"
+    if isinstance(problem, ShardedNekboneProblem):
+        if capture:
+            raise ValueError("capture=True: the sharded loops run eagerly "
+                             "(capturing them is not ported yet)")
+        runner = problem.run_refined if refined else problem.run_pcg
+        return runner(b_rhs, tol, max_iter, precond=precond, x0=x0,
+                      stagnation_window=stagnation_window, fault=fault)
     # the functions a solve makes from the problem are memoized with its
     # loops, so that a repeat solve finds the loop (and graph) it captured
     graphs = problem.graphs if problem.graphs is not None else GraphCache()

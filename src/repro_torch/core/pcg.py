@@ -9,7 +9,8 @@ Preconditioners: none and Jacobi (inverse diagonal).  `pcg_block` solves
 nrhs stacked right-hand sides (trailing axis) with per-column alpha/beta
 and a freeze mask; `refine` is the mixed-precision solve: fp32 outer
 residual and correction around reduced-precision inner `pcg`/`pcg_block`
-sweeps.
+sweeps.  `owned_dot` is the inner product of an element-sharded field: each
+rank sums the dofs it owns and one `all_reduce` adds the ranks' partials.
 
 The reference runs each loop as one `jax.lax.while_loop`, compiled once.
 The port keeps a loop's state on the device in fixed tensors — the
@@ -45,11 +46,12 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.graphs import GraphCache
 from repro_torch.resilience.status import classify
 
-__all__ = ["PCGResult", "pcg", "pcg_block", "refine"]
+__all__ = ["PCGResult", "pcg", "pcg_block", "refine", "owned_dot"]
 
 # Bodies a chunk runs between host reads of the device-side `active` flag:
 # each read drains the queue once, so rarer reads keep the card busier
@@ -81,6 +83,32 @@ def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _column_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Per-column dots of stacked fields: every axis but the last."""
     return (_up(u) * _up(v)).sum(dim=tuple(range(u.ndim - 1)))
+
+
+def owned_dot(weight: torch.Tensor, group, batched: bool = False
+              ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """A `dot` for `pcg`/`pcg_block`/`refine` on element-sharded fields.
+
+    `weight` is the shard's ownership mask (True where this shard owns the
+    dof; False on ghost, padding and trash slots), so an interface dof,
+    held by every shard that touches it, counts once.  The partial sum is
+    fp32 for reduced-precision operands (`_up`), and one `all_reduce` over
+    `group` adds the shards' partials: a scalar, or with `batched=True`
+    the (nrhs,) per-column dots over every axis but the last.
+    """
+
+    def dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        w = weight if u.ndim == weight.ndim else weight.reshape(
+            tuple(weight.shape) + (1,) * (u.ndim - weight.ndim))
+        prod = torch.where(w, _up(u) * _up(v), 0.0)
+        if batched:
+            part = prod.sum(dim=tuple(range(prod.ndim - 1)))
+        else:
+            part = prod.sum()
+        dist.all_reduce(part, group=group)
+        return part
+
+    return dot
 
 
 def _identity(r: torch.Tensor) -> torch.Tensor:
@@ -398,6 +426,8 @@ def refine(a_hi, a_lo, b: torch.Tensor,
            precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
            tol: float = 1e-8,
            max_iter: int = 200,
+           dot: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                  torch.Tensor]] = None,
            batched: bool = False,
            inner_window: int = 5,
            graphs: Optional[GraphCache] = None,
@@ -419,7 +449,9 @@ def refine(a_hi, a_lo, b: torch.Tensor,
     RHS and its fp32 state stops moving.  ``iterations`` counts the total
     inner iterations (reduced-precision operator applications) per column,
     and the loop stops at ``max_iter`` of them, after ``_MAX_OUTER`` sweeps,
-    or when no column is live.
+    or when no column is live.  `dot` serves the outer residuals and the
+    inner sweeps alike (default: full contractions in fp32, per column
+    when `batched`; `owned_dot` on a sharded field).
 
     As in the reference, the inner tolerance and budget are computed on
     the device, in float32, and enter the inner loop as device scalars, so
@@ -428,7 +460,8 @@ def refine(a_hi, a_lo, b: torch.Tensor,
     one small tensor on the host per sweep: whether a column is live, and
     the iterations spent.
     """
-    dot = _column_dot if batched else _dot
+    if dot is None:
+        dot = _column_dot if batched else _dot
     b32 = b.to(torch.float32)
     kind = "pcg_block" if batched else "pcg"
     cache = GraphCache() if graphs is None else graphs

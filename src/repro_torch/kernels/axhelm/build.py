@@ -86,9 +86,10 @@ def _start(cmd):
 def build() -> Path:
     """Compile the kernels unless these sources are already built; return
     the library path.  Every source compiles at the same time, into a
-    scratch directory that is removed afterwards; the library is linked
-    under a temporary name and moved into place, so a concurrent build
-    never exposes a partial file."""
+    scratch directory that is removed afterwards; the library and the
+    ptxas report are written under temporary names and moved into place,
+    so a concurrent build (ranks building at the same moment) never
+    exposes a partial file."""
     out = library_path()
     if out.exists():
         return out
@@ -103,7 +104,9 @@ def build() -> Path:
         tmp = work / out.name
         _run([_start([nvcc, *LINK_FLAGS, "-o", str(tmp),
                       *map(str, objs)])])
-        _report_path().write_text(report)
+        tmp_report = work / _report_path().name
+        tmp_report.write_text(report)
+        os.replace(tmp_report, _report_path())
         os.replace(tmp, out)
     finally:
         shutil.rmtree(work, ignore_errors=True)

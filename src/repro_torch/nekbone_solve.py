@@ -1,4 +1,5 @@
-"""End-to-end Nekbone solve of the port (single device).
+"""End-to-end Nekbone solve of the port, on one device or element-sharded
+over local ranks.
 
 Solves Poisson/Helmholtz on a box of trilinear elements with Jacobi PCG and
 the chosen axhelm variant; prints status / iterations / error / wall /
@@ -10,7 +11,7 @@ partial (Poisson only).
 Run:  PYTHONPATH=src python -m repro_torch.nekbone_solve \
           [--elements 4 4 4] [--order 7] [--variant trilinear] \
           [--equation poisson] [--d 1] [--nrhs 1] [--backend auto] \
-          [--device cuda]
+          [--device cuda] [--devices 1] [--grid slab] [--dist-backend nccl]
 
 --nrhs R solves R stacked right-hand sides with block PCG (1 is the exact
 single-RHS path) and adds iters/column and wall/rhs to the result line.
@@ -21,8 +22,17 @@ defaults to the card; --device cpu runs the whole solve on the CPU.  On
 the card the PCG loop runs as a replayed CUDA graph, captured by the
 warm-up solve.
 
+--devices N shards the elements over N local ranks (`distributed.launch`,
+one process each, rank 0 prints): --grid picks the partition ('slab',
+'auto', or a box like '2x2x1'), and the interface dofs and PCG dots are
+all-reduced over --dist-backend: nccl (the default) needs one card per
+rank; gloo runs any number of ranks on one card, or on the CPU with
+--device cpu.  The sharded loop runs eagerly.  The parent builds the
+kernels before it starts the ranks.
+
 --inject MODE@ITER corrupts one operator application inside the loop
-(`resilience.inject.FaultSpec`: nan@3, bitflip@2); --resilient solves
+(`resilience.inject.FaultSpec`: nan@3, bitflip@2, and on sharded runs
+drop_exchange@2, which strikes shard 0); --resilient solves
 through `resilience.retry.solve_resilient` (true-residual verification and
 the restart -> precision ladder of the default policy; the backend rung,
 which answers with the plain version in place of the kernels, is opt-in
@@ -38,6 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import mesh_gen, nekbone
+from repro_torch.distributed.context import make_solver_ctx, parse_grid_arg
+from repro_torch.distributed.launch import spawn
 from repro_torch.resilience.inject import FaultSpec
 from repro_torch.resilience.retry import solve_resilient
 from repro_torch.resilience.status import SolveStatus
@@ -73,7 +85,21 @@ def _parse_args(argv=None):
                          "the per-attempt audit trail")
     ap.add_argument("--inject", default=None, metavar="MODE@ITER",
                     help="fault injection: corrupt one operator "
-                         "application, e.g. 'nan@3' or 'bitflip@2'")
+                         "application, e.g. 'nan@3', 'bitflip@2', "
+                         "'drop_exchange@2' (sharded only)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shard the solve over N local ranks (1 = the "
+                         "exact single-device path)")
+    ap.add_argument("--grid", default="slab",
+                    help="element-partition shard grid: 'slab' (1-D), "
+                         "'auto' (smallest-surface factorization), or an "
+                         "explicit box like '2x2x1' (must multiply to "
+                         "--devices)")
+    ap.add_argument("--dist-backend", default="nccl",
+                    choices=["nccl", "gloo"],
+                    help="torch.distributed backend of the sharded solve: "
+                         "nccl needs one card per rank; gloo runs any "
+                         "number of ranks on one card or on the CPU")
     return ap.parse_args(argv)
 
 
@@ -90,11 +116,51 @@ def _host(a):
 
 def main(argv=None):
     args = _parse_args(argv)
+    if args.devices < 1:
+        raise SystemExit(f"--devices must be >= 1, got {args.devices}")
+    if args.devices == 1:
+        # no process group: None, with a warning when --grid cannot apply
+        _run(args, make_solver_ctx(grid=parse_grid_arg(args.grid)))
+        return
+    device = nekbone.resolve_device(args.device)
+    if args.dist_backend == "nccl" and (
+            device.type != "cuda"
+            or torch.cuda.device_count() < args.devices):
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        raise SystemExit(
+            f"--dist-backend nccl needs one card per rank: {args.devices} "
+            f"ranks, {cards} card(s) on {device.type}; pass --dist-backend "
+            f"gloo to run the ranks on fewer cards or on the CPU")
+    if device.type == "cuda" and args.backend != "reference":
+        from repro_torch.kernels.axhelm import build
+        build.build()           # once here, not in every rank
+    spawn(_rank_main, args.devices, (args,), backend=args.dist_backend)
+
+
+def _rank_main(rank: int, world: int, args) -> None:
+    """One rank of a sharded run: on its own card (`--device cuda` too:
+    rank r takes card r modulo the count), or on the named device."""
+    device = None if args.device in (None, "cuda") else args.device
+    ctx = make_solver_ctx(devices=world, grid=parse_grid_arg(args.grid),
+                          device=device)
+    _run(args, ctx)
+
+
+def _run(args, shard_ctx=None) -> None:
+    """Set up, solve and report; on a sharded run every rank solves and
+    rank 0 prints."""
+    rank = 0 if shard_ctx is None else shard_ctx.rank
+
+    def say(msg: str) -> None:
+        if rank == 0:
+            print(msg, flush=True)
+
     fault = None
     if args.inject is not None:
         mode, _, it = args.inject.partition("@")
         fault = FaultSpec(mode=mode, iteration=int(it) if it else 3)
-    device = nekbone.resolve_device(args.device)
+    device = nekbone.resolve_device(
+        args.device if shard_ctx is None else shard_ctx.device)
     helm = args.equation == "helmholtz"
     nx, ny, nz = args.elements
     mesh = mesh_gen.box_mesh(nx, ny, nz, args.order)
@@ -102,15 +168,25 @@ def main(argv=None):
         mesh = mesh_gen.deform_affine(mesh, seed=2)
     else:
         mesh = mesh_gen.deform_trilinear(mesh, seed=3)
-    print(f"mesh: E={len(mesh.verts)} N={args.order} dofs={mesh.n_global} "
-          f"variant={args.variant} eq={args.equation} d={args.d} "
-          f"nrhs={args.nrhs}")
+    n_shards = 1 if shard_ctx is None else shard_ctx.n_shards
+    say(f"mesh: E={len(mesh.verts)} N={args.order} dofs={mesh.n_global} "
+        f"variant={args.variant} eq={args.equation} d={args.d} "
+        f"nrhs={args.nrhs} shards={n_shards}")
     prob = nekbone.setup_problem(mesh, variant=args.variant, d=args.d,
                                  helmholtz=helm, backend=args.backend,
-                                 device=device, nrhs=args.nrhs)
+                                 device=device, nrhs=args.nrhs,
+                                 shard_ctx=shard_ctx)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    print(f"backend={prob.backend} device={device} ({name})")
+    say(f"backend={prob.backend} device={device} ({name})")
+    if shard_ctx is not None:
+        part = prob.partition
+        say(f"partition: shards={part.n_shards} grid={part.grid} "
+            f"dist_backend={args.dist_backend} "
+            f"elems/shard={[int(c) for c in part.elem_counts]} "
+            f"local_dofs={part.n_local} shared_dofs={part.n_shared} "
+            f"({part.n_shared / mesh.n_global:.1%} of the field exchanged) "
+            f"iface_elems={float(part.iface_counts.sum()) / len(mesh.verts):.1%}")
     x_true = nekbone.random_solution(prob, seed=0, nrhs=args.nrhs)
     b = nekbone.rhs_from_solution(prob, x_true)
 
@@ -121,17 +197,17 @@ def main(argv=None):
         _sync(device)
         dt = time.perf_counter() - t0
         for a in res.attempts:
-            print(f"attempt rung={a.rung} columns={list(a.columns)} "
-                  f"status={[SolveStatus(int(s)).name for s in a.status]} "
-                  f"true_residual="
-                  f"{np.array2string(a.true_residual, precision=2)}")
-        print(f"resilient: converged={res.converged} rung={list(res.rung)}")
+            say(f"attempt rung={a.rung} columns={list(a.columns)} "
+                f"status={[SolveStatus(int(s)).name for s in a.status]} "
+                f"true_residual="
+                f"{np.array2string(a.true_residual, precision=2)}")
+        say(f"resilient: converged={res.converged} rung={list(res.rung)}")
     else:
         def run():
             return nekbone.solve(prob, b, tol=args.tol,
                                  max_iter=args.max_iter, fault=fault)
 
-        run()                   # warm-up: kernel build, graph capture
+        run()       # warm-up: kernel build, graph capture (one device)
         _sync(device)
         t0 = time.perf_counter()
         res = run()
@@ -151,7 +227,7 @@ def main(argv=None):
            f"GDOFS={mesh.n_global * args.d * sum(iters_all) / dt / 1e9:.4f}")
     if args.nrhs > 1:
         msg += f" iters/column={iters_all} wall/rhs={dt / args.nrhs:.3f}s"
-    print(f"{msg} device={name}")
+    say(f"{msg} device={name}")
 
 
 if __name__ == "__main__":

@@ -1,13 +1,15 @@
 """Deterministic solver-level fault injection (the reference's
-`resilience.inject`, single device).
+`resilience.inject`).
 
 A `FaultSpec` pins every coordinate of a fault — what kind, which PCG
-iteration, which element, which RHS column — so a fire is exactly
-reproducible.  `wrap_operator` makes an iteration-aware operator that
+iteration, which element, which shard, which RHS column — so a fire is
+exactly reproducible.  `wrap_operator` makes an iteration-aware operator that
 `core.pcg` calls as ``A(x, it)`` with the loop's counter on the device;
 whether it fires is a device comparison with that counter, so the fault
 lives inside a captured chunk and strikes on the replay of the chosen
-iteration.  Modes:
+iteration.  A sharded solve strikes inside the shard pipeline of rank
+``shard`` instead (`core.nekbone._build_sharded_runner`), with `fault_dof`
+taken on that shard's `local_ids`.  Modes:
 
 - ``"nan"``     — overwrite one dof of the operator output with NaN: a
   kernel reading garbage memory.  DIVERGED within one iteration.
@@ -15,8 +17,11 @@ iteration.  Modes:
   high-exponent-bit flip that stays finite, so CG's step normalisation
   absorbs it and it surfaces as BREAKDOWN or a stall (the "silent data
   corruption" case the structured statuses exist for).
-- ``"drop_exchange"`` — a lost interface exchange; it needs a sharded
-  solve, which the port does not have yet, so wrapping it raises.
+- ``"drop_exchange"`` — one shard keeps its local partial sums on the
+  shared dofs for one application, as if the interface exchange had been
+  lost.  It does not make ``rr`` non-finite; the true-residual audit of
+  `resilience.retry` catches it.  Sharded solves only: wrapping a
+  single-device operator with it raises.
 
 The poisoned node is the CENTER node of the chosen element, element-
 interior for order >= 2: never masked, never shared.  The initial-residual
@@ -52,8 +57,9 @@ class FaultSpec:
 
     ``iteration`` is the PCG loop iteration to fire at (>= 0; the
     initial-residual application is iteration -1 and is never faulted).
-    ``element`` is a global element index (``shard`` must stay 0 on one
-    device).  ``column`` selects one RHS column of a block solve (None =
+    ``element`` is the element slot local to ``shard`` on a sharded solve
+    (an index into that shard's element batch), a global element index
+    otherwise (``shard`` must then stay 0).  ``column`` selects one RHS column of a block solve (None =
     every column); ignored for single-RHS solves.
     """
 
@@ -77,8 +83,9 @@ class FaultSpec:
 
 def fault_dof(ids, spec: FaultSpec) -> int:
     """The dof index of the poisoned node: the CENTER node of
-    `spec.element` in `ids` (E, N1, N1, N1), element-interior for order
-    >= 2.  numpy, at setup."""
+    `spec.element` in `ids` (E, N1, N1, N1) — `mesh.global_ids`, or one
+    shard's `part.local_ids[shard]` on a sharded solve — element-interior
+    for order >= 2.  numpy, at setup."""
     ids = np.asarray(ids)
     n1 = ids.shape[-1]
     if n1 < 3:
@@ -115,9 +122,10 @@ def poison(y: torch.Tensor, dof: int, fire: torch.Tensor,
 
 
 def wrap_operator(a_op, spec: FaultSpec, global_ids):
-    """Wrap a global operator `A(x)` with the fault: an iteration-aware
-    operator (``takes_iteration = True``) that fires exactly when
-    ``it == spec.iteration``."""
+    """Wrap a single-device global operator `A(x)` with the fault: an
+    iteration-aware operator (``takes_iteration = True``) that fires
+    exactly when ``it == spec.iteration``.  Sharded solves do not use it:
+    their fault strikes inside the shard pipeline."""
     if spec.mode == "drop_exchange":
         raise ValueError(
             "mode='drop_exchange' needs a sharded solve — there is no "

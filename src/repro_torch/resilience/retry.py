@@ -24,7 +24,10 @@ The ladder acts on solve STATUSES only.  It catches no exception: a kernel
 that fails to build or launch raises through `solve_resilient` as it
 would through `solve`.  Rebuild rungs run clean (no injected fault).  The
 bookkeeping is numpy on the host; every solve is an ordinary
-`core.nekbone.solve`, captured and replayed on a card.
+`core.nekbone.solve`, captured and replayed on a card.  A sharded problem
+runs the same ladder on every rank: its answers and true residuals are the
+same on every rank, so every rank takes the same rungs, and the rebuild
+rungs rebuild it over the same `shard_ctx`.
 """
 
 from __future__ import annotations
@@ -128,7 +131,8 @@ def _default_rebuild(problem, full_nrhs):
             dtype=dtype if dtype is not None else problem.diag.dtype,
             backend=backend if backend is not None else problem.backend,
             device=problem.device, precision=precision,
-            nrhs=full_nrhs if nrhs is None else nrhs)
+            nrhs=full_nrhs if nrhs is None else nrhs,
+            shard_ctx=getattr(problem, "shard_ctx", None))
 
     return rebuild
 

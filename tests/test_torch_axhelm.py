@@ -27,6 +27,7 @@ from repro_torch.core import axhelm as taxhelm
 from repro_torch.core.spectral import basis as tbasis
 from repro_torch.kernels.axhelm import ops as tops
 from repro_torch.kernels.axhelm import ref as tref
+from _torch_x64 import x64  # noqa: F401
 
 RTOL32 = 1e-4
 RTOL64 = 1e-12

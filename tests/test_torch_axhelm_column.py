@@ -37,6 +37,7 @@ from repro_torch.kernels.axhelm import build, ops
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from _torch_x64 import x64  # noqa: F401
 
 RTOL64 = 1e-12
 

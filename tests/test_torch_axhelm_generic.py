@@ -42,6 +42,7 @@ from test_torch_axhelm_column import _meta, fake_card  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from _torch_x64 import x64  # noqa: F401
 
 RTOL64 = 1e-12
 

@@ -46,6 +46,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 import chip_smoke  # noqa: E402
 import line_staging_sweep  # noqa: E402
+from _torch_x64 import x64  # noqa: F401
 
 RTOL64 = 1e-12
 

@@ -24,6 +24,7 @@ from repro_torch import convert, nekbone_solve
 from repro_torch.core import nekbone as tnek
 from repro_torch.core.pcg import pcg_block as tpcg_block
 from repro_torch.resilience.status import SolveStatus
+from _torch_x64 import x64  # noqa: F401
 
 RTOL64 = 1e-12
 

@@ -35,7 +35,8 @@ PORT_SCRIPTS = [ROOT / "chip_smoke.py",
                 ROOT / "scripts" / "refine_spread.py",
                 ROOT / "scripts" / "column_launch_sweep.py",
                 ROOT / "scripts" / "line_staging_sweep.py",
-                ROOT / "scripts" / "main_path_turns.py"]
+                ROOT / "scripts" / "main_path_turns.py",
+                ROOT / "scripts" / "sharded_spread.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + PORT_SCRIPTS,
@@ -165,6 +166,27 @@ def test_failed_build_raises_and_leaves_no_library(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.build.__wrapped__()
     assert list(tmp_path.iterdir()) == []
+
+
+def test_build_moves_library_and_report_into_place(monkeypatch, tmp_path):
+    """A stand-in nvcc that writes its -o file and a ptxas line: the build
+    leaves exactly the library and its ptxas report, both moved into place
+    from the scratch directory (ranks that build at once never read a
+    partial report)."""
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do\n'
+                    '  if [ "$1" = "-o" ]; then out="$2"; fi; shift\n'
+                    'done\necho "ptxas info : Used 1 registers" >&2\n'
+                    ': > "$out"\n')
+    fake.chmod(0o755)
+    out_dir = tmp_path / "kernels"
+    monkeypatch.setattr(build, "_BUILD_DIR", out_dir)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    lib = build.build.__wrapped__()
+    assert lib == build.library_path() and lib.exists()
+    assert sorted(p.name for p in out_dir.iterdir()) == sorted(
+        [lib.name, build._report_path().name])
+    assert "ptxas info" in build._report_path().read_text()
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -20,6 +20,7 @@ from repro_torch.core import geometry as tgeom
 from repro_torch.core import mesh_gen as tmesh
 from repro_torch.core import spectral as tspec
 from repro_torch.core import sumfact as tsum
+from _torch_x64 import x64  # noqa: F401
 
 RTOL64 = 1e-12
 

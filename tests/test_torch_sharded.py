@@ -1,0 +1,268 @@
+"""Port parity, the element-sharded solve: `repro_torch` on gloo ranks on
+the CPU (the kernels' plain versions), against the port's single-device
+solve, against itself across ranks and partitions, and against the JAX
+package's sharded solve.
+
+Each spawn of ranks (`distributed.launch.spawn`, module-scoped below) runs
+every case of its (shard count, grid) and returns rows
+(`tests/_torch_sharded_ranks.py`); the tests hold them to the reference
+package's tests and tolerances:
+
+  * tests/test_nekbone_sharded.py: the sharded operator within 1e-5
+    relative of the single-device one; solves within +-1 iteration, final
+    residual within 10x of max(single-device residual, 1e-6 r0), dx < 1e-3;
+  * tests/test_nekbone_box.py: the (2, 2, 1) box within +-1 iteration of
+    the (4, 1, 1) slab, dx < 5e-3; lambda fields;
+  * tests/test_resilience_sharded.py: a NaN caught at its iteration, the
+    other columns untouched; drop_exchange refused by the audit and cured
+    by the restart rung;
+  * tests/test_mixed_precision.py: the refined solve on the psum wire
+    CONVERGED with the true residual <= 1.5 tol.
+
+The JAX comparison runs the reference package in a subprocess with two
+simulated host devices (as tests/test_nekbone_sharded.py does): +-1
+iteration, the same status, dx < 1e-3.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch.multiprocessing as mp
+
+import _torch_sharded_ranks as ranks
+from repro_torch import nekbone_solve
+from repro_torch.distributed.launch import spawn
+from repro_torch.resilience.status import SolveStatus, is_failure
+
+ROOT = Path(__file__).resolve().parents[1]
+RES_FACTOR = 10.0
+
+# (shard count, grid spec, case groups) of each spawn of ranks
+SPAWNS = {
+    "slab2": (2, None, ("op", "solve", "lambda", "nan", "drop", "refined",
+                        "jax", "collectives")),
+    "slab4": (4, None, ("op", "solve", "vector", "box", "nan", "refined")),
+    "box4": (4, (2, 2, 1), ("op", "solve", "box")),
+}
+
+_JAX_SCRIPT = textwrap.dedent("""
+    import json
+    import jax, jax.numpy as jnp
+    import numpy as np
+    from repro.core import mesh_gen, nekbone
+    from repro.distributed.context import make_solver_ctx
+    assert jax.device_count() == 2, jax.devices()
+    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(3, 3, 2, 3), seed=3)
+    b = np.random.default_rng(0).standard_normal(mesh.n_global).astype(
+        np.float32)
+    sh = nekbone.setup_problem(mesh, variant="trilinear", dtype=jnp.float32,
+                               backend="reference",
+                               shard_ctx=make_solver_ctx(devices=2))
+    res = nekbone.solve(sh, jnp.asarray(b), tol=%(tol)g, max_iter=300)
+    print(json.dumps({"iterations": int(res.iterations),
+                      "status": int(res.status),
+                      "b": b.tolist(), "x": np.asarray(res.x).tolist()}))
+""") % {"tol": ranks.TOL}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_reference():
+    """The JAX package's 2-device sharded solve, started first so it runs
+    while the ranks do."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    proc = subprocess.Popen([sys.executable, "-c", _JAX_SCRIPT], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Each spawn's rows, rank by rank, spawned at first use."""
+    done = {}
+
+    def get(name):
+        if name not in done:
+            world, grid, groups = SPAWNS[name]
+            done[name] = spawn(ranks.cases, world, (grid, groups),
+                               timeout_s=300)
+        return done[name]
+
+    return get
+
+
+def _same_on_every_rank(per_rank, group, key):
+    firsts = [row[key] for row in per_rank[0][group]]
+    for other in per_rank[1:]:
+        assert [row[key] for row in other[group]] == firsts, (group, key)
+
+
+@pytest.mark.parametrize("name", ["slab2", "slab4", "box4"])
+def test_sharded_op_matches_single_device(runs, name):
+    per_rank = runs(name)
+    rows = per_rank[0]["op"]
+    assert len(rows) == 10   # five variants x nrhs 1, 4
+    for r in rows:
+        assert r["rel"] < 1e-5, r
+        # the diagonal is the single-device one, computed on the whole mesh
+        assert r["diag_diff"] == 0.0, r
+    _same_on_every_rank(per_rank, "op", "y_digest")
+
+
+@pytest.mark.parametrize("name", ["slab2", "slab4", "box4"])
+def test_sharded_solve_matches_single_device(runs, name):
+    per_rank = runs(name)
+    rows = per_rank[0]["solve"]
+    # 18-element mesh x {poisson, helmholtz} x {reference, plain kernels},
+    # plus the 5-element mesh on 2 shards
+    assert len(rows) == (8 if name == "slab2" else 4)
+    for r in rows:
+        assert r["status_sh"] == r["status_ref"] == SolveStatus.CONVERGED, r
+        assert abs(r["it_sh"] - r["it_ref"]) <= 1, r
+        bound = RES_FACTOR * max(r["res_ref"], ranks.TOL * r["r0_ref"])
+        assert r["res_sh"] <= bound, r
+        assert r["dx"] < 1e-3, r
+    _same_on_every_rank(per_rank, "solve", "x_digest")
+
+
+def test_sharded_vector_field_and_copy_precond(runs):
+    rows = runs("slab4")[0]["vector"]
+    assert [r["precond"] for r in rows] == ["jacobi", "copy"]
+    for r in rows:
+        assert abs(r["it_sh"] - r["it_ref"]) <= 1, r
+        assert r["dx"] < 1e-3, r
+
+
+def test_box_solve_matches_slab(runs):
+    slab, box = runs("slab4")[0]["box"], runs("box4")[0]["box"]
+    # 2 equations x (2 nrhs + 1 odd mesh + 1 plain-kernel) + 1 kernel nrhs 4
+    assert len(slab) == len(box) == 9
+    assert any(r["backend"] == "cuda" and r["nrhs"] == 4 for r in box)
+    assert any(r["mesh"] == [5, 3, 2] for r in box)
+    for r0, r1 in zip(slab, box):
+        assert r0["grid"] == [4, 1, 1] and r1["grid"] == [2, 2, 1], (r0, r1)
+        assert not r0["breakdown"] and not r1["breakdown"], (r0, r1)
+        assert set(r0["status"]) == set(r1["status"]) == {0}, (r0, r1)
+        for a, b in zip(r0["iterations"], r1["iterations"]):
+            assert abs(a - b) <= 1, (r0, r1)
+        assert np.abs(r1["x"] - r0["x"]).max() < 5e-3
+
+
+def test_lambda_fields_match_scalars_sharded(runs):
+    rows = runs("slab2")[0]["lambda"]
+    assert [r["backend"] for r in rows] == ["reference", "cuda"]
+    for r in rows:
+        # constant field vs scalar: the same broadcast products
+        assert r["it_scalar"] == r["it_const_field"], r
+        assert r["dx_const"] == 0.0, r
+        # varying field: sharded == single device
+        assert abs(r["it_var_sh"] - r["it_var_ref"]) <= 1, r
+        assert r["dx_var"] < 1e-3, r
+
+
+@pytest.mark.parametrize("name", ["slab2", "slab4"])
+def test_sharded_nan_detected_within_one_iteration(runs, name):
+    rows = runs(name)[0]["nan"]
+    assert len(rows) == 2   # nrhs 1, 4
+    for r in rows:
+        assert r["finite"], r
+        assert all(s == SolveStatus.CONVERGED for s in r["clean_status"])
+        if r["col"] is None:
+            assert r["status"] == [SolveStatus.DIVERGED], r
+            assert r["iters"] == [3], r
+        else:
+            for j, (s, i) in enumerate(zip(r["status"], r["iters"])):
+                if j == r["col"]:
+                    assert s == SolveStatus.DIVERGED and i == 3, r
+                else:
+                    assert s == SolveStatus.CONVERGED, r
+                    assert i == r["clean_iters"][j], r
+
+
+def test_drop_exchange_caught_by_verification_and_restart(runs):
+    (r,) = runs("slab2")[0]["drop"]
+    assert r["initial_failed"] == [0], r
+    assert is_failure(r["initial_status"]) or \
+        r["initial_status"] == SolveStatus.CONVERGED, r
+    assert r["converged"], r
+    assert r["rungs"] == ["initial", "restart"], r
+    assert r["true_residual"] < 1e-4, r
+    assert r["dx"] < 5e-3, r
+
+
+@pytest.mark.parametrize("name", ["slab2", "slab4"])
+def test_sharded_refined_solve_psum_wire(runs, name):
+    rows = runs(name)[0]["refined"]
+    assert [r["nrhs"] for r in rows] == [1, 4]
+    for r in rows:
+        assert all(s == SolveStatus.CONVERGED for s in r["status"]), r
+        assert all(t <= r["tol"] * 1.5 for t in r["true"]), r
+
+
+def test_sharded_solve_matches_jax(runs, jax_reference):
+    per_rank = runs("slab2")
+    (r,) = per_rank[0]["jax"]
+    out, err = jax_reference.communicate(timeout=600)
+    assert jax_reference.returncode == 0, err[-4000:]
+    (j,) = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    mesh = ranks.mesh_3x3x2()
+    np.testing.assert_array_equal(np.asarray(j["b"], np.float32),
+                                  ranks.jax_rhs(mesh))
+    assert r["status"] == j["status"] == SolveStatus.CONVERGED, (r, j)
+    assert abs(r["iterations"] - j["iterations"]) <= 1, (r, j)
+    assert np.abs(r["x"] - np.asarray(j["x"])).max() < 1e-3
+    # a repeat solve gives the same bits, and every rank the same x
+    assert r["repeat_bitwise"], r
+    _same_on_every_rank(per_rank, "jax", "x_digest")
+
+
+def test_one_interface_all_reduce_per_application(runs):
+    """A global operator application at nrhs 4 makes two all_reduces: the
+    interface exchange of (NS, 4) — the whole batch in one — and the
+    reassembly of the global field."""
+    (r,) = runs("slab2")[0]["collectives"]
+    assert r["shapes"] == [[r["n_shared"], 4], [r["n_global"], 4]], r
+
+
+def test_cli_solves_on_ranks():
+    """`--devices 2 --dist-backend gloo` on the CPU: rank 0 prints one
+    result, the solve converges."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.nekbone_solve", "--devices", "2",
+         "--device", "cpu", "--dist-backend", "gloo", "--elements", "2",
+         "2", "2", "--order", "3", "--tol", "1e-6"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = out.stdout.splitlines()
+    assert sum(line.startswith("status=") for line in lines) == 1, lines
+    assert "shards=2" in out.stdout and "grid=(2, 1, 1)" in out.stdout
+    assert "status=CONVERGED" in out.stdout, out.stdout
+
+
+def test_cli_nccl_needs_a_card_per_rank():
+    with pytest.raises(SystemExit, match="--dist-backend gloo"):
+        nekbone_solve.main(["--devices", "2", "--device", "cpu"])
+
+
+def test_a_failing_rank_fails_the_run():
+    """Rank 1 raises while rank 0 waits in a collective: `spawn` raises in
+    the caller instead of hanging."""
+    t0 = time.perf_counter()
+    # whichever rank's error `spawn` sees first: rank 1's own, or rank 0's
+    # broken collective
+    with pytest.raises((mp.ProcessRaisedException, mp.ProcessExitedException)):
+        spawn(ranks.fail_on_rank_1, 2, timeout_s=60)
+    assert time.perf_counter() - t0 < 60

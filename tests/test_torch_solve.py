@@ -28,6 +28,7 @@ from repro_torch.core import nekbone as tnek
 from repro_torch.core.pcg import pcg as tpcg
 from repro_torch.core.spectral import basis as tbasis
 from repro_torch.resilience.status import SolveStatus
+from _torch_x64 import x64  # noqa: F401
 
 RTOL64 = 1e-12
 RTOL32 = 1e-4
@@ -148,7 +149,8 @@ def _carried_problem(mesh, variant, helm):
     _, t_apply, backend = taxhelm.make_axhelm_elem_ops(
         variant, tb, verts, lam0=lam0, lam1=lam1, helmholtz=helm,
         dtype=torch.float32, backend="cuda", device=CPU)
-    factors = taxhelm._setup_factors(variant, tb, verts, carried)
+    factors = taxhelm.setup_factors(variant, tb, verts, torch.float32,
+                                    carried)
     mask = None if helm else torch.as_tensor(tmesh.boundary)
     plan = tgs.gather_plan(tmesh.global_ids, tmesh.n_global, CPU)
     op = tnek._global_op(lambda x: t_apply(x, carried), tmesh, mask, CPU,
