@@ -119,6 +119,23 @@ each:
               iteration on every rank, interface dofs and bytes an exchange,
               peak memory a rank, launches summed over the ranks.  gloo on
               one card: no multi-card number
+  5g. sharded_neighbour  the same spawns with exchange="neighbour"
+              (point-to-point rounds, each rank's buffers staged through
+              pinned host memory: gloo takes CPU tensors only): the
+              interface and interior launches of each shard (the sizes of
+              its launch plan, 8^3 and 16^3) against their plain versions,
+              every fp32 entry point and trilinear bf16; phase 4's six 8^3
+              solves (single-device status, iterations +-1 of the psum run,
+              error < 1e-3), the 8^3 bf16_x32 trilinear solve at tol 0.03 on
+              the wires None, bf16 and int8 (CONVERGED, true residual <=
+              1.5 tol, the bf16 wire bitwise the uncompressed one), at S=2
+              drop_exchange under the ladder, the config's trilinear solve
+              within the bounds of 5f; the interface dofs bitwise equal on
+              every sharer after one exchange on each wire (a digest); no
+              interface all_reduce; messages and bytes an application a
+              rank on each wire beside the psum's, the host-staging copy
+              time, and the interior launch's device time (the window the
+              exchange overlaps).  gloo on one card: no multi-card number
   6. timing   device time of each kernel (E=4096 and E=32768, N1=8,
               c=1; K1, K2, K3, K5 Poisson, K4 Helmholtz) from a replayed
               CUDA graph, and its time in eager calls back to back, beside
@@ -130,7 +147,8 @@ each:
               gather at 16^3 in its fixed order in turns with index_add_
               (c = 1 and 4), bitwise repeatable
   7. the `kernels` line (ten entry points, each launched on its main
-     path and, as `launches_sharded`, on the sharded one, and their ten
+     path and, as `launches_sharded`, on the sharded ones, psum and
+     neighbour exchange together, and their ten
      generic bodies, launched on the order-5 solves),
      then the card line, then the result line.
 
@@ -140,6 +158,7 @@ Run:  python3 chip_smoke.py
 """
 
 import contextlib
+import hashlib
 import json
 import re
 import statistics
@@ -486,14 +505,16 @@ def ptxas_instantiations(report: str):
 def sharded_rank(rank: int, world: int, grid, plan: dict) -> dict:
     """One gloo rank of the `sharded` phase (module level: the spawned
     ranks import it).  Every launch count is set to 0 before the rank
-    drives the sharded main path and read after it.  `plan` carries the
-    device (None: the card), the mesh sizes, the single-device numbers it
-    is compared with and the files of the 16^3 right-hand side and
-    single-device solution."""
-    import hashlib
-
+    drives each sharded main path (the psum exchange, then the neighbour
+    exchange) and read after it.  `plan` carries the device (None: the
+    card), the mesh sizes, the single-device numbers it is compared with
+    and the files of the 16^3 right-hand side and single-device
+    solution."""
+    import numpy as np
     import torch
+    import torch.distributed as dist
 
+    from repro_torch.core import gather_scatter as gs
     from repro_torch.core import mesh_gen, nekbone
     from repro_torch.distributed.context import make_solver_ctx
     from repro_torch.kernels.axhelm import ops
@@ -502,6 +523,8 @@ def sharded_rank(rank: int, world: int, grid, plan: dict) -> dict:
     from repro_torch.resilience.status import SolveStatus
 
     ctx = make_solver_ctx(devices=world, grid=grid, device=plan["device"])
+    ctx_n = make_solver_ctx(devices=world, grid=grid, device=plan["device"],
+                            exchange="neighbour")
     dev = ctx.device
 
     def sync():
@@ -524,83 +547,211 @@ def sharded_rank(rank: int, world: int, grid, plan: dict) -> dict:
     def name_of(status):
         return [SolveStatus(int(c)).name for c in status.reshape(-1)]
 
-    out = {"rank": rank, "device": str(dev), "solves": {}}
-    ops.reset_launch_counts()
-    for name, variant, helm in SHARDED_RUNS:
-        prob = nekbone.setup_problem(mesh_of(variant, plan["n_conv"]),
-                                     variant=variant, helmholtz=helm,
-                                     backend=plan["backend"], shard_ctx=ctx)
-        x_true = nekbone.random_solution(prob, seed=0)
-        b = nekbone.rhs_from_solution(prob, x_true)
-        res, wall = timed(prob, b, tol=1e-8,
-                          max_iter=plan["max_iter"][helm])
-        row = {"status": name_of(res.status)[0],
-               "iterations": int(res.iterations),
-               "error": nekbone.manufactured_error(prob, res.x, x_true),
-               "ms_per_iteration": wall * 1e3 / max(int(res.iterations), 1),
-               "x_sha1": hashlib.sha1(res.x.cpu().numpy().tobytes())
-               .hexdigest()}
-        if name == "trilinear":
-            again, _ = timed(prob, b, tol=1e-8,
-                             max_iter=plan["max_iter"][helm])
-            row["repeat_bitwise"] = torch.equal(res.x, again.x)
-            out["partition"] = {
-                "grid": list(prob.partition.grid),
-                "elements_per_shard": prob.partition.e_per_shard,
-                "interface_dofs": prob.partition.n_shared,
-                "interface_dofs_here": int(
-                    prob.partition.shared_present[rank].sum())}
-        out["solves"][name] = row
-    if plan["extras"]:
-        # the bf16_x32 refined solve, and a lost exchange under the ladder
-        mesh = mesh_of("trilinear", plan["n_conv"])
-        prob = nekbone.setup_problem(mesh, variant="trilinear",
-                                     backend=plan["backend"],
-                                     precision="bf16_x32", shard_ctx=ctx)
+    def sha1(t):
+        return hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()
+
+    def solves_8(shard_ctx):
+        """Phase 4's six fp32 8^3 solves on this shard context."""
+        rows = {}
+        for name, variant, helm in SHARDED_RUNS:
+            prob = nekbone.setup_problem(mesh_of(variant, plan["n_conv"]),
+                                         variant=variant, helmholtz=helm,
+                                         backend=plan["backend"],
+                                         shard_ctx=shard_ctx)
+            x_true = nekbone.random_solution(prob, seed=0)
+            b = nekbone.rhs_from_solution(prob, x_true)
+            res, wall = timed(prob, b, tol=1e-8,
+                              max_iter=plan["max_iter"][helm])
+            rows[name] = {
+                "status": name_of(res.status)[0],
+                "iterations": int(res.iterations),
+                "error": nekbone.manufactured_error(prob, res.x, x_true),
+                "ms_per_iteration": wall * 1e3 / max(int(res.iterations), 1),
+                "x_sha1": sha1(res.x)}
+            if name == "trilinear":
+                again, _ = timed(prob, b, tol=1e-8,
+                                 max_iter=plan["max_iter"][helm])
+                rows[name]["repeat_bitwise"] = torch.equal(res.x, again.x)
+        return rows
+
+    def refined_8(shard_ctx):
+        """The 8^3 bf16_x32 trilinear solve at tol 0.03."""
+        prob = nekbone.setup_problem(
+            mesh_of("trilinear", plan["n_conv"]), variant="trilinear",
+            backend=plan["backend"], precision="bf16_x32",
+            shard_ctx=shard_ctx)
         b = nekbone.random_rhs(prob)
         res, wall = timed(prob, b, tol=0.03, max_iter=REFINED_MAX_ITER)
-        out["refined"] = {
-            "status": name_of(res.status), "tol": 0.03,
-            "iterations": res.iterations.reshape(-1).tolist(),
-            "true_residual": float(torch.linalg.norm(b - prob.op(res.x))),
-            "ms_per_iteration": wall * 1e3 / max(int(res.iterations), 1)}
-        prob = nekbone.setup_problem(mesh, variant="trilinear",
-                                     backend=plan["backend"], shard_ctx=ctx)
+        return {"status": name_of(res.status), "tol": 0.03,
+                "iterations": res.iterations.reshape(-1).tolist(),
+                "true_residual": float(torch.linalg.norm(b - prob.op(res.x))),
+                "ms_per_iteration": wall * 1e3 / max(int(res.iterations), 1),
+                "x_sha1": sha1(res.x)}
+
+    def drop_exchange_8(shard_ctx):
+        """A lost exchange on shard 1 at iteration 2 under the ladder."""
+        prob = nekbone.setup_problem(mesh_of("trilinear", plan["n_conv"]),
+                                     variant="trilinear",
+                                     backend=plan["backend"],
+                                     shard_ctx=shard_ctx)
         b = nekbone.rhs_from_solution(prob, nekbone.random_solution(prob))
         rep = solve_resilient(
             prob, b, tol=1e-6, max_iter=1000, persistent=False,
             fault=FaultSpec(mode="drop_exchange", iteration=2, shard=1))
-        out["drop_exchange"] = {
-            "converged": rep.converged, "rung": list(rep.rung),
-            "attempts": [[a.rung, name_of(torch.as_tensor(a.status)),
-                          a.iterations.tolist(), a.true_residual.tolist()]
-                         for a in rep.attempts]}
-    cfg = plan["config"]
-    ref = torch.load(cfg["path"])
-    prob = nekbone.setup_problem(mesh_of("trilinear", cfg["n"]),
-                                 variant="trilinear",
-                                 backend=plan["backend"], shard_ctx=ctx)
-    b, x_ref = ref["b"].to(dev), ref["x"].to(dev)
-    timed(prob, b, tol=cfg["tol"], max_iter=cfg["max_iter"])    # warm-up
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    res, wall = timed(prob, b, tol=cfg["tol"], max_iter=cfg["max_iter"])
-    part = prob.partition
-    out["config"] = {
-        "status": name_of(res.status)[0], "iterations": int(res.iterations),
-        "residual": float(res.residual),
-        "residual_rel_diff": abs(float(res.residual) - ref["residual"])
-        / ref["residual"],
-        "x_rel_l2": float(torch.linalg.norm(res.x - x_ref)
-                          / torch.linalg.norm(x_ref)),
-        "ms_per_iteration": wall * 1e3 / max(int(res.iterations), 1),
-        "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
-        if dev.type == "cuda" else None,
-        "elements_per_shard": part.e_per_shard,
+        return {"converged": rep.converged, "rung": list(rep.rung),
+                "attempts": [[a.rung, name_of(torch.as_tensor(a.status)),
+                              a.iterations.tolist(),
+                              a.true_residual.tolist()]
+                             for a in rep.attempts]}
+
+    def config_16(shard_ctx, warm_iter):
+        """The config's trilinear solve (CONFIG.max_iter iterations) after
+        a warm-up solve of `warm_iter` iterations, against the
+        single-device eager one."""
+        cfg = plan["config"]
+        ref = torch.load(cfg["path"])
+        prob = nekbone.setup_problem(mesh_of("trilinear", cfg["n"]),
+                                     variant="trilinear",
+                                     backend=plan["backend"],
+                                     shard_ctx=shard_ctx)
+        b, x_ref = ref["b"].to(dev), ref["x"].to(dev)
+        timed(prob, b, tol=cfg["tol"], max_iter=warm_iter)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        res, wall = timed(prob, b, tol=cfg["tol"], max_iter=cfg["max_iter"])
+        part = prob.partition
+        row = {
+            "status": name_of(res.status)[0],
+            "iterations": int(res.iterations),
+            "residual": float(res.residual),
+            "residual_rel_diff": abs(float(res.residual) - ref["residual"])
+            / ref["residual"],
+            "x_rel_l2": float(torch.linalg.norm(res.x - x_ref)
+                              / torch.linalg.norm(x_ref)),
+            "ms_per_iteration": wall * 1e3 / max(int(res.iterations), 1),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else None,
+            "elements_per_shard": part.e_per_shard,
+            "interface_dofs": part.n_shared,
+            "interface_dofs_here": int(part.shared_present[rank].sum()),
+            "bytes_per_exchange": 4 * part.n_shared}
+        return row, prob, b
+
+    out = {"rank": rank, "device": str(dev)}
+    # the psum exchange: one all_reduce of the interface dofs
+    ops.reset_launch_counts()
+    out["solves"] = solves_8(ctx)
+    part = mesh_gen.partition_elements(mesh_of("trilinear", plan["n_conv"]),
+                                       world, grid=grid)
+    out["partition"] = {
+        "grid": list(part.grid), "elements_per_shard": part.e_per_shard,
         "interface_dofs": part.n_shared,
-        "interface_dofs_here": int(part.shared_present[rank].sum()),
-        "bytes_per_exchange": 4 * part.n_shared}
+        "interface_dofs_here": int(part.shared_present[rank].sum())}
+    if plan["extras"]:
+        out["refined"] = refined_8(ctx)
+        out["drop_exchange"] = drop_exchange_8(ctx)
+    out["config"], _, _ = config_16(ctx, plan["config"]["max_iter"])
     out["launches"] = {k: v for k, v in ops.launch_counts.items() if v}
+
+    # the neighbour exchange: point-to-point rounds with the bordering
+    # shards, gloo's buffers staged through pinned host memory
+    ops.reset_launch_counts()
+    nbr = {"solves": solves_8(ctx_n),
+           "refined": {str(w): refined_8(make_solver_ctx(
+               devices=world, grid=grid, device=plan["device"],
+               exchange="neighbour", compress=w))
+               for w in (None, "bf16", "int8")}}
+    if plan["extras"]:
+        nbr["drop_exchange"] = drop_exchange_8(ctx_n)
+    nbr["config"], prob, b = config_16(ctx_n, 10)
+    nbr["launches"] = {k: v for k, v in ops.launch_counts.items() if v}
+
+    # the wire of one application at 16^3: every point-to-point message
+    # and every all_reduce of the operator, and of the exchange alone on
+    # each wire at nrhs 1 and 4 (this rank's own random partials)
+    part = prob.partition
+    rounds = gs.partition_rounds(part, rank, dev)
+    sidx = torch.as_tensor(part.shared_idx[rank], device=dev)
+    spres = torch.as_tensor(part.shared_present[rank], device=dev)
+    rng = np.random.default_rng(rank)
+    messages, reduced = [], []
+    real_batch, real_reduce = dist.batch_isend_irecv, dist.all_reduce
+
+    def counting_batch(p2p):
+        messages.extend([op.op is dist.isend, op.tensor.nbytes]
+                        for op in p2p)
+        return real_batch(p2p)
+
+    def counting_reduce(tensor, *args, **kwargs):
+        reduced.append(tensor.nbytes)
+        return real_reduce(tensor, *args, **kwargs)
+
+    def census(fn):
+        messages.clear()
+        reduced.clear()
+        fn()
+        sent = [n for is_send, n in messages if is_send]
+        return {"messages_sent": len(sent),
+                "messages_received": len(messages) - len(sent),
+                "bytes_sent": sum(sent), "all_reduce_bytes": list(reduced)}
+
+    wire = {"psum_interface_bytes": 4 * part.n_shared}
+    dist.batch_isend_irecv, dist.all_reduce = counting_batch, counting_reduce
+    try:
+        # the operator: its one all_reduce is globalize's (Ng,) field
+        wire["operator"] = census(lambda: prob.op(b))
+        for nrhs in (1, 4):
+            y = torch.as_tensor(rng.standard_normal(
+                (part.n_local,) + ((nrhs,) if nrhs > 1 else ())),
+                dtype=torch.float32, device=dev)
+            for codec in (None, "bf16", "int8"):
+                wire[f"nrhs{nrhs}/{codec}"] = census(
+                    lambda: gs.exchange_neighbour(y, rounds, ctx_n.group,
+                                                  codec, sidx, spres))
+    finally:
+        dist.batch_isend_irecv, dist.all_reduce = real_batch, real_reduce
+    nbr["wire"] = wire
+    y = torch.as_tensor(rng.standard_normal(part.n_local),
+                        dtype=torch.float32, device=dev)
+
+    # the host staging of one 16^3 exchange: the sends' D2H copies into
+    # pinned memory and their event wait, and the receives' H2D copies
+    sends = [gs.shared_contrib(y, idx, mask).contiguous()
+             for r in rounds for peer, idx, mask in
+             ((r.lo_peer, r.lo_idx, r.lo_mask),
+              (r.hi_peer, r.hi_idx, r.hi_mask)) if peer is not None]
+    d2h, h2d = [], []
+    for _ in range(20 if dev.type == "cuda" else 0):
+        sync()
+        t0 = time.perf_counter()
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                .copy_(t, non_blocking=True) for t in sends]
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+        t1 = time.perf_counter()
+        back = [t.to(dev, non_blocking=True) for t in host]
+        sync()
+        t2 = time.perf_counter()
+        d2h.append((t1 - t0) * 1e3)
+        h2d.append((t2 - t1) * 1e3)
+        del back
+    nbr["staging_ms"] = {"d2h_and_wait": statistics.median(d2h),
+                         "h2d": statistics.median(h2d),
+                         "messages": len(sends)} if d2h else None
+
+    # every sharer of an interface dof holds the same bits after one
+    # exchange, on every wire: this rank's (global id, bits) pairs
+    present = np.flatnonzero(part.shared_present[rank])
+    slots = torch.as_tensor(part.shared_idx[rank][present], device=dev)
+    nbr["sharers"] = {"gids": part.local_to_global[rank][
+        part.shared_idx[rank][present]]}
+    for codec in (None, "bf16", "int8"):
+        got = gs.exchange_neighbour(y, rounds, ctx_n.group, codec, sidx,
+                                    spres)
+        nbr["sharers"][str(codec)] = got[slots].view(torch.int32).cpu() \
+            .numpy()
+    out["neighbour"] = nbr
     return out
 
 
@@ -1473,7 +1624,7 @@ def main() -> None:
     del prob, b, block, bs
     torch.cuda.empty_cache()
 
-    # 5f. sharded: the element-sharded solve on gloo ranks on this card ----
+    # 5f, 5g. sharded: the element-sharded solve on gloo ranks on this card
     # Every kernel at the element counts a shard gives it (EP = E / S on
     # these boxes), against its plain version; then for each (S, grid) of
     # SHARDED one spawn of S ranks, all on this card, that repeats phase 4's
@@ -1481,7 +1632,8 @@ def main() -> None:
     # iterations +-1, error < 1e-3), at S = 2 also the bf16_x32 trilinear
     # solve and a lost exchange under the retry ladder, and the config's
     # trilinear solve (CONFIG.max_iter iterations) against the
-    # single-device eager one.  gloo on one card: these times are no
+    # single-device eager one; then the same spawn's ranks through the
+    # neighbour exchange (5g).  gloo on one card: these times are no
     # multi-card number.
     shard_e = sorted({len(conv_box.verts) // s for s, _ in SHARDED}
                      | {e_main // s for s, _ in SHARDED})
@@ -1498,6 +1650,68 @@ def main() -> None:
                       f"sharded E={e_shard} {variant} {dt}", dt=dt,
                       helmholtz=helm, **kw)
         del xs
+    # The neighbour exchange's two launches a rank: interface slots [0,
+    # cut) and interior slots [cut, EP), their operands sliced from the
+    # shard's at element cut (the shard operator's own views), every fp32
+    # entry point and trilinear bf16 against the plain version; and the
+    # interior launch's device time at 16^3, the window the exchange
+    # overlaps.
+    sub_batches, overlap_window = {}, {}
+    for shards, grid in SHARDED:
+        key = f"S={shards} " + ("slab" if grid is None
+                                else "x".join(map(str, grid)))
+        for n_mesh, box in ((8, conv_box), (nx, cfg_box)):
+            part = mesh_gen.partition_elements(box, shards, grid=grid)
+            split, cut = nekbone._neighbour_launch_plan(part)
+            ep = part.e_per_shard
+            require(split, f"{key} {n_mesh}^3: the neighbour exchange "
+                    f"runs one unsplit launch (e_iface {part.e_iface} of "
+                    f"{ep})")
+            sub_batches[f"{key} {n_mesh}^3"] = [cut, ep - cut]
+            xs = torch.as_tensor(rng.standard_normal((ep,) + (n1,) * 3),
+                                 dtype=torch.float32, device=dev)
+            for variant in VARIANTS:
+                helm = MAIN_HELMHOLTZ[variant]
+                verts = torch.as_tensor(cfg_mesh_for(variant).verts[:ep],
+                                        dtype=torch.float32, device=dev)
+                for dt in DTYPES:
+                    if dt == "bf16" and variant != "trilinear":
+                        continue
+                    geom, kw = main_operands(variant, verts, helm, dt=dt)
+                    for lo, hi in ((0, cut), (cut, ep)):
+                        sub = {k: v[lo:hi] for k, v in kw.items()
+                               if isinstance(v, torch.Tensor)}
+                        check(variant, b_cfg,
+                              xs[lo:hi].to(torch_dtype[dt]), geom[lo:hi],
+                              f"sharded {key} {n_mesh}^3 slots [{lo}, {hi}) "
+                              f"{variant} {dt}", dt=dt, helmholtz=helm,
+                              **{**kw, **sub})
+            if n_mesh == nx:
+                # device time of each fp32 entry point's two launches at
+                # 16^3 beside its bound; trilinear's interior launch is
+                # the window the exchange overlaps on the config's path
+                overlap_window[key] = {}
+                for variant in VARIANTS:
+                    helm = MAIN_HELMHOLTZ[variant]
+                    verts = torch.as_tensor(
+                        cfg_mesh_for(variant).verts[:ep],
+                        dtype=torch.float32, device=dev)
+                    geom, kw = main_operands(variant, verts, helm)
+                    row = {}
+                    for side, lo, hi in (("interface", 0, cut),
+                                         ("interior", cut, ep)):
+                        x_sub = xs[lo:hi]
+                        sub = {**kw, **{k: v[lo:hi] for k, v in kw.items()}}
+                        bound_ms, bound_by, _, _ = axhelm_bound(
+                            variant, hi - lo, n1, helm)
+                        row[side] = {
+                            "elements": hi - lo,
+                            "ms": graph_ms(lambda: ops.axhelm(
+                                x_sub, b_cfg, variant, geom[lo:hi],
+                                helmholtz=helm, **sub)),
+                            "bound_ms": bound_ms, "bound_by": bound_by}
+                    overlap_window[key][variant] = row
+            del xs
     sharded_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_sharded.")
     ref_prob = nekbone.setup_problem(cfg_tri, variant="trilinear",
                                      backend="cuda")
@@ -1514,6 +1728,106 @@ def main() -> None:
             "config": {"path": ref_path, "n": nx, "tol": CONFIG.tol,
                        "max_iter": CONFIG.max_iter}}
     sharded, sharded_launches = {}, dict.fromkeys(ops.launch_counts, 0)
+    neighbour, nbr_launches = {}, dict.fromkeys(ops.launch_counts, 0)
+
+    def neighbour_summary(key, per_rank, shards):
+        """Hold one spawn's neighbour-exchange runs to the psum run and the
+        single-device solves, and summarize them."""
+        nbrs = [r["neighbour"] for r in per_rank]
+        for name, _, _ in SHARDED_RUNS:
+            single = conv[name]["kernel"]
+            psum = per_rank[0]["solves"][name]
+            rows = [n["solves"][name] for n in nbrs]
+            for r in rows:
+                require(r["status"] == single["status"] and
+                        abs(r["iterations"] - psum["iterations"]) <= 1 and
+                        r["error"] < 1e-3,
+                        f"sharded {key} neighbour {name}: {r} against the "
+                        f"psum run {psum} and one device {single}")
+            require(len({(r["status"], r["iterations"], r["x_sha1"])
+                         for r in rows}) == 1,
+                    f"sharded {key} neighbour {name}: ranks disagree: "
+                    f"{rows}")
+        require(nbrs[0]["solves"]["trilinear"]["repeat_bitwise"],
+                f"sharded {key} neighbour: a repeat solve changed x")
+        refined = nbrs[0]["refined"]
+        for codec, r in refined.items():
+            require(r["status"] == ["CONVERGED"] and
+                    r["true_residual"] <= 1.5 * r["tol"],
+                    f"sharded {key} neighbour bf16_x32 wire {codec}: {r}")
+        require(refined["bf16"]["x_sha1"] == refined["None"]["x_sha1"] and
+                refined["bf16"]["iterations"] ==
+                refined["None"]["iterations"],
+                f"sharded {key} neighbour bf16_x32: the bf16 wire changed "
+                f"the solve: {refined}")
+        if shards == 2:
+            drop = nbrs[0]["drop_exchange"]
+            require(drop["converged"] and
+                    [a[0] for a in drop["attempts"]] ==
+                    ["initial", "restart"],
+                    f"sharded {key} neighbour drop_exchange: {drop}")
+        for n in nbrs:
+            c = n["config"]
+            require(c["residual_rel_diff"] <= SHARDED_RESIDUAL_BOUND and
+                    c["x_rel_l2"] <= SHARDED_X_BOUND,
+                    f"sharded {key} neighbour 16^3: {c} against the single-"
+                    f"device eager solve (residual {float(ref_res.residual)})")
+            w = n["wire"]
+            require(w["operator"]["all_reduce_bytes"] ==
+                    [4 * cfg_box.n_global] and
+                    all(not v["all_reduce_bytes"] for k, v in w.items()
+                        if k.startswith("nrhs")),
+                    f"sharded {key} neighbour: an interface all_reduce: "
+                    f"{w}")
+            for k, v in n["launches"].items():
+                nbr_launches[k] += v
+                sharded_launches[k] += v
+        # every sharer of an interface dof holds the same bits, per wire
+        agree, digests = {}, {}
+        for codec in ("None", "bf16", "int8"):
+            held = {}
+            for n in nbrs:
+                for gid, bits in zip(n["sharers"]["gids"],
+                                     n["sharers"][codec]):
+                    held.setdefault(int(gid), set()).add(int(bits))
+            agree[codec] = all(len(v) == 1 for v in held.values())
+            digests[codec] = hashlib.sha1(json.dumps(sorted(
+                (g, v.pop()) for g, v in held.items())).encode()) \
+                .hexdigest()[:16]
+            require(agree[codec], f"sharded {key} neighbour wire {codec}: "
+                    f"sharers of an interface dof hold different bits")
+        return {
+            "solves_8": {name: {k: nbrs[0]["solves"][name][k] for k in
+                                ("status", "iterations", "error")}
+                         | {"psum_iterations":
+                            per_rank[0]["solves"][name]["iterations"],
+                            "ms_per_iteration_by_rank": [
+                                n["solves"][name]["ms_per_iteration"]
+                                for n in nbrs]}
+                         for name, _, _ in SHARDED_RUNS},
+            "refined_8": refined,
+            "drop_exchange_8": nbrs[0].get("drop_exchange"),
+            "config_16": {
+                **{k: nbrs[0]["config"][k] for k in (
+                    "status", "iterations", "residual", "residual_rel_diff",
+                    "x_rel_l2", "elements_per_shard")},
+                "ms_per_iteration_by_rank": [n["config"]["ms_per_iteration"]
+                                             for n in nbrs],
+                "psum_ms_per_iteration_by_rank": [
+                    r["config"]["ms_per_iteration"] for r in per_rank],
+                "max_memory_allocated_by_rank": [
+                    n["config"]["max_memory_allocated"] for n in nbrs]},
+            "wire_16_by_rank": [n["wire"] for n in nbrs],
+            "staging_16_by_rank": [n["staging_ms"] for n in nbrs],
+            "sub_batches_8_16": [sub_batches[f"{key} 8^3"],
+                                 sub_batches[f"{key} {nx}^3"]],
+            "overlap_window_16": overlap_window[key],
+            "sharers_agree": agree, "sharers_digest": digests,
+            "launches_all_ranks": {
+                k: sum(n["launches"].get(k, 0) for n in nbrs)
+                for k in ops.launch_counts
+                if any(n["launches"].get(k, 0) for n in nbrs)}}
+
     for shards, grid in SHARDED:
         key = f"S={shards} " + ("slab" if grid is None
                                 else "x".join(map(str, grid)))
@@ -1583,6 +1897,7 @@ def main() -> None:
                     r["config"]["max_memory_allocated"] for r in per_rank]},
             "launches_all_ranks": {k: v for k, v in launches.items()
                                    if v}}
+        neighbour[key] = neighbour_summary(key, per_rank, shards)
     sharded_dir.cleanup()
     emit({"phase": "sharded", "dist_backend": "gloo", "card": card,
           "ranks_on": "every rank on cuda:0 (one card): gloo all-reduces "
@@ -1593,11 +1908,28 @@ def main() -> None:
           "bounds_16": {"residual_rel_diff": SHARDED_RESIDUAL_BOUND,
                         "x_rel_l2": SHARDED_X_BOUND},
           "runs": sharded})
+    emit({"phase": "sharded_neighbour", "dist_backend": "gloo",
+          "wire": "gloo, host-staged", "card": card,
+          "ranks_on": "gloo on one card: no multi-card number (every rank "
+                      "on cuda:0; each round's buffers staged through "
+                      "pinned host memory)",
+          "timing": "16^3: one timed solve after a 10-iteration warm-up; "
+                    "8^3: one solve each; staging: median of 20 "
+                    "D2H+event-wait and H2D copies of one exchange's "
+                    "sends; overlap window: CUDA graph of 50 interior "
+                    "launches",
+          "runs": neighbour})
     for v in VARIANTS:
         require(sharded_launches[entry(v, "f32")] > 0,
                 f"{entry(v, 'f32')} was not launched on the sharded path")
+        require(nbr_launches[entry(v, "f32")] > 0,
+                f"{entry(v, 'f32')} was not launched on the neighbour "
+                f"exchange's path")
     require(sharded_launches[entry("trilinear", "bf16")] > 0,
             "the bf16 trilinear kernel was not launched on the sharded path")
+    require(nbr_launches[entry("trilinear", "bf16")] > 0,
+            "the bf16 trilinear kernel was not launched on the neighbour "
+            "exchange's path")
     del ref_res
     torch.cuda.empty_cache()
 

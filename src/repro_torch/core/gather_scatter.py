@@ -30,19 +30,34 @@ the reference's `gather_sharded` is `gather` then `exchange_shared`, which
 the shard operator of `nekbone` calls in turn, since a dropped exchange
 keeps the partials between them).  See `mesh_gen.partition_elements` for
 the index sets.
+
+The neighbour exchange (`exchange_neighbour`, split into
+`neighbour_start` and `neighbour_finish` so that the interior elements'
+kernels run between them) trades per-pair buffers with the few shards a
+shard borders instead: one round an offset k of the partition's pair
+tables, each a +k and a -k shift of `torch.distributed` point-to-point
+messages, optionally through a halo codec (`distributed.compression`).
+Every sharer of a dof then adds the same partials in the same (canonical
+source) order, so it holds the same bits.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed.compression import (halo_compress,
+                                                 halo_decompress)
+
 __all__ = ["GatherPlan", "gather_plan", "ordered_sum", "scatter", "gather",
            "scatter_columns", "gather_columns", "dssum", "multiplicity",
-           "shared_contrib", "apply_shared", "exchange_shared"]
+           "shared_contrib", "apply_shared", "exchange_shared",
+           "NeighbourRound", "neighbour_rounds", "partition_rounds",
+           "neighbour_start",
+           "neighbour_finish", "halo_self_round", "exchange_neighbour"]
 
 
 class GatherPlan(NamedTuple):
@@ -244,3 +259,251 @@ def exchange_shared(y_dofs: torch.Tensor, shared_idx: torch.Tensor,
     buf = _dense(contrib, _accumulation(contrib.dtype))
     dist.all_reduce(buf, group=group)
     return apply_shared(y_dofs, shared_idx, buf)
+
+
+# ---------------------------------------------------------------------------
+# The neighbour exchange.  Offsets k are shard-linear distances, so one
+# machinery serves slabs and boxes: a dof shared by 4 or 8 shards sits in
+# the pair table of every two of its sharers, and receiving each other
+# sharer's partial once is the full sum.  Pairs (s, s + k) that exist
+# arithmetically but not geometrically carry all-masked rows and trade
+# zero buffers, as the reference's ppermute does; a shard with no partner
+# at s + k (or s - k) posts nothing on that side.
+# ---------------------------------------------------------------------------
+
+
+class NeighbourRound(NamedTuple):
+    """One exchange round: this shard's view of offset k's pair tables.
+
+    `lo_peer` / `hi_peer` are the ranks s + k and s - k (None where no
+    such shard exists); lo_idx/lo_mask are the local slots of the dofs
+    shared with s + k, hi_idx/hi_mask those shared with s - k, both in the
+    same sorted-by-global-id order on the two sides of a pair, padded with
+    the trash slot to the offset's width M_k.  lo_real/lo_rows (hi_*) are
+    the table's real entries: their (unique) local slots and their rows in
+    the buffer, which `neighbour_finish` adds with `index_add_`.  `tag`
+    numbers the round; every message's tag derives from it.
+    """
+
+    k: int
+    tag: int
+    lo_peer: Optional[int]
+    hi_peer: Optional[int]
+    lo_idx: torch.Tensor
+    lo_mask: torch.Tensor
+    hi_idx: torch.Tensor
+    hi_mask: torch.Tensor
+    lo_real: torch.Tensor
+    lo_rows: torch.Tensor
+    hi_real: torch.Tensor
+    hi_rows: torch.Tensor
+
+
+class InFlight(NamedTuple):
+    """The exchange between `neighbour_start` and `neighbour_finish`: the
+    requests to wait on, each round's receive buffers (hi side, lo side;
+    None where no partner sends; host buffers when `staged`), the device
+    they go back to, and the send buffers, held until the sends are
+    waited for."""
+
+    works: list
+    recvs: list
+    staged: bool
+    device: torch.device
+    sends: list
+
+
+def neighbour_rounds(offsets: Sequence[int], n_shards: int, rank: int,
+                     nbr_tables: Sequence[torch.Tensor]
+                     ) -> list[NeighbourRound]:
+    """Zip each offset's partners with this shard's table rows.
+
+    `nbr_tables` holds this shard's (lo_idx, lo_mask, hi_idx, hi_mask)
+    for each offset, flattened in offset order (the reference's layout).
+    Runs at setup: finding the real entries reads the masks on the host.
+    """
+    rounds = []
+    for j, k in enumerate(offsets):
+        lo_idx, lo_mask, hi_idx, hi_mask = nbr_tables[4 * j:4 * j + 4]
+        lo_rows = torch.nonzero(lo_mask).reshape(-1)
+        hi_rows = torch.nonzero(hi_mask).reshape(-1)
+        rounds.append(NeighbourRound(
+            int(k), j, rank + k if rank + k < n_shards else None,
+            rank - k if rank - k >= 0 else None, lo_idx, lo_mask, hi_idx,
+            hi_mask, lo_idx[lo_rows], lo_rows, hi_idx[hi_rows], hi_rows))
+    return rounds
+
+
+def partition_rounds(part, shard: int, device) -> list[NeighbourRound]:
+    """`neighbour_rounds` of shard `shard` of a `mesh_gen.MeshPartition`,
+    its table rows on `device`."""
+    tables = []
+    for j in range(len(part.nbr_offsets)):
+        for a, dtype in ((part.nbr_lo_idx[j], torch.int64),
+                         (part.nbr_lo_mask[j], None),
+                         (part.nbr_hi_idx[j], torch.int64),
+                         (part.nbr_hi_mask[j], None)):
+            tables.append(torch.as_tensor(np.ascontiguousarray(a[shard]),
+                                          dtype=dtype, device=device))
+    return neighbour_rounds(part.nbr_offsets, part.n_shards, shard, tables)
+
+
+def _tag(rnd: NeighbourRound, direction: int, part: int) -> int:
+    """The message tag of one codec part of one shift: unique per (round,
+    direction, part); direction 0 is the +k shift, 1 the -k one."""
+    return (2 * rnd.tag + direction) * 4 + part
+
+
+def _wire(vals: torch.Tensor, compress: Optional[str]) -> tuple:
+    """The contiguous parts one buffer travels as."""
+    parts = (vals,) if compress is None else halo_compress(vals, compress)
+    return tuple(p.contiguous() for p in parts)
+
+
+def neighbour_start(y_dofs: torch.Tensor, rounds: Sequence[NeighbourRound],
+                    group, compress: Optional[str] = None) -> InFlight:
+    """Post every message of the exchange; returns the exchange in flight.
+
+    The sends read this shard's own partials (`y_dofs` after the interface
+    elements' gather), so whatever runs between `neighbour_start` and
+    `neighbour_finish` — the interior elements, which touch no shared dof
+    — overlaps the wire.  Shard s sends its lo table to s + k and its hi
+    table to s - k; each codec part (`compress`: int8 codes and scales,
+    or one bf16 cast) is its own message.
+
+    The wire: with NCCL the buffers stay on the card and NCCL moves them on
+    its own stream.  gloo's point-to-point ops take CPU tensors only, so a
+    CUDA `y_dofs` has every send packed on the card, copied into pinned
+    host buffers and waited for (one event) before the sends post, and
+    receives into pinned buffers that `neighbour_finish` copies back.
+    """
+    staged = y_dofs.is_cuda and dist.get_backend(group) == "gloo"
+    trailing = tuple(y_dofs.shape[1:])
+    # the receive buffers' parts, shaped as a partner's send of M_k rows
+    like = _wire(y_dofs.new_zeros((0,) + trailing), compress)
+
+    def buffers(rows):
+        return tuple(torch.empty((rows,) + tuple(p.shape[1:]),
+                                 dtype=p.dtype, pin_memory=staged,
+                                 device="cpu" if staged else y_dofs.device)
+                     for p in like)
+
+    sends, recvs = [], []
+    for r in rounds:
+        for direction, (peer, idx, mask) in enumerate(
+                ((r.lo_peer, r.lo_idx, r.lo_mask),
+                 (r.hi_peer, r.hi_idx, r.hi_mask))):
+            if peer is not None:
+                parts = _wire(shared_contrib(y_dofs, idx, mask), compress)
+                if staged:
+                    parts = tuple(
+                        torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                        .copy_(p, non_blocking=True) for p in parts)
+                sends.append((peer, direction, r, parts))
+        m = r.lo_idx.shape[0]
+        recvs.append((None if r.hi_peer is None else buffers(m),
+                      None if r.lo_peer is None else buffers(m)))
+    if staged and sends:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(y_dofs.device))
+        event.synchronize()
+    ops = []
+    for peer, direction, r, parts in sends:
+        ops += [dist.P2POp(dist.isend, p, peer, group, _tag(r, direction, i))
+                for i, p in enumerate(parts)]
+    for r, (recv_hi, recv_lo) in zip(rounds, recvs):
+        # the +k shift lands on the hi side, from s - k; the -k shift on
+        # the lo side, from s + k
+        for direction, peer, parts in ((0, r.hi_peer, recv_hi),
+                                       (1, r.lo_peer, recv_lo)):
+            if parts is not None:
+                ops += [dist.P2POp(dist.irecv, p, peer, group,
+                                   _tag(r, direction, i))
+                        for i, p in enumerate(parts)]
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return InFlight(works, recvs, staged, y_dofs.device, sends)
+
+
+def neighbour_finish(y_dofs: torch.Tensor,
+                     rounds: Sequence[NeighbourRound], inflight: InFlight,
+                     compress: Optional[str] = None) -> torch.Tensor:
+    """Wait for the exchange and add the received partials to the local
+    dofs: a dof shared by m shards ends as the sum of all m partials on
+    every sharer.  With `compress` the received parts are decoded to the
+    `y_dofs` dtype first (`neighbour_start` must have used the same).
+
+    The sum runs at >= fp32 in the reference's canonical source order —
+    the hi-side receives (sources s - k) by descending k, then this shard's
+    own partials, then the lo-side receives (sources s + k) by ascending k
+    — and is cast once, so every sharer of a dof adds the same values in
+    the same order and holds the same bits (`index_add_` over each table's
+    unique real slots adds each value once).
+    """
+    for work in inflight.works:
+        work.wait()
+    acc_dt = _accumulation(y_dofs.dtype)
+
+    def decode(parts):
+        if parts is None:
+            return None
+        if inflight.staged:
+            parts = tuple(p.to(inflight.device, non_blocking=True)
+                          for p in parts)
+        vals = parts[0] if compress is None else halo_decompress(
+            parts, compress, y_dofs.dtype)
+        return vals.to(y_dofs.dtype)
+
+    decoded = [(decode(hi), decode(lo)) for hi, lo in inflight.recvs]
+    acc = torch.zeros(y_dofs.shape, dtype=acc_dt, device=y_dofs.device)
+    for r, (recv_hi, _) in reversed(list(zip(rounds, decoded))):
+        if recv_hi is not None:
+            acc.index_add_(0, r.hi_real, recv_hi[r.hi_rows].to(acc_dt))
+    acc = acc + y_dofs.to(acc_dt)
+    for r, (_, recv_lo) in zip(rounds, decoded):
+        if recv_lo is not None:
+            acc.index_add_(0, r.lo_real, recv_lo[r.lo_rows].to(acc_dt))
+    return acc.to(y_dofs.dtype)
+
+
+def halo_self_round(y_dofs: torch.Tensor, shared_idx: torch.Tensor,
+                    shared_present: torch.Tensor,
+                    compress: str) -> torch.Tensor:
+    """Round this shard's own interface partials through the wire codec.
+
+    With a lossy codec each sharer would add its own full-precision
+    partial to the others' decoded ones, and two sharers of a dof would
+    hold different sums.  Replacing the own partials by their
+    decode(encode(.)) image — the codec is per dof, so bit for bit what
+    every partner decodes from the wire — makes every sharer add the same
+    codec-rounded set.  Call it after `neighbour_start` (the sends must
+    encode the original values: int8 is not idempotent) and before
+    `neighbour_finish`."""
+    vals = shared_contrib(y_dofs, shared_idx, shared_present)
+    dec = halo_decompress(halo_compress(vals, compress), compress,
+                          y_dofs.dtype)
+    return apply_shared(y_dofs, shared_idx, dec)
+
+
+def exchange_neighbour(y_dofs: torch.Tensor,
+                       rounds: Sequence[NeighbourRound], group,
+                       compress: Optional[str] = None,
+                       shared_idx: Optional[torch.Tensor] = None,
+                       shared_present: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Sum the interface dofs' partials pairwise with the bordering shards:
+    `exchange_shared`'s result up to the order of addition.  `compress`
+    rounds the partials through the wire codec, the received ones on
+    decode and this shard's own through `halo_self_round`, which needs the
+    interface tables `shared_idx` / `shared_present`."""
+    if compress is not None and (shared_idx is None or
+                                 shared_present is None):
+        raise ValueError(
+            f"exchange_neighbour: compress={compress!r} requires "
+            f"shared_idx/shared_present for the self-rounding pass "
+            f"(halo_self_round) — a lossy wire without it leaves the "
+            f"sharers of a dof holding different sums")
+    inflight = neighbour_start(y_dofs, rounds, group, compress=compress)
+    if compress is not None:
+        y_dofs = halo_self_round(y_dofs, shared_idx, shared_present,
+                                 compress)
+    return neighbour_finish(y_dofs, rounds, inflight, compress=compress)

@@ -330,8 +330,8 @@ def partition_elements(mesh: BoxMesh, n_shards: int,
     Builds the per-shard local dof spaces, the shared-dof (interface) index
     sets that the all-reduce exchange uses (``exchange_shared``), the
     neighbour-shard adjacency + per-neighbour send/recv index sets of the
-    point-to-point exchange (the reference's ``gather_sharded_neighbour``,
-    not ported yet, built here all the same) — on a box grid
+    point-to-point exchange (``gather_scatter.exchange_neighbour``) — on a
+    box grid
     the offsets are linearized shard-grid shifts covering face, edge AND
     corner neighbours, and a dof on a sub-box edge/corner can be shared by
     4 or 8 shards (each sharer pair gets its own table entry, which is

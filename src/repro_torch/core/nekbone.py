@@ -13,12 +13,19 @@ reference's nrhs-polymorphic entry that captures once per RHS width.
 With a `distributed.context.SolverShardCtx` the same pipeline runs
 element-sharded, one `torch.distributed` rank per shard: every rank builds
 the same partition (1-D slabs or Cartesian sub-boxes) and keeps its own
-shard's elements, the gather becomes the shard's local gather plus one
-`all_reduce` of the interface dofs, and PCG's dots sum the owned dofs and
-all-reduce the partials.  A solve takes the replicated global right-hand
-side and returns the same global x on every rank.  Every rank issues the
-same collectives in the same order: each stop decision of the loops comes
-from all-reduced values.  The sharded loops run eagerly.
+shard's elements, the gather becomes the shard's local gather plus the
+interface exchange — one `all_reduce` of the interface dofs
+(``exchange="psum"``), or point-to-point rounds with the bordering shards
+started before the interior elements' kernels (``exchange="neighbour"``,
+optionally through a halo codec) — and PCG's dots sum the owned dofs and
+all-reduce the partials.  The wire: NCCL keeps every buffer on the card;
+gloo all-reduces CUDA tensors through the host, and the neighbour
+exchange stages its point-to-point buffers through pinned host memory
+(gloo's point-to-point ops take CPU tensors only).  A solve takes the
+replicated global right-hand side and returns the same global x on every
+rank.  Every rank issues the same collectives in the same order: each stop
+decision of the loops comes from all-reduced values.  The sharded loops
+run eagerly.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no card and no explicit device they raise.
@@ -26,6 +33,7 @@ Entry points run on the CUDA device unless the caller passes
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -210,6 +218,9 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     ``shard_ctx.grid`` — and returns this rank's `ShardedNekboneProblem`
     on ``shard_ctx.device``; every rank of the group must call it with the
     same arguments.  ``shard_ctx=None`` takes the single-device path.
+    ``shard_ctx.exchange="neighbour"`` warns when the partition leaves no
+    interior elements to overlap the exchange with (see
+    `_neighbour_launch_plan`).
 
     `precision="bf16_x32"` builds the mixed-precision solve: `op`/`diag`
     stay float32 (`dtype` must be float32, the outer precision) and a
@@ -246,6 +257,18 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     if shard_ctx is not None and shard_ctx.n_shards > 1:
         part = partition_elements(mesh, shard_ctx.n_shards,
                                   grid=shard_ctx.grid)
+        if shard_ctx.exchange == "neighbour" and \
+                not _neighbour_launch_plan(part)[0]:
+            warnings.warn(
+                f"exchange='neighbour' has no interior elements to "
+                f"overlap the halo exchange with (every shard slot up "
+                f"to e_iface={part.e_iface} of e_per_shard="
+                f"{part.e_per_shard} is interface on some shard, grid="
+                f"{part.grid}): running the unsplit pipeline — the "
+                f"exchange is still point-to-point but nothing hides "
+                f"it.  A box decomposition (make_solver_ctx(grid="
+                f"'auto')) shrinks the interface surface and restores "
+                f"the overlap window.", UserWarning, stacklevel=2)
         return _setup_problem_sharded(mesh, b, variant, d, helmholtz, lam0,
                                       lam1, mask, dtype, backend, shard_ctx,
                                       part, precision)
@@ -266,6 +289,22 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     return NekboneProblem(apply, diag, mask, mesh, b, d, helmholtz, variant,
                           op.backend, device, precision, op_lo_apply,
                           GraphCache())
+
+
+def _neighbour_launch_plan(part: MeshPartition) -> tuple[bool, int]:
+    """The element launches of the neighbour exchange's shard operator:
+    ``(split, cut)``.  With `split` the operator runs two launches, the
+    interface slots ``[0, cut)`` first (their gather completes every
+    shared-dof partial, so the exchange starts after it) and the interior
+    slots ``[cut, EP)`` while the exchange is in flight.  Where some shard
+    is all interface (``e_iface == e_per_shard``, thin slabs at high shard
+    counts) or none is (``e_iface == 0``) no split point leaves work on
+    both sides: one unsplit launch of all EP slots, ``cut = EP``.  The
+    reference's plan also returns its block autotuner's clamp; the port
+    has no block size to tune."""
+    ep, ei = part.e_per_shard, part.e_iface
+    split = 0 < ei < ep
+    return split, ei if split else ep
 
 
 def _partition_lam_field(lam, part: MeshPartition, shard: int) -> np.ndarray:
@@ -316,43 +355,44 @@ def _setup_problem_sharded(mesh: BoxMesh, b: SpectralBasis, variant: str,
             variant, b, verts, lam0=lam_sh[0], lam1=lam_sh[1],
             helmholtz=helmholtz, dtype=torch.bfloat16, backend=backend,
             device=device)
-
-        def apply_lo(x):
-            return elem_apply_lo(x, ops_lo)
-
-    def apply(x):
-        return elem_apply(x, elem_ops)
-
+        apply_lo = (elem_apply_lo, ops_lo)
     graphs = GraphCache()
     op, run_pcg, run_refined = _build_sharded_runner(
-        part, ctx, apply, apply_lo, mask, diag, d, mesh.n_global, graphs)
+        part, ctx, (elem_apply, elem_ops), apply_lo, mask, diag, d,
+        mesh.n_global, graphs)
     return ShardedNekboneProblem(op, diag, mask, mesh, b, d, helmholtz,
                                  variant, backend_used, device, ctx, part,
                                  run_pcg, precision, run_refined, graphs)
 
 
-def _build_sharded_runner(part: MeshPartition, ctx, elem_apply,
-                          elem_apply_lo, mask, diag: torch.Tensor, d: int,
-                          n_global: int, graphs: GraphCache):
+def _build_sharded_runner(part: MeshPartition, ctx, elem, elem_lo, mask,
+                          diag: torch.Tensor, d: int, n_global: int,
+                          graphs: GraphCache):
     """Wire this rank's shard of the pipeline: index sets on its device,
     the shard operator with the interface exchange, and the runners, whose
-    loops `graphs` keeps.
+    loops `graphs` keeps.  `elem` (and `elem_lo`, the bfloat16 operator of
+    a ``bf16_x32`` problem, or None) is ``(elem_apply, elem_ops)`` over the
+    shard's EP element slots.
 
-    The collectives are the interface `all_reduce` of each operator
-    application (`gs.exchange_shared`), the `all_reduce` of each PCG dot
-    (`owned_dot`) and the one of `globalize`.  Returns ``(apply_global,
-    run_pcg, run_refined)``; the last is None without a bfloat16 operator.
+    The collectives are the interface exchange of each operator
+    application — the `all_reduce` of `gs.exchange_shared`, or with
+    ``ctx.exchange == "neighbour"`` the point-to-point rounds of
+    `gs.neighbour_start` — the `all_reduce` of each PCG dot (`owned_dot`)
+    and the one of `globalize`.  ``ctx.compress`` is the neighbour wire's
+    codec: it applies to the operator of the inner sweeps, the bfloat16
+    one where there is one, else the plain one; a refined problem's fp32
+    outer operator always exchanges at full width.  Returns
+    ``(apply_global, run_pcg, run_refined)``; the last is None without a
+    bfloat16 operator.
     """
     shard, dev, group = ctx.rank, ctx.device, ctx.group
-    nl = part.n_local
+    nl, ep = part.n_local, part.e_per_shard
 
     def rows(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a[shard]), dtype=dtype,
                                device=dev)
 
     lid = rows(part.local_ids, torch.int64)
-    # the shard's fixed-order gather; the trash slot gathers nothing
-    plan = gs.gather_plan(part.local_ids[shard], nl, dev, skip=nl - 1)
     sidx = rows(part.shared_idx, torch.int64)
     spres = rows(part.shared_present)
     l2g = rows(part.local_to_global, torch.int64)
@@ -363,6 +403,21 @@ def _build_sharded_runner(part: MeshPartition, ctx, elem_apply,
     diag_loc = diag[l2g]
     mask_loc = None if mask is None else mask[l2g]
     expand = gs._expand_mask
+    neighbour = ctx.exchange == "neighbour"
+    rounds = None
+    # the element slots of each launch: the interface slots, whose gather
+    # the neighbour exchange starts after, then the interior ones
+    cuts = [0, ep]
+    if neighbour:
+        rounds = gs.partition_rounds(part, shard, dev)
+        split, cut = _neighbour_launch_plan(part)
+        if split:
+            cuts = [0, cut, ep]
+    # each launch's slots, and the fixed-order gather of its slots into the
+    # shard's dofs (the trash slot gathers nothing)
+    batches = [(lo, hi, lid[lo:hi], gs.gather_plan(
+        part.local_ids[shard][lo:hi], nl, dev, skip=nl - 1))
+        for lo, hi in zip(cuts[:-1], cuts[1:])]
     dots = {batched: owned_dot(own, group, batched)
             for batched in (False, True)}
 
@@ -383,31 +438,50 @@ def _build_sharded_runner(part: MeshPartition, ctx, elem_apply,
         dist.all_reduce(out, group=group)
         return out.to(xl.dtype)
 
-    def make_a_op(apply_fn):
-        """The shard operator of one element operator."""
+    def make_a_op(elem_apply, elem_ops, wire):
+        """The shard operator of one element operator; `wire` is the halo
+        codec of its neighbour exchange (None: full width)."""
+        launches = [(lids, plan, {k: v[lo:hi] for k, v in elem_ops.items()})
+                    for lo, hi, lids, plan in batches]
+
+        def partials(x, batch, bshape):
+            """Axhelm on one launch's slots and their gather into the
+            shard's dofs."""
+            lids, plan, ops = launches[batch]
+            if bshape:
+                return gs.gather_columns(elem_apply(
+                    gs.scatter_columns(x.reshape(nl, -1), lids), ops), plan)
+            return gs.gather(elem_apply(gs.scatter(x, lids), ops), lids, nl,
+                             plan)
 
         def a_op_local(x, it=None, fault=None, fdof=None):
             """This shard's A(x): mask -> scatter -> axhelm -> local gather
             -> interface exchange (+ mask), on (L[, ...]) local fields;
             trailing axes are flattened into the c columns of one
-            exchange.  `fault` strikes on its shard when the device
-            counter `it` reaches its iteration: nan/bitflip poison the
-            local dof `fdof` after all masking; drop_exchange keeps the
-            shard's pre-exchange partials (a lost message: its shared dofs
-            miss every remote contribution).  Every rank still takes part
-            in the exchange."""
+            exchange.  In neighbour mode the interface slots run first,
+            the exchange starts, and the interior slots (which touch no
+            shared dof) run while it is in flight.  `fault` strikes on its
+            shard when the device counter `it` reaches its iteration:
+            nan/bitflip poison the local dof `fdof` after all masking;
+            drop_exchange keeps the shard's pre-exchange partials (a lost
+            message: its shared dofs miss every remote contribution).
+            Every rank still takes part in the exchange."""
             x_in = x
             bshape = tuple(x.shape[1:])
             if mask_loc is not None:
                 m = expand(mask_loc, x)
                 x = torch.where(m, zero(x), x)
-            if bshape:
-                xl = gs.scatter_columns(x.reshape(nl, -1), lid)
-                y_pre = gs.gather_columns(apply_fn(xl), plan)
+            y_pre = partials(x, 0, bshape)
+            if neighbour:
+                inflight = gs.neighbour_start(y_pre, rounds, group, wire)
+                for batch in range(1, len(launches)):
+                    y_pre = y_pre + partials(x, batch, bshape)
+                if wire is not None:
+                    # every sharer then adds the same codec-rounded set
+                    y_pre = gs.halo_self_round(y_pre, sidx, spres, wire)
+                y = gs.neighbour_finish(y_pre, rounds, inflight, wire)
             else:
-                y_pre = gs.gather(apply_fn(gs.scatter(x, lid)), lid, nl,
-                                  plan)
-            y = gs.exchange_shared(y_pre, sidx, spres, group)
+                y = gs.exchange_shared(y_pre, sidx, spres, group)
             fire = None
             if fault is not None and fault.shard == shard:
                 fire = it == fault.iteration
@@ -425,9 +499,9 @@ def _build_sharded_runner(part: MeshPartition, ctx, elem_apply,
 
         return a_op_local
 
-    a_op_local = make_a_op(elem_apply)
-    a_op_lo_local = None if elem_apply_lo is None else make_a_op(
-        elem_apply_lo)
+    a_op_local = make_a_op(*elem, ctx.compress if elem_lo is None else None)
+    a_op_lo_local = None if elem_lo is None else make_a_op(*elem_lo,
+                                                           ctx.compress)
 
     def apply_global(xg):
         return globalize(a_op_local(localize(xg)))

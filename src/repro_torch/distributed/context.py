@@ -9,6 +9,14 @@ process group.  The process group must be initialized before
 `make_solver_ctx` (see `distributed.launch.spawn`); without one, or with a
 world of one rank, the context collapses to None, the exact single-device
 solve.
+
+The wire: the psum exchange is one `all_reduce` of the interface dofs,
+which gloo takes on CUDA tensors (through the host) and NCCL on the card.
+The neighbour exchange is `batch_isend_irecv` rounds with the shards a
+shard borders (`core.gather_scatter.neighbour_start`): NCCL sends device
+buffers on its own stream; gloo's point-to-point ops take CPU tensors
+only, so on a card each round's buffers are staged through pinned host
+memory (the "gloo, host-staged" wire), and on the CPU they go as they are.
 """
 
 from __future__ import annotations
@@ -37,8 +45,12 @@ class SolverShardCtx(NamedTuple):
     it and `n_shards` its size.  `device` is where this rank's shard
     lives; `grid` the shard-grid spec of the partition
     (`core.mesh_gen.normalize_grid`: None for 1-D slabs, a (px[, py[,
-    pz]]) tuple, or "auto").  The interface exchange is the psum: one
-    all-reduce of the interface dofs an operator application.
+    pz]]) tuple, or "auto").  `exchange` is the interface exchange:
+    "psum", one all-reduce of the interface dofs an operator application,
+    or "neighbour", point-to-point rounds with the bordering shards whose
+    start comes before the interior elements' kernels.  `compress` is the
+    neighbour exchange's wire codec (None, or one of HALO_COMPRESS; see
+    `distributed.compression`).
     """
 
     group: object
@@ -46,6 +58,8 @@ class SolverShardCtx(NamedTuple):
     n_shards: int
     device: torch.device
     grid: object = None
+    exchange: str = "psum"
+    compress: Optional[str] = None
 
 
 def parse_grid_arg(spec: str):
@@ -96,11 +110,13 @@ def make_solver_ctx(devices: Optional[int] = None, exchange: str = "psum",
     `devices` is the shard count the caller expects, None for every rank
     of the world; it must equal the world's size (one rank per shard).
     Without an initialized process group, or with one rank, returns None —
-    the exact single-device solve — and warns about a `grid` that then
-    cannot apply, as the reference does.  `device` names this rank's
-    device (see `_rank_device`).  The neighbour exchange and its halo
-    codecs (`exchange="neighbour"`, `compress=`) are not ported yet and
-    raise.
+    the exact single-device solve — and warns about an `exchange`, `grid`
+    or `compress` that then cannot apply, as the reference does.  `device`
+    names this rank's device (see `_rank_device`); a CUDA device becomes
+    the rank's current device, which NCCL's point-to-point ops need.
+    An unknown exchange or codec raises, and so does `compress` without
+    ``exchange="neighbour"`` (the psum has no per-buffer seam to encode
+    at).
     """
     if exchange not in EXCHANGES:
         raise ValueError(f"unknown exchange {exchange!r}; expected one of "
@@ -108,11 +124,11 @@ def make_solver_ctx(devices: Optional[int] = None, exchange: str = "psum",
     if compress is not None and compress not in HALO_COMPRESS:
         raise ValueError(f"unknown halo compress {compress!r}; expected "
                          f"None or one of {HALO_COMPRESS}")
-    if exchange == "neighbour" or compress is not None:
+    if compress is not None and exchange != "neighbour":
         raise ValueError(
-            f"exchange={exchange!r}, compress={compress!r}: the neighbour "
-            f"exchange and its halo codecs are not ported yet; the port "
-            f"runs exchange='psum' (one all-reduce of the interface dofs)")
+            f"compress={compress!r} requires exchange='neighbour': the "
+            f"psum exchange is one fused all-reduce with no per-buffer "
+            f"seam to compress at (got exchange={exchange!r})")
     world = dist.get_world_size() if dist.is_initialized() else 1
     if devices is not None and devices != world:
         raise ValueError(
@@ -120,14 +136,23 @@ def make_solver_ctx(devices: Optional[int] = None, exchange: str = "psum",
             f"rank(s): start one rank per shard (e.g. with "
             f"repro_torch.distributed.launch.spawn)")
     if world <= 1:
-        if grid is not None:
+        dropped = [f"{name}={val!r}" for name, val, default in
+                   (("exchange", exchange, "psum"), ("grid", grid, None),
+                    ("compress", compress, None))
+                   if val != default]
+        if dropped:
             warnings.warn(
                 f"make_solver_ctx: single-device context runs the exact "
-                f"unsharded solve — grid={grid!r} cannot apply and will be "
-                f"ignored (start more than one rank to shard)",
+                f"unsharded solve — {', '.join(dropped)} cannot apply and "
+                f"will be ignored (start more than one rank to shard)",
                 UserWarning, stacklevel=2)
         return None
     _validate_grid_spec(grid, world)
     rank = dist.get_rank()
-    return SolverShardCtx(dist.group.WORLD, rank, world,
-                          _rank_device(rank, device), grid)
+    device = _rank_device(rank, device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device)
+    return SolverShardCtx(dist.group.WORLD, rank, world, device, grid,
+                          exchange, compress)

@@ -11,7 +11,8 @@ partial (Poisson only).
 Run:  PYTHONPATH=src python -m repro_torch.nekbone_solve \
           [--elements 4 4 4] [--order 7] [--variant trilinear] \
           [--equation poisson] [--d 1] [--nrhs 1] [--backend auto] \
-          [--device cuda] [--devices 1] [--grid slab] [--dist-backend nccl]
+          [--device cuda] [--devices 1] [--grid slab] [--exchange psum] \
+          [--dist-backend nccl]
 
 --nrhs R solves R stacked right-hand sides with block PCG (1 is the exact
 single-RHS path) and adds iters/column and wall/rhs to the result line.
@@ -24,11 +25,14 @@ warm-up solve.
 
 --devices N shards the elements over N local ranks (`distributed.launch`,
 one process each, rank 0 prints): --grid picks the partition ('slab',
-'auto', or a box like '2x2x1'), and the interface dofs and PCG dots are
-all-reduced over --dist-backend: nccl (the default) needs one card per
-rank; gloo runs any number of ranks on one card, or on the CPU with
---device cpu.  The sharded loop runs eagerly.  The parent builds the
-kernels before it starts the ranks.
+'auto', or a box like '2x2x1'); --exchange picks the interface exchange,
+one all-reduce of the interface dofs (psum, the default) or point-to-point
+rounds with the bordering shards, started before the interior elements'
+kernels (neighbour); the PCG dots are all-reduced.  --dist-backend: nccl
+(the default) needs one card per rank; gloo runs any number of ranks on
+one card (the neighbour rounds staged through pinned host memory), or on
+the CPU with --device cpu.  The sharded loop runs eagerly.  The parent
+builds the kernels before it starts the ranks.
 
 --inject MODE@ITER corrupts one operator application inside the loop
 (`resilience.inject.FaultSpec`: nan@3, bitflip@2, and on sharded runs
@@ -95,6 +99,12 @@ def _parse_args(argv=None):
                          "'auto' (smallest-surface factorization), or an "
                          "explicit box like '2x2x1' (must multiply to "
                          "--devices)")
+    ap.add_argument("--exchange", default="psum",
+                    choices=["psum", "neighbour"],
+                    help="interface-dof exchange of the sharded solve: one "
+                         "all-reduce (psum), or point-to-point rounds with "
+                         "the bordering shards overlapped with the interior "
+                         "elements' kernels (neighbour)")
     ap.add_argument("--dist-backend", default="nccl",
                     choices=["nccl", "gloo"],
                     help="torch.distributed backend of the sharded solve: "
@@ -120,7 +130,8 @@ def main(argv=None):
         raise SystemExit(f"--devices must be >= 1, got {args.devices}")
     if args.devices == 1:
         # no process group: None, with a warning when --grid cannot apply
-        _run(args, make_solver_ctx(grid=parse_grid_arg(args.grid)))
+        _run(args, make_solver_ctx(exchange=args.exchange,
+                                   grid=parse_grid_arg(args.grid)))
         return
     device = nekbone.resolve_device(args.device)
     if args.dist_backend == "nccl" and (
@@ -141,8 +152,8 @@ def _rank_main(rank: int, world: int, args) -> None:
     """One rank of a sharded run: on its own card (`--device cuda` too:
     rank r takes card r modulo the count), or on the named device."""
     device = None if args.device in (None, "cuda") else args.device
-    ctx = make_solver_ctx(devices=world, grid=parse_grid_arg(args.grid),
-                          device=device)
+    ctx = make_solver_ctx(devices=world, exchange=args.exchange,
+                          grid=parse_grid_arg(args.grid), device=device)
     _run(args, ctx)
 
 
@@ -171,7 +182,7 @@ def _run(args, shard_ctx=None) -> None:
     n_shards = 1 if shard_ctx is None else shard_ctx.n_shards
     say(f"mesh: E={len(mesh.verts)} N={args.order} dofs={mesh.n_global} "
         f"variant={args.variant} eq={args.equation} d={args.d} "
-        f"nrhs={args.nrhs} shards={n_shards}")
+        f"nrhs={args.nrhs} shards={n_shards} exchange={args.exchange}")
     prob = nekbone.setup_problem(mesh, variant=args.variant, d=args.d,
                                  helmholtz=helm, backend=args.backend,
                                  device=device, nrhs=args.nrhs,
@@ -186,7 +197,8 @@ def _run(args, shard_ctx=None) -> None:
             f"elems/shard={[int(c) for c in part.elem_counts]} "
             f"local_dofs={part.n_local} shared_dofs={part.n_shared} "
             f"({part.n_shared / mesh.n_global:.1%} of the field exchanged) "
-            f"iface_elems={float(part.iface_counts.sum()) / len(mesh.verts):.1%}")
+            f"iface_elems={float(part.iface_counts.sum()) / len(mesh.verts):.1%} "
+            f"neighbour_offsets={list(part.nbr_offsets)}")
     x_true = nekbone.random_solution(prob, seed=0, nrhs=args.nrhs)
     b = nekbone.rhs_from_solution(prob, x_true)
 

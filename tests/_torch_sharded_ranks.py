@@ -5,15 +5,20 @@ the reference package, and every function here is module-level.
 
 `cases(rank, world, grid, groups)` runs the case groups named in `groups`
 and returns ``{group: rows}``; every rank returns its own rows, which the
-tests compare across ranks where the port promises equal results.
+tests compare across ranks where the port promises equal results.  The
+`nbr_*` groups run the neighbour exchange (`exchange="neighbour"`, with
+and without a halo codec) beside the psum exchange.
 """
 
+import functools
 import hashlib
+import warnings
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import gather_scatter as gs
 from repro_torch.core import mesh_gen, nekbone
 from repro_torch.distributed.context import make_solver_ctx
 from repro_torch.resilience.inject import FaultSpec
@@ -43,13 +48,15 @@ def _ints(t) -> list:
     return [int(v) for v in torch.atleast_1d(t)]
 
 
-def _ctx(world, grid):
-    ctx = make_solver_ctx(devices=world, grid=grid, device="cpu")
+def _ctx(world, grid, exchange="psum", compress=None):
+    ctx = make_solver_ctx(devices=world, grid=grid, device="cpu",
+                          exchange=exchange, compress=compress)
     assert ctx is not None and ctx.n_shards == world
+    assert (ctx.exchange, ctx.compress) == (exchange, compress)
     return ctx
 
 
-def op_rows(world, grid):
+def op_rows(world, grid, exchange="psum"):
     """The sharded operator against the single-device one, every variant,
     nrhs 1 and 4 (test_nekbone_sharded.py::test_sharded_op_matches_global_op);
     the diagonals."""
@@ -68,8 +75,8 @@ def op_rows(world, grid):
                                 dtype=torch.float32)
             kw = dict(variant=variant, helmholtz=helm, backend="cuda")
             ref = nekbone.setup_problem(mesh, device=CPU, **kw)
-            sh = nekbone.setup_problem(mesh, shard_ctx=_ctx(world, grid),
-                                       **kw)
+            sh = nekbone.setup_problem(
+                mesh, shard_ctx=_ctx(world, grid, exchange), **kw)
             y0, y1 = ref.op(x), sh.op(x)
             rows.append({"variant": variant, "nrhs": nrhs,
                          "rel": float((y1 - y0).abs().max()
@@ -139,10 +146,10 @@ def vector_rows(world, grid):
     return rows
 
 
-def box_rows(world, grid):
+def box_rows(world, grid, exchange="psum"):
     """The solves test_nekbone_box.py::test_box_solve_matches_slab runs with
-    the psum exchange, on this (S, grid): the tests hold the slab's rows
-    against the box's."""
+    `exchange`, on this (S, grid): the tests hold the slab's rows against
+    the box's."""
     mesh_acc = mesh_gen.deform_trilinear(mesh_gen.box_mesh(6, 6, 6, 2),
                                          seed=3)
     mesh_odd = mesh_gen.deform_trilinear(mesh_gen.box_mesh(5, 3, 2, 2),
@@ -166,7 +173,8 @@ def box_rows(world, grid):
         kw = dict(variant=variant, helmholtz=helm, backend=backend)
         b = nekbone.rhs_from_solution(
             nekbone.setup_problem(mesh, device=CPU, **kw), x_true)
-        sh = nekbone.setup_problem(mesh, shard_ctx=_ctx(world, grid),
+        sh = nekbone.setup_problem(mesh, shard_ctx=_ctx(world, grid,
+                                                        exchange),
                                    nrhs=nrhs, **kw)
         res = nekbone.solve(sh, b, tol=TOL, max_iter=300)
         rows.append({"mesh": list(mesh.shape), "backend": backend,
@@ -221,17 +229,18 @@ def lambda_rows(world, grid):
     return rows
 
 
-def nan_rows(world, grid):
+def nan_rows(world, grid, exchange="psum"):
     """A NaN on the last shard at iteration 3, nrhs 1 and 4 (column 2)
     (test_resilience_sharded.py::test_sharded_nan_detected_within_one_
-    iteration, the psum exchange)."""
+    iteration), through `exchange`."""
     mesh = mesh_3x3x2()
     rng = np.random.default_rng(0)
     rows = []
     for nrhs in (1, 4):
         sh = nekbone.setup_problem(mesh, variant="trilinear",
                                    backend="reference",
-                                   shard_ctx=_ctx(world, grid), nrhs=nrhs)
+                                   shard_ctx=_ctx(world, grid, exchange),
+                                   nrhs=nrhs)
         shape = (mesh.n_global,) + ((nrhs,) if nrhs > 1 else ())
         x_true = torch.as_tensor(rng.standard_normal(shape),
                                  dtype=torch.float32)
@@ -249,15 +258,15 @@ def nan_rows(world, grid):
     return rows
 
 
-def drop_rows(world, grid):
+def drop_rows(world, grid, exchange="psum"):
     """drop_exchange on shard 1 at iteration 2 under the retry ladder
     (test_resilience_sharded.py::test_drop_exchange_caught_by_verification_
-    and_restart, the psum exchange)."""
+    and_restart), through `exchange`."""
     mesh = mesh_3x3x2()
     x_true = torch.as_tensor(np.random.default_rng(0).standard_normal(
         mesh.n_global), dtype=torch.float32)
     sh = nekbone.setup_problem(mesh, variant="trilinear", backend="reference",
-                               shard_ctx=_ctx(world, grid))
+                               shard_ctx=_ctx(world, grid, exchange))
     b = nekbone.rhs_from_solution(sh, x_true)
     spec = FaultSpec(mode="drop_exchange", iteration=2, shard=1)
     rep = solve_resilient(sh, b, tol=TOL, max_iter=300, fault=spec,
@@ -272,11 +281,11 @@ def drop_rows(world, grid):
              "dx": float((rep.x - ref.x).abs().max())}]
 
 
-def refined_rows(world, grid):
-    """The sharded bf16_x32 solve with the psum exchange, nrhs 1 and 4,
-    tol 1e-5: CONVERGED, true residual (fp32 reference-backend operator)
-    within 1.5 tol (test_mixed_precision.py::test_sharded_refined_solve_
-    every_wire, its psum wire)."""
+def refined_rows(world, grid, wires=(("psum", None),)):
+    """The sharded bf16_x32 solve on each (exchange, compress) wire, nrhs 1
+    and 4, tol 1e-5: CONVERGED, true residual (fp32 reference-backend
+    operator) within 1.5 tol (test_mixed_precision.py::test_sharded_
+    refined_solve_every_wire)."""
     mesh = mesh_3x3x2()
     rng = np.random.default_rng(0)
     ref = nekbone.setup_problem(mesh, backend="reference", device=CPU)
@@ -286,24 +295,27 @@ def refined_rows(world, grid):
         shape = (mesh.n_global,) + ((nrhs,) if nrhs > 1 else ())
         b = rng.standard_normal(shape).astype(np.float32)
         b = torch.as_tensor(b / np.linalg.norm(b, axis=0) * 30.0)
-        p = nekbone.setup_problem(mesh, backend="reference",
-                                  shard_ctx=_ctx(world, grid), nrhs=nrhs,
-                                  precision="bf16_x32")
-        res = nekbone.solve(p, b, tol=tol, max_iter=500)
-        true = torch.linalg.norm(b - ref.op(res.x), dim=0)
-        rows.append({"nrhs": nrhs, "tol": tol, "it": _ints(res.iterations),
-                     "status": _ints(res.status),
-                     "true": [float(t) for t in torch.atleast_1d(true)]})
+        for exchange, compress in wires:
+            p = nekbone.setup_problem(
+                mesh, backend="reference", nrhs=nrhs, precision="bf16_x32",
+                shard_ctx=_ctx(world, grid, exchange, compress))
+            res = nekbone.solve(p, b, tol=tol, max_iter=500)
+            true = torch.linalg.norm(b - ref.op(res.x), dim=0)
+            rows.append({"nrhs": nrhs, "tol": tol, "exchange": exchange,
+                         "compress": compress, "it": _ints(res.iterations),
+                         "status": _ints(res.status),
+                         "true": [float(t) for t in torch.atleast_1d(true)],
+                         "x_digest": digest(res.x)})
     return rows
 
 
-def jax_rows(world, grid):
-    """The reference-backend trilinear solve of `jax_rhs`, twice (the
-    repeat must be bitwise equal), for the comparison with the JAX
-    package's sharded solve."""
+def jax_rows(world, grid, exchange="psum"):
+    """The reference-backend trilinear solve of `jax_rhs` through
+    `exchange`, twice (the repeat must be bitwise equal), for the
+    comparison with the JAX package's sharded solve."""
     mesh = mesh_3x3x2()
     sh = nekbone.setup_problem(mesh, variant="trilinear", backend="reference",
-                               shard_ctx=_ctx(world, grid))
+                               shard_ctx=_ctx(world, grid, exchange))
     b = torch.as_tensor(jax_rhs(mesh))
     first = nekbone.solve(sh, b, tol=TOL, max_iter=300)
     again = nekbone.solve(sh, b, tol=TOL, max_iter=300)
@@ -335,10 +347,202 @@ def collective_rows(world, grid):
              "n_global": mesh.n_global}]
 
 
+def nbr_solve_rows(world, grid):
+    """The neighbour solve beside the psum solve of the same b
+    (test_nekbone_neighbour.py::test_neighbour_solve_matches_psum): both
+    equations, the reference backend at nrhs 1 and 4 and the kernels'
+    plain versions (merged, partial) at nrhs 1, on the 18-element mesh and,
+    at two shards, the 5-element one (E divisible by neither)."""
+    meshes = [mesh_3x3x2()]
+    if world == 2:
+        meshes.append(mesh_gen.deform_trilinear(
+            mesh_gen.box_mesh(5, 1, 1, 3), seed=4))
+    rng = np.random.default_rng(0)
+    rows = []
+    for mesh in meshes:
+        for nrhs in (1, 4):
+            shape = (mesh.n_global,) + ((nrhs,) if nrhs > 1 else ())
+            x_true = torch.as_tensor(rng.standard_normal(shape),
+                                     dtype=torch.float32)
+            for helm in (False, True):
+                for backend in ("reference", "cuda"):
+                    if backend == "cuda" and nrhs > 1:
+                        continue
+                    variant = ("merged" if helm else "partial") \
+                        if backend == "cuda" else "trilinear"
+                    kw = dict(variant=variant, helmholtz=helm,
+                              backend=backend, nrhs=nrhs)
+                    ps = nekbone.setup_problem(
+                        mesh, shard_ctx=_ctx(world, grid), **kw)
+                    b = nekbone.rhs_from_solution(ps, x_true)
+                    r0 = nekbone.solve(ps, b, tol=TOL, max_iter=300)
+                    nb = nekbone.setup_problem(
+                        mesh, shard_ctx=_ctx(world, grid, "neighbour"), **kw)
+                    r1 = nekbone.solve(nb, b, tol=TOL, max_iter=300)
+                    rows.append({
+                        "elements": len(mesh.verts), "helm": helm,
+                        "backend": backend, "nrhs": nrhs,
+                        "split": nekbone._neighbour_launch_plan(
+                            nb.partition)[0],
+                        "status_psum": _ints(r0.status),
+                        "status_nbr": _ints(r1.status),
+                        "it_psum": _ints(r0.iterations),
+                        "it_nbr": _ints(r1.iterations),
+                        "dx": float((r1.x - r0.x).abs().max()),
+                        "x_digest": digest(r1.x)})
+    return rows
+
+
+def nbr_wire_rows(world, grid):
+    """One neighbour exchange of this rank's own random partials on every
+    wire, nrhs 1 and 4 (and bfloat16 partials on the uncompressed wire):
+    each rank returns the global ids of its interface dofs, the values it
+    holds after the exchange and, for the comparison, the psum exchange's
+    values."""
+    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(4, 4, 2, 2), seed=3)
+    ctx = _ctx(world, grid, "neighbour")
+    part = mesh_gen.partition_elements(mesh, world, grid=grid)
+    t = ctx.rank
+
+    def rows_of(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a[t]), dtype=dtype)
+
+    rounds = gs.partition_rounds(part, t, CPU)
+    sidx = rows_of(part.shared_idx, torch.int64)
+    spres = rows_of(part.shared_present)
+    present = np.flatnonzero(part.shared_present[t])
+    slots = torch.as_tensor(part.shared_idx[t][present])
+    gids = part.local_to_global[t][part.shared_idx[t][present]]
+    rng = np.random.default_rng(100 + t)
+    rows = []
+    for dtype, wire in ((torch.float32, None), (torch.bfloat16, None),
+                        (torch.float32, "bf16"), (torch.float32, "int8"),
+                        (torch.bfloat16, "int8")):
+        for nrhs in (1, 4):
+            shape = (part.n_local,) + ((nrhs,) if nrhs > 1 else ())
+            y = torch.as_tensor(rng.standard_normal(shape),
+                                dtype=torch.float32).to(dtype)
+            got = gs.exchange_neighbour(y, rounds, ctx.group, wire, sidx,
+                                        spres)
+            psum = gs.exchange_shared(y, sidx, spres, ctx.group)
+            rows.append({"dtype": str(dtype), "wire": wire, "nrhs": nrhs,
+                         "gids": gids,
+                         "bits": got[slots].view(torch.int16 if dtype ==
+                                                 torch.bfloat16 else
+                                                 torch.int32).numpy(),
+                         "vals": got[slots].float().numpy(),
+                         "psum": psum[slots].float().numpy()})
+    return rows
+
+
+def nbr_ladder_rows(world, grid):
+    """A persistent NaN in the bf16 inner sweeps of a neighbour + int8
+    bf16_x32 solve: the ladder climbs to precision:float32, whose rebuilt
+    problem keeps the shard context's exchange and codec (each rung's
+    problem is recorded as it solves)."""
+    mesh = mesh_3x3x2()
+    x_true = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        mesh.n_global), dtype=torch.float32)
+    prob = nekbone.setup_problem(
+        mesh, variant="trilinear", backend="reference",
+        precision="bf16_x32",
+        shard_ctx=_ctx(world, grid, "neighbour", "int8"))
+    b = nekbone.rhs_from_solution(prob, x_true)
+    seen = []
+
+    def solve_fn(p, b_arr, x0, fault):
+        seen.append([p.precision, p.shard_ctx.exchange, p.shard_ctx.compress,
+                     fault is not None])
+        return nekbone.solve(
+            p, torch.as_tensor(b_arr, dtype=p.diag.dtype), tol=TOL,
+            max_iter=300, fault=fault,
+            x0=None if x0 is None else torch.as_tensor(x0, dtype=p.diag.dtype))
+
+    rep = solve_resilient(prob, b, tol=TOL, max_iter=300,
+                          fault=FaultSpec(mode="nan", iteration=2, shard=1),
+                          persistent=True, solve_fn=solve_fn)
+    return [{"converged": rep.converged,
+             "rungs": [a.rung for a in rep.attempts],
+             "problems": seen,
+             "true_residual": float(rep.true_residual[0])}]
+
+
+def nbr_collective_rows(world, grid):
+    """The collectives of one neighbour operator application at nrhs 4:
+    every all_reduce's shape, and every point-to-point op of each
+    `batch_isend_irecv` (send or receive, peer, shape, dtype, tag)."""
+    mesh = mesh_3x3x2() if grid is None else mesh_gen.deform_trilinear(
+        mesh_gen.box_mesh(4, 4, 2, 2), seed=3)
+    sh = nekbone.setup_problem(mesh, variant="trilinear", backend="reference",
+                               shard_ctx=_ctx(world, grid, "neighbour"),
+                               nrhs=4)
+    reduced, batches = [], []
+    real_reduce, real_batch = dist.all_reduce, dist.batch_isend_irecv
+
+    def counting(tensor, *args, **kwargs):
+        reduced.append(list(tensor.shape))
+        return real_reduce(tensor, *args, **kwargs)
+
+    def batch(ops):
+        batches.append([["send" if op.op is dist.isend else "recv", op.peer,
+                         list(op.tensor.shape), str(op.tensor.dtype), op.tag]
+                        for op in ops])
+        return real_batch(ops)
+
+    dist.all_reduce, dist.batch_isend_irecv = counting, batch
+    try:
+        sh.op(torch.ones((mesh.n_global, 4)))
+    finally:
+        dist.all_reduce, dist.batch_isend_irecv = real_reduce, real_batch
+    part = sh.partition
+    return [{"rank": dist.get_rank(), "all_reduce": reduced,
+             "batches": batches, "offsets": list(part.nbr_offsets),
+             "widths": [int(t.shape[1]) for t in part.nbr_lo_idx],
+             "n_shared": int(part.n_shared), "n_global": mesh.n_global}]
+
+
+def nbr_thin_rows(world, grid):
+    """An all-interface partition (a thin 4x1x1 mesh, one element a
+    shard): setup warns that nothing overlaps the exchange, and the
+    unsplit neighbour solve matches the psum one
+    (test_nekbone_box.py::test_degenerate_overlap_warns_at_setup)."""
+    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(4, 1, 1, 2), seed=3)
+    x_true = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        mesh.n_global), dtype=torch.float32)
+    ps = nekbone.setup_problem(mesh, variant="trilinear", backend="reference",
+                               shard_ctx=_ctx(world, grid))
+    b = nekbone.rhs_from_solution(ps, x_true)
+    r0 = nekbone.solve(ps, b, tol=TOL, max_iter=300)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        nb = nekbone.setup_problem(
+            mesh, variant="trilinear", backend="reference",
+            shard_ctx=_ctx(world, grid, "neighbour"))
+    r1 = nekbone.solve(nb, b, tol=TOL, max_iter=300)
+    msgs = [str(w.message) for w in caught
+            if "no interior elements" in str(w.message)]
+    return [{"warned": len(msgs), "mentions_grid": "grid" in "".join(msgs),
+             "it_psum": int(r0.iterations), "it_nbr": int(r1.iterations),
+             "status": [int(r0.status), int(r1.status)],
+             "dx": float((r1.x - r0.x).abs().max())}]
+
+
+NEIGHBOUR_WIRES = (("neighbour", None), ("neighbour", "bf16"),
+                   ("neighbour", "int8"))
 GROUPS = {"op": op_rows, "solve": solve_rows, "vector": vector_rows,
           "box": box_rows, "lambda": lambda_rows, "nan": nan_rows,
           "drop": drop_rows, "refined": refined_rows, "jax": jax_rows,
-          "collectives": collective_rows}
+          "collectives": collective_rows,
+          "nbr_op": functools.partial(op_rows, exchange="neighbour"),
+          "nbr_solve": nbr_solve_rows, "nbr_wire": nbr_wire_rows,
+          "nbr_box": functools.partial(box_rows, exchange="neighbour"),
+          "nbr_nan": functools.partial(nan_rows, exchange="neighbour"),
+          "nbr_drop": functools.partial(drop_rows, exchange="neighbour"),
+          "nbr_refined": functools.partial(refined_rows,
+                                           wires=NEIGHBOUR_WIRES),
+          "nbr_ladder": nbr_ladder_rows,
+          "nbr_jax": functools.partial(jax_rows, exchange="neighbour"),
+          "nbr_collectives": nbr_collective_rows, "nbr_thin": nbr_thin_rows}
 
 
 def cases(rank, world, grid, groups):
@@ -375,4 +579,45 @@ def card_rows(rank, world):
                                     int(r1.iterations)],
                      "dx": float((r1.x - r0.x).abs().max()),
                      "x_digest": digest(r1.x.cpu())})
+    return rows
+
+
+def card_neighbour_rows(rank, world):
+    """Two gloo ranks on the card at 8^3, N=7, through the kernels, with
+    the neighbour exchange staged through pinned host memory: the psum and
+    neighbour solves of trilinear Poisson and merged Helmholtz, and the
+    bf16_x32 trilinear solve at tol 0.03 on the neighbour wire with each
+    codec."""
+    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(8, 8, 8, 7), seed=3)
+    rows = []
+    for variant, helm in (("trilinear", False), ("merged", True)):
+        kw = dict(variant=variant, helmholtz=helm, backend="cuda")
+        ps = nekbone.setup_problem(mesh, shard_ctx=make_solver_ctx(
+            devices=world), **kw)
+        b = nekbone.rhs_from_solution(ps, nekbone.random_solution(ps))
+        r0 = nekbone.solve(ps, b, tol=TOL, max_iter=1000)
+        nb = nekbone.setup_problem(mesh, shard_ctx=make_solver_ctx(
+            devices=world, exchange="neighbour"), **kw)
+        r1 = nekbone.solve(nb, b, tol=TOL, max_iter=1000)
+        rows.append({"variant": variant, "device": str(nb.device),
+                     "split": nekbone._neighbour_launch_plan(
+                         nb.partition)[0],
+                     "status": [int(r0.status), int(r1.status)],
+                     "iterations": [int(r0.iterations), int(r1.iterations)],
+                     "dx": float((r1.x - r0.x).abs().max()),
+                     "x_digest": digest(r1.x.cpu())})
+    fp32 = nekbone.setup_problem(mesh, variant="trilinear", backend="cuda",
+                                 shard_ctx=make_solver_ctx(devices=world))
+    for wire in (None, "bf16", "int8"):
+        p = nekbone.setup_problem(
+            mesh, variant="trilinear", backend="cuda", precision="bf16_x32",
+            shard_ctx=make_solver_ctx(devices=world, exchange="neighbour",
+                                      compress=wire))
+        b = nekbone.random_rhs(p)
+        res = nekbone.solve(p, b, tol=0.03, max_iter=3000)
+        rows.append({"variant": "trilinear/bf16_x32", "wire": wire,
+                     "status": _ints(res.status),
+                     "iterations": _ints(res.iterations),
+                     "true": float(torch.linalg.norm(b - fp32.op(res.x))),
+                     "x_digest": digest(res.x.cpu())})
     return rows

@@ -121,8 +121,8 @@ def test_parse_grid_arg_rejects_bad_specs():
 
 def test_make_solver_ctx_validation():
     """Without a process group the world has one rank: the context
-    collapses to None, warning only about a grid it cannot apply; bad and
-    not-yet-ported settings raise before that."""
+    collapses to None, warning about an exchange, grid or codec it cannot
+    apply (the reference's warning); bad settings raise before that."""
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         assert tctx.make_solver_ctx() is None
@@ -134,9 +134,12 @@ def test_make_solver_ctx_validation():
         tctx.make_solver_ctx(exchange="ring")
     with pytest.raises(ValueError, match="unknown halo compress"):
         tctx.make_solver_ctx(compress="zstd")
-    with pytest.raises(ValueError, match="not ported yet"):
-        tctx.make_solver_ctx(exchange="neighbour")
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.warns(UserWarning, match="exchange='neighbour'.*ignored"):
+        assert tctx.make_solver_ctx(exchange="neighbour") is None
+    with pytest.warns(UserWarning, match="compress='int8'.*ignored"):
+        assert tctx.make_solver_ctx(exchange="neighbour",
+                                    compress="int8") is None
+    with pytest.raises(ValueError, match="requires exchange='neighbour'"):
         tctx.make_solver_ctx(compress="bf16")
     with pytest.raises(ValueError, match="2 shards.*1 rank"):
         tctx.make_solver_ctx(devices=2)
