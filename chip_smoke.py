@@ -4,9 +4,11 @@
 Drives the port's main paths — the single-device Nekbone Jacobi-PCG solve
 with the hand-written axhelm CUDA kernels, once for each of the five axhelm
 variants, and the mixed-precision `bf16_x32` refined solve through the
-bf16-storage kernels, with single and stacked right-hand sides — through
+bf16-storage kernels, with single and stacked right-hand sides, and the
+solve service that batches requests into bucketed block solves — through
 the entry points a user calls (`setup_problem`, `rhs_from_solution`,
-`solve`, `resilience.retry.solve_resilient`), and holds every kernel, fp32
+`solve`, `resilience.retry.solve_resilient`,
+`serving.solve_service.SolveService`), and holds every kernel, fp32
 and bf16, against its plain PyTorch version on the card.  Every solve runs
 its PCG loops as replayed CUDA graphs (`core.graphs`), as users run it,
 unless a phase says it runs one eagerly to compare.  Phases, one line
@@ -136,6 +138,27 @@ each:
               rank on each wire beside the psum's, the host-staging copy
               time, and the interior launch's device time (the window the
               exchange overlaps).  gloo on one card: no multi-card number
+  5h. serve   the solve service (`serving.SolveService`, buckets 1, 2, 4,
+              8 of captured block solves, `serving.bucket_cache`) on the
+              config's trilinear fp32 Poisson through the kernels: every
+              kernel first held against its plain version at the bucket
+              widths c = 2, 4, 8 (8^3 every fp32 entry point and trilinear
+              bf16 at c = 2, 4; 16^3 trilinear); warm-up captures 8 graphs
+              (4 solver loops, 4 verification operators) without solving;
+              48 norm-30 requests at tol 0.03 arriving Poisson(3) and
+              Poisson(6) a service step: no capture after warm-up, every
+              request CONVERGED with true residual <= 1.5 tol, no error,
+              more than one batch depth; p50/p95/p99 wall, queue and solve
+              p50, requests a second, ms per block iteration at each
+              width, warm-up seconds, peak memory, launches; 3 requests
+              padded into bucket 4 and 1 in bucket 1 bitwise the direct
+              `solve_resilient` of the unpadded block
+  5i. serve_8 8^3, max_batch 4, 12 requests a stream: a service per
+              kernel (precomputed, trilinear, partial Poisson; affine
+              parallelepiped; merged Helmholtz), the bf16_x32 trilinear
+              Poisson service (tol 1.0: rung initial) and the unmasked
+              trilinear Helmholtz one (every request on precision:float32,
+              its fallback ladder warmed); the gates of 5h on each
   6. timing   device time of each kernel (E=4096 and E=32768, N1=8,
               c=1; K1, K2, K3, K5 Poisson, K4 Helmholtz) from a replayed
               CUDA graph, and its time in eager calls back to back, beside
@@ -148,7 +171,8 @@ each:
               (c = 1 and 4), bitwise repeatable
   7. the `kernels` line (ten entry points, each launched on its main
      path and, as `launches_sharded`, on the sharded ones, psum and
-     neighbour exchange together, and their ten
+     neighbour exchange together, and as `launches_serve` by the served
+     streams of 5h and 5i, and their ten
      generic bodies, launched on the order-5 solves),
      then the card line, then the result line.
 
@@ -273,6 +297,43 @@ ULP_ABS_FLOOR = 1e-6
 # comparison is the plain one: same status, iterations within max(3, 5%).
 WITNESS_SEEDS = 6
 WITNESS_FLIP_RATE = 1e-4
+
+
+# The `serve` phase: the config's trilinear Dirichlet Poisson behind the
+# solve service, max_batch 8 (buckets 1, 2, 4, 8); requests the columns of
+# `nekbone.random_rhs(prob, nrhs=SERVE_REQUESTS)` (norm 30 each) at tol
+# 0.03 (1e-3 of the norm), arriving Poisson(rate) a service step from
+# numpy seed 0, as the reference's benchmarks/bench_serve.py::serve_row
+# drives its service.  `serve_8`: 8^3, max_batch 4, 12 requests a stream,
+# one fp32 stream per kernel and two bf16_x32 ones: (name, variant, mesh,
+# helmholtz, dirichlet, precision, tol, the rung every request must end
+# on).  The bf16_x32 Poisson stream runs at tol 1.0: at 0.03 and 0.3,
+# batched refinement at 8^3 stagnates on some requests (the plain version
+# on the CPU), which the precision:float32 rung then answers; unmasked
+# Helmholtz lies outside refinement's envelope, so every request climbs
+# to precision:float32.
+SERVE_MAX_BATCH = 8
+SERVE_REQUESTS = 48
+SERVE_RATES = (3.0, 6.0)
+SERVE_TOL = 0.03
+SERVE_MAX_ITER = 3000
+SERVE_TIMED = 3          # timed block solves per bucket width
+SERVE_8_MAX_BATCH = 4
+SERVE_8_REQUESTS = 12
+SERVE_8_RATE = 3.0
+SERVE_8_STREAMS = [
+    ("precomputed", "precomputed", "trilinear", False, True, None, 0.03,
+     None),
+    ("trilinear", "trilinear", "trilinear", False, True, None, 0.03, None),
+    ("partial", "partial", "trilinear", False, True, None, 0.03, None),
+    ("parallelepiped", "parallelepiped", "affine", False, True, None, 0.03,
+     None),
+    ("merged", "merged", "trilinear", True, False, None, 0.03, None),
+    ("bf16_x32/trilinear", "trilinear", "trilinear", False, True,
+     "bf16_x32", 1.0, "initial"),
+    ("bf16_x32/trilinear/helmholtz_unmasked", "trilinear", "trilinear",
+     True, False, "bf16_x32", 0.03, "precision:float32")]
+SERVE_8_CHECK_COLS = (2, 4, 8)   # the bucket widths phase 3 never checked
 
 
 def ulp_distance(a, b):
@@ -462,6 +523,117 @@ def graph_ms(fn, reps: int = 50, replays: int = 5) -> float:
     del graph
     torch.cuda.empty_cache()
     return statistics.median(times)
+
+
+def drive_stream(svc, columns, rate: float, seed: int = 0):
+    """Submit the tensors of `columns` as requests arriving Poisson(`rate`)
+    a service step (numpy `seed`), stepping the service until every one is
+    served.  Returns the requests, the depth of each served batch and the
+    seconds from the first submit to the last answer (host clock after a
+    synchronize)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.solve_service import SolveRequest
+
+    rng = np.random.default_rng(seed)
+    reqs, depths = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(reqs) < len(columns) or svc.queue:
+        for _ in range(min(int(rng.poisson(rate)),
+                           len(columns) - len(reqs))):
+            reqs.append(SolveRequest(uid=len(reqs), b=columns[len(reqs)]))
+            svc.submit(reqs[-1])
+        served = svc.step()
+        if served:
+            depths.append(served)
+    torch.cuda.synchronize()
+    return reqs, depths, time.perf_counter() - t0
+
+
+def stream_row(svc, reqs, depths, elapsed: float, warm: int, tol: float):
+    """One stream's record: captures after warm-up, batch depths,
+    statuses, rungs and true residuals, wall/queue/solve percentiles in ms
+    and requests a second."""
+    import numpy as np
+
+    walls = [1e3 * r.wall_s for r in reqs]
+    done = [r for r in reqs if r.report is not None]
+    return {
+        "requests": len(reqs), "warmup_captures": warm,
+        "captures_after_warmup": svc.trace_count - warm,
+        "batch_depths": sorted(set(depths)), "blocks": len(depths),
+        "depth_sequence": depths,
+        "solve_ms": [1e3 * r.solve_s for r in reqs],
+        "converged": sum(r.report.converged for r in done),
+        "errors": svc.errors,
+        "rungs": sorted({r.report.rung[0] for r in done}),
+        "iterations": [int(r.report.iterations[0]) for r in done],
+        "true_residual_max": max(float(r.report.true_residual[0])
+                                 for r in done) if done else None,
+        "true_residual_bound": 1.5 * tol,
+        "wall_ms": {f"p{q}": float(np.percentile(walls, q))
+                    for q in (50, 95, 99)},
+        "queue_p50_ms": float(np.percentile([1e3 * r.queue_s
+                                             for r in reqs], 50)),
+        "solve_p50_ms": float(np.percentile([1e3 * r.solve_s
+                                             for r in reqs], 50)),
+        "requests_per_s": len(reqs) / elapsed, "seconds": elapsed}
+
+
+def stream_gates(what: str, row: dict, rung=None) -> None:
+    """The serving contract: nothing captured after warm-up, every
+    request CONVERGED (on `rung` when given) with true residual <= 1.5
+    tol, no error, more than one batch depth."""
+    require(row["captures_after_warmup"] == 0,
+            f"{what}: {row['captures_after_warmup']} captures after "
+            f"warm-up: {row}")
+    require(row["errors"] == 0 and row["converged"] == row["requests"],
+            f"{what}: {row['converged']} of {row['requests']} converged, "
+            f"{row['errors']} errors: {row}")
+    require(row["true_residual_max"] <= row["true_residual_bound"],
+            f"{what}: true residual {row['true_residual_max']} > "
+            f"{row['true_residual_bound']}: {row}")
+    require(len(row["batch_depths"]) > 1,
+            f"{what}: one batch depth served, the gate is vacuous: {row}")
+    require(rung is None or row["rungs"] == [rung],
+            f"{what}: rungs {row['rungs']}, expected [{rung!r}]: {row}")
+
+
+def padded_parity(what: str, svc, prob, columns, tol: float,
+                  max_iter: int) -> dict:
+    """Three requests served in bucket 4 (one zero-padded column) against
+    the direct unpadded 3-column `solve_resilient`, and one request in
+    bucket 1 against the direct single-RHS one: x bitwise equal, the same
+    iterations, and nothing captured by the service."""
+    import torch
+    from repro_torch.resilience.retry import solve_resilient
+    from repro_torch.serving.solve_service import SolveRequest
+
+    before = svc.trace_count
+    out = {}
+    for n in (3, 1):
+        reqs = [SolveRequest(uid=-1 - j, b=columns[j]) for j in range(n)]
+        for r in reqs:
+            svc.submit(r)
+        require(svc.step() == n, f"{what}: {n} requests in one step")
+        b = torch.stack(columns[:n], dim=-1) if n > 1 else columns[0]
+        ref = solve_resilient(prob, b, tol=tol, max_iter=max_iter)
+        cols = [ref.x[..., j] for j in range(n)] if n > 1 else [ref.x]
+        bitwise = [torch.equal(r.report.x, x) for r, x in zip(reqs, cols)]
+        iters = [[int(r.report.iterations[0]) for r in reqs],
+                 [int(i) for i in ref.iterations]]
+        out[f"{n}_in_bucket_{svc.cache.bucket_for(n)}"] = {
+            "x_bitwise_equal": bitwise, "iterations": iters,
+            "rungs": [r.report.rung[0] for r in reqs]}
+        require(all(bitwise) and iters[0] == iters[1],
+                f"{what}: {n} request(s) through bucket "
+                f"{svc.cache.bucket_for(n)} against the direct solve: "
+                f"bitwise {bitwise}, iterations {iters}")
+    out["captures"] = svc.trace_count - before
+    require(out["captures"] == 0, f"{what}: the parity requests captured "
+            f"{out['captures']} graphs")
+    return out
 
 
 def ptxas_instantiations(report: str):
@@ -771,12 +943,14 @@ def main() -> None:
     from repro_torch.core import axhelm as core_axhelm
     from repro_torch.core import gather_scatter as gs
     from repro_torch.core import graphs, mesh_gen, nekbone
+    from repro_torch.core import pcg as pcg_mod
     from repro_torch.core.spectral import basis
     from repro_torch.distributed.launch import spawn
     from repro_torch.kernels.axhelm import build, ops
     from repro_torch.resilience.inject import FaultSpec
     from repro_torch.resilience.retry import RetryPolicy, solve_resilient
     from repro_torch.resilience.status import SolveStatus, is_failure
+    from repro_torch.serving.solve_service import SolveService
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -1933,6 +2107,180 @@ def main() -> None:
     del ref_res
     torch.cuda.empty_cache()
 
+    # 5h, 5i. serving: bucketed block solves behind the solve service -----
+    # Every kernel at the bucket widths the service gives it (c = 2, 4, 8;
+    # phase 3 checked c in {1, 3, 6}) against its plain version: at 8^3
+    # (serve_8) each fp32 entry point and trilinear bf16, at 16^3 (serve)
+    # trilinear fp32.  Then the services; the counts are set to 0 just
+    # before each stream and read just after it (`launches_serve`).
+    serve_launches = dict.fromkeys(ops.launch_counts, 0)
+
+    def served(svc, columns, rate):
+        """One stream through `svc` (`drive_stream`), its launches added
+        to serve_launches."""
+        ops.reset_launch_counts()
+        reqs, depths, elapsed = drive_stream(svc, columns, rate)
+        for k, v in ops.launch_counts.items():
+            serve_launches[k] += v
+        return reqs, depths, elapsed, {k: v for k, v in
+                                       ops.launch_counts.items() if v}
+
+    def check_columns(variant, mesh, helm, e, dt, cols):
+        verts = torch.as_tensor(mesh.verts[:e], dtype=torch.float32,
+                                device=dev)
+        geom, kw = main_operands(variant, verts, helm, dt=dt)
+        for c in cols:
+            x = torch.as_tensor(rng.standard_normal((e, c) + (n1,) * 3),
+                                dtype=torch_dtype[dt], device=dev)
+            check(variant, b_cfg, x, geom, f"serve {entry(variant, dt)} "
+                  f"E={e} c={c}", dt=dt, helmholtz=helm, **kw)
+        del geom, kw, verts
+
+    e_8 = len(conv_box.verts)
+    for variant in VARIANTS:
+        mesh = conv_meshes["affine" if variant == "parallelepiped"
+                           else "trilinear"]
+        check_columns(variant, mesh, MAIN_HELMHOLTZ[variant], e_8, "f32",
+                      SERVE_8_CHECK_COLS)
+    check_columns("trilinear", conv_meshes["trilinear"], False, e_8, "bf16",
+                  (2, 4))
+    check_columns("trilinear", cfg_tri, False, e_main, "f32",
+                  SERVE_8_CHECK_COLS)
+
+    # serve: the config's trilinear Poisson, fp32, through the kernels
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prob = nekbone.setup_problem(cfg_tri, variant="trilinear",
+                                 backend="cuda")
+    svc = SolveService(prob, max_batch=SERVE_MAX_BATCH, tol=SERVE_TOL,
+                       max_iter=SERVE_MAX_ITER)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = svc.warmup()
+    warm_s = time.perf_counter() - t0
+    require(warm == 2 * len(svc.cache.buckets),
+            f"serve: warm-up captured {warm}, expected "
+            f"{2 * len(svc.cache.buckets)}")
+    rhs = nekbone.random_rhs(prob, nrhs=SERVE_REQUESTS)
+    columns = [rhs[:, j] for j in range(SERVE_REQUESTS)]
+    streams = {}
+    for rate in SERVE_RATES:
+        reqs, depths, elapsed, launches = served(svc, columns, rate)
+        row = stream_row(svc, reqs, depths, elapsed, warm, SERVE_TOL)
+        row["launches"] = launches
+        stream_gates(f"serve 16^3 rate {rate}", row)
+        streams[f"rate{rate:g}"] = row
+        del reqs
+    # ms per block iteration at each bucket width: block solves through
+    # the warmed cache (no audit), SERVE_TIMED each
+    per_width = {}
+    for width in svc.cache.buckets:
+        walls = []
+        for _ in range(SERVE_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = svc.cache.solve(prob, rhs[:, :width])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        iters = int(res.iterations.max())
+        per_width[str(width)] = {
+            "iterations": res.iterations.reshape(-1).tolist(),
+            "ms_per_block_iteration": 1e3 * statistics.median(walls) / iters,
+            "walls_ms": [1e3 * w for w in walls]}
+    # the share of the served blocks' wall that their block solves
+    # explain: each block (consecutive requests, FIFO) at its bucket's ms
+    # per block iteration times its largest iteration count, over the
+    # block's wall (solve and audit; its slowest request's solve_s)
+    for row in streams.values():
+        solve_ms = wall_ms = 0.0
+        start = 0
+        for depth in row["depth_sequence"]:
+            block = row["iterations"][start:start + depth]
+            width = str(svc.cache.bucket_for(depth))
+            solve_ms += per_width[width]["ms_per_block_iteration"] * \
+                max(block)
+            wall_ms += max(row["solve_ms"][start:start + depth])
+            start += depth
+        row["solve_share_of_block_wall"] = solve_ms / wall_ms
+    # the width-independent column dot (a pairwise fold of elementwise
+    # adds) against one torch reduction over the block, in turns (old,
+    # new, new, old), device time of a CUDA graph of 50 calls, in us
+    column_dot_us = {}
+    for width in svc.cache.buckets:
+        u = rhs[:, :width].contiguous()
+        v = torch.flip(u, dims=(0,)).contiguous()
+        turns = [1e3 * graph_ms(fn) for fn in (
+            lambda: (u * v).sum(dim=0), lambda: pcg_mod._column_dot(u, v),
+            lambda: pcg_mod._column_dot(u, v),
+            lambda: (u * v).sum(dim=0))]
+        column_dot_us[str(width)] = {
+            "pairwise_fold": (turns[1] + turns[2]) / 2,
+            "one_reduction": (turns[0] + turns[3]) / 2, "turns": turns}
+        del u, v
+    parity = padded_parity("serve 16^3", svc, prob, columns, SERVE_TOL,
+                           SERVE_MAX_ITER)
+    require(svc.trace_count == warm, f"serve 16^3: captures after warm-up "
+            f"{svc.trace_count - warm}")
+    emit({"phase": "serve", "card": card,
+          "mesh": "x".join(map(str, CONFIG.elements)),
+          "order": CONFIG.order, "dofs": cfg_box.n_global,
+          "problem": "trilinear Dirichlet Poisson, fp32, Jacobi",
+          "buckets": list(svc.cache.buckets), "tol": SERVE_TOL,
+          "max_iter": SERVE_MAX_ITER,
+          "rhs": "columns of nekbone.random_rhs(nrhs=48): norm 30 each",
+          "arrivals": "Poisson(rate) new requests a service step, numpy "
+                      "seed 0",
+          "warmup_captures": warm, "warmup_s": warm_s,
+          "streams": streams, "per_width": per_width,
+          "column_dot_us": column_dot_us, "padded_parity": parity,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del svc, prob, rhs, columns
+    torch.cuda.empty_cache()
+
+    # serve_8: every kernel's service at 8^3, and the bf16_x32 services
+    serve8 = {}
+    for name, variant, mesh_name, helm, dirichlet, precision, tol, rung \
+            in SERVE_8_STREAMS:
+        prob = nekbone.setup_problem(conv_meshes[mesh_name],
+                                     variant=variant, helmholtz=helm,
+                                     dirichlet=dirichlet, backend="cuda",
+                                     precision=precision)
+        svc = SolveService(prob, max_batch=SERVE_8_MAX_BATCH, tol=tol,
+                           max_iter=SERVE_MAX_ITER)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = svc.warmup()
+        warm_s = time.perf_counter() - t0
+        # the ladder's solvers and verification operators, and for a
+        # bf16_x32 problem those of its precision:float32 fallback too
+        require(warm == 2 * len(svc.cache.buckets) * (2 if precision
+                                                      else 1),
+                f"serve_8 {name}: warm-up captured {warm}")
+        rhs = nekbone.random_rhs(prob, nrhs=SERVE_8_REQUESTS)
+        columns = [rhs[:, j] for j in range(SERVE_8_REQUESTS)]
+        reqs, depths, elapsed, launches = served(svc, columns, SERVE_8_RATE)
+        row = stream_row(svc, reqs, depths, elapsed, warm, tol)
+        row.update(launches=launches, warmup_s=warm_s, mesh=mesh_name,
+                   tol=tol, precision=precision or "fp32",
+                   equation="helmholtz" if helm else "poisson",
+                   dirichlet=dirichlet)
+        stream_gates(f"serve_8 {name}", row, rung)
+        row["padded_parity"] = padded_parity(
+            f"serve_8 {name}", svc, prob, columns, tol, SERVE_MAX_ITER)
+        serve8[name] = row
+        del svc, prob, rhs, columns, reqs
+    emit({"phase": "serve_8", "card": card, "mesh": "8x8x8",
+          "order": CONFIG.order, "dofs": conv_box.n_global,
+          "max_batch": SERVE_8_MAX_BATCH, "rate": SERVE_8_RATE,
+          "kernel_check_columns": SERVE_8_CHECK_COLS,
+          "streams": serve8})
+    for v in VARIANTS:
+        require(serve_launches[entry(v, "f32")] > 0,
+                f"{entry(v, 'f32')} was not launched by a served stream")
+    require(serve_launches[entry("trilinear", "bf16")] > 0,
+            "the bf16 trilinear kernel was not launched by a served stream")
+    torch.cuda.empty_cache()
+
     # 6. kernel times -------------------------------------------------------
     def event_ms(fn, reps, warmup):
         for _ in range(warmup):
@@ -2155,6 +2503,7 @@ def main() -> None:
             "replaces": REPLACES[variant],
             "main_path": main_path(variant, dt), "launches": launches,
             "launches_sharded": sharded_launches[name],
+            "launches_serve": serve_launches[name],
             "max_abs_err": main_abs[name], "max_rel_err": worst[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -46,7 +46,7 @@ from repro_torch.core.graphs import GraphCache
 from repro_torch.core.mesh_gen import (BoxMesh, MeshPartition,
                                        partition_elements)
 from repro_torch.core.pcg import (PCGResult, owned_dot, pcg, pcg_block,
-                                  refine)
+                                  prepare as prepare_loop, refine)
 from repro_torch.core.spectral import SpectralBasis, basis as make_basis
 from repro_torch.resilience import inject
 
@@ -649,8 +649,27 @@ def solve(problem: NekboneProblem, b_rhs: torch.Tensor,
         runner = problem.run_refined if refined else problem.run_pcg
         return runner(b_rhs, tol, max_iter, precond=precond, x0=x0,
                       stagnation_window=stagnation_window, fault=fault)
-    # the functions a solve makes from the problem are memoized with its
-    # loops, so that a repeat solve finds the loop (and graph) it captured
+    graphs, pre, op = _loop_parts(problem, precond, batched, fault)
+    if refined:
+        return refine(problem.op, op, b_rhs, x0=x0, precond=pre,
+                      tol=tol, max_iter=max_iter, batched=batched,
+                      inner_window=stagnation_window or 5, graphs=graphs,
+                      capture=capture)
+    runner = pcg_block if batched else pcg
+    return runner(op, b_rhs, x0=x0, precond=pre, tol=tol,
+                  max_iter=max_iter, stagnation_window=stagnation_window,
+                  graphs=graphs, capture=capture)
+
+
+def _loop_parts(problem: NekboneProblem, precond: str, batched: bool,
+                fault=None):
+    """The graph cache, preconditioner and operator of a single-device
+    solve's loop: the Jacobi preconditioner and the fault-wrapped operator
+    are memoized with the loops, so that a repeat solve (or `prepare`)
+    finds the key of the loop (and graph) it captured.  A ``bf16_x32``
+    problem's loop is the inner one: its bfloat16 operator and
+    preconditioner."""
+    refined = problem.precision == "bf16_x32"
     graphs = problem.graphs if problem.graphs is not None else GraphCache()
     pre = None
     if precond == "jacobi":
@@ -663,15 +682,7 @@ def solve(problem: NekboneProblem, b_rhs: torch.Tensor,
     if fault is not None:
         op = graphs.memo(("fault", op, fault), lambda: inject.wrap_operator(
             op, fault, problem.mesh.global_ids))
-    if refined:
-        return refine(problem.op, op, b_rhs, x0=x0, precond=pre,
-                      tol=tol, max_iter=max_iter, batched=batched,
-                      inner_window=stagnation_window or 5, graphs=graphs,
-                      capture=capture)
-    runner = pcg_block if batched else pcg
-    return runner(op, b_rhs, x0=x0, precond=pre, tol=tol,
-                  max_iter=max_iter, stagnation_window=stagnation_window,
-                  graphs=graphs, capture=capture)
+    return graphs, pre, op
 
 
 def _jacobi(diag: torch.Tensor, refined: bool, batched: bool):
@@ -698,19 +709,32 @@ def make_block_solver(problem: NekboneProblem, *, precond: str = "jacobi",
     Returns ``solve_block(b_blk, x0_blk) -> PCGResult`` with the solver's
     settings closed over.  Each RHS width gets its loop, and on a card its
     CUDA graph, once, in ``problem.graphs``; every later call of that width
-    replays it.  `x0_blk` is required (zeros for a cold start, which the
-    loop treats as ``x0=None``).  A zero-padded column converges at
-    iteration 0 and block PCG's freeze keeps it from perturbing live
-    columns, so callers may pad a block to a bucket width.
+    replays it.  `x0_blk` is required (zeros for a cold start, which give
+    the same bits as ``x0=None``).  ``solve_block.prepare(shape)`` builds
+    the loops of a block of `shape` — for a ``bf16_x32`` problem its inner
+    loop — and on a card captures them, without solving (`core.pcg.
+    prepare`), so that the first call of that width replays; it raises on
+    a sharded problem, whose loops run eagerly.
+
+    Callers may pad a block to a bucket width with zero columns: a zero
+    column converges at iteration 0 and block PCG's freeze keeps it from
+    perturbing live columns, and since every per-column operation of the
+    block solve — the operator, the preconditioner, the updates and the
+    per-column dots (`core.pcg._column_dot`) — gives column j the same
+    bits whatever the width and the other columns, a real column comes out
+    bitwise as it would unpadded (tests/test_torch_serving.py; on a card
+    tests/test_torch_serving_cuda.py and `chip_smoke.py` phases serve and
+    serve_8).
 
     ``on_capture(shape)``, if given, is called with the block's shape when
-    a call captured a graph — on the CPU, where nothing is captured, when
-    it built a width's loop — and never on a call that replays: the
-    counterpart of the reference's ``on_trace``.
+    a call or a `prepare` captured a graph — on the CPU, where nothing is
+    captured, when it built a width's loop — and never on a call that
+    replays: the counterpart of the reference's ``on_trace``.
     """
     if problem.graphs is None:
         problem = problem._replace(graphs=GraphCache())
     graphs = problem.graphs
+    base = 1 if problem.d == 1 else 2
 
     def made():
         return graphs.captures if problem.device.type == "cuda" \
@@ -725,6 +749,29 @@ def make_block_solver(problem: NekboneProblem, *, precond: str = "jacobi",
             on_capture(tuple(b_blk.shape))
         return res
 
+    def prepare(shape) -> None:
+        if isinstance(problem, ShardedNekboneProblem):
+            raise ValueError("prepare: the sharded loops run eagerly, built "
+                             "by each solve (capturing them is not ported "
+                             "yet)")
+        shape = tuple(shape)
+        if len(shape) != base + 1:
+            raise ValueError(f"prepare: a block of a d={problem.d} problem "
+                             f"has rank {base + 1}, got shape {shape}")
+        batched = shape[-1] > 1   # width 1 runs the single-RHS loop
+        refined = problem.precision == "bf16_x32"
+        _, pre, op = _loop_parts(problem, precond, batched)
+        b = torch.zeros(shape if batched else shape[:-1],
+                        dtype=torch.bfloat16 if refined
+                        else problem.diag.dtype, device=problem.device)
+        before = made()
+        prepare_loop(op, b, batched=batched, precond=pre,
+                     stagnation_window=(stagnation_window or 5) if refined
+                     else stagnation_window, graphs=graphs)
+        if on_capture is not None and made() > before:
+            on_capture(shape)
+
+    solve_block.prepare = prepare
     return solve_block
 
 

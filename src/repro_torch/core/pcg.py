@@ -33,7 +33,9 @@ shape, dtype and stagnation window.  A chunk holds no Python number that
 changes between solves (the tolerance and budget are device scalars of
 the state), so a replay with another tolerance is exact.  On the CPU, and
 on a card where the caller passes ``capture=False``, the same chunk runs
-eagerly; ``capture=True`` on the CPU raises.
+eagerly; ``capture=True`` on the CPU raises.  `prepare` builds a loop, and
+on a card captures it, without solving, so that the first solve of a
+shape replays a graph captured before it.
 
 Health monitoring lives INSIDE the loop, on the scalars it already
 reduces: the carried ``rr`` going NaN/Inf rolls the step back and flags
@@ -51,7 +53,7 @@ import torch.distributed as dist
 from repro_torch.core.graphs import GraphCache
 from repro_torch.resilience.status import classify
 
-__all__ = ["PCGResult", "pcg", "pcg_block", "refine", "owned_dot"]
+__all__ = ["PCGResult", "pcg", "pcg_block", "refine", "prepare", "owned_dot"]
 
 # Bodies a chunk runs between host reads of the device-side `active` flag:
 # each read drains the queue once, so rarer reads keep the card busier
@@ -81,8 +83,32 @@ def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _column_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Per-column dots of stacked fields: every axis but the last."""
-    return (_up(u) * _up(v)).sum(dim=tuple(range(u.ndim - 1)))
+    """Per-column dots of stacked fields: every axis but the last.
+
+    Column j's dot has the same bits whatever the block's width, wherever
+    the column sits in it and whatever the other columns hold, so that a
+    zero-padded column changes no bit of a real one.  A torch reduction
+    over several columns does not give that: its split of the work
+    follows the number of outputs (on the CPU a one-output sum splits its
+    input over the threads and a several-output one does not; on the card
+    the block shape, the warps and the blocks per output follow the
+    outputs).  So the products go, dof-major, into a buffer of a power of
+    two rows, zero past the last dof, which is folded in half until one
+    row is left: a pairwise sum in one fixed tree of elementwise adds,
+    each exactly rounded, the same for every column on every device.
+    """
+    u2, v2 = _up(u), _up(v)
+    cols = u.shape[-1]
+    n = u.numel() // cols
+    rows = 1 << max(n - 1, 0).bit_length()
+    s = torch.empty((rows, cols), dtype=torch.result_type(u2, v2),
+                    device=u.device)
+    torch.mul(u2.reshape(n, cols), v2.reshape(n, cols), out=s[:n])
+    s[n:].zero_()
+    while rows > 1:
+        rows //= 2
+        s = s[:rows] + s[rows:]
+    return s[0]
 
 
 def owned_dot(weight: torch.Tensor, group, batched: bool = False
@@ -320,13 +346,14 @@ class _Loop:
                 cache.replay(self.graph)
 
 
-def _solve(kind: str, a_op, b: torch.Tensor, x0, precond, dot, tol2,
-           max_iter, budget: int, window: int,
-           graphs: Optional[GraphCache], capture: Optional[bool]
-           ) -> PCGResult:
-    """Run `pcg` (kind "pcg") or `pcg_block` on the loop of `graphs` for
-    this key.  `tol2` and `max_iter` are the loop's inputs (Python numbers
-    or device scalars); `budget` is the host's bound on the bodies."""
+def _start(kind: str, a_op, b: torch.Tensor, x0, precond, dot, tol2,
+           max_iter, window: int, graphs: Optional[GraphCache],
+           capture: Optional[bool]):
+    """The loop of `graphs` for this key, loaded with the first state of a
+    `pcg` (kind "pcg") or `pcg_block` solve of `b` from `x0`; `tol2` and
+    `max_iter` are the loop's inputs (Python numbers or device scalars).
+    Returns the loop, its cache, whether it captures, and the initial
+    residual."""
     dev = b.device
     if capture is None:
         capture = dev.type == "cuda"
@@ -342,7 +369,6 @@ def _solve(kind: str, a_op, b: torch.Tensor, x0, precond, dot, tol2,
     z = precond(r)
     rz = dot(r, z)
     rr = dot(r, r)
-    r0 = torch.sqrt(rr)
     ints = torch.zeros(rr.shape, dtype=torch.int32, device=dev)
     flags = torch.zeros(rr.shape, dtype=torch.bool, device=dev)
     state = {"x": x, "r": r, "z": z, "p": z, "rz": rz, "rr": rr, "it": ints,
@@ -355,12 +381,46 @@ def _solve(kind: str, a_op, b: torch.Tensor, x0, precond, dot, tol2,
     loop = cache.loop(key, lambda: _Loop(*_BODIES[kind](a2, precond, dot,
                                                          window), state))
     loop.load(state, tol2, max_iter)
+    return loop, cache, capture, torch.sqrt(rr)
+
+
+def _solve(kind: str, a_op, b: torch.Tensor, x0, precond, dot, tol2,
+           max_iter, budget: int, window: int,
+           graphs: Optional[GraphCache], capture: Optional[bool]
+           ) -> PCGResult:
+    """Run `pcg` (kind "pcg") or `pcg_block` on the loop of `graphs` for
+    this key (`_start`); `budget` is the host's bound on the bodies."""
+    loop, cache, capture, r0 = _start(kind, a_op, b, x0, precond, dot, tol2,
+                                      max_iter, window, graphs, capture)
     loop.run(-(-budget // _CHECK_EVERY), capture, cache)
     s = loop.state
     status = classify(s["rr"], loop.consts["tol2"], s["brk"], s["div"],
                       s["stag"])
     return PCGResult(s["x"].clone(), s["it"].clone(), torch.sqrt(s["rr"]),
                      r0, s["brk"].clone(), status)
+
+
+def prepare(a_op: Callable, b: torch.Tensor, *, batched: bool,
+            precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+            stagnation_window: int = 0,
+            graphs: Optional[GraphCache] = None) -> None:
+    """Build the loop that :func:`pcg_block` (`batched`) or :func:`pcg`
+    would run, with the default inner product, on a block of b's shape,
+    dtype and device, and on a CUDA device capture its chunk — without
+    solving (b's values are not read).  A later solve of that shape finds
+    the loop, and its graph, in `graphs`.
+
+    The loop is loaded with a zero right-hand side at tolerance 0 and no
+    budget: a converged state, on which every body is gated off, so the
+    capture's warm-up chunk leaves the state as it found it.  For
+    :func:`refine`'s inner loop pass its bfloat16 block, its ``precond``
+    and ``inner_window`` as the stagnation window.
+    """
+    loop, cache, capture, _ = _start(
+        "pcg_block" if batched else "pcg", a_op, torch.zeros_like(b), None,
+        precond, None, 0.0, 0, stagnation_window, graphs, None)
+    if capture and loop.graph is None:
+        loop.graph = cache.capture(loop.chunk)
 
 
 def pcg(a_op: Callable,

@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import serve_solves
 from repro_torch.core import mesh_gen, nekbone
 from repro_torch.core.spectral import basis
 from repro_torch.kernels.axhelm import build, ops
@@ -81,6 +82,12 @@ for w in (2, 2):
     bb = nekbone.rhs_from_solution(prob, nekbone.random_solution(prob, nrhs=w))
     block(bb, bb * 0)
 assert widths == [(mesh.n_global, 2)], widths
+from repro_torch.serving.solve_service import SolveRequest, SolveService
+svc = SolveService(prob, max_batch=2, tol=1e-6)
+warm = svc.warmup()
+svc.submit(SolveRequest(uid=0, b=b))
+svc.step()
+assert warm == 4 and svc.trace_count == warm, (warm, svc.trace_count)
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print("ok", int(res.iterations))
 """
@@ -102,9 +109,10 @@ def test_solve_resilient_catches_no_exception():
 
 
 def test_graph_code_catches_no_capture_failure():
-    """A capture or replay that fails raises: the loop and graph modules
-    have no `except` that could turn one into an eager fallback."""
-    for rel in ("core/graphs.py", "core/pcg.py"):
+    """A capture or replay that fails raises: the loop, graph and bucket
+    cache modules have no `except` that could turn one into an eager
+    fallback."""
+    for rel in ("core/graphs.py", "core/pcg.py", "serving/bucket_cache.py"):
         tree = ast.parse((PORT / rel).read_text())
         assert not [n for n in ast.walk(tree)
                     if isinstance(n, ast.ExceptHandler)], rel
@@ -119,6 +127,8 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         nekbone.setup_problem(mesh, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         nekbone.resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_solves.main(["--nx", "1", "--order", "2"])
     prob = nekbone.setup_problem(mesh, device="cpu")
     assert prob.device.type == "cpu" and prob.backend == "reference"
 
