@@ -19,7 +19,8 @@ each:
               registers, shared memory and spills of every instantiation,
               with the body each runs (K2, K5: one thread per node column;
               K1, K3, K4: one thread per node line; every entry point's
-              generic body, N1 a runtime argument; and the timing-only
+              generic body and cluster body, N1 a runtime argument; and
+              the timing-only
               one-thread-per-node `_rowwise` twins of K1-K5); no
               instantiation may spill
   3. kernels  every kernel against its plain version: Poisson and
@@ -169,11 +170,28 @@ each:
               each (`ops.generic`) at orders 1, 2, 5, 9 and 15, E=4096; the
               gather at 16^3 in its fixed order in turns with index_add_
               (c = 1 and 4), bitwise repeatable
+  6b. high_order  the cluster body (`csrc/axhelm_cluster.cu`: an element
+              split across a thread-block cluster, N1 above ops.N1_MAX =
+              24 up to ops.N1_CLUSTER_MAX = 48): every entry point at N1 =
+              25, 32 and the cap (E = 64; 8 at the cap), c in {1, 4},
+              random per-node lambdas, against its plain version (the
+              tolerances and the one-ulp rule of 3 and 3b), and at the
+              main path's shape; the order-31 main paths on the 4x4x4 box
+              (64 elements, 1,953,125 dofs; the six of phase 5), 200
+              iterations, captured and eager in turns (2 solves a turn):
+              x bitwise equal, one cluster launch per application; each
+              on the 2x1x1 box against the reference backend (the same
+              status, iterations +-1, Helmholtz within 1%, x within
+              1e-3); each variant's bf16_x32 solve at tol 0.03 on the
+              4x4x4 box, its status and inner iterations recorded; each
+              cluster entry point timed at E = 64 (a CUDA graph of 50
+              calls) beside its bound and its plain version
   7. the `kernels` line (ten entry points, each launched on its main
      path and, as `launches_sharded`, on the sharded ones, psum and
      neighbour exchange together, and as `launches_serve` by the served
-     streams of 5h and 5i, and their ten
-     generic bodies, launched on the order-5 solves),
+     streams of 5h and 5i; their ten
+     generic bodies, launched on the order-5 solves; and their ten
+     cluster bodies, launched on the order-31 solves),
      then the card line, then the result line.
 
 Exits non-zero, printing no result, when a phase fails, when there is no
@@ -212,11 +230,39 @@ _CSRC = "src/repro_torch/kernels/axhelm/csrc"
 BODY = {"precomputed": "line", "trilinear": "column",
         "parallelepiped": "line", "merged": "line", "partial": "column"}
 SOURCE = {"node": f"{_CSRC}/axhelm.cu", "column": f"{_CSRC}/axhelm_column.cu",
-          "line": f"{_CSRC}/axhelm_line.cu", "any": f"{_CSRC}/axhelm.cu"}
+          "line": f"{_CSRC}/axhelm_line.cu", "any": f"{_CSRC}/axhelm.cu",
+          "cluster": f"{_CSRC}/axhelm_cluster.cu"}
 # The orders the generic body (every N1 but the tuned bodies' 4 and 8) is
 # checked and timed at, and the one its main path (the order-5 solves) runs
 GENERIC_ORDERS = (1, 2, 5, 9, 15)
 GENERIC_MAIN_ORDER = 5
+# Phase `high_order`, the cluster body (N1 above ops.N1_MAX = 24, up to
+# ops.N1_CLUSTER_MAX = 48): the orders it is checked and timed at (N1 = 25,
+# 32 and the cap), at CLUSTER_ELEMS elements (CLUSTER_ELEMS_CAP in the
+# check at the cap); its main path, the order-31 solve on a 4x4x4 box (64
+# elements, 1,953,125 dofs: the 16^3 order-7 config's scale in fewer,
+# larger elements), HIGH_ORDER_ITERS iterations captured and eager in
+# turns, HIGH_ORDER_REPEATS solves a turn; and the 2x1x1 box of its
+# comparison with the reference backend (converged to HIGH_ORDER_TOL,
+# status and iterations +-1, x within HIGH_ORDER_X_BOUND).
+CLUSTER_ORDERS = (24, 31, 47)
+CLUSTER_ELEMS = 64
+CLUSTER_ELEMS_CAP = 8
+HIGH_ORDER = 31
+HIGH_ORDER_BOX = (4, 4, 4)
+HIGH_ORDER_SMALL_BOX = (2, 1, 1)
+HIGH_ORDER_ITERS = 200
+HIGH_ORDER_REPEATS = 2
+HIGH_ORDER_TOL = 1e-6
+HIGH_ORDER_MAX_ITER = 2000
+HIGH_ORDER_X_BOUND = 1e-3
+# Unmasked Helmholtz needs ~700 iterations on that box, over which the fp32
+# sums of the kernels and of the plain version, in other orders, drift
+# apart: merged took 697 iterations against the plain version's 694 (the
+# PR's first chip call, tests/test_torch_cluster_cuda.py).  Its iterations
+# are held within this share of the reference backend's, Poisson's within
+# +-1.
+HIGH_ORDER_HELMHOLTZ_ITER_SHARE = 0.01
 _TPU_KERNEL = "src/repro/kernels/axhelm/kernel.py"
 REPLACES = {"precomputed": f"{_TPU_KERNEL}:122",
             "trilinear": f"{_TPU_KERNEL}:126",
@@ -639,8 +685,9 @@ def padded_parity(what: str, svc, prob, columns, tol: float,
 def ptxas_instantiations(report: str):
     """Per kernel instantiation of a `-Xptxas -v` report: its variant, body
     ("node": axhelm_kernel, "column": axhelm_column_kernel, "line":
-    axhelm_line_kernel, "any": the generic axhelm_any_kernel), N1 (None for
-    the generic body, whose N1 is a runtime argument), storage dtype,
+    axhelm_line_kernel, "any": the generic axhelm_any_kernel, "cluster":
+    axhelm_cluster_kernel), N1 (None for the generic and cluster bodies,
+    whose N1 is a runtime argument), storage dtype,
     registers, shared memory and spill bytes; {"kernel": name} for an entry
     function of another name."""
     inst, cur = [], None
@@ -650,8 +697,10 @@ def ptxas_instantiations(report: str):
             # axhelm_kernel<N1, GeomSource, T>, axhelm_column_kernel<...> and
             # axhelm_line_kernel<...> mangle as
             # ILi<N1>E...GeomSourceE<n>E<T>E, T = f or 13__nv_bfloat16, and
-            # axhelm_any_kernel<GeomSource, T> as I...GeomSourceE<n>E<T>E
-            k = re.search(r"axhelm_(column_|line_|any_)?kernelI(?:Li(\d+)E)?"
+            # axhelm_any_kernel<GeomSource, T> and axhelm_cluster_kernel<...>
+            # as I...GeomSourceE<n>E<T>E
+            k = re.search(r"axhelm_(column_|line_|any_|cluster_)?kernelI"
+                          r"(?:Li(\d+)E)?"
                           r".*?GeomSourceE?(\d+)E(f|\d+__nv_bfloat16)E",
                           m.group(1))
             cur = {"kernel": m.group(1)}
@@ -983,7 +1032,8 @@ def main() -> None:
     # phase 6 times
     expected = {(v, BODY[v], n, dt) for v in VARIANTS for n in ops.KERNEL_N1
                 for dt in DTYPES}
-    expected |= {(v, "any", None, dt) for v in VARIANTS for dt in DTYPES}
+    expected |= {(v, body, None, dt) for v in VARIANTS for dt in DTYPES
+                 for body in ("any", "cluster")}
     expected |= {(v, "node", n, dt) for v in ops.ROWWISE_VARIANTS
                  for n in ops.KERNEL_N1 for dt in DTYPES}
     missing = sorted(expected - reported)
@@ -1008,8 +1058,17 @@ def main() -> None:
         """The generic body's C symbol for an entry point."""
         return f"{entry(variant, dt)}_any"
 
-    names = [entry(v, dt) for v, dt in entries] + \
-        [generic_name(v, dt) for v, dt in entries]
+    def cluster_name(variant, dt):
+        """The cluster body's C symbol for an entry point."""
+        return f"{entry(variant, dt)}_cluster"
+
+    def body_name(variant, dt, n1):
+        """The C symbol an entry point's launch at `n1` reaches."""
+        return {"any": generic_name, "cluster": cluster_name}.get(
+            ops.body_of(variant, n1), entry)(variant, dt)
+
+    names = [name(v, dt) for name in (entry, generic_name, cluster_name)
+             for v, dt in entries]
     worst = dict.fromkeys(names, 0.0)
     cases = {dt: [] for dt in DTYPES}
 
@@ -1024,7 +1083,8 @@ def main() -> None:
         return elem_ops.pop("geom"), elem_ops
 
     ulps = {name(v, "bf16"): {"kernel": [0, 0, 0], "plain": [0, 0, 0]}
-            for v in VARIANTS for name in (entry, generic_name)}
+            for v in VARIANTS
+            for name in (entry, generic_name, cluster_name)}
 
     def rounding_check(name, y, y_p, x, b, variant, geom, label, kw):
         """A bf16 call's outputs against the correctly rounded ones: counts
@@ -1052,15 +1112,14 @@ def main() -> None:
         """One kernel call against its plain version (and, for bf16, both
         against the correctly rounded result); returns the largest
         absolute difference (in fp32).  At N1 in ops.KERNEL_N1 the call
-        runs the entry point's tuned body, at every other N1 its generic
-        body."""
+        runs the entry point's tuned body, at every other N1 up to
+        ops.N1_MAX its generic body, above that its cluster body."""
         y = ops.axhelm(x, b, variant, geom, **kw)
         torch.cuda.synchronize()
         y_p = ops.reference(x, b, variant, geom, **kw)
         torch.cuda.synchronize()
         require(y.dtype == x.dtype, f"{label}: y is {y.dtype}")
-        name = entry(variant, dt) if b.n1 in ops.KERNEL_N1 else \
-            generic_name(variant, dt)
+        name = body_name(variant, dt, b.n1)
         if dt == "bf16":
             rounding_check(name, y, y_p, x, b, variant, geom, label, kw)
         y, y_p = y.float(), y_p.float()
@@ -1194,7 +1253,8 @@ def main() -> None:
                 "main_path_abs_err": {k: main_abs[k] for k in here}}
         if dt == "bf16":
             line["ulps_from_correctly_rounded"] = {
-                "counts": "outputs 0, 1 and more ulps apart", **ulps}
+                "counts": "outputs 0, 1 and more ulps apart",
+                **{k: ulps[k] for k in here}}
             line["ulp_rate_bound"] = ULP_RATE_BOUND
         emit(line)
 
@@ -1250,10 +1310,11 @@ def main() -> None:
                     f"operator applications {box}")
         return res, walls, launches, peak
 
-    def in_turns(prob, box, variant, b, tol, max_iter):
+    def in_turns(prob, box, variant, b, tol, max_iter,
+                 repeats=TURN_REPEATS):
         """The captured solve and the explicit eager solve of one problem
         through the kernels, in turns — eager, captured, captured, eager,
-        TURN_REPEATS timed solves a turn (`timed_solves`) — after one
+        `repeats` timed solves a turn (`timed_solves`) — after one
         warm-up solve of each (the captured one captures the loops).
         Returns per mode the last result, every wall, the launches, the
         applications and the peak memory; and the graph counts: loops
@@ -1270,7 +1331,7 @@ def main() -> None:
         for capture in (False, True, True, False):
             o = out["captured" if capture else "eager"]
             o["res"], walls, o["launches"], peak = timed_solves(
-                prob, box, variant, "cuda", b, tol, max_iter, TURN_REPEATS,
+                prob, box, variant, "cuda", b, tol, max_iter, repeats,
                 capture=capture, warmup=False)
             o["walls"] += walls
             o["peak"] = max(o["peak"], peak)
@@ -2482,6 +2543,186 @@ def main() -> None:
           "ms_per_iteration": {key: c["kernel"]["ms_per_iteration"]
                                for key, c in config.items()}})
 
+    # 6b. high_order: the cluster body, N1 above ops.N1_MAX ---------------
+    # (a) every entry point at CLUSTER_ORDERS against its plain version;
+    # (b) the order-31 main paths on the 4x4x4 box, captured and eager in
+    # turns; each on the 2x1x1 box against the reference backend; each
+    # variant's bf16_x32 solve at tol 0.03 on the 4x4x4 box, its status and
+    # inner iterations recorded (a refined solve's outcome hinges on a few
+    # ulps: PERF.md); (c) each cluster entry point timed at CLUSTER_ELEMS.
+    t_high = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    boxes = {order: mesh_gen.box_mesh(*HIGH_ORDER_BOX, order)
+             for order in CLUSTER_ORDERS}
+    high_cases = {dt: len(cases[dt]) for dt in DTYPES}
+    for order in CLUSTER_ORDERS:
+        b = basis(order)
+        n1c = b.n1
+        require(ops.body_of("trilinear", n1c) == "cluster",
+                f"N1={n1c} does not run the cluster body")
+        e = CLUSTER_ELEMS_CAP if n1c == ops.N1_CLUSTER_MAX else \
+            CLUSTER_ELEMS
+        node = (e,) + (n1c,) * 3
+        gen.manual_seed(order)
+        lam0 = 1 + 0.3 * torch.rand(node, generator=gen, device=dev)
+        lam1 = 0.5 + 0.2 * torch.rand(node, generator=gen, device=dev)
+        xs = {c: torch.randn((e, c, 1) + (n1c,) * 3, generator=gen,
+                             device=dev) for c in (1, 4)}
+        for variant in VARIANTS:
+            verts = torch.as_tensor(
+                mesh_for(variant, boxes[order]).verts[:e],
+                dtype=torch.float32, device=dev)
+            for helm, dt in [(h, dt) for h in EQUATIONS[variant]
+                             for dt in DTYPES]:
+                geom, kw = operands(variant, verts, b, helm, lam0,
+                                    lam1 if helm else None, dt=dt)
+                for c, x32 in xs.items():
+                    x = x32.to(torch_dtype[dt])
+                    check(variant, b, x[:, 0, 0] if c == 1 else x, geom,
+                          f"{cluster_name(variant, dt)} N1={n1c} E={e} "
+                          f"{'helmholtz' if helm else 'poisson'} c={c}",
+                          dt=dt, helmholtz=helm, **kw)
+                del geom, kw
+            del verts
+        del xs, lam0, lam1
+    # the main path's call: E = 64, N1 = 32, c = 1, setup's scalar lambdas
+    b_hi = basis(HIGH_ORDER)
+    hi_meshes = {v: mesh_for(v, boxes[HIGH_ORDER]) for v in ("trilinear",
+                                                             "parallelepiped")}
+    small_box = mesh_gen.box_mesh(*HIGH_ORDER_SMALL_BOX, HIGH_ORDER)
+    small_meshes = {v: mesh_for(v, small_box) for v in ("trilinear",
+                                                        "parallelepiped")}
+
+    def high_mesh_for(variant, meshes):
+        return meshes["parallelepiped" if variant == "parallelepiped"
+                      else "trilinear"]
+
+    e_hi = len(boxes[HIGH_ORDER].verts)
+    for variant, dt in entries:
+        helm = MAIN_HELMHOLTZ[variant]
+        verts = torch.as_tensor(high_mesh_for(variant, hi_meshes).verts,
+                                dtype=torch.float32, device=dev)
+        lams = (1.0, 0.1) if helm else (None, None)
+        geom, kw = operands(variant, verts, b_hi, helm, *lams, dt=dt)
+        gen.manual_seed(HIGH_ORDER)
+        x = torch.randn((e_hi,) + (b_hi.n1,) * 3, generator=gen,
+                        device=dev).to(torch_dtype[dt])
+        name = cluster_name(variant, dt)
+        main_abs[name] = check(
+            variant, b_hi, x, geom, f"{name} main path E={e_hi} "
+            f"N1={b_hi.n1} {'helmholtz' if helm else 'poisson'} c=1",
+            dt=dt, helmholtz=helm, **kw)
+        del geom, kw, x, verts
+    high_cases = {dt: len(cases[dt]) - high_cases[dt] for dt in DTYPES}
+    here = [cluster_name(v, dt) for dt in DTYPES for v in VARIANTS]
+    high_kernels = {
+        "cases": high_cases, "tolerance": rtol,
+        "worst_rel_err": {k: worst[k] for k in here},
+        "main_path_abs_err": {k: main_abs[k] for k in here},
+        "ulps_from_correctly_rounded": {
+            "counts": "outputs 0, 1 and more ulps apart",
+            **{k: ulps[k] for k in here if k in ulps}}}
+    # (b) the solves
+    high_solves, high_small, high_bf16 = {}, {}, {}
+    for variant, helm in cfg_runs:
+        prob, box, x_true, rhs = manufactured(
+            high_mesh_for(variant, hi_meshes), variant, "cuda", helm)
+        out, ginfo = in_turns(prob, box, variant, rhs, CONFIG.tol,
+                              HIGH_ORDER_ITERS, repeats=HIGH_ORDER_REPEATS)
+        cap = out["captured"]
+        k = solve_record(prob, variant, "cuda", helm, x_true, cap["res"],
+                         cap["walls"], cap["launches"], cap["applications"],
+                         cap["peak"])
+        key = f"{variant}/{k['equation']}"
+        k["body"] = ops.body_of(variant, b_hi.n1)
+        flops = nekbone.flop_count(prob.mesh, 1, helm, 1)
+        k["GFLOPS"] = flops / k["ms_per_iteration"] / 1e6
+        k["GDOFS"] = prob.mesh.n_global / k["ms_per_iteration"] / 1e6
+        high_solves[key] = {"kernel": k, "graph": graph_row(
+            f"4^3 order {HIGH_ORDER} {key}", out, ginfo)}
+        del prob, box, rhs, out
+        runs = {}
+        for backend in ("cuda", "reference"):
+            prob, box, x_true, rhs = manufactured(
+                high_mesh_for(variant, small_meshes), variant, backend, helm)
+            res, walls, launches, peak = timed_solves(
+                prob, box, variant, backend, rhs, HIGH_ORDER_TOL,
+                HIGH_ORDER_MAX_ITER, 1)
+            runs[backend] = (solve_record(prob, variant, backend, helm,
+                                          x_true, res, walls, launches, box,
+                                          peak), res.x)
+            del prob, box, rhs
+        (kr, xk), (rr, xr) = runs["cuda"], runs["reference"]
+        dx = float((xk - xr).abs().max() / xr.abs().max())
+        slack = max(1, int(HIGH_ORDER_HELMHOLTZ_ITER_SHARE
+                           * rr["iterations"])) if helm else 1
+        require(kr["status"] == rr["status"] and
+                abs(kr["iterations"] - rr["iterations"]) <= slack and
+                dx <= HIGH_ORDER_X_BOUND,
+                f"2x1x1 order {HIGH_ORDER} {key}: kernels {kr} against the "
+                f"reference backend {rr}, x differs by {dx:.3e}")
+        high_small[key] = {"kernel": kr, "reference": rr,
+                           "iteration_slack": slack, "x_max_rel_diff": dx}
+    for variant in VARIANTS:
+        high_bf16[variant] = run_refined(high_mesh_for(variant, hi_meshes),
+                                         variant, "cuda", 0.03,
+                                         helm=MAIN_HELMHOLTZ[variant])
+    # (c) the cluster body's times: E = 64, c = 1, each variant's main
+    # equation with setup's scalar lambdas, fp32 and bf16
+    timing_cluster = {cluster_name(v, dt): {} for v, dt in entries}
+    for order in CLUSTER_ORDERS:
+        b = basis(order)
+        meshes = {v: mesh_for(v, boxes[order]) for v in ("trilinear",
+                                                         "parallelepiped")}
+        e = len(boxes[order].verts)
+        gen.manual_seed(order + 1)
+        x32 = torch.randn((e,) + (b.n1,) * 3, generator=gen, device=dev)
+        launch = dict(zip(("cluster", "planes", "threads", "grid",
+                           "smem_bytes"), ops.cluster_launch(b.n1, e)))
+        for variant, dt in entries:
+            x = x32.to(torch_dtype[dt])
+            helm = MAIN_HELMHOLTZ[variant]
+            verts = torch.as_tensor(high_mesh_for(variant, meshes).verts,
+                                    dtype=torch.float32, device=dev)
+            lams = (1.0, 0.1) if helm else (None, None)
+            geom, kw = operands(variant, verts, b, helm, *lams, dt=dt)
+            ms = graph_ms(lambda: ops.axhelm(x, b, variant, geom,
+                                             helmholtz=helm, **kw))
+            plain_ms = event_ms(lambda: ops.reference(x, b, variant, geom,
+                                                      helmholtz=helm, **kw),
+                                reps=3, warmup=1)
+            bound_ms, bound_by, nbytes, flops = axhelm_bound(
+                variant, e, b.n1, helm, word=WORD_BYTES[dt])
+            timing_cluster[cluster_name(variant, dt)][f"order{order}"] = {
+                "E": e, "N1": b.n1, **launch,
+                "equation": "helmholtz" if helm else "poisson",
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+                "roofline_share": bound_ms / ms}
+            del geom, kw, verts, x
+        del x32, meshes
+        torch.cuda.empty_cache()
+    emit({"phase": "high_order", "card": card,
+          "orders": CLUSTER_ORDERS, "n1_cluster_max": ops.N1_CLUSTER_MAX,
+          "kernels": high_kernels,
+          "mesh": "x".join(map(str, HIGH_ORDER_BOX)), "order": HIGH_ORDER,
+          "elements": e_hi, "dofs": boxes[HIGH_ORDER].n_global,
+          "iterations": HIGH_ORDER_ITERS,
+          "turns": f"eager, captured, captured, eager; {HIGH_ORDER_REPEATS} "
+                   f"timed solves a turn after one warm-up solve of each "
+                   f"mode",
+          "solves": high_solves,
+          "against_reference": {
+              "mesh": "x".join(map(str, HIGH_ORDER_SMALL_BOX)),
+              "dofs": small_box.n_global, "tol": HIGH_ORDER_TOL,
+              "solves": high_small},
+          "bf16_x32": {"tol": 0.03, "max_iter": REFINED_MAX_ITER,
+                       "solves": high_bf16},
+          "ms": "CUDA graph of 50 calls, median of 5 replays",
+          "timing": timing_cluster,
+          "seconds": time.perf_counter() - t_high})
+    del boxes, hi_meshes, small_meshes
+
     # 7. the kernels line, the card line, the result line -------------------
     def main_path(variant, dt):
         """Where an entry point's `launches` were counted."""
@@ -2533,6 +2774,29 @@ def main() -> None:
             "library_ms": None, "order": GENERIC_MAIN_ORDER,
             "by_order": {o: {k: by_order[o][k] for k in
                              ("ms", "plain_ms", "bound_ms", "bound_by")}
+                         for o in by_order}})
+    for variant, dt in entries:
+        name = cluster_name(variant, dt)
+        by_order = timing_cluster[name]
+        t = by_order[f"order{HIGH_ORDER}"]
+        launches = high_solves[main_key(variant)]["kernel"]["launches"] \
+            if dt == "f32" else \
+            high_bf16[variant]["launches"].get(entry(variant, dt), 0)
+        kernels.append({
+            "name": name, "variant": variant, "storage": dt,
+            "route": "cuda", "source": SOURCE["cluster"],
+            "replaces": REPLACES[variant],
+            "main_path": f"4^3 order {HIGH_ORDER} "
+                         f"{'fp32' if dt == 'f32' else 'bf16_x32 tol=0.03'} "
+                         f"{main_key(variant)}",
+            "launches": launches,
+            "max_abs_err": main_abs[name], "max_rel_err": worst[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "order": HIGH_ORDER,
+            "by_order": {o: {k: by_order[o][k] for k in
+                             ("N1", "cluster", "ms", "plain_ms", "bound_ms",
+                              "bound_by")}
                          for o in by_order}})
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} was not launched on "

@@ -23,7 +23,7 @@ Backends: "reference" (plain torch, any dtype and device), "cuda" (the
 hand-written kernels through `kernels.axhelm.ops`, which runs their plain
 versions on CPU tensors), and "auto" — "cuda" for float32 and bfloat16 on
 a CUDA device, "reference" on the CPU; float64, or an order above the
-kernels' `N1_MAX - 1`, on a CUDA device raises at setup rather than
+kernels' `N1_CLUSTER_MAX - 1`, on a CUDA device raises at setup rather than
 leaving the kernels quietly.  Both backends take the same
 operands and share one plain version, `kernels/axhelm/ref.py`.
 
@@ -195,8 +195,9 @@ def _resolve_backend(backend: Optional[str], dtype: torch.dtype,
     so another dtype raises for "cuda", and for "auto" on a CUDA device:
     the plain version runs on the card only when the caller asks for it.
     On a CPU device "cuda" runs the kernels' plain versions.  Likewise the
-    kernels run N1 = order + 1 up to `kops.N1_MAX`: a larger `n1` raises
-    for "auto" and "cuda" on a CUDA device.
+    kernels run N1 = order + 1 up to `kops.N1_CLUSTER_MAX` (above
+    `kops.N1_MAX` through the cluster body): a larger `n1` raises for
+    "auto" and "cuda" on a CUDA device.
     """
     if backend is None:
         backend = "auto"
@@ -215,11 +216,12 @@ def _resolve_backend(backend: Optional[str], dtype: torch.dtype,
         raise ValueError(f"axhelm backend 'cuda' stores float32 or bfloat16 "
                          f"only; got dtype {dtype} (use backend='reference')")
     if backend == "cuda" and torch.device(device).type == "cuda" \
-            and n1 > kops.N1_MAX:
+            and n1 > kops.N1_CLUSTER_MAX:
         raise ValueError(
-            f"the axhelm CUDA kernels run orders up to {kops.N1_MAX - 1} "
-            f"(N1_MAX = {kops.N1_MAX}: a block's shared memory holds no "
-            f"larger element); got order {n1 - 1} (pass "
+            f"the axhelm CUDA kernels run orders up to "
+            f"{kops.N1_CLUSTER_MAX - 1} (N1_CLUSTER_MAX = "
+            f"{kops.N1_CLUSTER_MAX}: a cluster of {kops.CLUSTER_MAX} blocks "
+            f"holds no larger element); got order {n1 - 1} (pass "
             f"backend='reference' to run the plain version on the card)")
     return backend
 

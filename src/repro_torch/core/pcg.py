@@ -82,6 +82,28 @@ def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.dot(_up(u).reshape(-1), _up(v).reshape(-1))
 
 
+def _fold_buffer(n: int, cols: int, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """The buffer of `_fold`: a power of two rows of `cols` columns, zero
+    past row n; the caller writes its (n, cols) products into the first n
+    rows."""
+    rows = 1 << max(n - 1, 0).bit_length()
+    s = torch.empty((rows, cols), dtype=dtype, device=device)
+    s[n:].zero_()
+    return s
+
+
+def _fold(s: torch.Tensor) -> torch.Tensor:
+    """The column sums of a `_fold_buffer`, folded in half until one row is
+    left: a pairwise sum in one fixed tree of elementwise adds, each
+    exactly rounded, the same for every column on every device."""
+    rows = s.shape[0]
+    while rows > 1:
+        rows //= 2
+        s = s[:rows] + s[rows:]
+    return s[0]
+
+
 def _column_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Per-column dots of stacked fields: every axis but the last.
 
@@ -92,23 +114,15 @@ def _column_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     follows the number of outputs (on the CPU a one-output sum splits its
     input over the threads and a several-output one does not; on the card
     the block shape, the warps and the blocks per output follow the
-    outputs).  So the products go, dof-major, into a buffer of a power of
-    two rows, zero past the last dof, which is folded in half until one
-    row is left: a pairwise sum in one fixed tree of elementwise adds,
-    each exactly rounded, the same for every column on every device.
+    outputs).  So the products go, dof-major, into a `_fold_buffer`,
+    which `_fold` sums.
     """
     u2, v2 = _up(u), _up(v)
     cols = u.shape[-1]
     n = u.numel() // cols
-    rows = 1 << max(n - 1, 0).bit_length()
-    s = torch.empty((rows, cols), dtype=torch.result_type(u2, v2),
-                    device=u.device)
+    s = _fold_buffer(n, cols, torch.result_type(u2, v2), u.device)
     torch.mul(u2.reshape(n, cols), v2.reshape(n, cols), out=s[:n])
-    s[n:].zero_()
-    while rows > 1:
-        rows //= 2
-        s = s[:rows] + s[rows:]
-    return s[0]
+    return _fold(s)
 
 
 def owned_dot(weight: torch.Tensor, group, batched: bool = False
@@ -120,17 +134,24 @@ def owned_dot(weight: torch.Tensor, group, batched: bool = False
     held by every shard that touches it, counts once.  The partial sum is
     fp32 for reduced-precision operands (`_up`), and one `all_reduce` over
     `group` adds the shards' partials: a scalar, or with `batched=True`
-    the (nrhs,) per-column dots over every axis but the last.
+    the (nrhs,) per-column dots over every axis but the last, each summed
+    by `_column_dot`'s fold, so that a column's partial (and dot) has the
+    same bits at every block width.
     """
 
     def dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         w = weight if u.ndim == weight.ndim else weight.reshape(
             tuple(weight.shape) + (1,) * (u.ndim - weight.ndim))
-        prod = torch.where(w, _up(u) * _up(v), 0.0)
+        prod = _up(u) * _up(v)
         if batched:
-            part = prod.sum(dim=tuple(range(prod.ndim - 1)))
+            cols = u.shape[-1]
+            n = u.numel() // cols
+            s = _fold_buffer(n, cols, prod.dtype, u.device)
+            torch.where(w, prod, prod.new_zeros(()),
+                        out=s[:n].view(prod.shape))
+            part = _fold(s)
         else:
-            part = prod.sum()
+            part = torch.where(w, prod, 0.0).sum()
         dist.all_reduce(part, group=group)
         return part
 

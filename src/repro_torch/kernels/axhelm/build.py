@@ -5,8 +5,10 @@ The sources under ``csrc/`` have a plain C interface (no PyTorch headers;
 generic body of every variant at any N1 (``*_any`` entry points) and the
 one-thread-per-node body (K1-K5 as timing-only ``*_rowwise`` entry
 points), ``axhelm_column.cu`` the one-thread-per-column body (K2, K5),
-``axhelm_line.cu`` the one-thread-per-line body (K1, K3, K4), all three
-including ``axhelm_common.cuh``.  One ``nvcc -c`` per
+``axhelm_line.cu`` the one-thread-per-line body (K1, K3, K4),
+``axhelm_cluster.cu`` the body that splits an element across a thread-block
+cluster (every variant above the generic body's N1, ``*_cluster`` entry
+points), all four including ``axhelm_common.cuh``.  One ``nvcc -c`` per
 source runs at the same time, then one link makes the shared library,
 ``build/kernels/libaxhelm_<hash>.so`` at the repository root, keyed by every
 source and header and the flags; a build takes seconds and happens at first
@@ -32,7 +34,7 @@ __all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "LINK_FLAGS", "SIGNATURES",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "axhelm.cu", _CSRC / "axhelm_column.cu",
-           _CSRC / "axhelm_line.cu")
+           _CSRC / "axhelm_line.cu", _CSRC / "axhelm_cluster.cu")
 HEADERS = (_CSRC / "axhelm_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 _TARGET = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -114,6 +116,8 @@ def build() -> Path:
 
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged",
+             "partial")
 # The C argument types of each entry point, axhelm_<name>_<suffix> with the
 # "_rowwise" of a timing-only twin moved behind the suffix.
 SIGNATURES = {
@@ -151,8 +155,13 @@ SIGNATURES = {
     # stream (merged: Lam2, Lam3 in the lambda slots; partial: gScale in
     # lam0)
     **{f"{variant}_any": [_PTR] * 8 + [_I32] * 4 + [_PTR]
-       for variant in ("precomputed", "trilinear", "parallelepiped",
-                       "merged", "partial")},
+       for variant in _VARIANTS},
+    # the cluster body, N1 above ops.N1_MAX up to ops.N1_CLUSTER_MAX, the
+    # generic body's arguments plus the cluster's: x, y, geom, lam0, lam1,
+    # dhat, xi, w3 | n1, n_elem, ncols, helmholtz, cluster size, planes a
+    # block | stream
+    **{f"{variant}_cluster": [_PTR] * 8 + [_I32] * 6 + [_PTR]
+       for variant in _VARIANTS},
 }
 
 
@@ -167,7 +176,8 @@ def symbol(name: str, suffix: str) -> str:
 def library() -> ctypes.CDLL:
     """The built library with the C signature of every entry point,
     ``axhelm_<variant>_f32`` and ``axhelm_<variant>_bf16``, of the generic
-    body's ``axhelm_<variant>_<suffix>_any`` and of the timing-only
+    body's ``axhelm_<variant>_<suffix>_any``, of the cluster body's
+    ``axhelm_<variant>_<suffix>_cluster`` and of the timing-only
     ``axhelm_<variant>_<suffix>_rowwise``, declared."""
     lib = ctypes.CDLL(str(build()))
     for suffix in ("f32", "bf16"):

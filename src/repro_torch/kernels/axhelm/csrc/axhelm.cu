@@ -25,7 +25,9 @@
 // blockDim, ... of its element; N1 is a runtime argument; D-hat, the
 // element's geometry words, x and the three weighted gradient components
 // live in dynamic shared memory (4 (N1^2 + 32 + 4 N1^3) bytes: 227 KB, what
-// a block may have on the H100, holds N1 <= 24).  Per column: x into shared
+// a block may have on the H100, holds N1 <= 24; above that the entry points
+// run the cluster body of axhelm_cluster.cu, which splits an element across
+// a thread-block cluster).  Per column: x into shared
 // memory; per node the factors (node_factors, the node body's arithmetic)
 // and the weighted gradient; per node y, recomputing the mass term for
 // Helmholtz.  The factors are recomputed per column and nothing is tuned:
@@ -77,127 +79,6 @@
 namespace {
 
 using namespace axhelm_detail;
-
-struct Factors {
-  float g00, g01, g02, g11, g12, g22, gwj;
-};
-
-// Paper Algorithm 3 at node (k, j, i), up to the adjugate: the unscaled
-// Jacobian J~ from the vertices (columns = d/dr, d/ds, d/dt), then
-// f.g** = adj(J~^T J~) and the return value det(J~) -- the arithmetic of
-// repro_torch.core.geometry.jacobian_trilinear_at and adjugate6.  A caller
-// that ignores the determinant (K4, K5) never computes it.
-__device__ __forceinline__ float trilinear_adjugate(const float* v, float xi_i,
-                                                    float xi_j, float xi_k,
-                                                    Factors& f) {
-  const float lo_i = 1.f - xi_i, hi_i = 1.f + xi_i;
-  const float lo_j = 1.f - xi_j, hi_j = 1.f + xi_j;
-  float c0[3], c1[3], c2[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    // column 0: vertex pairs differing in the r bit, weighted at s = xi_j
-    const float ra = lo_j * (v[3 * 1 + a] - v[3 * 0 + a]) +
-                     hi_j * (v[3 * 3 + a] - v[3 * 2 + a]);
-    const float rb = lo_j * (v[3 * 5 + a] - v[3 * 4 + a]) +
-                     hi_j * (v[3 * 7 + a] - v[3 * 6 + a]);
-    c0[a] = (ra + rb) + xi_k * (rb - ra);
-    // column 1: vertex pairs differing in the s bit, weighted at r = xi_i
-    const float sa = lo_i * (v[3 * 2 + a] - v[3 * 0 + a]) +
-                     hi_i * (v[3 * 3 + a] - v[3 * 1 + a]);
-    const float sb = lo_i * (v[3 * 6 + a] - v[3 * 4 + a]) +
-                     hi_i * (v[3 * 7 + a] - v[3 * 5 + a]);
-    c1[a] = (sa + sb) + xi_k * (sb - sa);
-    // column 2: vertex pairs differing in the t bit, at (r, s) = (xi_i, xi_j)
-    c2[a] = lo_i * lo_j * (v[3 * 4 + a] - v[3 * 0 + a]) +
-            hi_i * lo_j * (v[3 * 5 + a] - v[3 * 1 + a]) +
-            hi_i * hi_j * (v[3 * 7 + a] - v[3 * 3 + a]) +
-            lo_i * hi_j * (v[3 * 6 + a] - v[3 * 2 + a]);
-  }
-  const float k00 = c0[0] * c0[0] + c0[1] * c0[1] + c0[2] * c0[2];
-  const float k01 = c0[0] * c1[0] + c0[1] * c1[1] + c0[2] * c1[2];
-  const float k02 = c0[0] * c2[0] + c0[1] * c2[1] + c0[2] * c2[2];
-  const float k11 = c1[0] * c1[0] + c1[1] * c1[1] + c1[2] * c1[2];
-  const float k12 = c1[0] * c2[0] + c1[1] * c2[1] + c1[2] * c2[2];
-  const float k22 = c2[0] * c2[0] + c2[1] * c2[1] + c2[2] * c2[2];
-  f.g00 = k11 * k22 - k12 * k12;
-  f.g01 = k02 * k12 - k01 * k22;
-  f.g02 = k01 * k12 - k02 * k11;
-  f.g11 = k00 * k22 - k02 * k02;
-  f.g12 = k01 * k02 - k00 * k12;
-  f.g22 = k00 * k11 - k01 * k01;
-  // J~[a][b] = column b, component a
-  return c0[0] * (c1[1] * c2[2] - c1[2] * c2[1]) -
-         c0[1] * (c1[0] * c2[2] - c1[2] * c2[0]) +
-         c0[2] * (c1[0] * c2[1] - c1[1] * c2[0]);
-}
-
-__device__ __forceinline__ void scale(Factors& f, float s) {
-  f.g00 *= s;
-  f.g01 *= s;
-  f.g02 *= s;
-  f.g11 *= s;
-  f.g12 *= s;
-  f.g22 *= s;
-}
-
-// Words of per-element geometry a block stages in shared memory (K1 reads
-// none: its factors are per node).
-template <GeomSource SRC>
-__host__ __device__ constexpr int geometry_words() {
-  return uses_vertices(SRC) ? 24 : (SRC == kParallelepiped ? 7 : 0);
-}
-
-// The factors of node (i, j, k) = `node` of element e (np nodes an element),
-// loaded or recomputed, with the lam0 slot folded in, and its mass
-// coefficient (0 for Poisson).  s_g holds the element's geometry words.
-template <GeomSource SRC, typename T>
-__device__ __forceinline__ Factors node_factors(
-    const T* __restrict__ geom, const float* s_g, const T* __restrict__ lam0,
-    const T* __restrict__ lam1, const float* __restrict__ xi,
-    const float* __restrict__ w3, int64_t e, int np, int node, int i, int j,
-    int k, int helmholtz, float& mass) {
-  const int64_t nidx = e * np + node;
-  Factors f;
-  if constexpr (SRC == kPrecomputed) {
-    // the element's planes, plane p at geom[(7 e + p) np]
-    const T* p = geom + e * 7 * np + node;
-    f.g00 = load(p);
-    f.g01 = load(p + np);
-    f.g02 = load(p + 2 * np);
-    f.g11 = load(p + 3 * np);
-    f.g12 = load(p + 4 * np);
-    f.g22 = load(p + 5 * np);
-    f.gwj = helmholtz ? load(p + 6 * np) : 0.f;
-  } else if constexpr (SRC == kTrilinear) {
-    // G = (1/8) w3 adj(J~^T J~) / det(J~),  gwj = (1/8)^3 w3 det(J~)
-    const float w = w3[node];
-    const float det = trilinear_adjugate(s_g, xi[i], xi[j], xi[k], f);
-    scale(f, 0.125f * w / det);
-    f.gwj = w * 0.001953125f * det;  // (1/8)^3
-  } else if constexpr (SRC == kParallelepiped) {
-    const float w = w3[node];
-    f.g00 = s_g[0] * w;
-    f.g01 = s_g[1] * w;
-    f.g02 = s_g[2] * w;
-    f.g11 = s_g[3] * w;
-    f.g12 = s_g[4] * w;
-    f.g22 = s_g[5] * w;
-    f.gwj = s_g[6] * w;
-  } else {  // kMerged, kPartial: adj(K~) only, the scale is in the lam0 slot
-    trilinear_adjugate(s_g, xi[i], xi[j], xi[k], f);
-    f.gwj = 0.f;
-  }
-  if (lam0 != nullptr) scale(f, load(lam0 + nidx));
-  mass = 0.f;
-  if (helmholtz) {
-    if constexpr (SRC == kMerged) {
-      mass = load(lam1 + nidx);  // Lam3 = gwj * lam1, precomputed
-    } else {
-      mass = (lam1 != nullptr) ? load(lam1 + nidx) * f.gwj : f.gwj;
-    }
-  }
-  return f;
-}
 
 template <int N1, GeomSource SRC, typename T>
 __global__ void __launch_bounds__(N1 * N1 * N1)

@@ -31,7 +31,12 @@ point runs the generic body (`csrc/axhelm.cu`, the `*_any` symbols): one
 block an element walks its N1^3 nodes, N1 a runtime argument, with D-hat,
 x and the weighted gradient in dynamic shared memory
 (`generic_smem_bytes`); above N1_MAX that does not fit in a block's shared
-memory, and the wrapper raises.  None needs element padding: the column
+memory.  From N1_MAX + 1 to `N1_CLUSTER_MAX` (orders 24 to 47) each entry
+point runs the cluster body (`csrc/axhelm_cluster.cu`, the `*_cluster`
+symbols): an element split across a cluster of P blocks, each holding
+K = ceil(N1 / P) of its t-planes, the t contractions reading the peers'
+planes through distributed shared memory (`cluster_launch`); above
+N1_CLUSTER_MAX the wrapper raises.  None needs element padding: the column
 and line bodies mask their ragged last group.  `launch_counts` counts the
 kernel launches of each entry point (`entry_point(variant, dtype)`, the C
 symbol), whichever body it ran, so a run can show that a solve went through
@@ -58,9 +63,11 @@ from repro_torch.kernels.axhelm import ref as ref_mod
 __all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
            "ROWWISE_VARIANTS", "KERNEL_N1", "N1_MAX", "KERNEL_DTYPES",
            "COLUMN_THREADS", "LINE_THREADS", "LINE_BLOCKS_PER_SM",
-           "GENERIC_THREADS",
+           "GENERIC_THREADS", "CLUSTER_THREADS", "CLUSTER_MAX",
+           "N1_CLUSTER_MAX",
            "entry_point", "column_launch", "line_launch", "generic_launch",
-           "generic_smem_bytes", "launch_counts", "reset_launch_counts",
+           "generic_smem_bytes", "cluster_smem_bytes", "cluster_launch",
+           "launch_counts", "reset_launch_counts",
            "axhelm", "rowwise", "generic", "reference", "unrounded"]
 
 KERNEL_VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged",
@@ -82,6 +89,11 @@ GENERIC_THREADS = 512  # most threads a block of the generic body
 # generic body's N1: generic_smem_bytes(N1_MAX) fits, N1_MAX + 1 does not
 SMEM_PER_BLOCK = 232448
 N1_MAX = 24
+CLUSTER_THREADS = 512  # most threads a block of the cluster body
+CLUSTER_MAX = 8        # the portable cluster size limit, blocks
+# the largest N1 whose slab fits in a block of an 8-block cluster
+# (cluster_smem_bytes): the cluster body's cap
+N1_CLUSTER_MAX = 48
 # storage dtype -> the suffix of its entry points in csrc/axhelm.cu
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -109,6 +121,33 @@ def generic_launch(n1: int, n_elem: int) -> tuple[int, int, int]:
     thread walking the nodes t, t + threads, ... of its element."""
     threads = min(GENERIC_THREADS, -(-n1 ** 3 // 32) * 32)
     return threads, n_elem, generic_smem_bytes(n1)
+
+
+def cluster_smem_bytes(n1: int, planes: int) -> int:
+    """Dynamic shared memory of one cluster-body block (kernel
+    `axhelm_cluster_kernel`): D-hat with rows padded to N1 + 1 floats, 32
+    floats of element geometry, and x and the three weighted gradient
+    components of `planes` t-planes (4 planes N1^2 floats)."""
+    return 4 * (n1 * (n1 + 1) + 32 + 4 * planes * n1 * n1)
+
+
+def cluster_launch(n1: int, n_elem: int
+                   ) -> tuple[int, int, int, int, int]:
+    """(cluster size P, planes a block K, threads, grid, shared-memory
+    bytes) of the cluster body: P the smallest power of two up to
+    CLUSTER_MAX whose slab of K = ceil(N1 / P) t-planes fits in a block's
+    shared memory; P blocks an element (the last one's slab may be short,
+    or empty), at most CLUSTER_THREADS threads a block, whole warps."""
+    p = 1
+    while p <= CLUSTER_MAX:
+        k = -(-n1 // p)
+        if cluster_smem_bytes(n1, k) <= SMEM_PER_BLOCK:
+            threads = min(CLUSTER_THREADS, -(-k * n1 * n1 // 32) * 32)
+            return p, k, threads, n_elem * p, cluster_smem_bytes(n1, k)
+        p *= 2
+    raise ValueError(f"no cluster of at most {CLUSTER_MAX} blocks holds an "
+                     f"element of N1={n1} (N1_CLUSTER_MAX = "
+                     f"{N1_CLUSTER_MAX})")
 
 
 def column_launch(n1: int, n_elem: int) -> tuple[int, int]:
@@ -287,16 +326,23 @@ def unrounded(x, basis: SpectralBasis, variant: str, geom, lam0=None,
 def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
                            twin: Optional[str] = None) -> None:
     """Everything the CUDA kernel does not take raises here: an N1 above
+    N1_CLUSTER_MAX, or, for the generic body's twin (`twin="any"`), above
     N1_MAX, or, for the node body (`twin="rowwise"`), outside KERNEL_N1; a
     storage dtype other than float32 or bfloat16, an operand whose dtype is
     not x's, another device, a shape off the layout, or a non-contiguous
     tensor."""
     n1 = basis.n1
-    if not 2 <= n1 <= N1_MAX:
-        raise ValueError(f"axhelm CUDA kernels run N1 from 2 to N1_MAX = "
-                         f"{N1_MAX} (orders 1 to {N1_MAX - 1}): a block's "
-                         f"shared memory holds no larger element; got "
-                         f"N1={n1} (order {basis.n})")
+    if not 2 <= n1 <= N1_CLUSTER_MAX:
+        raise ValueError(f"axhelm CUDA kernels run N1 from 2 to "
+                         f"N1_CLUSTER_MAX = {N1_CLUSTER_MAX} (orders 1 to "
+                         f"{N1_CLUSTER_MAX - 1}): a cluster of "
+                         f"{CLUSTER_MAX} blocks holds no larger element; "
+                         f"got N1={n1} (order {basis.n})")
+    if twin == "any" and n1 > N1_MAX:
+        raise ValueError(f"the generic body runs N1 up to N1_MAX = {N1_MAX} "
+                         f"(orders 1 to {N1_MAX - 1}): a block's shared "
+                         f"memory holds no larger element; got N1={n1} "
+                         f"(order {basis.n})")
     if twin == "rowwise" and n1 not in KERNEL_N1:
         raise ValueError(f"the one-thread-per-node body is instantiated for "
                          f"N1 in {KERNEL_N1}, got N1={n1} (order {basis.n})")
@@ -377,10 +423,13 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
     """The body a launch runs: "column" or "line" (the tuned bodies, at N1
-    in KERNEL_N1), "any" (the generic body: any other N1, or the `generic`
-    twin) or "rowwise" (the node body of the `rowwise` twin)."""
+    in KERNEL_N1), "any" (the generic body: any other N1 up to N1_MAX, or
+    the `generic` twin), "cluster" (N1 above N1_MAX) or "rowwise" (the
+    node body of the `rowwise` twin)."""
     if twin is not None:
         return twin
+    if n1 > N1_MAX:
+        return "cluster"
     if n1 not in KERNEL_N1:
         return "any"
     return "column" if variant in COLUMN_VARIANTS else "line"
@@ -411,6 +460,10 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
         if body == "any":
             rc = fn(*common, _ptr(xi), _ptr(w3), *sizes, int(helmholtz),
                     stream)
+        elif body == "cluster":
+            p, k, *_ = cluster_launch(basis.n1, e)
+            rc = fn(*common, _ptr(xi), _ptr(w3), *sizes, int(helmholtz), p,
+                    k, stream)
         elif body == "column":
             consts = _ptr(_column_consts(basis.n, xb.dtype))
             grid = column_launch(basis.n1, e)

@@ -20,6 +20,7 @@ import torch.distributed as dist
 
 from repro_torch.core import gather_scatter as gs
 from repro_torch.core import mesh_gen, nekbone
+from repro_torch.core.pcg import owned_dot
 from repro_torch.distributed.context import make_solver_ctx
 from repro_torch.resilience.inject import FaultSpec
 from repro_torch.resilience.retry import solve_resilient
@@ -527,12 +528,44 @@ def nbr_thin_rows(world, grid):
              "dx": float((r1.x - r0.x).abs().max())}]
 
 
+def width_rows(world, grid):
+    """One right-hand side at column 0 of sharded `pcg_block` blocks of
+    width 1, 2, 4 and 8, the other columns zero (a served block's padding):
+    column 0's x, status, iterations and residual at each width; and the
+    per-column dots of `owned_dot(batched=True)` of one random column
+    padded the same way, on a random ownership mask of this rank's."""
+    mesh = mesh_3x3x2()
+    sh = nekbone.setup_problem(mesh, variant="trilinear",
+                               shard_ctx=_ctx(world, grid))
+    b0 = torch.as_tensor(jax_rhs(mesh))
+    n = mesh.n_global
+    rng = np.random.default_rng(20 + dist.get_rank())
+    u0, v0 = (torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+              for _ in range(2))
+    dot = owned_dot(torch.as_tensor(rng.random(n) < 0.7), None,
+                    batched=True)
+
+    def padded(col, width):
+        return torch.cat([col[:, None], torch.zeros(n, width - 1)], dim=-1)
+
+    rows = []
+    for width in (1, 2, 4, 8):
+        res = sh.run_pcg(padded(b0, width), TOL, 300)
+        d = dot(padded(u0, width), padded(v0, width))
+        rows.append({"width": width, "x_digest": digest(res.x[:, 0]),
+                     "status": int(res.status[0]),
+                     "iterations": int(res.iterations[0]),
+                     "residual": float(res.residual[0]),
+                     "dot": float(d[0]), "pad_dots": d[1:].tolist()})
+    return rows
+
+
 NEIGHBOUR_WIRES = (("neighbour", None), ("neighbour", "bf16"),
                    ("neighbour", "int8"))
 GROUPS = {"op": op_rows, "solve": solve_rows, "vector": vector_rows,
           "box": box_rows, "lambda": lambda_rows, "nan": nan_rows,
           "drop": drop_rows, "refined": refined_rows, "jax": jax_rows,
-          "collectives": collective_rows,
+          "collectives": collective_rows, "width": width_rows,
           "nbr_op": functools.partial(op_rows, exchange="neighbour"),
           "nbr_solve": nbr_solve_rows, "nbr_wire": nbr_wire_rows,
           "nbr_box": functools.partial(box_rows, exchange="neighbour"),

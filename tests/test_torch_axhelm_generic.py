@@ -223,12 +223,17 @@ def test_generic_walk_covers_every_node_once(n1):
 def test_n1_max_is_the_largest_element_a_block_holds():
     """D-hat, 32 geometry words, x and the three weighted components in
     fp32: 16 N1^3 + 4 N1^2 + 128 bytes, 223,616 at N1 = 24, 252,628 at 25,
-    against the 232,448 bytes a block may have on the H100."""
+    against the 232,448 bytes a block may have on the H100.  N1_MAX stays
+    the generic body's cap; above it the entry points run the cluster body
+    up to N1_CLUSTER_MAX = 48 (tests/test_torch_axhelm_cluster.py)."""
     assert ops.generic_smem_bytes(24) == 223616
     assert ops.generic_smem_bytes(25) == 252628
     assert max(n for n in range(2, 64)
                if ops.generic_smem_bytes(n) <= ops.SMEM_PER_BLOCK) \
         == ops.N1_MAX == 24
+    assert ops.body_of("trilinear", ops.N1_MAX) == "any"
+    assert ops.body_of("trilinear", ops.N1_MAX + 1) == "cluster"
+    assert ops.N1_CLUSTER_MAX == 48
 
 
 def _geom_meta(variant, e, n1, dtype=torch.float32):
@@ -289,35 +294,39 @@ def test_twins_reach_their_bodies_and_count_nothing(fake_card, variant, n1):
     assert ops.launch_counts == before
 
 
-@pytest.mark.parametrize("n1,twin", [(ops.N1_MAX + 1, None), (30, "any"),
-                                     (6, "rowwise"), (1, None)])
-def test_wrapper_refuses_an_order_it_has_no_body_for(n1, twin):
-    """Above N1_MAX (and below 2) no body runs; the node body only at the
-    tuned N1.  The wrapper raises before it looks at the tensors."""
+@pytest.mark.parametrize("n1,twin,match", [
+    (ops.N1_CLUSTER_MAX + 1, None, "N1_CLUSTER_MAX"), (30, "any", "N1_MAX"),
+    (6, "rowwise", "instantiated"), (1, None, "N1_CLUSTER_MAX")])
+def test_wrapper_refuses_an_order_it_has_no_body_for(n1, twin, match):
+    """Above N1_CLUSTER_MAX (and below 2) no body runs; the generic body's
+    twin only up to N1_MAX; the node body only at the tuned N1.  The
+    wrapper raises before it looks at the tensors."""
     b = tbasis(n1 - 1) if n1 > 1 else type("B", (), {"n1": 1, "n": 0})
     x = _meta((3, 1, 1) + (n1,) * 3)
-    with pytest.raises(ValueError, match="N1_MAX" if twin != "rowwise"
-                       else "instantiated"):
+    with pytest.raises(ValueError, match=match):
         ops._check_kernel_operands(x, b, "trilinear", _meta((3, 8, 3)),
                                    None, None, twin)
 
 
 def test_setup_refuses_orders_above_n1_max_on_a_card():
     """`_resolve_backend` raises for "auto" and "cuda" on a CUDA device
-    above N1_MAX (the way it refuses float64), before anything touches the
-    device; "cuda" on the CPU runs the plain version at any order."""
+    above N1_CLUSTER_MAX (the way it refuses float64), before anything
+    touches the device, and takes the kernels up to it (above N1_MAX
+    through the cluster body); "cuda" on the CPU runs the plain version at
+    any order."""
     f32, cuda, cpu = torch.float32, torch.device("cuda"), torch.device("cpu")
-    big = ops.N1_MAX + 1
+    big = ops.N1_CLUSTER_MAX + 1
     for backend in (None, "auto", "cuda"):
-        with pytest.raises(ValueError, match="N1_MAX"):
+        with pytest.raises(ValueError, match="N1_CLUSTER_MAX"):
             taxhelm._resolve_backend(backend, f32, cuda, big)
-        assert taxhelm._resolve_backend(backend, f32, cuda,
-                                        ops.N1_MAX) == "cuda"
+        for n1 in (ops.N1_MAX, ops.N1_MAX + 1, ops.N1_CLUSTER_MAX):
+            assert taxhelm._resolve_backend(backend, f32, cuda,
+                                            n1) == "cuda"
     assert taxhelm._resolve_backend("cuda", f32, cpu, big) == "cuda"
     assert taxhelm._resolve_backend("reference", f32, cuda, big) == \
         "reference"
     verts = np.asarray(jmesh.box_mesh(1, 1, 1, big - 1).verts)
-    with pytest.raises(ValueError, match="N1_MAX"):
+    with pytest.raises(ValueError, match="N1_CLUSTER_MAX"):
         taxhelm.make_axhelm_elem_ops("trilinear", tbasis(big - 1), verts,
                                      device="cuda")
 
@@ -335,6 +344,21 @@ def test_ptxas_report_names_the_generic_body():
     assert inst == {"variant": "merged", "body": "any", "n1": None,
                     "dtype": "bf16", "spill_stores": 0, "spill_loads": 0,
                     "registers": 57, "smem_bytes": 0}
+
+
+_CLUSTER_REPORT = """\
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__1f2e3d4c_17_axhelm_cluster_cu_0a1b2c3d21axhelm_cluster_kernelILN13axhelm_detail10GeomSourceE1EfEEvPKT0_PS3_S5_S5_S5_PKfS8_S8_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN41_GLOBAL__N__1f2e3d4c_17_axhelm_cluster_cu_0a1b2c3d21axhelm_cluster_kernelILN13axhelm_detail10GeomSourceE1EfEEvPKT0_PS3_S5_S5_S5_PKfS8_S8_iiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 62 registers, used 1 barriers, 404 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_names_the_cluster_body():
+    (inst,) = chip_smoke.ptxas_instantiations(_CLUSTER_REPORT)
+    assert inst == {"variant": "trilinear", "body": "cluster", "n1": None,
+                    "dtype": "f32", "spill_stores": 0, "spill_loads": 0,
+                    "registers": 62, "smem_bytes": 0}
 
 
 def test_chip_smoke_checks_the_generic_body_where_it_runs():

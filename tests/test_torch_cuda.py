@@ -5,7 +5,7 @@ counts, against the correctly rounded result for bf16, and on solves that
 must not reach their timing-only one-thread-per-node twins; the generic
 body of every variant at orders 1 to 15, and beside the tuned bodies at
 orders 3 and 7 -- the wrapper's refusals (a misaligned operand of the line
-body and an order above N1_MAX - 1 among them), the gather's run-to-run
+body and an order above N1_CLUSTER_MAX - 1 among them), the gather's run-to-run
 behaviour, and solves through the kernels: float32 single and stacked
 right-hand sides (the comparison with the reference backend), order 5
 through the generic body, and the mixed-precision bf16_x32 refinement;
@@ -141,16 +141,17 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card, variant):
         ops.axhelm(x.transpose(-1, -2), b, variant, geom, **kw)
     with pytest.raises(ValueError, match="CUDA device"):
         ops.axhelm(x, b, variant, geom.cpu(), **kw)
-    # every order up to N1_MAX - 1 runs (test_generic_body_*); above it the
-    # element does not fit in a block's shared memory: the wrapper raises,
-    # and so does setup on the card
-    n_big = ops.N1_MAX
+    # every order up to N1_CLUSTER_MAX - 1 runs (test_generic_body_*, and
+    # above N1_MAX - 1 tests/test_torch_cluster_cuda.py); above it the
+    # element does not fit in a cluster's shared memory: the wrapper
+    # raises, and so does setup on the card
+    n_big = ops.N1_CLUSTER_MAX
     bb, xb, geomb, kwb = _operands(variant, n_big, 2, 1, helm, card,
                                    backend="reference")
-    with pytest.raises(ValueError, match="N1_MAX"):
+    with pytest.raises(ValueError, match="N1_CLUSTER_MAX"):
         ops.axhelm(xb, bb, variant, geomb, **kwb)
     mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(1, 1, 2, n_big))
-    with pytest.raises(ValueError, match="N1_MAX"):
+    with pytest.raises(ValueError, match="N1_CLUSTER_MAX"):
         nekbone.setup_problem(mesh, variant=variant, helmholtz=helm)
 
 

@@ -55,7 +55,7 @@ RES_FACTOR = 10.0
 # (shard count, grid spec, case groups) of each spawn of ranks
 SPAWNS = {
     "slab2": (2, None, ("op", "solve", "lambda", "nan", "drop", "refined",
-                        "jax", "collectives", "nbr_op", "nbr_solve",
+                        "jax", "collectives", "width", "nbr_op", "nbr_solve",
                         "nbr_wire", "nbr_nan", "nbr_drop", "nbr_refined",
                         "nbr_ladder", "nbr_jax", "nbr_collectives")),
     "slab4": (4, None, ("op", "solve", "vector", "box", "nan", "refined",
@@ -124,6 +124,23 @@ def _same_on_every_rank(per_rank, group, key):
     firsts = [row[key] for row in per_rank[0][group]]
     for other in per_rank[1:]:
         assert [row[key] for row in other[group]] == firsts, (group, key)
+
+
+def test_sharded_column_has_the_same_bits_at_every_width(runs):
+    """A sharded `pcg_block` column (S=2 slab) padded with zero columns to
+    widths 2, 4 and 8 has the bits of the unpadded width-1 block solve: x,
+    status, iterations and residual; and `owned_dot(batched=True)` gives
+    its column the same bits at every width, the padding 0 (each column
+    folded in one fixed tree before the all_reduce, as `_column_dot`)."""
+    for per in runs("slab2"):
+        rows = per["width"]
+        assert [r["width"] for r in rows] == [1, 2, 4, 8]
+        assert rows[0]["status"] == SolveStatus.CONVERGED
+        for key in ("x_digest", "status", "iterations", "residual", "dot"):
+            assert len({r[key] for r in rows}) == 1, (key, rows)
+        assert all(d == 0.0 for r in rows for d in r["pad_dots"])
+    _same_on_every_rank(runs("slab2"), "width", "x_digest")
+    _same_on_every_rank(runs("slab2"), "width", "dot")
 
 
 @pytest.mark.parametrize("name", ["slab2", "slab4", "box4"])
