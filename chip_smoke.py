@@ -19,8 +19,10 @@ each:
               registers, shared memory and spills of every instantiation,
               with the body each runs (K2, K5: one thread per node column;
               K1, K3, K4: one thread per node line; every entry point's
-              generic body and cluster body, N1 a runtime argument; and
-              the timing-only
+              generic body, cluster body and staged body (its seven
+              launches: three contractions, the factors, three transposed
+              contractions; the contractions shared by the five
+              variants), N1 a runtime argument; and the timing-only
               one-thread-per-node `_rowwise` twins of K1-K5); no
               instantiation may spill
   3. kernels  every kernel against its plain version: Poisson and
@@ -186,12 +188,31 @@ each:
               4x4x4 box, its status and inner iterations recorded; each
               cluster entry point timed at E = 64 (a CUDA graph of 50
               calls) beside its bound and its plain version
+  6c. staged  the staged body (`csrc/axhelm_staged.cu`: an application
+              as seven launches over fp32 scratch, N1 above
+              ops.N1_CLUSTER_MAX = 48): every entry point at N1 = 49, 57,
+              64 and 96, E = 1, 3 and 8, c in {1, 4}, random per-node
+              lambdas, against its plain version (the tolerances and the
+              one-ulp rule of 3 and 3b); the order-63 main paths on the
+              2x2x2 box (8 elements, 2,048,383 dofs; the six of phase 5),
+              200 iterations, captured and eager in turns: x bitwise equal,
+              one entry-point launch per application, the
+              setup's peak memory; each on the 2x1x1 box at order 48
+              against the reference backend (the rules of 6b); each
+              variant's bf16_x32 solve at tol 0.03 on the 2x2x2 box; each
+              staged entry point timed at E = 8, N1 = 64 (a CUDA graph of
+              50 calls) beside its bound, its plain version and the
+              memory one call allocates and frees (its scratch, read from
+              the allocator's peak), and the timing-only twin `ops.staged` at the cluster
+              body's N1 = 25, 32 and 48, E = 64, beside the cluster body's
+              times of 6b; the registers and spills of its instantiations
   7. the `kernels` line (ten entry points, each launched on its main
      path and, as `launches_sharded`, on the sharded ones, psum and
      neighbour exchange together, and as `launches_serve` by the served
      streams of 5h and 5i; their ten
-     generic bodies, launched on the order-5 solves; and their ten
-     cluster bodies, launched on the order-31 solves),
+     generic bodies, launched on the order-5 solves; their ten
+     cluster bodies, launched on the order-31 solves; and their ten
+     staged bodies, launched on the order-63 solves),
      then the card line, then the result line.
 
 Exits non-zero, printing no result, when a phase fails, when there is no
@@ -231,7 +252,8 @@ BODY = {"precomputed": "line", "trilinear": "column",
         "parallelepiped": "line", "merged": "line", "partial": "column"}
 SOURCE = {"node": f"{_CSRC}/axhelm.cu", "column": f"{_CSRC}/axhelm_column.cu",
           "line": f"{_CSRC}/axhelm_line.cu", "any": f"{_CSRC}/axhelm.cu",
-          "cluster": f"{_CSRC}/axhelm_cluster.cu"}
+          "cluster": f"{_CSRC}/axhelm_cluster.cu",
+          "staged": f"{_CSRC}/axhelm_staged.cu"}
 # The orders the generic body (every N1 but the tuned bodies' 4 and 8) is
 # checked and timed at, and the one its main path (the order-5 solves) runs
 GENERIC_ORDERS = (1, 2, 5, 9, 15)
@@ -263,6 +285,27 @@ HIGH_ORDER_X_BOUND = 1e-3
 # are held within this share of the reference backend's, Poisson's within
 # +-1.
 HIGH_ORDER_HELMHOLTZ_ITER_SHARE = 0.01
+# Phase `staged`, the staged body (N1 above ops.N1_CLUSTER_MAX = 48): the
+# orders it is checked at (N1 = 49, 57, 64, 96; 49 and 57 fit no
+# power-of-two tile, 96 takes two tiles of output rows), each at the
+# STAGED_ELEMS element counts; its main path, the order-63 solve on a
+# 2x2x2 box (8 elements, 2,048,383 dofs: the 16^3 order-7 config's scale
+# in 8 elements), run as phase `high_order` runs its own; the 2x1x1 box at
+# STAGED_SMALL_ORDER of its comparison with the reference backend (the
+# rules of `high_order`); its times at the main path's E and N1; and the
+# timing-only twin `ops.staged` timed at the cluster body's orders,
+# CLUSTER_ELEMS elements, beside the cluster body.
+STAGED_ORDERS = (48, 56, 63, 95)
+STAGED_ELEMS = (1, 3, 8)
+STAGED_ORDER = 63
+STAGED_BOX = (2, 2, 2)
+STAGED_SMALL_ORDER = 48
+STAGED_TWIN_ORDERS = CLUSTER_ORDERS
+# the staged body's kernels (ptxas_instantiations' "pass"): the six
+# contractions every variant shares, and each variant's pointwise pass
+STAGED_SHARED_PASSES = ("grad_r", "grad_s", "grad_t", "first_r",
+                        "accumulate_s", "last_t")
+STAGED_VARIANT_PASSES = ("factors",)
 _TPU_KERNEL = "src/repro/kernels/axhelm/kernel.py"
 REPLACES = {"precomputed": f"{_TPU_KERNEL}:122",
             "trilinear": f"{_TPU_KERNEL}:126",
@@ -686,11 +729,14 @@ def ptxas_instantiations(report: str):
     """Per kernel instantiation of a `-Xptxas -v` report: its variant, body
     ("node": axhelm_kernel, "column": axhelm_column_kernel, "line":
     axhelm_line_kernel, "any": the generic axhelm_any_kernel, "cluster":
-    axhelm_cluster_kernel), N1 (None for the generic and cluster bodies,
-    whose N1 is a runtime argument), storage dtype,
-    registers, shared memory and spill bytes; {"kernel": name} for an entry
-    function of another name."""
+    axhelm_cluster_kernel, "staged": axhelm_staged_contract_kernel and
+    axhelm_staged_factors_kernel), N1 (None for the generic, cluster and
+    staged bodies, whose N1 is a runtime argument), storage dtype,
+    registers, shared memory and spill bytes; a staged kernel also its
+    "pass" (see STAGED_SHARED_PASSES, whose kernels have variant None);
+    {"kernel": name} for an entry function of another name."""
     inst, cur = [], None
+    dirs, modes = "rst", ("grad", "first", "accumulate", "last")
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -698,17 +744,30 @@ def ptxas_instantiations(report: str):
             # axhelm_line_kernel<...> mangle as
             # ILi<N1>E...GeomSourceE<n>E<T>E, T = f or 13__nv_bfloat16, and
             # axhelm_any_kernel<GeomSource, T> and axhelm_cluster_kernel<...>
-            # as I...GeomSourceE<n>E<T>E
+            # as I...GeomSourceE<n>E<T>E; axhelm_staged_contract_kernel<DIR,
+            # MODE, T> as ILi<DIR>ELi<MODE>E<T>E and
+            # axhelm_staged_factors_kernel<GeomSource, T> as the generic's
             k = re.search(r"axhelm_(column_|line_|any_|cluster_)?kernelI"
                           r"(?:Li(\d+)E)?"
                           r".*?GeomSourceE?(\d+)E(f|\d+__nv_bfloat16)E",
                           m.group(1))
+            st = re.search(r"axhelm_staged_(contract|factors)_kernelI"
+                           r"(?:Li(\d)ELi(\d)E)?"
+                           r"(?:.*?GeomSourceE?(\d+)E)?(f|\d+__nv_bfloat16)E",
+                           m.group(1))
             cur = {"kernel": m.group(1)}
             if k:
                 cur = {"variant": VARIANTS[int(k.group(3))],
                        "body": (k.group(1) or "node_").rstrip("_"),
                        "n1": int(k.group(2)) if k.group(2) else None,
                        "dtype": "f32" if k.group(4) == "f" else "bf16"}
+            elif st:
+                step = "factors" if st.group(1) == "factors" else \
+                    f"{modes[int(st.group(3))]}_{dirs[int(st.group(2))]}"
+                cur = {"variant": None if step in STAGED_SHARED_PASSES
+                       else VARIANTS[int(st.group(4))],
+                       "body": "staged", "pass": step, "n1": None,
+                       "dtype": "f32" if st.group(5) == "f" else "bf16"}
             inst.append(cur)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1034,6 +1093,17 @@ def main() -> None:
                 for dt in DTYPES}
     expected |= {(v, body, None, dt) for v in VARIANTS for dt in DTYPES
                  for body in ("any", "cluster")}
+    # the staged body's kernels: each variant's factors and last
+    # contraction, and the contractions every variant shares
+    expected |= {(v, "staged", None, dt) for v in VARIANTS + (None,)
+                 for dt in DTYPES}
+    staged_passes = sorted((c["variant"] or "", c["pass"], c["dtype"])
+                           for c in inst if c.get("body") == "staged")
+    want_passes = sorted([("", step, dt) for step in STAGED_SHARED_PASSES
+                          for dt in DTYPES] +
+                         [(v, step, dt) for v in VARIANTS
+                          for step in STAGED_VARIANT_PASSES
+                          for dt in DTYPES])
     expected |= {(v, "node", n, dt) for v in ops.ROWWISE_VARIANTS
                  for n in ops.KERNEL_N1 for dt in DTYPES}
     missing = sorted(expected - reported)
@@ -1043,6 +1113,9 @@ def main() -> None:
                if c.get("spill_stores", 0) or c.get("spill_loads", 0)]
     emit(build_line)
     require(not missing, f"no ptxas report for instantiations {missing}")
+    require(staged_passes == want_passes,
+            f"the staged body's kernels {staged_passes}, expected "
+            f"{want_passes}")
     require(not spilled, f"instantiations spill registers: {spilled}")
 
     # 3. kernels against their plain versions ------------------------------
@@ -1062,12 +1135,18 @@ def main() -> None:
         """The cluster body's C symbol for an entry point."""
         return f"{entry(variant, dt)}_cluster"
 
+    def staged_name(variant, dt):
+        """The staged body's C symbol for an entry point."""
+        return f"{entry(variant, dt)}_staged"
+
     def body_name(variant, dt, n1):
         """The C symbol an entry point's launch at `n1` reaches."""
-        return {"any": generic_name, "cluster": cluster_name}.get(
+        return {"any": generic_name, "cluster": cluster_name,
+                "staged": staged_name}.get(
             ops.body_of(variant, n1), entry)(variant, dt)
 
-    names = [name(v, dt) for name in (entry, generic_name, cluster_name)
+    names = [name(v, dt)
+             for name in (entry, generic_name, cluster_name, staged_name)
              for v, dt in entries]
     worst = dict.fromkeys(names, 0.0)
     cases = {dt: [] for dt in DTYPES}
@@ -1084,7 +1163,7 @@ def main() -> None:
 
     ulps = {name(v, "bf16"): {"kernel": [0, 0, 0], "plain": [0, 0, 0]}
             for v in VARIANTS
-            for name in (entry, generic_name, cluster_name)}
+            for name in (entry, generic_name, cluster_name, staged_name)}
 
     def rounding_check(name, y, y_p, x, b, variant, geom, label, kw):
         """A bf16 call's outputs against the correctly rounded ones: counts
@@ -1113,7 +1192,8 @@ def main() -> None:
         against the correctly rounded result); returns the largest
         absolute difference (in fp32).  At N1 in ops.KERNEL_N1 the call
         runs the entry point's tuned body, at every other N1 up to
-        ops.N1_MAX its generic body, above that its cluster body."""
+        ops.N1_MAX its generic body, above that its cluster body, above
+        ops.N1_CLUSTER_MAX its staged body."""
         y = ops.axhelm(x, b, variant, geom, **kw)
         torch.cuda.synchronize()
         y_p = ops.reference(x, b, variant, geom, **kw)
@@ -2543,6 +2623,146 @@ def main() -> None:
           "ms_per_iteration": {key: c["kernel"]["ms_per_iteration"]
                                for key, c in config.items()}})
 
+    # The bodies above the generic body's N1 (phases high_order, staged)
+    def high_mesh_for(variant, meshes):
+        return meshes["parallelepiped" if variant == "parallelepiped"
+                      else "trilinear"]
+
+    def check_order(b, e, meshes, seed, name_of):
+        """Every entry point at basis b on the first e elements of
+        `meshes` against its plain version: each variant's equations, fp32
+        and bf16, c = 1 and 4, random per-node lambdas (torch seed
+        `seed`)."""
+        node = (e,) + (b.n1,) * 3
+        gen.manual_seed(seed)
+        lam0 = 1 + 0.3 * torch.rand(node, generator=gen, device=dev)
+        lam1 = 0.5 + 0.2 * torch.rand(node, generator=gen, device=dev)
+        xs = {c: torch.randn((e, c, 1) + (b.n1,) * 3, generator=gen,
+                             device=dev) for c in (1, 4)}
+        for variant in VARIANTS:
+            verts = torch.as_tensor(high_mesh_for(variant, meshes).verts[:e],
+                                    dtype=torch.float32, device=dev)
+            for helm, dt in [(h, dt) for h in EQUATIONS[variant]
+                             for dt in DTYPES]:
+                geom, kw = operands(variant, verts, b, helm, lam0,
+                                    lam1 if helm else None, dt=dt)
+                for c, x32 in xs.items():
+                    x = x32.to(torch_dtype[dt])
+                    check(variant, b, x[:, 0, 0] if c == 1 else x, geom,
+                          f"{name_of(variant, dt)} N1={b.n1} E={e} "
+                          f"{'helmholtz' if helm else 'poisson'} c={c}",
+                          dt=dt, helmholtz=helm, **kw)
+
+    def check_main_call(b, meshes, name_of):
+        """Each entry point's call on its main path (every element of
+        `meshes`, c = 1, setup's scalar lambdas) against its plain
+        version, its largest absolute difference into `main_abs`."""
+        e = len(meshes["trilinear"].verts)
+        for variant, dt in entries:
+            helm = MAIN_HELMHOLTZ[variant]
+            verts = torch.as_tensor(high_mesh_for(variant, meshes).verts,
+                                    dtype=torch.float32, device=dev)
+            lams = (1.0, 0.1) if helm else (None, None)
+            geom, kw = operands(variant, verts, b, helm, *lams, dt=dt)
+            gen.manual_seed(b.n)
+            x = torch.randn((e,) + (b.n1,) * 3, generator=gen,
+                            device=dev).to(torch_dtype[dt])
+            name = name_of(variant, dt)
+            main_abs[name] = check(
+                variant, b, x, geom, f"{name} main path E={e} N1={b.n1} "
+                f"{'helmholtz' if helm else 'poisson'} c=1", dt=dt,
+                helmholtz=helm, **kw)
+
+    def kernel_record(here, first):
+        """The checks of the entry points `here` since case `first` (per
+        storage type)."""
+        return {
+            "cases": {dt: len(cases[dt]) - first[dt] for dt in DTYPES},
+            "tolerance": rtol,
+            "worst_rel_err": {k: worst[k] for k in here},
+            "main_path_abs_err": {k: main_abs[k] for k in here},
+            "ulps_from_correctly_rounded": {
+                "counts": "outputs 0, 1 and more ulps apart",
+                **{k: ulps[k] for k in here if k in ulps}}}
+
+    def high_order_solves(what, meshes, small_meshes, small_what):
+        """(a) The six fp32 main paths on `meshes`, HIGH_ORDER_ITERS
+        iterations captured and eager in turns, with the setup's peak
+        memory, and their launches read over one more captured solve
+        (every count set to 0 just before it): one entry-point launch an
+        application; (b) each on
+        `small_meshes` against the reference backend (the same status,
+        iterations +-1, Helmholtz within HIGH_ORDER_HELMHOLTZ_ITER_SHARE, x
+        within HIGH_ORDER_X_BOUND); (c) each variant's bf16_x32 solve at
+        tol 0.03 on `meshes`, its status and inner iterations recorded (a
+        refined solve's outcome hinges on a few ulps: PERF.md).  Returns
+        the records of (a), (b), (c)."""
+        solves, small, refined = {}, {}, {}
+        for variant, helm in cfg_runs:
+            key = f"{variant}/{'helmholtz' if helm else 'poisson'}"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            prob, box, x_true, rhs = manufactured(
+                high_mesh_for(variant, meshes), variant, "cuda", helm)
+            torch.cuda.synchronize()
+            setup_peak = torch.cuda.max_memory_allocated() - base
+            out, ginfo = in_turns(prob, box, variant, rhs, CONFIG.tol,
+                                  HIGH_ORDER_ITERS,
+                                  repeats=HIGH_ORDER_REPEATS)
+            cap = out["captured"]
+            k = solve_record(prob, variant, "cuda", helm, x_true,
+                             cap["res"], cap["walls"], cap["launches"],
+                             cap["applications"], cap["peak"])
+            k["body"] = ops.body_of(variant, prob.basis.n1)
+            flops = nekbone.flop_count(prob.mesh, 1, helm, 1)
+            k["GFLOPS"] = flops / k["ms_per_iteration"] / 1e6
+            k["GDOFS"] = prob.mesh.n_global / k["ms_per_iteration"] / 1e6
+            k["setup_peak_bytes"] = setup_peak
+            name = entry(variant, "f32")
+            box["op"] = 0
+            ops.reset_launch_counts()
+            nekbone.solve(prob, rhs, tol=CONFIG.tol,
+                          max_iter=HIGH_ORDER_ITERS)
+            torch.cuda.synchronize()
+            k["main_path_read"] = {"applications": box["op"],
+                                   "launches": ops.launch_counts[name]}
+            require(ops.launch_counts[name] == box["op"] > 0 and
+                    sum(ops.launch_counts.values()) == box["op"],
+                    f"{what} {key}: {k['main_path_read']}")
+            solves[key] = {"kernel": k, "graph": graph_row(
+                f"{what} {key}", out, ginfo)}
+            del prob, box, rhs, out
+            runs = {}
+            for backend in ("cuda", "reference"):
+                prob, box, x_true, rhs = manufactured(
+                    high_mesh_for(variant, small_meshes), variant, backend,
+                    helm)
+                res, walls, launches, peak = timed_solves(
+                    prob, box, variant, backend, rhs, HIGH_ORDER_TOL,
+                    HIGH_ORDER_MAX_ITER, 1)
+                runs[backend] = (solve_record(prob, variant, backend, helm,
+                                              x_true, res, walls, launches,
+                                              box, peak), res.x)
+                del prob, box, rhs
+            (kr, xk), (rr, xr) = runs["cuda"], runs["reference"]
+            dx = float((xk - xr).abs().max() / xr.abs().max())
+            slack = max(1, int(HIGH_ORDER_HELMHOLTZ_ITER_SHARE
+                               * rr["iterations"])) if helm else 1
+            require(kr["status"] == rr["status"] and
+                    abs(kr["iterations"] - rr["iterations"]) <= slack and
+                    dx <= HIGH_ORDER_X_BOUND,
+                    f"{small_what} {key}: kernels {kr} against the "
+                    f"reference backend {rr}, x differs by {dx:.3e}")
+            small[key] = {"kernel": kr, "reference": rr,
+                          "iteration_slack": slack, "x_max_rel_diff": dx}
+            torch.cuda.empty_cache()
+        for variant in VARIANTS:
+            refined[variant] = run_refined(high_mesh_for(variant, meshes),
+                                           variant, "cuda", 0.03,
+                                           helm=MAIN_HELMHOLTZ[variant])
+        return solves, small, refined
+
     # 6b. high_order: the cluster body, N1 above ops.N1_MAX ---------------
     # (a) every entry point at CLUSTER_ORDERS against its plain version;
     # (b) the order-31 main paths on the 4x4x4 box, captured and eager in
@@ -2557,34 +2777,13 @@ def main() -> None:
     high_cases = {dt: len(cases[dt]) for dt in DTYPES}
     for order in CLUSTER_ORDERS:
         b = basis(order)
-        n1c = b.n1
-        require(ops.body_of("trilinear", n1c) == "cluster",
-                f"N1={n1c} does not run the cluster body")
-        e = CLUSTER_ELEMS_CAP if n1c == ops.N1_CLUSTER_MAX else \
+        require(ops.body_of("trilinear", b.n1) == "cluster",
+                f"N1={b.n1} does not run the cluster body")
+        e = CLUSTER_ELEMS_CAP if b.n1 == ops.N1_CLUSTER_MAX else \
             CLUSTER_ELEMS
-        node = (e,) + (n1c,) * 3
-        gen.manual_seed(order)
-        lam0 = 1 + 0.3 * torch.rand(node, generator=gen, device=dev)
-        lam1 = 0.5 + 0.2 * torch.rand(node, generator=gen, device=dev)
-        xs = {c: torch.randn((e, c, 1) + (n1c,) * 3, generator=gen,
-                             device=dev) for c in (1, 4)}
-        for variant in VARIANTS:
-            verts = torch.as_tensor(
-                mesh_for(variant, boxes[order]).verts[:e],
-                dtype=torch.float32, device=dev)
-            for helm, dt in [(h, dt) for h in EQUATIONS[variant]
-                             for dt in DTYPES]:
-                geom, kw = operands(variant, verts, b, helm, lam0,
-                                    lam1 if helm else None, dt=dt)
-                for c, x32 in xs.items():
-                    x = x32.to(torch_dtype[dt])
-                    check(variant, b, x[:, 0, 0] if c == 1 else x, geom,
-                          f"{cluster_name(variant, dt)} N1={n1c} E={e} "
-                          f"{'helmholtz' if helm else 'poisson'} c={c}",
-                          dt=dt, helmholtz=helm, **kw)
-                del geom, kw
-            del verts
-        del xs, lam0, lam1
+        check_order(b, e, {v: mesh_for(v, boxes[order])
+                           for v in ("trilinear", "parallelepiped")},
+                    order, cluster_name)
     # the main path's call: E = 64, N1 = 32, c = 1, setup's scalar lambdas
     b_hi = basis(HIGH_ORDER)
     hi_meshes = {v: mesh_for(v, boxes[HIGH_ORDER]) for v in ("trilinear",
@@ -2592,81 +2791,14 @@ def main() -> None:
     small_box = mesh_gen.box_mesh(*HIGH_ORDER_SMALL_BOX, HIGH_ORDER)
     small_meshes = {v: mesh_for(v, small_box) for v in ("trilinear",
                                                         "parallelepiped")}
-
-    def high_mesh_for(variant, meshes):
-        return meshes["parallelepiped" if variant == "parallelepiped"
-                      else "trilinear"]
-
     e_hi = len(boxes[HIGH_ORDER].verts)
-    for variant, dt in entries:
-        helm = MAIN_HELMHOLTZ[variant]
-        verts = torch.as_tensor(high_mesh_for(variant, hi_meshes).verts,
-                                dtype=torch.float32, device=dev)
-        lams = (1.0, 0.1) if helm else (None, None)
-        geom, kw = operands(variant, verts, b_hi, helm, *lams, dt=dt)
-        gen.manual_seed(HIGH_ORDER)
-        x = torch.randn((e_hi,) + (b_hi.n1,) * 3, generator=gen,
-                        device=dev).to(torch_dtype[dt])
-        name = cluster_name(variant, dt)
-        main_abs[name] = check(
-            variant, b_hi, x, geom, f"{name} main path E={e_hi} "
-            f"N1={b_hi.n1} {'helmholtz' if helm else 'poisson'} c=1",
-            dt=dt, helmholtz=helm, **kw)
-        del geom, kw, x, verts
-    high_cases = {dt: len(cases[dt]) - high_cases[dt] for dt in DTYPES}
-    here = [cluster_name(v, dt) for dt in DTYPES for v in VARIANTS]
-    high_kernels = {
-        "cases": high_cases, "tolerance": rtol,
-        "worst_rel_err": {k: worst[k] for k in here},
-        "main_path_abs_err": {k: main_abs[k] for k in here},
-        "ulps_from_correctly_rounded": {
-            "counts": "outputs 0, 1 and more ulps apart",
-            **{k: ulps[k] for k in here if k in ulps}}}
+    check_main_call(b_hi, hi_meshes, cluster_name)
+    high_kernels = kernel_record(
+        [cluster_name(v, dt) for dt in DTYPES for v in VARIANTS], high_cases)
     # (b) the solves
-    high_solves, high_small, high_bf16 = {}, {}, {}
-    for variant, helm in cfg_runs:
-        prob, box, x_true, rhs = manufactured(
-            high_mesh_for(variant, hi_meshes), variant, "cuda", helm)
-        out, ginfo = in_turns(prob, box, variant, rhs, CONFIG.tol,
-                              HIGH_ORDER_ITERS, repeats=HIGH_ORDER_REPEATS)
-        cap = out["captured"]
-        k = solve_record(prob, variant, "cuda", helm, x_true, cap["res"],
-                         cap["walls"], cap["launches"], cap["applications"],
-                         cap["peak"])
-        key = f"{variant}/{k['equation']}"
-        k["body"] = ops.body_of(variant, b_hi.n1)
-        flops = nekbone.flop_count(prob.mesh, 1, helm, 1)
-        k["GFLOPS"] = flops / k["ms_per_iteration"] / 1e6
-        k["GDOFS"] = prob.mesh.n_global / k["ms_per_iteration"] / 1e6
-        high_solves[key] = {"kernel": k, "graph": graph_row(
-            f"4^3 order {HIGH_ORDER} {key}", out, ginfo)}
-        del prob, box, rhs, out
-        runs = {}
-        for backend in ("cuda", "reference"):
-            prob, box, x_true, rhs = manufactured(
-                high_mesh_for(variant, small_meshes), variant, backend, helm)
-            res, walls, launches, peak = timed_solves(
-                prob, box, variant, backend, rhs, HIGH_ORDER_TOL,
-                HIGH_ORDER_MAX_ITER, 1)
-            runs[backend] = (solve_record(prob, variant, backend, helm,
-                                          x_true, res, walls, launches, box,
-                                          peak), res.x)
-            del prob, box, rhs
-        (kr, xk), (rr, xr) = runs["cuda"], runs["reference"]
-        dx = float((xk - xr).abs().max() / xr.abs().max())
-        slack = max(1, int(HIGH_ORDER_HELMHOLTZ_ITER_SHARE
-                           * rr["iterations"])) if helm else 1
-        require(kr["status"] == rr["status"] and
-                abs(kr["iterations"] - rr["iterations"]) <= slack and
-                dx <= HIGH_ORDER_X_BOUND,
-                f"2x1x1 order {HIGH_ORDER} {key}: kernels {kr} against the "
-                f"reference backend {rr}, x differs by {dx:.3e}")
-        high_small[key] = {"kernel": kr, "reference": rr,
-                           "iteration_slack": slack, "x_max_rel_diff": dx}
-    for variant in VARIANTS:
-        high_bf16[variant] = run_refined(high_mesh_for(variant, hi_meshes),
-                                         variant, "cuda", 0.03,
-                                         helm=MAIN_HELMHOLTZ[variant])
+    high_solves, high_small, high_bf16 = high_order_solves(
+        f"4^3 order {HIGH_ORDER}", hi_meshes, small_meshes,
+        f"2x1x1 order {HIGH_ORDER}")
     # (c) the cluster body's times: E = 64, c = 1, each variant's main
     # equation with setup's scalar lambdas, fp32 and bf16
     timing_cluster = {cluster_name(v, dt): {} for v, dt in entries}
@@ -2722,6 +2854,135 @@ def main() -> None:
           "timing": timing_cluster,
           "seconds": time.perf_counter() - t_high})
     del boxes, hi_meshes, small_meshes
+
+    # 6c. staged: the staged body, N1 above ops.N1_CLUSTER_MAX -----------
+    # (a) every entry point at STAGED_ORDERS against its plain version
+    # (the vertices of a 2x2x2 box do not depend on the order); (b) the
+    # order-63 main paths on the 2x2x2 box, captured and eager in turns,
+    # with the setup's peak memory; each on the 2x1x1 box at
+    # STAGED_SMALL_ORDER against the reference backend; each variant's
+    # bf16_x32 solve at tol 0.03 on the 2x2x2 box; (c) each staged entry
+    # point timed at the main path's E and N1, and the timing-only twin at
+    # the cluster body's orders; (d) the registers and spills of its
+    # kernels (phase 2).
+    t_staged = time.perf_counter()
+    staged_cases = {dt: len(cases[dt]) for dt in DTYPES}
+    st_meshes = {v: mesh_for(v, mesh_gen.box_mesh(*STAGED_BOX, 1))
+                 for v in ("trilinear", "parallelepiped")}
+    for order in STAGED_ORDERS:
+        b = basis(order)
+        require(ops.body_of("trilinear", b.n1) == "staged",
+                f"N1={b.n1} does not run the staged body")
+        for e in STAGED_ELEMS:
+            check_order(b, e, st_meshes, 10 * order + e, staged_name)
+        torch.cuda.empty_cache()
+    # the main path's call: E = 8, N1 = 64, c = 1, setup's scalar lambdas
+    b_st = basis(STAGED_ORDER)
+    st_box = mesh_gen.box_mesh(*STAGED_BOX, STAGED_ORDER)
+    st_main = {v: mesh_for(v, st_box) for v in ("trilinear",
+                                                "parallelepiped")}
+    e_st = len(st_box.verts)
+    check_main_call(b_st, st_main, staged_name)
+    staged_kernels = kernel_record(
+        [staged_name(v, dt) for dt in DTYPES for v in VARIANTS],
+        staged_cases)
+    # (b) the solves
+    small_st = mesh_gen.box_mesh(*HIGH_ORDER_SMALL_BOX, STAGED_SMALL_ORDER)
+    small_st_meshes = {v: mesh_for(v, small_st) for v in ("trilinear",
+                                                          "parallelepiped")}
+    st_solves, st_small, st_bf16 = high_order_solves(
+        f"2^3 order {STAGED_ORDER}", st_main, small_st_meshes,
+        f"2x1x1 order {STAGED_SMALL_ORDER}")
+    st_setup = {key: r["kernel"]["setup_peak_bytes"]
+                for key, r in st_solves.items()}
+    # (c) times: the staged body at the main path's E = 8, N1 = 64, and
+    # the twin at the cluster body's orders (E = 64), each entry point's
+    # main equation with setup's scalar lambdas, fp32 and bf16
+    timing_staged = {staged_name(v, dt): {} for v, dt in entries}
+    for order, e, twin in [(STAGED_ORDER, e_st, False)] + \
+            [(o, CLUSTER_ELEMS, True) for o in STAGED_TWIN_ORDERS]:
+        b = basis(order)
+        meshes = st_main if not twin else {
+            v: mesh_for(v, mesh_gen.box_mesh(*HIGH_ORDER_BOX, 1))
+            for v in ("trilinear", "parallelepiped")}
+        gen.manual_seed(order + 1)
+        x32 = torch.randn((e,) + (b.n1,) * 3, generator=gen, device=dev)
+        for variant, dt in entries:
+            x = x32.to(torch_dtype[dt])
+            helm = MAIN_HELMHOLTZ[variant]
+            launch = ops.staged_launch(b.n1, e, 1, helm)
+            verts = torch.as_tensor(high_mesh_for(variant, meshes).verts,
+                                    dtype=torch.float32, device=dev)
+            lams = (1.0, 0.1) if helm else (None, None)
+            geom, kw = operands(variant, verts, b, helm, *lams, dt=dt)
+            run = ops.staged if twin else ops.axhelm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            y = run(x, b, variant, geom, helmholtz=helm, **kw)
+            torch.cuda.synchronize()
+            transient = torch.cuda.max_memory_allocated() \
+                - torch.cuda.memory_allocated()
+            del y
+            ms = graph_ms(lambda: run(x, b, variant, geom, helmholtz=helm,
+                                      **kw))
+            bound_ms, bound_by, nbytes, flops = axhelm_bound(
+                variant, e, b.n1, helm, word=WORD_BYTES[dt])
+            row = {"E": e, "N1": b.n1,
+                   "design": {"contract_grid": launch.contract_grid,
+                              "factor_grid": launch.factor_grid,
+                              "smem_bytes": launch.smem_bytes,
+                              "scratch_bytes": launch.scratch_bytes},
+                   "transient_bytes": transient,
+                   "equation": "helmholtz" if helm else "poisson",
+                   "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bytes": nbytes, "flops": flops,
+                   "roofline_share": bound_ms / ms}
+            if twin:
+                cl = timing_cluster[cluster_name(variant, dt)][
+                    f"order{order}"]
+                row["twin"] = "ops.staged"
+                row["cluster_ms"] = cl["ms"]
+                row["staged_over_cluster"] = ms / cl["ms"]
+            else:
+                row["plain_ms"] = event_ms(
+                    lambda: ops.reference(x, b, variant, geom,
+                                          helmholtz=helm, **kw),
+                    reps=3, warmup=1)
+            timing_staged[staged_name(variant, dt)][f"order{order}"] = row
+            del geom, kw, verts, x
+        del x32
+        torch.cuda.empty_cache()
+    # (d) the registers and spills of its kernels
+    st_regs = [{k: c.get(k) for k in ("variant", "pass", "dtype",
+                                      "registers", "smem_bytes",
+                                      "spill_stores", "spill_loads")}
+               for c in inst if c.get("body") == "staged"]
+    emit({"phase": "staged", "card": card, "orders": STAGED_ORDERS,
+          "elements": STAGED_ELEMS, "n1_staged_max": ops.N1_STAGED_MAX,
+          "design": {"tile": ops.STAGED_TILE,
+                     "kernels_per_application": ops.STAGED_KERNELS,
+                     "note": "from ops.py (staged_launch's tiles, grids and "
+                             "scratch in each timing row's 'design'), not "
+                             "read on the card"},
+          "kernels": staged_kernels,
+          "mesh": "x".join(map(str, STAGED_BOX)), "order": STAGED_ORDER,
+          "main_elements": e_st, "dofs": st_box.n_global,
+          "iterations": HIGH_ORDER_ITERS,
+          "turns": f"eager, captured, captured, eager; {HIGH_ORDER_REPEATS} "
+                   f"timed solves a turn after one warm-up solve of each "
+                   f"mode",
+          "solves": st_solves,
+          "setup_peak_bytes": st_setup,
+          "against_reference": {
+              "mesh": "x".join(map(str, HIGH_ORDER_SMALL_BOX)),
+              "order": STAGED_SMALL_ORDER, "dofs": small_st.n_global,
+              "tol": HIGH_ORDER_TOL, "solves": st_small},
+          "bf16_x32": {"tol": 0.03, "max_iter": REFINED_MAX_ITER,
+                       "solves": st_bf16},
+          "ms": "CUDA graph of 50 calls, median of 5 replays",
+          "timing": timing_staged, "registers": st_regs,
+          "seconds": time.perf_counter() - t_staged})
+    del st_box, st_main, small_st, small_st_meshes, st_meshes
 
     # 7. the kernels line, the card line, the result line -------------------
     def main_path(variant, dt):
@@ -2779,8 +3040,8 @@ def main() -> None:
         name = cluster_name(variant, dt)
         by_order = timing_cluster[name]
         t = by_order[f"order{HIGH_ORDER}"]
-        launches = high_solves[main_key(variant)]["kernel"]["launches"] \
-            if dt == "f32" else \
+        launches = high_solves[main_key(variant)]["kernel"][
+            "main_path_read"]["launches"] if dt == "f32" else \
             high_bf16[variant]["launches"].get(entry(variant, dt), 0)
         kernels.append({
             "name": name, "variant": variant, "storage": dt,
@@ -2798,6 +3059,28 @@ def main() -> None:
                              ("N1", "cluster", "ms", "plain_ms", "bound_ms",
                               "bound_by")}
                          for o in by_order}})
+    for variant, dt in entries:
+        name = staged_name(variant, dt)
+        by_order = timing_staged[name]
+        t = by_order[f"order{STAGED_ORDER}"]
+        launches = st_solves[main_key(variant)]["kernel"]["main_path_read"][
+            "launches"] if dt == "f32" else \
+            st_bf16[variant]["launches"].get(entry(variant, dt), 0)
+        kernels.append({
+            "name": name, "variant": variant, "storage": dt,
+            "route": "cuda", "source": SOURCE["staged"],
+            "replaces": REPLACES[variant],
+            "main_path": f"2^3 order {STAGED_ORDER} "
+                         f"{'fp32' if dt == 'f32' else 'bf16_x32 tol=0.03'} "
+                         f"{main_key(variant)}",
+            "launches": launches,
+            "max_abs_err": main_abs[name], "max_rel_err": worst[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "order": STAGED_ORDER,
+            "twin_by_order": {o: {k: by_order[o][k] for k in
+                                  ("N1", "ms", "cluster_ms", "bound_ms")}
+                              for o in by_order if "twin" in by_order[o]}})
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} was not launched on "
                 f"the main path")

@@ -22,10 +22,11 @@ RHS batch; factors broadcast over the batch axes.
 Backends: "reference" (plain torch, any dtype and device), "cuda" (the
 hand-written kernels through `kernels.axhelm.ops`, which runs their plain
 versions on CPU tensors), and "auto" — "cuda" for float32 and bfloat16 on
-a CUDA device, "reference" on the CPU; float64, or an order above the
-kernels' `N1_CLUSTER_MAX - 1`, on a CUDA device raises at setup rather than
-leaving the kernels quietly.  Both backends take the same
-operands and share one plain version, `kernels/axhelm/ref.py`.
+a CUDA device, "reference" on the CPU; float64 on a CUDA device raises at
+setup rather than leaving the kernels quietly.  The kernels run orders up
+to `N1_STAGED_MAX - 1` (above `N1_CLUSTER_MAX - 1` through the staged
+body).  Both backends take the same operands and share one plain version,
+`kernels/axhelm/ref.py`.
 
 bfloat16 is a storage type: the operator computes in float32 and rounds its
 output once (the reference's Pallas kernel semantics), and the setup
@@ -194,10 +195,11 @@ def _resolve_backend(backend: Optional[str], dtype: torch.dtype,
     the plain reference on the CPU.  The kernels store float32 or bfloat16,
     so another dtype raises for "cuda", and for "auto" on a CUDA device:
     the plain version runs on the card only when the caller asks for it.
-    On a CPU device "cuda" runs the kernels' plain versions.  Likewise the
-    kernels run N1 = order + 1 up to `kops.N1_CLUSTER_MAX` (above
-    `kops.N1_MAX` through the cluster body): a larger `n1` raises for
-    "auto" and "cuda" on a CUDA device.
+    On a CPU device "cuda" runs the kernels' plain versions.  The kernels
+    run N1 = order + 1 up to `kops.N1_STAGED_MAX` (above `kops.N1_MAX`
+    through the cluster body, above `kops.N1_CLUSTER_MAX` through the
+    staged body): a larger `n1` raises for "auto" and "cuda" on a CUDA
+    device.
     """
     if backend is None:
         backend = "auto"
@@ -216,13 +218,14 @@ def _resolve_backend(backend: Optional[str], dtype: torch.dtype,
         raise ValueError(f"axhelm backend 'cuda' stores float32 or bfloat16 "
                          f"only; got dtype {dtype} (use backend='reference')")
     if backend == "cuda" and torch.device(device).type == "cuda" \
-            and n1 > kops.N1_CLUSTER_MAX:
+            and n1 > kops.N1_STAGED_MAX:
         raise ValueError(
             f"the axhelm CUDA kernels run orders up to "
-            f"{kops.N1_CLUSTER_MAX - 1} (N1_CLUSTER_MAX = "
-            f"{kops.N1_CLUSTER_MAX}: a cluster of {kops.CLUSTER_MAX} blocks "
-            f"holds no larger element); got order {n1 - 1} (pass "
-            f"backend='reference' to run the plain version on the card)")
+            f"{kops.N1_STAGED_MAX - 1} (N1_STAGED_MAX = "
+            f"{kops.N1_STAGED_MAX}: the staged body's panel of a larger "
+            f"element does not fit in a block's shared memory); got order "
+            f"{n1 - 1} (pass backend='reference' to run the plain version on "
+            f"the card)")
     return backend
 
 

@@ -8,7 +8,9 @@ points), ``axhelm_column.cu`` the one-thread-per-column body (K2, K5),
 ``axhelm_line.cu`` the one-thread-per-line body (K1, K3, K4),
 ``axhelm_cluster.cu`` the body that splits an element across a thread-block
 cluster (every variant above the generic body's N1, ``*_cluster`` entry
-points), all four including ``axhelm_common.cuh``.  One ``nvcc -c`` per
+points), ``axhelm_staged.cu`` the body that stages an element's
+contractions through device memory (every variant above the cluster body's
+N1, ``*_staged`` entry points), all five including ``axhelm_common.cuh``.  One ``nvcc -c`` per
 source runs at the same time, then one link makes the shared library,
 ``build/kernels/libaxhelm_<hash>.so`` at the repository root, keyed by every
 source and header and the flags; a build takes seconds and happens at first
@@ -34,7 +36,8 @@ __all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "LINK_FLAGS", "SIGNATURES",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "axhelm.cu", _CSRC / "axhelm_column.cu",
-           _CSRC / "axhelm_line.cu", _CSRC / "axhelm_cluster.cu")
+           _CSRC / "axhelm_line.cu", _CSRC / "axhelm_cluster.cu",
+           _CSRC / "axhelm_staged.cu")
 HEADERS = (_CSRC / "axhelm_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 _TARGET = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -162,6 +165,11 @@ SIGNATURES = {
     # block | stream
     **{f"{variant}_cluster": [_PTR] * 8 + [_I32] * 6 + [_PTR]
        for variant in _VARIANTS},
+    # the staged body, N1 above ops.N1_CLUSTER_MAX, the generic body's
+    # arguments plus the fp32 scratch: x, y, geom, lam0, lam1, dhat, xi,
+    # w3, scratch | n1, n_elem, ncols, helmholtz | stream
+    **{f"{variant}_staged": [_PTR] * 9 + [_I32] * 4 + [_PTR]
+       for variant in _VARIANTS},
 }
 
 
@@ -177,7 +185,8 @@ def library() -> ctypes.CDLL:
     """The built library with the C signature of every entry point,
     ``axhelm_<variant>_f32`` and ``axhelm_<variant>_bf16``, of the generic
     body's ``axhelm_<variant>_<suffix>_any``, of the cluster body's
-    ``axhelm_<variant>_<suffix>_cluster`` and of the timing-only
+    ``axhelm_<variant>_<suffix>_cluster``, of the staged body's
+    ``axhelm_<variant>_<suffix>_staged`` and of the timing-only
     ``axhelm_<variant>_<suffix>_rowwise``, declared."""
     lib = ctypes.CDLL(str(build()))
     for suffix in ("f32", "bf16"):

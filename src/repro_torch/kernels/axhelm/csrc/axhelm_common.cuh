@@ -2,11 +2,14 @@
 // sources (the variants of the TPU kernel's _kernel), the storage
 // conversions, the hoisted Alg. 3 (the column body's K2/K5 and the line
 // body's K4) and the per-node factors of the node walk (the generic body of
-// axhelm.cu and the cluster body of axhelm_cluster.cu).  axhelm.cu holds the
-// generic body and the one-thread-per-node twins, axhelm_column.cu the
-// one-thread-per-column body (K2, K5), axhelm_line.cu the one-thread-per-line
-// body (K1, K3, K4), axhelm_cluster.cu the body that splits an element
-// across a thread-block cluster (N1 above the generic body's 24).
+// axhelm.cu, the cluster body of axhelm_cluster.cu and the staged body's
+// pointwise pass in axhelm_staged.cu).  axhelm.cu holds the generic body
+// and the one-thread-per-node twins, axhelm_column.cu the
+// one-thread-per-column body (K2, K5), axhelm_line.cu the
+// one-thread-per-line body (K1, K3, K4), axhelm_cluster.cu the body that
+// splits an element across a thread-block cluster (N1 above the generic
+// body's 24), axhelm_staged.cu the body that stages an element's
+// contractions through device memory (N1 above the cluster body's 48).
 #pragma once
 
 #include <cstdint>
@@ -105,7 +108,8 @@ __device__ __forceinline__ float det_j(const float* c0, const float* c1,
 }
 
 // The node walk of the generic and cluster bodies (axhelm.cu,
-// axhelm_cluster.cu): the factors of one node, loaded or recomputed.
+// axhelm_cluster.cu) and the staged body's pointwise pass
+// (axhelm_staged.cu): the factors of one node, loaded or recomputed.
 
 struct Factors {
   float g00, g01, g02, g11, g12, g22, gwj;

@@ -36,22 +36,38 @@ point runs the cluster body (`csrc/axhelm_cluster.cu`, the `*_cluster`
 symbols): an element split across a cluster of P blocks, each holding
 K = ceil(N1 / P) of its t-planes, the t contractions reading the peers'
 planes through distributed shared memory (`cluster_launch`); above
-N1_CLUSTER_MAX the wrapper raises.  None needs element padding: the column
-and line bodies mask their ragged last group.  `launch_counts` counts the
-kernel launches of each entry point (`entry_point(variant, dtype)`, the C
-symbol), whichever body it ran, so a run can show that a solve went through
-the kernels it expects; a launch captured into a solver loop's CUDA graph
-counts once for every replay of the graph (`core.graphs.count`).  Two timing-only twins count nothing and
-`axhelm` never reaches them: `rowwise` launches a variant on the
-one-thread-per-node body at N1 in KERNEL_N1, beside the bodies that
-replaced it, and `generic` the generic body at any N1, beside the tuned
+N1_CLUSTER_MAX no cluster holds an element.  Above N1_CLUSTER_MAX (orders
+48 and up) each entry point runs the staged body (`csrc/axhelm_staged.cu`,
+the `*_staged` symbols): one application is `STAGED_KERNELS` launches, the
+six contractions as tiled products that stage whole lines of the
+contracted axis in shared memory and a pointwise pass for the factors,
+over fp32 scratch of 3 E ncols N1^3 words (and E N1^3 more for the
+Helmholtz mass) that the wrapper allocates with `torch.empty` at every
+call (under a CUDA graph's capture it comes from the graph's pool, the
+same memory at every replay; `staged_launch`).  Its one limit is a
+block's shared memory, N1 up to `N1_STAGED_MAX`; a scratch the card
+cannot hold is refused by that `torch.empty`, which raises
+`torch.OutOfMemoryError` with the size.  None needs element padding: the column
+and line bodies mask their ragged last group, the staged body its ragged
+tiles.  `launch_counts` counts one launch of each entry point
+(`entry_point(variant, dtype)`, the C symbol) per application, whichever
+body it ran, so a run can show that a solve went through the kernels it
+expects (`KERNELS_PER_APPLICATION` records the CUDA kernels one
+application of each body launches: 7 for the staged body, 1 for every
+other); a launch captured into a solver loop's CUDA graph
+counts once for every replay of the graph (`core.graphs.count`).  Three
+timing-only twins count nothing and `axhelm` never reaches them:
+`rowwise` launches a variant on the one-thread-per-node body at N1 in
+KERNEL_N1, beside the bodies that replaced it, `generic` the generic body
+at any N1 up to N1_MAX, beside the tuned bodies, and `staged` the staged
+body at any N1 up to N1_STAGED_MAX, beside the generic and cluster
 bodies.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -64,11 +80,15 @@ __all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
            "ROWWISE_VARIANTS", "KERNEL_N1", "N1_MAX", "KERNEL_DTYPES",
            "COLUMN_THREADS", "LINE_THREADS", "LINE_BLOCKS_PER_SM",
            "GENERIC_THREADS", "CLUSTER_THREADS", "CLUSTER_MAX",
-           "N1_CLUSTER_MAX",
+           "N1_CLUSTER_MAX", "STAGED_THREADS", "STAGED_TILE",
+           "FACTOR_THREADS", "STAGED_KERNELS", "N1_STAGED_MAX",
+           "KERNELS_PER_APPLICATION",
            "entry_point", "column_launch", "line_launch", "generic_launch",
            "generic_smem_bytes", "cluster_smem_bytes", "cluster_launch",
+           "staged_smem_bytes", "staged_launch", "StagedLaunch",
            "launch_counts", "reset_launch_counts",
-           "axhelm", "rowwise", "generic", "reference", "unrounded"]
+           "axhelm", "rowwise", "generic", "staged", "reference",
+           "unrounded"]
 
 KERNEL_VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged",
                    "partial")
@@ -94,6 +114,18 @@ CLUSTER_MAX = 8        # the portable cluster size limit, blocks
 # the largest N1 whose slab fits in a block of an 8-block cluster
 # (cluster_smem_bytes): the cluster body's cap
 N1_CLUSTER_MAX = 48
+# The staged body (csrc/axhelm_staged.cu): STAGED_THREADS threads a
+# contraction block, its tile (output rows, lines, D-hat columns a step),
+# FACTOR_THREADS a block of its pointwise pass, STAGED_KERNELS launches an
+# application (three contractions, the factors, three transposed
+# contractions)
+STAGED_THREADS = 256
+STAGED_TILE = (64, 64, 16)
+FACTOR_THREADS = 256
+STAGED_KERNELS = 7
+# CUDA kernels one application of each body launches
+KERNELS_PER_APPLICATION = {"column": 1, "line": 1, "any": 1, "cluster": 1,
+                           "rowwise": 1, "staged": STAGED_KERNELS}
 # storage dtype -> the suffix of its entry points in csrc/axhelm.cu
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -148,6 +180,54 @@ def cluster_launch(n1: int, n_elem: int
     raise ValueError(f"no cluster of at most {CLUSTER_MAX} blocks holds an "
                      f"element of N1={n1} (N1_CLUSTER_MAX = "
                      f"{N1_CLUSTER_MAX})")
+
+
+def staged_smem_bytes(n1: int) -> int:
+    """Dynamic shared memory of one staged-body contraction block (kernel
+    `axhelm_staged_contract_kernel`): its panel, the whole contracted axis
+    of its lines (N1 rows of lines + 1 floats, padded), and one step of
+    D-hat (D-hat columns a step x output rows), fp32."""
+    rows, lines, depth = STAGED_TILE
+    return 4 * (n1 * (lines + 1) + depth * rows)
+
+
+# the largest N1 whose panel fits in a block's shared memory: the staged
+# body's one limit of its own
+N1_STAGED_MAX = max(n for n in range(2, 1024)
+                    if staged_smem_bytes(n) <= SMEM_PER_BLOCK)
+
+
+class StagedLaunch(NamedTuple):
+    """The launches of one staged-body application (`staged_launch`)."""
+
+    threads: int                       # a contraction block
+    tile: tuple[int, int, int]         # output rows, lines, D-hat columns
+    contract_grid: tuple[int, int]     # (E ncols batch rows, line tiles)
+    factor_threads: int                # a block of the pointwise pass
+    factor_grid: int                   # E * node chunks
+    smem_bytes: int                    # a contraction block's
+    scratch_bytes: int                 # fp32 S0, S1, S2 (and the mass)
+    kernels: int                       # launches an application
+
+
+def staged_launch(n1: int, n_elem: int, ncols: int,
+                  helmholtz: bool = False) -> StagedLaunch:
+    """The staged body's launches for E = n_elem elements of ncols columns:
+    each contraction one block per batch row (element, column) and tile of
+    lines, ceil(N1^2 / lines) tiles (the last may be ragged); the pointwise
+    pass ceil(N1^3 / FACTOR_THREADS) blocks an element; the scratch, three
+    fp32 components of E ncols N1^3 words, and for Helmholtz the mass of
+    each node, E N1^3 words more."""
+    _, lines, _ = STAGED_TILE
+    np_ = n1 ** 3
+    return StagedLaunch(
+        threads=STAGED_THREADS, tile=STAGED_TILE,
+        contract_grid=(n_elem * ncols, -(-n1 * n1 // lines)),
+        factor_threads=FACTOR_THREADS,
+        factor_grid=n_elem * -(-np_ // FACTOR_THREADS),
+        smem_bytes=staged_smem_bytes(n1),
+        scratch_bytes=4 * (3 * ncols + int(helmholtz)) * n_elem * np_,
+        kernels=STAGED_KERNELS)
 
 
 def column_launch(n1: int, n_elem: int) -> tuple[int, int]:
@@ -275,6 +355,21 @@ def generic(x: torch.Tensor, basis: SpectralBasis, variant: str,
                    twin="any").reshape(x.shape)
 
 
+def staged(x: torch.Tensor, basis: SpectralBasis, variant: str,
+           geom: torch.Tensor, lam0: Optional[torch.Tensor] = None,
+           lam1: Optional[torch.Tensor] = None,
+           helmholtz: bool = False) -> torch.Tensor:
+    """A variant on the staged body of `csrc/axhelm_staged.cu` at any N1
+    from 2 to N1_STAGED_MAX, on CUDA tensors: for tests and timing beside
+    `axhelm`, which takes the staged body only above N1_CLUSTER_MAX.
+    Counts no launch."""
+    check_variant(variant)
+    helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
+    xb = _as_batched(x)
+    return _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
+                   twin="staged").reshape(x.shape)
+
+
 def reference(x, basis: SpectralBasis, variant: str, geom, lam0=None,
               lam1=None, helmholtz=False):
     """The plain PyTorch version with the same operand convention
@@ -325,19 +420,17 @@ def unrounded(x, basis: SpectralBasis, variant: str, geom, lam0=None,
 
 def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
                            twin: Optional[str] = None) -> None:
-    """Everything the CUDA kernel does not take raises here: an N1 above
-    N1_CLUSTER_MAX, or, for the generic body's twin (`twin="any"`), above
-    N1_MAX, or, for the node body (`twin="rowwise"`), outside KERNEL_N1; a
-    storage dtype other than float32 or bfloat16, an operand whose dtype is
-    not x's, another device, a shape off the layout, or a non-contiguous
-    tensor."""
+    """Everything the CUDA kernel does not take raises here: an N1 below 2;
+    for the generic body's twin (`twin="any"`) one above N1_MAX, for the
+    node body (`twin="rowwise"`) one outside KERNEL_N1; for the staged body
+    (above N1_CLUSTER_MAX, or `twin="staged"`) one whose panel does not fit
+    in a block's shared memory (above N1_STAGED_MAX); a storage dtype other than float32 or
+    bfloat16, an operand whose dtype is not x's, another device, a shape
+    off the layout, or a non-contiguous tensor."""
     n1 = basis.n1
-    if not 2 <= n1 <= N1_CLUSTER_MAX:
-        raise ValueError(f"axhelm CUDA kernels run N1 from 2 to "
-                         f"N1_CLUSTER_MAX = {N1_CLUSTER_MAX} (orders 1 to "
-                         f"{N1_CLUSTER_MAX - 1}): a cluster of "
-                         f"{CLUSTER_MAX} blocks holds no larger element; "
-                         f"got N1={n1} (order {basis.n})")
+    if n1 < 2:
+        raise ValueError(f"axhelm CUDA kernels run N1 from 2 (order 1 and "
+                         f"up); got N1={n1} (order {basis.n})")
     if twin == "any" and n1 > N1_MAX:
         raise ValueError(f"the generic body runs N1 up to N1_MAX = {N1_MAX} "
                          f"(orders 1 to {N1_MAX - 1}): a block's shared "
@@ -346,6 +439,13 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
     if twin == "rowwise" and n1 not in KERNEL_N1:
         raise ValueError(f"the one-thread-per-node body is instantiated for "
                          f"N1 in {KERNEL_N1}, got N1={n1} (order {basis.n})")
+    staged_body = body_of(variant, n1, twin) == "staged"
+    if staged_body and n1 > N1_STAGED_MAX:
+        raise ValueError(f"the staged body runs N1 up to N1_STAGED_MAX = "
+                         f"{N1_STAGED_MAX}: a contraction block's panel of "
+                         f"{staged_smem_bytes(n1)} bytes does not fit in the "
+                         f"{SMEM_PER_BLOCK} bytes of shared memory a block "
+                         f"may have; got N1={n1} (order {basis.n})")
     named = [("x", xb), ("geom", geom), ("lam0", lam0), ("lam1", lam1)]
     named = [(n, t) for n, t in named if t is not None]
     for name, t in named:
@@ -406,10 +506,10 @@ def _check_staged_alignment(variant, xb, lam0, lam1) -> None:
     """Raise for an operand the line body stages with 16-byte vector loads
     (x, and K4's Lam2 and Lam3) that is not STAGED_ALIGNMENT-byte aligned,
     e.g. a contiguous view at an odd storage offset."""
-    staged = [("x", xb)]
+    operands = [("x", xb)]
     if variant == "merged":
-        staged += [("lam0", lam0), ("lam1", lam1)]
-    for name, t in staged:
+        operands += [("lam0", lam0), ("lam1", lam1)]
+    for name, t in operands:
         if t is not None and t.data_ptr() % STAGED_ALIGNMENT:
             raise ValueError(
                 f"axhelm {variant} CUDA kernel stages {name} with vector "
@@ -424,10 +524,13 @@ def _ptr(t: Optional[torch.Tensor]):
 def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
     """The body a launch runs: "column" or "line" (the tuned bodies, at N1
     in KERNEL_N1), "any" (the generic body: any other N1 up to N1_MAX, or
-    the `generic` twin), "cluster" (N1 above N1_MAX) or "rowwise" (the
-    node body of the `rowwise` twin)."""
+    the `generic` twin), "cluster" (N1 above N1_MAX up to N1_CLUSTER_MAX),
+    "staged" (N1 above N1_CLUSTER_MAX, or the `staged` twin) or "rowwise"
+    (the node body of the `rowwise` twin)."""
     if twin is not None:
         return twin
+    if n1 > N1_CLUSTER_MAX:
+        return "staged"
     if n1 > N1_MAX:
         return "cluster"
     if n1 not in KERNEL_N1:
@@ -438,8 +541,10 @@ def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
 def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
             twin: Optional[str] = None) -> torch.Tensor:
     """Launch `variant` on x's current stream, through the body `body_of`
-    names, and count an entry point's launch; a timing-only `twin`
-    ("rowwise" or "any") counts none."""
+    names, and count an entry point's launch; a timing-only `twin` ("rowwise", "any" or "staged") counts none.  The
+    staged body's scratch is allocated here, on x's device, at every call:
+    within a CUDA graph's capture it comes from the graph's pool and the
+    graph keeps it, so every replay runs on the same memory."""
     _check_kernel_operands(xb, basis, variant, geom, lam0, lam1, twin)
     body = body_of(variant, basis.n1, twin)
     if body == "line":
@@ -464,6 +569,12 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
             p, k, *_ = cluster_launch(basis.n1, e)
             rc = fn(*common, _ptr(xi), _ptr(w3), *sizes, int(helmholtz), p,
                     k, stream)
+        elif body == "staged":
+            scratch = torch.empty(
+                staged_launch(basis.n1, e, ncols, helmholtz).scratch_bytes
+                // 4, dtype=torch.float32, device=xb.device)
+            rc = fn(*common, _ptr(xi), _ptr(w3), _ptr(scratch), *sizes,
+                    int(helmholtz), stream)
         elif body == "column":
             consts = _ptr(_column_consts(basis.n, xb.dtype))
             grid = column_launch(basis.n1, e)

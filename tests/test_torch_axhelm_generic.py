@@ -8,9 +8,10 @@ lack, on the CPU: what of it is not CUDA.
   and the weighted gradient, then per node y), against the reference
   package's jnp oracle: float64, <= 1e-12 relative (the same formulas in
   another order), all five geometry sources at N1 = 2, 3, 6, 11 and 16.
-* The order limit: `ops.N1_MAX` is the largest N1 whose shared memory fits
-  in a block, the wrapper refuses a larger one, and setup on a CUDA device
-  refuses it too (`core.axhelm._resolve_backend`).
+* The order limits: `ops.N1_MAX` is the largest N1 whose shared memory fits
+  in a block (the generic body's cap), and above `ops.N1_STAGED_MAX` the
+  wrapper refuses an order, and setup on a CUDA device refuses it too
+  (`core.axhelm._resolve_backend`).
 * Which C symbol `ops` reaches for each variant and N1 (the tuned bodies at
   N1 = 4 and 8, the generic body elsewhere; the timing-only twins), with
   which arguments, and which launches it counts, through a stand-in
@@ -295,40 +296,49 @@ def test_twins_reach_their_bodies_and_count_nothing(fake_card, variant, n1):
 
 
 @pytest.mark.parametrize("n1,twin,match", [
-    (ops.N1_CLUSTER_MAX + 1, None, "N1_CLUSTER_MAX"), (30, "any", "N1_MAX"),
-    (6, "rowwise", "instantiated"), (1, None, "N1_CLUSTER_MAX")])
+    (ops.N1_STAGED_MAX + 1, None, "N1_STAGED_MAX"), (30, "any", "N1_MAX"),
+    (6, "rowwise", "instantiated"), (1, None, "from 2")])
 def test_wrapper_refuses_an_order_it_has_no_body_for(n1, twin, match):
-    """Above N1_CLUSTER_MAX (and below 2) no body runs; the generic body's
-    twin only up to N1_MAX; the node body only at the tuned N1.  The
-    wrapper raises before it looks at the tensors."""
-    b = tbasis(n1 - 1) if n1 > 1 else type("B", (), {"n1": 1, "n": 0})
-    x = _meta((3, 1, 1) + (n1,) * 3)
+    """Above N1_STAGED_MAX (the staged body's panel outgrows a block's
+    shared memory) and below 2 no body runs; the generic body's twin only
+    up to N1_MAX; the node body only at the tuned N1.  The wrapper raises
+    before it looks at the tensors; above N1_CLUSTER_MAX it takes the
+    order (the staged body) and stops at the device."""
+    b = type("B", (), {"n1": n1, "n": n1 - 1})
+    x = _meta((3, 1, 1) + (n1,) * 3 if n1 < 100 else (3, 1, 1, 1, 1, 1))
     with pytest.raises(ValueError, match=match):
         ops._check_kernel_operands(x, b, "trilinear", _meta((3, 8, 3)),
                                    None, None, twin)
+    big = ops.N1_CLUSTER_MAX + 1
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops._check_kernel_operands(_meta((3, 1, 1) + (big,) * 3),
+                                   tbasis(big - 1), "trilinear",
+                                   _meta((3, 8, 3)), None, None)
 
 
 def test_setup_refuses_orders_above_n1_max_on_a_card():
     """`_resolve_backend` raises for "auto" and "cuda" on a CUDA device
-    above N1_CLUSTER_MAX (the way it refuses float64), before anything
+    above N1_STAGED_MAX (the way it refuses float64), before anything
     touches the device, and takes the kernels up to it (above N1_MAX
-    through the cluster body); "cuda" on the CPU runs the plain version at
-    any order."""
+    through the cluster body, above N1_CLUSTER_MAX through the staged
+    body); "cuda" on the CPU runs the plain version at any order."""
     f32, cuda, cpu = torch.float32, torch.device("cuda"), torch.device("cpu")
-    big = ops.N1_CLUSTER_MAX + 1
+    big = ops.N1_STAGED_MAX + 1
     for backend in (None, "auto", "cuda"):
-        with pytest.raises(ValueError, match="N1_CLUSTER_MAX"):
+        with pytest.raises(ValueError, match="N1_STAGED_MAX"):
             taxhelm._resolve_backend(backend, f32, cuda, big)
-        for n1 in (ops.N1_MAX, ops.N1_MAX + 1, ops.N1_CLUSTER_MAX):
+        for n1 in (ops.N1_MAX, ops.N1_MAX + 1, ops.N1_CLUSTER_MAX,
+                   ops.N1_CLUSTER_MAX + 1, 64, ops.N1_STAGED_MAX):
             assert taxhelm._resolve_backend(backend, f32, cuda,
                                             n1) == "cuda"
     assert taxhelm._resolve_backend("cuda", f32, cpu, big) == "cuda"
     assert taxhelm._resolve_backend("reference", f32, cuda, big) == \
         "reference"
-    verts = np.asarray(jmesh.box_mesh(1, 1, 1, big - 1).verts)
-    with pytest.raises(ValueError, match="N1_CLUSTER_MAX"):
-        taxhelm.make_axhelm_elem_ops("trilinear", tbasis(big - 1), verts,
-                                     device="cuda")
+    verts = np.asarray(jmesh.box_mesh(1, 1, 1, 1).verts)
+    with pytest.raises(ValueError, match="N1_STAGED_MAX"):
+        taxhelm.make_axhelm_elem_ops("trilinear",
+                                     type("B", (), {"n1": big, "n": big - 1}),
+                                     verts, device="cuda")
 
 
 _ANY_REPORT = """\

@@ -2,7 +2,8 @@
 point, float32 and bfloat16 storage, at N1 = 25 (a 2-block cluster) and 32
 (4 blocks), E = 5 and 64, one and three columns, against its plain PyTorch
 version; the launch counted under the entry point; an order-31 solve
-through the kernels against the reference backend.
+through the kernels against the reference backend; one past the cap, the
+staged body.
 
 Every test carries the `cuda` marker and skips without a card; whether a
 card is present is decided in the `card` fixture, at run time.  This file
@@ -72,12 +73,24 @@ def test_order_31_solve_matches_reference_backend(card, variant, helm):
     assert float((k.x - r.x).abs().max() / r.x.abs().max()) <= 1e-3
 
 
-def test_above_the_cap_the_wrapper_and_setup_raise(card):
+def test_above_the_cap_the_wrapper_and_setup_run_the_staged_body(card):
+    """Order 48 (N1 = 49), one past the cluster body's cap: the wrapper
+    and setup on the card run the staged body, counted under the entry
+    point, with no backend argument."""
     n_big = ops.N1_CLUSTER_MAX          # order 48, N1 = 49
-    b, x, geom, kw = _operands("trilinear", n_big, 1, 1, False, card,
-                               backend="reference")
-    with pytest.raises(ValueError, match="N1_CLUSTER_MAX"):
-        ops.axhelm(x, b, "trilinear", geom, **kw)
+    b, x, geom, kw = _operands("trilinear", n_big, 1, 1, False, card)
+    assert ops.body_of("trilinear", b.n1) == "staged"
+    name = ops.entry_point("trilinear", torch.float32)
+    before = ops.launch_counts[name]
+    y = ops.axhelm(x, b, "trilinear", geom, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts[name] == before + 1
+    y_plain = ops.reference(x, b, "trilinear", geom, **kw)
+    assert float((y - y_plain).abs().max() / y_plain.abs().max()) <= 1e-4
     mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(1, 1, 1, n_big))
-    with pytest.raises(ValueError, match="N1_CLUSTER_MAX"):
-        nekbone.setup_problem(mesh, variant="trilinear")
+    prob = nekbone.setup_problem(mesh, variant="trilinear")
+    assert prob.backend == "cuda"
+    before = ops.launch_counts[name]
+    prob.op(nekbone.random_solution(prob))
+    torch.cuda.synchronize()
+    assert ops.launch_counts[name] == before + 1

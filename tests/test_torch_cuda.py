@@ -141,18 +141,25 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card, variant):
         ops.axhelm(x.transpose(-1, -2), b, variant, geom, **kw)
     with pytest.raises(ValueError, match="CUDA device"):
         ops.axhelm(x, b, variant, geom.cpu(), **kw)
-    # every order up to N1_CLUSTER_MAX - 1 runs (test_generic_body_*, and
-    # above N1_MAX - 1 tests/test_torch_cluster_cuda.py); above it the
-    # element does not fit in a cluster's shared memory: the wrapper
-    # raises, and so does setup on the card
-    n_big = ops.N1_CLUSTER_MAX
-    bb, xb, geomb, kwb = _operands(variant, n_big, 2, 1, helm, card,
-                                   backend="reference")
-    with pytest.raises(ValueError, match="N1_CLUSTER_MAX"):
-        ops.axhelm(xb, bb, variant, geomb, **kwb)
-    mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(1, 1, 2, n_big))
-    with pytest.raises(ValueError, match="N1_CLUSTER_MAX"):
-        nekbone.setup_problem(mesh, variant=variant, helmholtz=helm)
+    # every order up to N1_STAGED_MAX - 1 runs (test_generic_body_*, above
+    # N1_MAX - 1 tests/test_torch_cluster_cuda.py, above N1_CLUSTER_MAX - 1
+    # the staged body, tests/test_torch_staged_cuda.py); one past the
+    # cluster body's cap the wrapper runs.  Above N1_STAGED_MAX a staged
+    # contraction block's panel does not fit in shared memory: the wrapper
+    # raises before it reads the tensors, and so does setup on the card
+    # (a stand-in basis: no 879^3 arrays)
+    bb, xb, geomb, kwb = _operands(variant, ops.N1_CLUSTER_MAX, 2, 1, helm,
+                                   card)
+    assert ops.body_of(variant, bb.n1) == "staged"
+    assert ops.axhelm(xb, bb, variant, geomb, **kwb).shape == xb.shape
+    big = type("B", (), {"n1": ops.N1_STAGED_MAX + 1,
+                         "n": ops.N1_STAGED_MAX})
+    with pytest.raises(ValueError, match="N1_STAGED_MAX"):
+        ops.axhelm(x, big, variant, geom, **kw)
+    verts = mesh_gen.box_mesh(1, 1, 2, 1).verts
+    with pytest.raises(ValueError, match="N1_STAGED_MAX"):
+        core_axhelm.make_axhelm_elem_ops(variant, big, verts,
+                                         helmholtz=helm, device=card)
 
 
 def test_gather_is_bitwise_reproducible_and_exact(card):
