@@ -77,6 +77,7 @@ def main() -> None:
             .replace(f"kColumnMinBlocks = {shipped[1]};",
                      f"kColumnMinBlocks = {blocks};"))
         build.SOURCES = others + (path,)
+        build.PARTS[path.name] = build.PARTS["axhelm_column.cu"]
         build.HEADERS = headers
         build.build.cache_clear()
         build.library.cache_clear()

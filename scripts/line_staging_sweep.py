@@ -205,9 +205,11 @@ BULK_FACTORS = [
      "        mbar_wait(&sm.fbar[fbuf], (lg / kStages) & 1);\n"
      "        fp = sm.f[fbuf][le] + t;\n"
      "      }\n"),
-    ("(SRC == kMerged && (misaligned(lam0) || misaligned(lam1)))",
-     "(SRC == kMerged && (misaligned(lam0) || misaligned(lam1))) ||\n"
-     "      (SRC == kPrecomputed && misaligned(geom))"),
+    ("(Smem::STAGES_LAM && (misaligned(lam0, kVec) ||\n"
+     "                            misaligned(lam1, kVec)))",
+     "(Smem::STAGES_LAM && (misaligned(lam0, kVec) ||\n"
+     "                            misaligned(lam1, kVec))) ||\n"
+     "      (SRC == kPrecomputed && misaligned(geom, 16))"),
 ]
 
 
@@ -302,6 +304,7 @@ def main() -> None:
         path = out_dir / ("axhelm_line_" + setting.replace(":", "_") + ".cu")
         path.write_text(source)
         build.SOURCES = others + (path,)
+        build.PARTS[path.name] = build.PARTS["axhelm_line.cu"]
         build.HEADERS = headers
         build.build.cache_clear()
         build.library.cache_clear()

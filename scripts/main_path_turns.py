@@ -17,8 +17,12 @@ application fails the run.  Then the wrapper's host time: for each
 variant, `ops.axhelm` called WRAPPER_CALLS times back to back on 64
 elements at N=7 (whose kernel takes a few microseconds, so the host sets
 the pace), host clock over the calls ending in `synchronize()`, the
-median of 5 such runs in microseconds a call.  Prints one JSON line per
-process and writes them all to chiprun_out/main_path_turns.json.
+median of 5 such runs in microseconds a call.  Then each entry point's
+kernel time at N1 = 4 and 8 (orders 3 and 7 on the 16^3 box, E = 4096, c =
+1, its main equation with setup's scalar lambdas, fp32 and bf16): a CUDA
+graph of 50 calls, the median of 5 replays (the tree's own
+`chip_smoke.graph_ms`).  Prints one JSON line per process and writes them
+all to main_path_turns.json in the output directory.
 
 Run:  python3 scripts/main_path_turns.py OLD_TREE NEW_TREE
 """
@@ -121,6 +125,36 @@ def worker(tree: Path) -> dict:
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t) / WRAPPER_CALLS * 1e6)
         out["wrapper_us"][variant] = statistics.median(runs[1:])
+    sys.path.insert(0, str(tree))
+    from chip_smoke import graph_ms
+
+    out["kernel_us"] = {}
+    for order in (3, 7):
+        b = basis(order)
+        box = mesh_gen.box_mesh(*CONFIG.elements, order)
+        meshes = {"affine": mesh_gen.deform_affine(box, seed=2),
+                  "trilinear": mesh_gen.deform_trilinear(box, seed=3)}
+        gen = torch.Generator(device="cuda").manual_seed(order)
+        x32 = torch.randn((len(box.verts),) + (b.n1,) * 3, generator=gen,
+                          device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            for variant in VARIANTS:
+                helm = variant == "merged"
+                mesh = meshes["affine" if variant == "parallelepiped"
+                              else "trilinear"]
+                verts = torch.as_tensor(mesh.verts, dtype=torch.float32,
+                                        device="cuda")
+                lams = {"lam0": 1.0, "lam1": 0.1} if helm else {}
+                elem_ops, _, _ = core_axhelm.make_axhelm_elem_ops(
+                    variant, b, verts, helmholtz=helm, dtype=dtype,
+                    backend="cuda", device="cuda", **lams)
+                geom = elem_ops.pop("geom")
+                x = x32.to(dtype)
+                key = f"{ops.entry_point(variant, dtype)}/N1={b.n1}"
+                out["kernel_us"][key] = 1e3 * graph_ms(
+                    lambda: ops.axhelm(x, b, variant, geom, helmholtz=helm,
+                                       **elem_ops))
+                del geom, elem_ops, x
     return out
 
 

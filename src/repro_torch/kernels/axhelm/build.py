@@ -11,7 +11,9 @@ cluster (every variant above the generic body's N1, ``*_cluster`` entry
 points), ``axhelm_staged.cu`` the body that stages an element's
 contractions through device memory (every variant above the cluster body's
 N1, ``*_staged`` entry points), all five including ``axhelm_common.cuh``.  One ``nvcc -c`` per
-source runs at the same time, then one link makes the shared library,
+source, or per part of a source that ``PARTS`` splits (the column and line
+bodies' instantiations at N1 = 2 to 16, ``-DAXHELM_PART=p``), runs at the
+same time, then one link makes the shared library,
 ``build/kernels/libaxhelm_<hash>.so`` at the repository root, keyed by every
 source and header and the flags; a build takes seconds and happens at first
 use: nothing here runs at import.  A missing ``nvcc`` or a failed build
@@ -31,14 +33,19 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "LINK_FLAGS", "SIGNATURES",
-           "symbol", "library_path", "build", "library", "ptxas_report"]
+__all__ = ["SOURCES", "HEADERS", "PARTS", "NVCC_FLAGS", "LINK_FLAGS",
+           "SIGNATURES", "QUERIES", "units", "symbol", "library_path", "build",
+           "library", "ptxas_report"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "axhelm.cu", _CSRC / "axhelm_column.cu",
            _CSRC / "axhelm_line.cu", _CSRC / "axhelm_cluster.cu",
            _CSRC / "axhelm_staged.cu")
 HEADERS = (_CSRC / "axhelm_common.cuh",)
+# Sources compiled in several parts, by file name: each part instantiates
+# some of the N1 (the AXHELM_*_PART<p> lists in the source), so that the
+# parts compile at the same time; part 0 holds the entry points.
+PARTS = {"axhelm_column.cu": 5, "axhelm_line.cu": 5}
 _BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 _TARGET = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_TARGET, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -58,12 +65,26 @@ def _nvcc() -> str:
                        "built")
 
 
+def units() -> list[tuple[Path, list[str], str]]:
+    """Each `nvcc -c` of a build: (source, its extra flags, object stem)."""
+    out = []
+    for src in SOURCES:
+        parts = PARTS.get(src.name, 1)
+        if parts == 1:
+            out.append((src, [], src.stem))
+        else:
+            out += [(src, [f"-DAXHELM_PART={p}"], f"{src.stem}_p{p}")
+                    for p in range(parts)]
+    return out
+
+
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
+    """Where the library for the current source, parts and flags lives."""
     h = hashlib.sha256()
     for path in SOURCES + HEADERS:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    h.update(repr(sorted(PARTS.items())).encode())
     digest = h.hexdigest()[:16]
     return _BUILD_DIR / f"libaxhelm_{digest}.so"
 
@@ -90,7 +111,8 @@ def _start(cmd):
 @functools.cache
 def build() -> Path:
     """Compile the kernels unless these sources are already built; return
-    the library path.  Every source compiles at the same time, into a
+    the library path.  Every source (every part of one) compiles at the
+    same time, into a
     scratch directory that is removed afterwards; the library and the
     ptxas report are written under temporary names and moved into place,
     so a concurrent build (ranks building at the same moment) never
@@ -102,10 +124,12 @@ def build() -> Path:
     nvcc = _nvcc()
     work = Path(tempfile.mkdtemp(prefix=f".{out.stem}.", dir=out.parent))
     try:
-        objs = [work / f"{src.stem}.o" for src in SOURCES]
-        report = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                               str(src)])
-                       for src, obj in zip(SOURCES, objs)])
+        jobs = [(src, flags, work / f"{stem}.o")
+                for src, flags, stem in units()]
+        objs = [obj for _, _, obj in jobs]
+        report = _run([_start([nvcc, *NVCC_FLAGS, *flags, "-c", "-o",
+                               str(obj), str(src)])
+                       for src, flags, obj in jobs])
         tmp = work / out.name
         _run([_start([nvcc, *LINK_FLAGS, "-o", str(tmp),
                       *map(str, objs)])])
@@ -173,6 +197,12 @@ SIGNATURES = {
 }
 
 
+# Entry points with one symbol for both storage types: the line body's blocks
+# an SM at an instantiation (geometry source, bf16, n1), from the occupancy
+# calculator
+QUERIES = {"axhelm_line_blocks_per_sm": [_I32] * 3}
+
+
 def symbol(name: str, suffix: str) -> str:
     """The C symbol of SIGNATURES entry `name` for storage `suffix`, e.g.
     ``axhelm_partial_bf16_rowwise``."""
@@ -186,14 +216,18 @@ def library() -> ctypes.CDLL:
     ``axhelm_<variant>_f32`` and ``axhelm_<variant>_bf16``, of the generic
     body's ``axhelm_<variant>_<suffix>_any``, of the cluster body's
     ``axhelm_<variant>_<suffix>_cluster``, of the staged body's
-    ``axhelm_<variant>_<suffix>_staged`` and of the timing-only
-    ``axhelm_<variant>_<suffix>_rowwise``, declared."""
+    ``axhelm_<variant>_<suffix>_staged``, of the timing-only
+    ``axhelm_<variant>_<suffix>_rowwise`` and of `QUERIES`, declared."""
     lib = ctypes.CDLL(str(build()))
     for suffix in ("f32", "bf16"):
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, symbol(name, suffix))
             fn.argtypes = argtypes
             fn.restype = _I32
+    for name, argtypes in QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I32
     return lib
 
 

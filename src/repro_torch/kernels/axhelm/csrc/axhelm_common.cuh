@@ -32,6 +32,46 @@ __host__ __device__ constexpr bool uses_vertices(GeomSource src) {
   return src == kTrilinear || src == kMerged || src == kPartial;
 }
 
+// Shared memory a block may use without opting in (48 KB).
+constexpr int kStaticSmemMax = 48 * 1024;
+
+// The tuned bodies' shared memory, one struct S a block (axhelm_column.cu,
+// axhelm_line.cu): a static __shared__ variable when it fits in the default
+// 48 KB, else the launch's dynamic shared memory, which the launcher sizes to
+// sizeof(S) and opts in to (opt_in_smem).
+template <typename S>
+__host__ __device__ constexpr bool dynamic_smem() {
+  return sizeof(S) > kStaticSmemMax;
+}
+
+template <typename S>
+__device__ __forceinline__ S& block_shared() {
+  if constexpr (dynamic_smem<S>()) {
+    extern __shared__ __align__(16) unsigned char tuned_dynamic_smem[];
+    return *reinterpret_cast<S*>(tuned_dynamic_smem);
+  } else {
+    __shared__ S s;
+    return s;
+  }
+}
+
+// The dynamic shared memory of a launch whose block holds S: 0 when S is
+// static.  Above the default 48 KB a kernel must opt in to its size; the
+// attribute belongs to the current device, so every such launch sets it (a
+// host call that enqueues nothing, allowed while a graph captures).
+template <typename S, typename Kernel>
+size_t opt_in_smem(Kernel kernel, cudaError_t& err) {
+  err = cudaSuccess;
+  if constexpr (!dynamic_smem<S>()) {
+    return 0;
+  } else {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(sizeof(S)));
+    return sizeof(S);
+  }
+}
+
 // Storage loads widen to fp32; the one store of y rounds once.
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {

@@ -15,18 +15,23 @@ At bfloat16 every operand, the constants D-hat, xi and w3 included, holds
 bf16-rounded values; the kernel and its plain version widen them to
 float32, compute in float32 and round the output once.
 
-Bodies.  At N1 in `KERNEL_N1` (orders 3 and 7) each entry point runs a
-tuned body.  K2 and K5 (`COLUMN_VARIANTS`) run one thread per node column,
-several elements a block (`csrc/axhelm_column.cu`), and take their grid
-(`column_launch`) and D-hat and xi by value (`_column_consts`, a host
-array) from here.  K1, K3 and K4 (`LINE_VARIANTS`) run one thread per node
-line in each direction, in persistent blocks that stage the next element's
-x (and K4's Lam2, Lam3) with 16-byte vector loads while they compute the
-current one (`csrc/axhelm_line.cu`); they take their grid (`line_launch`,
-from the card's SM count) and D-hat and xi by value as the column body
-does, and refuse a staged operand that is not 16-byte aligned.  K1 reads
-its factors from the planar (E, 7, N1,N1,N1) operand (`ref.planar_factors`).
-At every other N1 from 2 to `N1_MAX` (orders 1 to N1_MAX - 1) each entry
+Bodies.  At N1 in `KERNEL_N1`, every N1 from 2 to `N1_TUNED_MAX` (orders
+1 to 15), each entry point runs a tuned body.  K2 and K5
+(`COLUMN_VARIANTS`) run one thread per node column, several elements a
+block (`csrc/axhelm_column.cu`), and take their grid (`column_launch`) and
+D-hat and xi by value (`_column_consts`, a host array) from here.  K1, K3
+and K4 (`LINE_VARIANTS`) run one thread per node line in each direction,
+in persistent blocks that stage the next element's x (and, up to N1 =
+`LINE_HOLD_MAX`, K4's Lam2, Lam3) with vector loads while they compute
+the current one (`csrc/axhelm_line.cu`); they take their grid
+(`line_launch`, from the card's SM count) and D-hat and xi by value as the
+column body does, and refuse a staged operand that is not aligned to
+their vectors (`staged_alignment`: 16 bytes at N1 = 4 in fp32 and at 8,
+one value at odd N1).  K1 reads its factors from the planar (E, 7,
+N1,N1,N1) operand (`ref.planar_factors`).  The launch shape of both at
+each N1 (`column_elems`, `column_min_blocks`, `line_elems`,
+`line_min_blocks`) mirrors the CUDA source's.
+From N1_TUNED_MAX + 1 to `N1_MAX` (orders 16 to 23) each entry
 point runs the generic body (`csrc/axhelm.cu`, the `*_any` symbols): one
 block an element walks its N1^3 nodes, N1 a runtime argument, with D-hat,
 x and the weighted gradient in dynamic shared memory
@@ -58,7 +63,8 @@ other); a launch captured into a solver loop's CUDA graph
 counts once for every replay of the graph (`core.graphs.count`).  Three
 timing-only twins count nothing and `axhelm` never reaches them:
 `rowwise` launches a variant on the one-thread-per-node body at N1 in
-KERNEL_N1, beside the bodies that replaced it, `generic` the generic body
+ROWWISE_N1 (4 and 8), beside the bodies that replaced it, `generic` the
+generic body
 at any N1 up to N1_MAX, beside the tuned bodies, and `staged` the staged
 body at any N1 up to N1_STAGED_MAX, beside the generic and cluster
 bodies.
@@ -77,8 +83,14 @@ from repro_torch.kernels.axhelm import build
 from repro_torch.kernels.axhelm import ref as ref_mod
 
 __all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
-           "ROWWISE_VARIANTS", "KERNEL_N1", "N1_MAX", "KERNEL_DTYPES",
-           "COLUMN_THREADS", "LINE_THREADS", "LINE_BLOCKS_PER_SM",
+           "ROWWISE_VARIANTS", "KERNEL_N1", "N1_TUNED_MAX", "ROWWISE_N1",
+           "N1_MAX", "KERNEL_DTYPES", "COLUMN_THREADS", "COLUMN_ELEMS",
+           "COLUMN_PADS", "COLUMN_MIN_BLOCKS", "LINE_THREADS",
+           "LINE_BLOCKS_PER_SM", "LINE_ELEMS", "LINE_HOLD_MAX",
+           "LINE_ONE_BLOCK_FROM", "LINE_ROLL_FROM", "STAGED_ALIGNMENT",
+           "column_elems", "column_threads", "column_min_blocks",
+           "column_smem_bytes", "line_elems", "line_threads", "line_rolls",
+           "line_min_blocks", "line_smem_bytes", "staged_alignment",
            "GENERIC_THREADS", "CLUSTER_THREADS", "CLUSTER_MAX",
            "N1_CLUSTER_MAX", "STAGED_THREADS", "STAGED_TILE",
            "FACTOR_THREADS", "STAGED_KERNELS", "N1_STAGED_MAX",
@@ -99,11 +111,39 @@ LINE_VARIANTS = ("precomputed", "parallelepiped", "merged")
 # the variants with a timing-only twin on the one-thread-per-node body:
 # every one
 ROWWISE_VARIANTS = KERNEL_VARIANTS
-KERNEL_N1 = (4, 8)   # the N1 = N + 1 of the tuned bodies in csrc/
-COLUMN_THREADS = 128  # threads a block of the column body (kColumnThreads)
-LINE_THREADS = 64     # threads a block of the line body (kLineThreads)
-LINE_BLOCKS_PER_SM = 8  # resident line blocks an SM (kLineMinBlocks)
-STAGED_ALIGNMENT = 16  # bytes: the line body's vector loads need it
+N1_TUNED_MAX = 16    # the tuned bodies run every N1 from 2 to this
+KERNEL_N1 = tuple(range(2, N1_TUNED_MAX + 1))  # the N1 = N + 1 they run
+ROWWISE_N1 = (4, 8)   # the N1 of the one-thread-per-node timing twin
+# The tuned bodies' launch shapes (csrc/axhelm_column.cu, axhelm_line.cu):
+# at N1 = 4 and 8 a block has COLUMN_THREADS (LINE_THREADS) threads and an
+# SM holds COLUMN_MIN_BLOCKS (LINE_BLOCKS_PER_SM) of them; at every other N1
+# the elements a block come from COLUMN_ELEMS (LINE_ELEMS), chosen so that
+# N1^2 threads an element leave few lanes of the last warp idle, the
+# column body's __launch_bounds__ promise as many blocks an SM as give 16
+# warps, and the line body's persistent grid takes as many as the card
+# holds at once (`_line_blocks`).
+COLUMN_THREADS = 128  # threads a block of the column body at N1 = 4, 8
+COLUMN_MIN_BLOCKS = 4  # its blocks an SM there (kColumnMinBlocks)
+COLUMN_ELEMS = {2: 32, 3: 14, 5: 5, 6: 7, 7: 5, 9: 3, 10: 2, 11: 2, 12: 1,
+                13: 1, 14: 1, 15: 1, 16: 1}
+# words after each element's N1^3 in the column body's shared arrays
+COLUMN_PADS = {2: 4, 3: 14, 4: 0, 5: 28, 6: 2, 7: 26, 8: 0, 9: 24, 10: 2,
+               11: 6, 12: 0, 13: 0, 14: 0, 15: 0, 16: 0}
+LINE_THREADS = 64     # threads a block of the line body at N1 = 4, 8
+LINE_BLOCKS_PER_SM = 8  # resident line blocks an SM there (kLineMinBlocks)
+LINE_ELEMS = {2: 16, 3: 7, 5: 5, 6: 7, 7: 5, 9: 3, 10: 2, 11: 1, 12: 1,
+              13: 1, 14: 1, 15: 1, 16: 1}
+# up to this N1 the line body holds K3's w3 column in registers and stages
+# K4's Lam2, Lam3 (kLineHoldMax); above, it reads them where it uses them
+LINE_HOLD_MAX = 8
+# from this N1 the line body promises one block an SM where its lines'
+# products stay unrolled, so that a thread may take up to 255 registers
+# (kLineOneBlockFrom)
+LINE_ONE_BLOCK_FROM = 11
+# from which N1 a line variant rolls its lines' products over n
+# (line_roll_from; parallelepiped never)
+LINE_ROLL_FROM = {"precomputed": 12, "merged": 11}
+STAGED_ALIGNMENT = 16  # bytes: the most any line instantiation's vectors need
 GENERIC_THREADS = 512  # most threads a block of the generic body
 # shared memory a block may use on the H100 (227 KB), which bounds the
 # generic body's N1: generic_smem_bytes(N1_MAX) fits, N1_MAX + 1 does not
@@ -230,28 +270,134 @@ def staged_launch(n1: int, n_elem: int, ncols: int,
         kernels=STAGED_KERNELS)
 
 
+def _min_blocks(threads: int) -> int:
+    """Blocks an SM that give 16 warps (at least one)."""
+    warps = -(-threads // 32)
+    return 1 if warps >= 16 else 16 // warps
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def column_elems(n1: int) -> int:
+    """Elements a block of the column body (`column_elems` in the
+    source)."""
+    return COLUMN_THREADS // (n1 * n1) if n1 in (4, 8) else COLUMN_ELEMS[n1]
+
+
+def column_threads(n1: int) -> int:
+    return column_elems(n1) * n1 * n1
+
+
+def column_min_blocks(n1: int) -> int:
+    """The column body's blocks an SM (its __launch_bounds__)."""
+    return COLUMN_MIN_BLOCKS if n1 in (4, 8) else _min_blocks(
+        column_threads(n1))
+
+
+def column_smem_bytes(n1: int) -> int:
+    """Shared memory of one column-body block (`ColumnShared`): x and the
+    three weighted components, N1^3 + pad words an element each, 16-byte
+    aligned; 36 edge words an element; two copies of D-hat."""
+    epb, nc = column_elems(n1), n1 * n1
+    arrays = 4 * _align16(4 * epb * (nc * n1 + COLUMN_PADS[n1]))
+    return _align16(arrays + 4 * (36 * epb + 2 * nc))
+
+
 def column_launch(n1: int, n_elem: int) -> tuple[int, int]:
     """(elements per block, grid) of the column body: N1^2 threads an
-    element, COLUMN_THREADS a block, and as many blocks as cover n_elem
+    element, `column_elems` a block, and as many blocks as cover n_elem
     elements (the last one may be ragged)."""
-    per_block = COLUMN_THREADS // (n1 * n1)
+    per_block = column_elems(n1)
     return per_block, -(-n_elem // per_block)
 
 
-def line_launch(n1: int, n_elem: int, n_sm: int) -> tuple[int, int]:
+def line_elems(n1: int) -> int:
+    """Elements a block of the line body (`line_elems` in the source)."""
+    return LINE_THREADS // (n1 * n1) if n1 in (4, 8) else LINE_ELEMS[n1]
+
+
+def line_threads(n1: int) -> int:
+    return line_elems(n1) * n1 * n1
+
+
+def line_rolls(variant: str, n1: int) -> bool:
+    """Whether the line body rolls the variant's line products at N1."""
+    return n1 >= LINE_ROLL_FROM.get(variant, N1_TUNED_MAX + 1)
+
+
+def line_min_blocks(n1: int, variant: str) -> int:
+    """The line body's blocks an SM its __launch_bounds__ promises:
+    LINE_BLOCKS_PER_SM at N1 = 4 and 8 (also the persistent grid's there),
+    one where the products stay unrolled from LINE_ONE_BLOCK_FROM, else as
+    many as give 16 warps."""
+    if n1 in (4, 8):
+        return LINE_BLOCKS_PER_SM
+    if n1 >= LINE_ONE_BLOCK_FROM and not line_rolls(variant, n1):
+        return 1
+    return _min_blocks(line_threads(n1))
+
+
+def line_smem_bytes(n1: int, variant: str, itemsize: int) -> int:
+    """Shared memory of one line-body block (`LineShared`): two x buffers
+    and s_r, s_s of k-slabs padded by 16 bytes, K4's two Lam buffers where
+    it stages them, and s_t above LINE_HOLD_MAX; members 16-byte
+    aligned."""
+    epb, np_ = line_elems(n1), n1 ** 3
+    sx, sp = n1 * n1 + 16 // itemsize, n1 * n1 + 4
+    held = n1 <= LINE_HOLD_MAX
+    lam = variant == "merged" and held
+    return (_align16(2 * epb * n1 * sx * itemsize)
+            + 2 * _align16(4 * epb * n1 * sp)
+            + _align16((2 if lam else 1) * epb * 2 * (np_ if lam else 1)
+                       * itemsize)
+            + _align16(4 * epb * (1 if held else n1 * sp)))
+
+
+def staged_alignment(n1: int, itemsize: int) -> int:
+    """Bytes the line body's staged operands must be aligned to at N1 (its
+    vectors, `stage_vec_bytes`): the widest of 16, 8 and 4 that divides a
+    thread's N1 values, else one value."""
+    row = n1 * itemsize
+    return next((v for v in (16, 8, 4) if row % v == 0), itemsize)
+
+
+def line_launch(n1: int, n_elem: int, n_sm: int,
+                blocks: int) -> tuple[int, int]:
     """(elements per block, grid) of the line body: N1^2 threads an element,
-    LINE_THREADS a block, and persistent blocks, at most LINE_BLOCKS_PER_SM
-    an SM and at most one a group of elements; block b walks the groups
-    b, b + grid, ... (the last group may be ragged)."""
-    per_block = LINE_THREADS // (n1 * n1)
+    `line_elems` a block, and persistent blocks, at most `blocks` an SM
+    (the wrapper passes `_line_blocks`, what the card holds at once) and at
+    most one a group of elements; block b walks the groups b, b + grid, ...
+    (the last group may be ragged)."""
+    per_block = line_elems(n1)
     groups = -(-n_elem // per_block)
-    return per_block, min(groups, n_sm * LINE_BLOCKS_PER_SM)
+    return per_block, min(groups, n_sm * blocks)
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _line_blocks(variant: str, dtype: torch.dtype, n1: int,
+                 device: torch.device) -> int:
+    """Blocks of the line body's instantiation that one SM of `device` holds
+    at once: LINE_BLOCKS_PER_SM at N1 = 4 and 8 (the measured setting), the
+    CUDA occupancy calculator's answer at every other N1 (C entry point
+    `axhelm_line_blocks_per_sm`), which can exceed the one block
+    `line_min_blocks` promises there."""
+    if n1 in (4, 8):
+        return LINE_BLOCKS_PER_SM
+    with torch.cuda.device(device):
+        blocks = build.library().axhelm_line_blocks_per_sm(
+            KERNEL_VARIANTS.index(variant), int(dtype == torch.bfloat16), n1)
+    if blocks < 1:
+        raise RuntimeError(f"axhelm {variant} line body at N1={n1}: the "
+                           f"occupancy query returned {blocks}")
+    return blocks
 
 
 def reset_launch_counts() -> None:
@@ -330,7 +476,7 @@ def rowwise(x: torch.Tensor, basis: SpectralBasis, variant: str,
             helmholtz: bool = False) -> torch.Tensor:
     """A variant on the one-thread-per-node body of `csrc/axhelm.cu` (the
     entry points' body before the column and line ones), at N1 in
-    KERNEL_N1, on CUDA tensors: timing only, beside `axhelm`.  Counts no
+    ROWWISE_N1, on CUDA tensors: timing only, beside `axhelm`.  Counts no
     launch."""
     if variant not in ROWWISE_VARIANTS:
         raise ValueError(f"rowwise runs {ROWWISE_VARIANTS}, not {variant!r}")
@@ -346,8 +492,8 @@ def generic(x: torch.Tensor, basis: SpectralBasis, variant: str,
             helmholtz: bool = False) -> torch.Tensor:
     """A variant on the generic body of `csrc/axhelm.cu` at any N1 up to
     N1_MAX, KERNEL_N1 included, on CUDA tensors: for tests and timing
-    beside `axhelm`, which takes the generic body only at the N1 the tuned
-    bodies lack.  Counts no launch."""
+    beside `axhelm`, which takes the generic body only above N1_TUNED_MAX.
+    Counts no launch."""
     check_variant(variant)
     helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
     xb = _as_batched(x)
@@ -422,7 +568,7 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
                            twin: Optional[str] = None) -> None:
     """Everything the CUDA kernel does not take raises here: an N1 below 2;
     for the generic body's twin (`twin="any"`) one above N1_MAX, for the
-    node body (`twin="rowwise"`) one outside KERNEL_N1; for the staged body
+    node body (`twin="rowwise"`) one outside ROWWISE_N1; for the staged body
     (above N1_CLUSTER_MAX, or `twin="staged"`) one whose panel does not fit
     in a block's shared memory (above N1_STAGED_MAX); a storage dtype other than float32 or
     bfloat16, an operand whose dtype is not x's, another device, a shape
@@ -436,9 +582,9 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
                          f"(orders 1 to {N1_MAX - 1}): a block's shared "
                          f"memory holds no larger element; got N1={n1} "
                          f"(order {basis.n})")
-    if twin == "rowwise" and n1 not in KERNEL_N1:
+    if twin == "rowwise" and n1 not in ROWWISE_N1:
         raise ValueError(f"the one-thread-per-node body is instantiated for "
-                         f"N1 in {KERNEL_N1}, got N1={n1} (order {basis.n})")
+                         f"N1 in {ROWWISE_N1}, got N1={n1} (order {basis.n})")
     staged_body = body_of(variant, n1, twin) == "staged"
     if staged_body and n1 > N1_STAGED_MAX:
         raise ValueError(f"the staged body runs N1 up to N1_STAGED_MAX = "
@@ -503,18 +649,21 @@ def _column_consts(n: int, storage: torch.dtype) -> torch.Tensor:
 
 
 def _check_staged_alignment(variant, xb, lam0, lam1) -> None:
-    """Raise for an operand the line body stages with 16-byte vector loads
-    (x, and K4's Lam2 and Lam3) that is not STAGED_ALIGNMENT-byte aligned,
+    """Raise for an operand the line body stages with vector loads (x, and
+    up to N1 = LINE_HOLD_MAX K4's Lam2 and Lam3) that is not aligned to
+    them (`staged_alignment` at x's N1, its last axis, and storage type),
     e.g. a contiguous view at an odd storage offset."""
+    n1 = xb.shape[-1]
+    need = staged_alignment(n1, xb.element_size())
     operands = [("x", xb)]
-    if variant == "merged":
+    if variant == "merged" and n1 <= LINE_HOLD_MAX:
         operands += [("lam0", lam0), ("lam1", lam1)]
     for name, t in operands:
-        if t is not None and t.data_ptr() % STAGED_ALIGNMENT:
+        if t is not None and t.data_ptr() % need:
             raise ValueError(
                 f"axhelm {variant} CUDA kernel stages {name} with vector "
-                f"loads, which need a {STAGED_ALIGNMENT}-byte-aligned "
-                f"address; {name} starts at {t.data_ptr():#x}")
+                f"loads, which need a {need}-byte-aligned address at "
+                f"N1={n1}; {name} starts at {t.data_ptr():#x}")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -523,8 +672,9 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
     """The body a launch runs: "column" or "line" (the tuned bodies, at N1
-    in KERNEL_N1), "any" (the generic body: any other N1 up to N1_MAX, or
-    the `generic` twin), "cluster" (N1 above N1_MAX up to N1_CLUSTER_MAX),
+    in KERNEL_N1: 2 to N1_TUNED_MAX), "any" (the generic body: N1 above
+    N1_TUNED_MAX up to N1_MAX, or the `generic` twin), "cluster" (N1 above
+    N1_MAX up to N1_CLUSTER_MAX),
     "staged" (N1 above N1_CLUSTER_MAX, or the `staged` twin) or "rowwise"
     (the node body of the `rowwise` twin)."""
     if twin is not None:
@@ -533,7 +683,7 @@ def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
         return "staged"
     if n1 > N1_MAX:
         return "cluster"
-    if n1 not in KERNEL_N1:
+    if n1 > N1_TUNED_MAX:
         return "any"
     return "column" if variant in COLUMN_VARIANTS else "line"
 
@@ -585,7 +735,9 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
                 rc = fn(*common[:4], consts, *sizes, *grid, stream)
         elif body == "line":
             consts = _ptr(_column_consts(basis.n, xb.dtype))
-            grid = line_launch(basis.n1, e, _sm_count(xb.device))
+            grid = line_launch(basis.n1, e, _sm_count(xb.device),
+                               _line_blocks(variant, xb.dtype, basis.n1,
+                                            xb.device))
             if variant == "parallelepiped":
                 rc = fn(*common[:5], _ptr(w3), consts, *sizes,
                         int(helmholtz), *grid, stream)

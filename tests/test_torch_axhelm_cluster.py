@@ -221,7 +221,8 @@ def test_n1_cluster_max_is_the_largest_element_a_cluster_holds():
 @pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
 def test_axhelm_routes_large_orders_to_the_cluster_body(fake_card, variant,
                                                         n1, dtype):
-    """N1 up to N1_MAX reaches the generic body (`*_any`), N1 above it the
+    """N1 above N1_TUNED_MAX up to N1_MAX reaches the generic body
+    (`*_any`), N1 above it the
     cluster body (`*_cluster`, the generic body's arguments plus the
     cluster size and the planes a block holds); either way the launch
     counts under the entry point."""
@@ -233,6 +234,7 @@ def test_axhelm_routes_large_orders_to_the_cluster_body(fake_card, variant,
                **_lams_meta(variant, e, n1, dtype))
     (name, args), = fake_card.calls
     entry = ops.entry_point(variant, dtype)
+    assert n1 > ops.N1_TUNED_MAX
     body = "cluster" if n1 > ops.N1_MAX else "any"
     assert ops.body_of(variant, n1) == body
     assert name == f"{entry}_{body}" == build.symbol(

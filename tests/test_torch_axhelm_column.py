@@ -19,6 +19,7 @@ The kernels themselves run on the card only: tests/test_torch_cuda.py.
 """
 
 import contextlib
+import re
 import sys
 import types
 from pathlib import Path
@@ -32,6 +33,7 @@ from repro.core import axhelm as jax_axhelm
 from repro.core import geometry as jgeom
 from repro.core import mesh_gen as jmesh
 from repro.core.spectral import basis as jbasis
+from repro.kernels.axhelm import ops as jops
 from repro_torch.core.spectral import basis as tbasis
 from repro_torch.kernels.axhelm import build, ops
 
@@ -157,6 +159,117 @@ def test_hoisted_det_gives_the_partial_gscale(geometry):
     assert _rel(0.125 * b.w3 / det, gscale) <= RTOL64
 
 
+def column_body(x, dhat, xi, w3, variant, verts, lam0, lam1, helmholtz):
+    """The kernel's two passes in float64, in its order and layout: x (E, C,
+    N1^3) -> y.  The elements of a block (`ops.column_elems`) lie side by
+    side in s_x, s_r, s_s and s_t, N1^3 + pad words apart (the absent ones
+    of the ragged last block compute on the last element and store
+    nothing); per column, thread (i, j) walks k: x_r along row j of the
+    slab (the D-hat row of i), x_s along column i (the row of j), x_t from
+    its own N1 values (the D-hat row of k), the factors of Alg. 3 in the
+    kernel's order (`column_geometry`), then the transpose pass, adding K2's
+    Helmholtz mass on the way.  Vectorised over the threads of an element.
+    lam0 is gScale for partial."""
+    e_count, ncols = x.shape[:2]
+    n1 = len(xi)
+    nc, np_ = n1 * n1, n1 ** 3
+    epb, es = ops.column_elems(n1), np_ + ops.COLUMN_PADS[n1]
+    _, adj, det, _, _ = column_geometry(verts, xi, w3.reshape((n1,) * 3))
+    col = np.arange(nc)
+    i, j = col % n1, col // n1
+    y = np.full_like(x, np.nan)
+    for b0 in range(0, e_count, epb):
+        elems = [min(b0 + le, e_count - 1) for le in range(epb)]
+        for c in range(ncols):
+            s_x, s_r, s_s, s_t = (np.zeros(epb * es) for _ in range(4))
+            for le, e in enumerate(elems):                # x into s_x
+                s_x[le * es:le * es + np_] = x[e, c]
+            for le, e in enumerate(elems):                # forward pass
+                base, xk = le * es, x[e, c].reshape(n1, nc)
+                for k in range(n1):
+                    slab = s_x[base + k * nc:base + (k + 1) * nc]
+                    xr = np.sum(dhat[i] * slab[j[:, None] * n1
+                                               + np.arange(n1)], axis=1)
+                    xs = np.sum(dhat[j] * slab[np.arange(n1) * n1
+                                               + i[:, None]], axis=1)
+                    xt = dhat[k] @ xk
+                    node = k * nc + col
+                    g = adj[e, k].reshape(nc, 6)
+                    if variant == "trilinear":
+                        scale = 0.125 * w3[node] / det[e, k].reshape(nc)
+                        if lam0 is not None:
+                            scale = scale * lam0[e, node]
+                    else:                                 # partial: gScale
+                        scale = lam0[e, node]
+                    xr, xs, xt = xr * scale, xs * scale, xt * scale
+                    s_r[base + node] = g[:, 0] * xr + g[:, 1] * xs + \
+                        g[:, 2] * xt
+                    s_s[base + node] = g[:, 1] * xr + g[:, 3] * xs + \
+                        g[:, 4] * xt
+                    s_t[base + node] = g[:, 2] * xr + g[:, 4] * xs + \
+                        g[:, 5] * xt
+            for le, e in enumerate(elems):                # transpose pass
+                if b0 + le >= e_count:
+                    continue
+                base = le * es
+                gt = s_t[base:base + np_].reshape(n1, nc)
+                for k in range(n1):
+                    node = k * nc + col
+                    yv = np.zeros(nc)
+                    if variant == "trilinear" and helmholtz:
+                        mass = w3[node] * det[e, k].reshape(nc) / 512
+                        if lam1 is not None:
+                            mass = mass * lam1[e, node]
+                        yv = mass * s_x[base + node]
+                    slab_r = s_r[base + k * nc:base + (k + 1) * nc]
+                    slab_s = s_s[base + k * nc:base + (k + 1) * nc]
+                    yv = yv + np.sum(dhat[:, i].T * slab_r[
+                        j[:, None] * n1 + np.arange(n1)], axis=1)
+                    yv = yv + np.sum(dhat[:, j].T * slab_s[
+                        np.arange(n1) * n1 + i[:, None]], axis=1)
+                    yv = yv + dhat[:, k] @ gt
+                    y[e, c, node] = yv
+    return y
+
+
+COLUMN_WALK_CASES = [("trilinear", False), ("trilinear", True),
+                     ("partial", False)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 9, 12, 15])
+@pytest.mark.parametrize("variant,helm", COLUMN_WALK_CASES)
+def test_column_passes_match_reference(x64, variant, helm, n):
+    """K2 Poisson and Helmholtz with per-node lam0 (and lam1) fields, K5
+    on the reference's gScale, at N1 = 2, 3, 4, 5, 6, 8, 10, 13 and 16,
+    two columns an element, against the reference package's jnp oracle:
+    float64, <= 1e-12 relative; blocks of several elements with a ragged
+    last one where the N1 has them."""
+    rng = np.random.default_rng(100 + 10 * n + helm)
+    b = jbasis(n)
+    n1 = b.n1
+    box = jmesh.box_mesh(3, 2, 2, n) if n1 <= 6 else \
+        jmesh.box_mesh(2, 1, 1, n)
+    verts = np.asarray(jmesh.deform_trilinear(box, seed=3).verts,
+                       np.float64)
+    e = len(verts)
+    x = rng.standard_normal((e, 2, n1 ** 3))
+    lam0 = 1 + 0.3 * rng.random((e, n1 ** 3))
+    lam1 = 0.5 + 0.2 * rng.random((e, n1 ** 3)) if helm else None
+    if variant == "partial":
+        lam0 = np.asarray(jax_axhelm.setup_partial_gscale(
+            jnp.asarray(verts), b)).reshape(e, -1)
+    ours = column_body(x, np.asarray(b.dhat), np.asarray(b.points),
+                       np.asarray(b.w3).reshape(-1), variant, verts, lam0,
+                       lam1, helm)
+    shape = (e, 2) + (n1,) * 3
+    kw = {"lam0": jnp.asarray(lam0.reshape((e,) + (n1,) * 3))}
+    if lam1 is not None:
+        kw["lam1"] = jnp.asarray(lam1.reshape((e,) + (n1,) * 3))
+    ref = jops.reference(jnp.asarray(x.reshape(shape)), b, variant,
+                         jnp.asarray(verts), helmholtz=helm, **kw)
+    assert _rel(ours.reshape(shape), ref) <= RTOL64
+
+
 def test_edges_are_the_pairs_of_algorithm_3():
     """edge_vertices walks the r, s, t edges in the order the kernel's
     column terms weight them (jacobian_trilinear_at's vertex pairs)."""
@@ -169,10 +282,126 @@ def test_edges_are_the_pairs_of_algorithm_3():
 @pytest.mark.parametrize("n1", ops.KERNEL_N1)
 @pytest.mark.parametrize("n_elem", [1, 2, 3, 8, 37, 4096, 4099])
 def test_column_launch_covers_every_element(n1, n_elem):
+    """Every N1 from 2 to 16: the elements a block fill whole warps but for
+    a few lanes of the last (all of them at N1 = 4 and 8, COLUMN_THREADS),
+    the blocks an SM give at most 16 warps and about 128 registers a
+    thread, a block's shared memory fits (and so do the SM's blocks), and
+    the grid covers every element once, the last block ragged."""
     per_block, grid = ops.column_launch(n1, n_elem)
-    assert per_block * n1 * n1 == ops.COLUMN_THREADS
-    assert ops.COLUMN_THREADS % 32 == 0
+    threads = per_block * n1 * n1
+    warps = -(-threads // 32)
+    assert per_block == ops.column_elems(n1) >= 1
+    assert threads == ops.column_threads(n1) <= 256
+    if n1 in (4, 8):
+        assert threads == ops.COLUMN_THREADS and ops.COLUMN_THREADS % 32 == 0
+    assert threads >= 0.875 * 32 * warps
+    blocks = ops.column_min_blocks(n1)
+    assert blocks * warps <= 16 and 65536 // (blocks * warps * 32) >= 128
+    smem = ops.column_smem_bytes(n1)
+    assert smem <= ops.SMEM_PER_BLOCK and blocks * smem <= 233472
     assert (grid - 1) * per_block < n_elem <= grid * per_block
+    covered = [b * per_block + le for b in range(grid)
+               for le in range(per_block) if b * per_block + le < n_elem]
+    assert covered == list(range(n_elem))
+
+
+def _source_table(text, name):
+    """The values of `constexpr int <name>[17] = {...};` in a CUDA source."""
+    body = re.search(rf"constexpr int {name}\[17\] = \{{([^}}]*)\}};",
+                     text).group(1)
+    return [int(v) for v in body.split(",")]
+
+
+def test_column_constants_follow_the_source():
+    """The wrapper's launch shapes mirror the column body's: threads and
+    blocks an SM at N1 = 4 and 8, the elements a block and the element pads
+    at every other N1, the smallest N1 whose D-hat rows leave registers."""
+    text = (chip_smoke.ROOT / chip_smoke.SOURCE["column"]).read_text()
+
+    def const(name):
+        return int(re.search(rf"{name} = (\d+);", text).group(1))
+    assert const("kColumnThreads") == ops.COLUMN_THREADS
+    assert const("kColumnMinBlocks") == ops.COLUMN_MIN_BLOCKS
+    assert const("kColumnDRegsMax") == 8
+    elems = _source_table(text, "elems")
+    assert {n1: elems[n1] for n1 in ops.COLUMN_ELEMS} == ops.COLUMN_ELEMS
+    assert elems[4] == elems[8] == 0            # kColumnThreads / N1^2 there
+    pads = _source_table(text, "pads")
+    assert {n1: pads[n1] for n1 in ops.KERNEL_N1} == ops.COLUMN_PADS
+    assert set(ops.COLUMN_ELEMS) | {4, 8} == set(ops.KERNEL_N1)
+
+
+def _wavefront_ways(addresses, width):
+    """The ways of the worst phase of one warp instruction: `addresses` the
+    lanes' byte addresses, `width` bytes a lane.  A 16-byte access runs in
+    phases of 8 lanes, an 8-byte one of 16, narrower ones in one; a phase
+    takes as many wavefronts as the most distinct 4-byte words in one of
+    the 32 banks (test_torch_axhelm_line.py's `_wavefronts`, per phase)."""
+    lanes = {16: 8, 8: 16}.get(width, 32)
+    worst = 0
+    for p in range(0, len(addresses), lanes):
+        banks = {}
+        for a in addresses[p:p + lanes]:
+            for w in range(a // 4, (a + max(width, 4) - 1) // 4 + 1):
+                banks.setdefault(w % 32, set()).add(w)
+        worst = max(worst, max(len(words) for words in banks.values()))
+    return worst
+
+
+def column_bank_ways(n1):
+    """The ways of the column body's shared accesses over every warp of a
+    block, element e of the block at e (N1^3 + pad) words: "store" the
+    stores and the owner's loads at fixed k, "row" the r rows (float4,
+    float2 or one word, as row_fma reads them), "col" the s columns at
+    fixed m."""
+    nc = n1 * n1
+    es = nc * n1 + ops.COLUMN_PADS[n1]
+    width = next(v for v in (16, 8, 4) if (4 * n1) % v == 0)
+    threads = ops.column_threads(n1)
+    ways = {"store": 0, "row": 0, "col": 0}
+    for w0 in range(0, threads, 32):
+        lanes = [(th // nc, th % nc % n1, th % nc // n1, th % nc)
+                 for th in range(w0, min(w0 + 32, threads))]
+        for k in range(n1):
+            ways["store"] = max(ways["store"], _wavefront_ways(
+                [4 * (le * es + k * nc + c) for le, i, j, c in lanes], 4))
+            for q in range(4 * n1 // width):
+                ways["row"] = max(ways["row"], _wavefront_ways(
+                    [4 * (le * es + k * nc + j * n1) + width * q
+                     for le, i, j, c in lanes], width))
+            for m in range(n1):
+                ways["col"] = max(ways["col"], _wavefront_ways(
+                    [4 * (le * es + k * nc + m * n1 + i)
+                     for le, i, j, c in lanes], 4))
+    return ways
+
+
+def _comment_table(text, first, rows):
+    """{row name: {N1: value}} of a table in a source comment: the line
+    starting with `first` names the N1, the next lines hold `rows`."""
+    lines = text.splitlines()
+    at = next(k for k, line in enumerate(lines)
+              if line.lstrip("/ ").startswith(first))
+    n1s = [int(v) for v in lines[at].split(":")[1].split()]
+    out = {}
+    for line in lines[at + 1:at + 1 + len(rows)]:
+        name, values = line.lstrip("/ ").split(":")
+        out[name.strip()] = dict(zip(n1s, map(int, values.split())))
+    assert list(out) == list(rows)
+    return out
+
+
+@pytest.mark.parametrize("n1", ops.KERNEL_N1)
+def test_column_bank_conflicts_are_what_the_source_states(n1):
+    """The model's ways of each access are the source note's table, and
+    its pads the wrapper's; every access but the stores at N1 = 4, 6, 10
+    and the s columns at N1 = 4 (2 ways) is conflict free."""
+    text = (chip_smoke.ROOT / chip_smoke.SOURCE["column"]).read_text()
+    table = _comment_table(text, "N1:", ("pad", "store", "row", "col"))
+    assert table["pad"][n1] == ops.COLUMN_PADS[n1]
+    ways = column_bank_ways(n1)
+    assert ways == {k: table[k][n1] for k in ("store", "row", "col")}
+    assert max(ways.values()) == (2 if n1 in (4, 6, 10) else 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -226,6 +455,9 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=7))
     monkeypatch.setattr(ops, "_sm_count", lambda d: 132)
+    monkeypatch.setattr(ops, "_line_blocks",
+                        lambda variant, dtype, n1, d:
+                        ops.line_min_blocks(n1, variant))
     return lib
 
 

@@ -22,6 +22,7 @@ The kernel itself runs on the card only: tests/test_torch_cuda.py.
 
 import functools
 import sys
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -249,12 +250,12 @@ def _lams_meta(variant, e, n1, dtype=torch.float32):
     return {name: _meta((e, n1, n1, n1), dtype) for name in names}
 
 
-@pytest.mark.parametrize("n1", [2, 4, 6, 8, 16, ops.N1_MAX])
+@pytest.mark.parametrize("n1", [2, 4, 6, 8, 16, 17, ops.N1_MAX])
 @pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
 def test_axhelm_routes_each_order_to_its_body(fake_card, variant, n1):
-    """N1 = 4 and 8 reach the entry point's tuned body, every other N1 its
-    generic body (`*_any`, one signature for all five); either way the
-    launch counts under the entry point."""
+    """N1 from 2 to N1_TUNED_MAX = 16 reaches the entry point's tuned body,
+    N1 above it up to N1_MAX its generic body (`*_any`, one signature for
+    all five); either way the launch counts under the entry point."""
     b = tbasis(n1 - 1)
     e, helm = 3, variant == "merged"
     before = dict(ops.launch_counts)
@@ -263,7 +264,8 @@ def test_axhelm_routes_each_order_to_its_body(fake_card, variant, n1):
                **_lams_meta(variant, e, n1))
     (name, args), = fake_card.calls
     entry = ops.entry_point(variant, torch.float32)
-    tuned = n1 in ops.KERNEL_N1
+    tuned = n1 <= ops.N1_TUNED_MAX
+    assert tuned == (n1 in ops.KERNEL_N1)
     assert name == (entry if tuned else f"{entry}_any")
     assert name == build.symbol(variant if tuned else f"{variant}_any", "f32")
     assert len(args) == len(build.SIGNATURES[variant if tuned
@@ -274,6 +276,41 @@ def test_axhelm_routes_each_order_to_its_body(fake_card, variant, n1):
     if not tuned:
         assert args[8:12] == (n1, e, 2, int(helm)) and args[-1] == 7
     assert ops.launch_counts[entry] == before[entry] + 1
+
+
+@pytest.mark.parametrize("n1", [1, 15, 16, 17, 24, 25])
+@pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
+def test_body_of_routes_at_the_tuned_and_generic_edges(fake_card, monkeypatch,
+                                                       variant, n1):
+    """`body_of` and the launch it makes at the edges of the tuned range
+    (N1 = 2 to 16), the generic body's (17 to 24) and the cluster body's
+    first N1: N1 = 1 (order 0, which has no GLL basis) is refused before
+    any launch."""
+    b = tbasis(n1 - 1) if n1 > 1 else types.SimpleNamespace(n=0, n1=1)
+    e, helm = 3, variant == "merged"
+    want = {1: None, 15: "tuned", 16: "tuned", 17: "any", 24: "any",
+            25: "cluster"}[n1]
+    tuned = "column" if variant in ops.COLUMN_VARIANTS else "line"
+    if want is not None:
+        assert ops.body_of(variant, n1) == (tuned if want == "tuned"
+                                            else want)
+    call = functools.partial(
+        ops.axhelm, _meta((e, 2, 1) + (n1,) * 3), b, variant,
+        _geom_meta(variant, e, n1), helmholtz=helm,
+        **_lams_meta(variant, e, n1))
+    if want is None:
+        monkeypatch.setattr(ops, "_check_kernel_operands", _REAL_CHECK)
+        with pytest.raises(ValueError, match="N1 from 2"):
+            call()
+        assert fake_card.calls == []
+        return
+    call()
+    (name, _), = fake_card.calls
+    entry = ops.entry_point(variant, torch.float32)
+    assert name == (entry if want == "tuned" else f"{entry}_{want}")
+
+
+_REAL_CHECK = ops._check_kernel_operands
 
 
 @pytest.mark.parametrize("n1", [4, 8])

@@ -21,6 +21,7 @@ not CUDA.
 The kernels themselves run on the card only: tests/test_torch_cuda.py.
 """
 
+import ctypes
 import re
 import sys
 from pathlib import Path
@@ -39,7 +40,9 @@ from repro.kernels.axhelm import ref as jref
 from repro_torch.core.spectral import basis as tbasis
 from repro_torch.kernels.axhelm import build, ops
 
-from test_torch_axhelm_column import _meta, column_geometry, fake_card  # noqa: F401,E501
+from test_torch_axhelm_column import (_comment_table, _meta,  # noqa: F401
+                                      _source_table, _wavefront_ways,
+                                      column_geometry, fake_card)
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -62,6 +65,13 @@ def slab_stride(n1, itemsize):
     return n1 * n1 + 16 // itemsize
 
 
+def s_plane(n1, q):
+    """The kernel's k'' of the s lines of threads q N1 .. q N1 + N1 - 1: a
+    permutation of 0..N1-1 (2q mod N1 + 2q / N1 at even N1, 2q mod N1 at
+    odd)."""
+    return (2 * q) % n1 + ((2 * q) // n1 if n1 % 2 == 0 else 0)
+
+
 def roles(n1):
     """Per thread t of an element: its node column (i, j), its r line
     (j', k') and its s line (i', k''), as the kernel assigns them."""
@@ -69,7 +79,7 @@ def roles(n1):
     for t in range(n1 * n1):
         q = t // n1
         out.append({"col": (t % n1, t // n1), "r": (t // n1, t % n1),
-                    "s": (t % n1, (2 * q) % n1 + (2 * q) // n1)})
+                    "s": (t % n1, s_plane(n1, q))})
     return out
 
 
@@ -80,67 +90,64 @@ def sr_index(n1, sp, k, j, i):
 
 def line_body(x, dhat, xi, w3, variant, geom, lam0, lam1, helmholtz):
     """The kernel's phases in float64: x (E, C, N1^3) -> y, one element
-    column at a time, through the padded slabs of s_x, s_r and s_s."""
+    column at a time, through the padded slabs of s_x, s_r and s_s; each
+    phase vectorised over the element's threads, each thread's role as
+    `roles` gives it."""
     e_count, ncols = x.shape[:2]
     n1 = len(xi)
     nc, m = n1 * n1, np.arange(n1)
     sx = sp = slab_stride(n1, 4)
     if variant == "merged":                               # (E, k, j, i, 6)
         _, adj, _, _, _ = column_geometry(geom, xi, w3.reshape((n1,) * 3))
+    t = np.arange(nc)
+    rs = roles(n1)
+    rj, rk = (np.array([r["r"][a] for r in rs]) for a in (0, 1))
+    si, sk = (np.array([r["s"][a] for r in rs]) for a in (0, 1))
+    row_x = rk[:, None] * sx + rj[:, None] * n1 + m        # (threads, m)
+    row_p = rk[:, None] * sp + rj[:, None] * n1 + m
+    sline_x = sk[:, None] * sx + m * n1 + si[:, None]
+    sline_p = sk[:, None] * sp + m * n1 + si[:, None]
+    col_x = m[:, None] * sx + t                            # (m, threads)
     y = np.empty_like(x)
     for e in range(e_count):
         for c in range(ncols):
             xs = np.zeros(n1 * sx)
-            for t in range(nc):          # the Stager: N1 values a thread
-                k, at = t * n1 // nc, t * n1 % nc
-                xs[k * sx + at:k * sx + at + n1] = x[e, c, t * n1:(t + 1) * n1]
+            # the Stager: thread t's N1 values at t N1 % N1^2 of slab
+            # t N1 / N1^2
+            xs[((t * n1 // nc) * sx + t * n1 % nc)[:, None] + m] = \
+                x[e, c].reshape(nc, n1)
             pr, ps = np.zeros(n1 * sp), np.zeros(n1 * sp)
-            xt, yv = {}, {}
-            for t, role in enumerate(roles(n1)):          # (A)
-                rj, rk = role["r"]
-                row = sr_index(n1, sp, rk, rj, m)
-                pr[row] = dhat @ xs[rk * sx + rj * n1 + m]
-                si, sk = role["s"]
-                ps[sk * sp + m * n1 + si] = dhat @ xs[sk * sx + m * n1 + si]
-                xt[t] = dhat @ xs[m * sx + t]
-            for t, role in enumerate(roles(n1)):          # (B)
-                i, j = role["col"]
-                yv[t] = np.zeros(n1)
-                for k in range(n1):
-                    o, node = k * sp + t, k * nc + t
-                    orr = sr_index(n1, sp, k, j, i)
-                    gr, gs, gt = pr[orr], ps[o], xt[t][k]
-                    if variant == "merged":
-                        g = adj[e, k, j, i]
-                        scale, mass = lam0[e, node], lam1[e, node]
-                    elif variant == "precomputed":     # planar (E, 7, N1^3)
-                        g = geom[e, :6, node]
-                        scale = 1 if lam0 is None else lam0[e, node]
-                        mass = geom[e, 6, node] * (
-                            1 if lam1 is None else lam1[e, node])
-                    else:
-                        g = geom[e, :6]
-                        scale = w3[node] * (1 if lam0 is None
-                                            else lam0[e, node])
-                        mass = geom[e, 6] * w3[node] * (
-                            1 if lam1 is None else lam1[e, node])
-                    gr, gs, gt = gr * scale, gs * scale, gt * scale
-                    pr[orr] = g[0] * gr + g[1] * gs + g[2] * gt
-                    ps[o] = g[1] * gr + g[3] * gs + g[4] * gt
-                    yv[t] += dhat[k] * (g[2] * gr + g[4] * gs + g[5] * gt)
-                    if helmholtz:
-                        yv[t][k] += mass * xs[k * sx + t]
-            for t, role in enumerate(roles(n1)):          # (C)
-                rj, rk = role["r"]
-                row = sr_index(n1, sp, rk, rj, m)
-                pr[row] = dhat.T @ pr[row]
-                si, sk = role["s"]
-                col = sk * sp + m * n1 + si
-                ps[col] = dhat.T @ ps[col]
-            for t, role in enumerate(roles(n1)):          # (D)
-                k = np.arange(n1)
-                y[e, c, k * nc + t] = yv[t] + ps[k * sp + t] + pr[
-                    sr_index(n1, sp, k, role["col"][1], role["col"][0])]
+            pr[row_p] = xs[row_x] @ dhat.T                 # (A)
+            ps[sline_p] = xs[sline_x] @ dhat.T
+            xt = dhat @ xs[col_x]                          # (n, threads)
+            yv = np.zeros((n1, nc))                        # (B)
+            for k in range(n1):
+                o, node = k * sp + t, k * nc + t
+                gr, gs, gt = pr[o], ps[o], xt[k]
+                if variant == "merged":
+                    g = adj[e, k].reshape(nc, 6).T
+                    scale, mass = lam0[e, node], lam1[e, node]
+                elif variant == "precomputed":     # planar (E, 7, N1^3)
+                    g = geom[e, :6][:, node]
+                    scale = 1 if lam0 is None else lam0[e, node]
+                    mass = geom[e, 6, node] * (
+                        1 if lam1 is None else lam1[e, node])
+                else:
+                    g = np.broadcast_to(geom[e, :6, None], (6, nc))
+                    scale = w3[node] * (1 if lam0 is None else lam0[e, node])
+                    mass = geom[e, 6] * w3[node] * (
+                        1 if lam1 is None else lam1[e, node])
+                gr, gs, gt = gr * scale, gs * scale, gt * scale
+                pr[o] = g[0] * gr + g[1] * gs + g[2] * gt
+                ps[o] = g[1] * gr + g[3] * gs + g[4] * gt
+                yv += dhat[k][:, None] * (g[2] * gr + g[4] * gs + g[5] * gt)
+                if helmholtz:
+                    yv[k] += mass * xs[k * sx + t]
+            pr[row_p] = pr[row_p] @ dhat                   # (C)
+            ps[sline_p] = ps[sline_p] @ dhat
+            for k in range(n1):                            # (D)
+                y[e, c, k * nc + t] = yv[k] + ps[k * sp + t] + pr[
+                    sr_index(n1, sp, k, t // n1, t % n1)]
     return y
 
 
@@ -148,17 +155,19 @@ LINE_CASES = [("parallelepiped", False), ("parallelepiped", True),
               ("merged", True), ("precomputed", False), ("precomputed", True)]
 
 
-@pytest.mark.parametrize("n", [3, 7])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 9, 12, 15])
 @pytest.mark.parametrize("variant,helm", LINE_CASES)
 def test_line_phases_match_reference(x64, variant, helm, n):
     """K1 and K3 with per-node lam0 (and lam1) fields, K4 with the
-    reference's Lam2/Lam3 of random lambdas; two columns an element.  K1's
-    factors are the reference's discrete ones, laid out in planes for the
-    model and packed for the reference."""
+    reference's Lam2/Lam3 of random lambdas; two columns an element; N1 =
+    2, 3, 4, 5, 6, 8, 10, 13 and 16.  K1's factors are the reference's
+    discrete ones, laid out in planes for the model and packed for the
+    reference."""
     rng = np.random.default_rng(10 * n + helm)
     b = jbasis(n)
     n1 = b.n1
-    box = jmesh.box_mesh(2, 1, 2, n)
+    box = jmesh.box_mesh(2, 1, 2, n) if n1 <= 8 else jmesh.box_mesh(2, 1, 1,
+                                                                     n)
     ref_geom = None
     if variant == "parallelepiped":
         verts = np.asarray(jmesh.deform_affine(box, seed=2).verts)
@@ -273,17 +282,107 @@ def test_r_components_layout_is_free_of_bank_conflicts(access):
                 assert _wavefronts(addr, 4) == 1
 
 
+def line_bank_ways(n1, itemsize):
+    """The ways of the worst phase of each of the line body's shared
+    accesses over every warp of a block (`_wavefront_ways`): the Stager's
+    stores ("stager", vectors of `ops.staged_alignment`), the r lines'
+    rows, the s lines' reads at fixed m and the owner's at fixed k, of x
+    ("x row", "x s", "x col", in the storage type, rows as `load_row`
+    reads them) and of s_r, s_s ("p row", "p s", "p col", fp32); slabs
+    padded by 16 bytes, element e of a block N1 slabs after e - 1."""
+    nc = n1 * n1
+    sx, sp = slab_stride(n1, itemsize), slab_stride(n1, 4)
+    vec = ops.staged_alignment(n1, itemsize)
+    wx = next((v for v in (16, 8, 4) if (n1 * itemsize) % v == 0), itemsize)
+    wp = next(v for v in (16, 8, 4) if (4 * n1) % v == 0)
+    threads = ops.line_threads(n1)
+    ways = dict.fromkeys(("stager", "x row", "x s", "x col", "p row", "p s",
+                          "p col"), 0)
+
+    def add(name, addresses, width):
+        ways[name] = max(ways[name], _wavefront_ways(addresses, width))
+    rs = roles(n1)
+    for w0 in range(0, threads, 32):
+        lanes = [(th // nc, th % nc, rs[th % nc])
+                 for th in range(w0, min(w0 + 32, threads))]
+        ex = [le * n1 * sx for le, _, _ in lanes]
+        ep = [le * n1 * sp for le, _, _ in lanes]
+        for q in range(n1 * itemsize // vec):
+            add("stager", [itemsize * (b + (u * n1 // nc) * sx + u * n1 % nc)
+                           + vec * q for b, (_, u, _) in zip(ex, lanes)], vec)
+        for q in range(n1 * itemsize // wx):
+            add("x row", [itemsize * (b + r["r"][1] * sx + r["r"][0] * n1)
+                          + wx * q for b, (_, _, r) in zip(ex, lanes)], wx)
+        for q in range(4 * n1 // wp):
+            add("p row", [4 * (b + r["r"][1] * sp + r["r"][0] * n1) + wp * q
+                          for b, (_, _, r) in zip(ep, lanes)], wp)
+        for m in range(n1):
+            add("x s", [itemsize * (b + r["s"][1] * sx + m * n1 + r["s"][0])
+                        for b, (_, _, r) in zip(ex, lanes)], itemsize)
+            add("p s", [4 * (b + r["s"][1] * sp + m * n1 + r["s"][0])
+                        for b, (_, _, r) in zip(ep, lanes)], 4)
+            add("x col", [itemsize * (b + m * sx + u)
+                          for b, (_, u, _) in zip(ex, lanes)], itemsize)
+            add("p col", [4 * (b + m * sp + u)
+                          for b, (_, u, _) in zip(ep, lanes)], 4)
+    return ways
+
+
+LINE_BANK_ROWS = ("stager", "x row", "x s", "x col", "p row", "p s", "p col")
+
+
+@pytest.mark.parametrize("n1", ops.KERNEL_N1)
+def test_line_bank_conflicts_are_what_the_source_states(n1):
+    """The model's ways of each access, fp32 and bf16, are the source
+    note's tables (bf16's s_r and s_s are fp32's); at N1 = 8 they are the
+    conflict-free layout the tests above count, but for the fp32 Stager."""
+    text = (ROOT / chip_smoke.SOURCE["line"]).read_text()
+    for itemsize, first, rows in ((4, "fp32 N1:", LINE_BANK_ROWS),
+                                  (2, "bf16 N1:", LINE_BANK_ROWS[:4])):
+        table = _comment_table(text, first, rows)
+        ways = line_bank_ways(n1, itemsize)
+        assert {k: ways[k] for k in rows} == {k: table[k][n1] for k in rows}
+    if n1 == 8:
+        assert line_bank_ways(8, 4) == dict(
+            dict.fromkeys(LINE_BANK_ROWS, 1), stager=2)
+        assert set(line_bank_ways(8, 2).values()) == {1}
+
+
 @pytest.mark.parametrize("n_sm", [1, 2, 132])
 @pytest.mark.parametrize("n_elem", [1, 2, 3, 37, 4096, 4099])
 @pytest.mark.parametrize("n1", ops.KERNEL_N1)
 def test_line_launch_covers_every_element_once(n1, n_elem, n_sm):
     """The kernel's walk: block b takes groups b, b + grid, ...; group g
     holds elements g * per_block + l, the absent ones of the last group
-    masked."""
-    per_block, grid = ops.line_launch(n1, n_elem, n_sm)
+    masked.  The elements a block fill whole warps but for a few lanes of
+    the last (LINE_THREADS at N1 = 4 and 8), at most 16 warps an SM and
+    about 128 registers a thread (one block, up to 255, where the lines'
+    products stay unrolled from LINE_ONE_BLOCK_FROM), and a block's shared
+    memory (and the SM's blocks') fits, for every variant and storage type;
+    the grid takes the blocks an SM it is given (what the card holds)."""
+    threads = ops.line_threads(n1)
+    warps = -(-threads // 32)
+    assert ops.line_elems(n1) >= 1 and threads <= 256
+    if n1 in (4, 8):
+        assert threads == ops.LINE_THREADS
+    assert threads >= 0.75 * 32 * warps
+    for variant in ops.LINE_VARIANTS:
+        blocks = ops.line_min_blocks(n1, variant)
+        assert blocks * warps <= 16 and 65536 // (blocks * warps * 32) >= 128
+        wide = n1 >= ops.LINE_ONE_BLOCK_FROM and \
+            not ops.line_rolls(variant, n1)
+        assert (blocks == 1) >= wide
+        assert ops.line_rolls(variant, n1) == (
+            variant != "parallelepiped" and
+            n1 >= {"precomputed": 12, "merged": 11}[variant])
+        for itemsize in (4, 2):
+            smem = ops.line_smem_bytes(n1, variant, itemsize)
+            assert smem <= ops.SMEM_PER_BLOCK and blocks * smem <= 233472
+    blocks = 3
+    per_block, grid = ops.line_launch(n1, n_elem, n_sm, blocks)
+    assert per_block == ops.line_elems(n1)
     groups = -(-n_elem // per_block)
-    assert per_block * n1 * n1 == ops.LINE_THREADS
-    assert 1 <= grid <= min(groups, n_sm * ops.LINE_BLOCKS_PER_SM)
+    assert 1 <= grid == min(groups, n_sm * blocks)
     seen = []
     for block in range(grid):
         for g in range(block, groups, grid):
@@ -348,7 +447,7 @@ def test_wrapper_passes_line_entry_points_their_arguments(fake_card, variant,
     assert len(args) == len(build.SIGNATURES[variant])
     assert ops.launch_counts[name] == before[name] + 1
     assert args[-1] == 7                                   # the stream
-    assert args[-3:-1] == ops.line_launch(8, e, 132)
+    assert args[-3:-1] == ops.line_launch(8, e, 132, ops.LINE_BLOCKS_PER_SM)
     # parallelepiped passes w3 before the constants, helmholtz after the
     # sizes
     at = 6 if variant == "parallelepiped" else 5
@@ -371,6 +470,63 @@ def test_misaligned_staged_operand_raises(fake_card, variant, dtype):
     with pytest.raises(ValueError, match="16-byte-aligned"):
         ops.axhelm(x, b, variant, geom, helmholtz=variant == "merged", **kw)
     assert fake_card.calls == [] and ops.launch_counts == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n1", [4, 8])
+@pytest.mark.parametrize("variant", ops.LINE_VARIANTS)
+def test_misaligned_x_still_raises_at_n1_4_and_8(fake_card, variant, n1,
+                                                 dtype):
+    """A contiguous x one 8-byte step (fp32) or one 4-byte step (bf16) off
+    a 16-byte boundary: N1 = 4 and 8 stage with 16- (or, bf16 N1 = 4,
+    8-) byte vectors, which refuse it, as before N1 2-16 ran here."""
+    b = tbasis(n1 - 1)
+    np_ = n1 ** 3
+    step = 2
+    x = _meta((5 * np_ + step,), dtype)[step:].view(5, n1, n1, n1)
+    assert x.data_ptr() % ops.staged_alignment(n1, x.element_size())
+    geom, kw = _line_call_n1(variant, dtype, x, n1)
+    with pytest.raises(ValueError, match="aligned address"):
+        ops.axhelm(x, b, variant, geom, helmholtz=variant == "merged", **kw)
+    assert fake_card.calls == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n1", [2, 3, 5, 6, 7, 9, 10, 13, 16])
+@pytest.mark.parametrize("variant", ops.LINE_VARIANTS)
+def test_operands_at_an_element_offset_are_taken(fake_card, variant, n1,
+                                                 dtype):
+    """x, Lam2 and Lam3 from element 1 of a batch on (a shard's interior
+    launch takes such views): at odd N1 an element's N1^3 values end off
+    any vector boundary, and the Stager there moves one value a load
+    (`staged_alignment`), so the wrapper takes them and launches; at even
+    N1 the element offset keeps the vectors' alignment."""
+    b = tbasis(n1 - 1)
+    np_ = n1 ** 3
+    x = _meta((6, np_), dtype)[1:].view(5, n1, n1, n1)
+    need = ops.staged_alignment(n1, x.element_size())
+    assert x.data_ptr() % need == 0
+    assert (n1 % 2 == 1) == (need == x.element_size())
+    if n1 % 2:
+        assert (np_ * x.element_size()) % 8
+    geom, kw = _line_call_n1(variant, dtype, x, n1)
+    kw = {k: _meta((6, np_), dtype)[1:].view(5, n1, n1, n1) for k in kw}
+    ops.axhelm(x, b, variant, geom, helmholtz=variant == "merged", **kw)
+    (name, args), = fake_card.calls
+    assert name == ops.entry_point(variant, dtype)
+    assert args[-3:-1] == ops.line_launch(n1, 5, 132,
+                                          ops.line_min_blocks(n1, variant))
+
+
+def _line_call_n1(variant, dtype, x, n1):
+    e = x.shape[0]
+    geom = _meta({"parallelepiped": (e, 7),
+                  "precomputed": (e, 7, n1, n1, n1)}.get(variant, (e, 8, 3)),
+                 dtype)
+    kw = {}
+    if variant == "merged":
+        kw = {name: _meta((e, n1, n1, n1), dtype) for name in ("lam0", "lam1")}
+    return geom, kw
 
 
 @pytest.mark.parametrize("slot", ["lam0", "lam1"])
@@ -433,13 +589,25 @@ def test_sweep_finds_the_shipped_stager():
 
 def test_launch_constants_follow_the_source():
     """The wrapper's launch arithmetic mirrors the line body's constants:
-    threads a block and blocks an SM (the sweep changes both sides)."""
+    threads a block and blocks an SM at N1 = 4 and 8 (the sweep changes
+    both sides), the elements a block at every other N1, and the N1 up to
+    which it holds K3's w3 and stages K4's fields."""
     text = (ROOT / chip_smoke.SOURCE["line"]).read_text()
 
     def const(name):
         return re.search(rf"{name} = (\w+);", text).group(1)
     assert int(const("kLineThreads")) == ops.LINE_THREADS
     assert int(const("kLineMinBlocks")) == ops.LINE_BLOCKS_PER_SM
+    assert int(const("kLineHoldMax")) == ops.LINE_HOLD_MAX
+    assert int(const("kLineOneBlockFrom")) == ops.LINE_ONE_BLOCK_FROM
+    roll = re.search(r"return src == kPrecomputed \? (\d+) : src == kMerged "
+                     r"\? (\d+) : (\d+);", text).groups()
+    assert dict(zip(("precomputed", "merged"), map(int, roll[:2]))) == \
+        ops.LINE_ROLL_FROM and int(roll[2]) > ops.N1_TUNED_MAX
+    elems = _source_table(text, "elems")
+    assert {n1: elems[n1] for n1 in ops.LINE_ELEMS} == ops.LINE_ELEMS
+    assert elems[4] == elems[8] == 0             # kLineThreads / N1^2 there
+    assert set(ops.LINE_ELEMS) | {4, 8} == set(ops.KERNEL_N1)
 
 
 @pytest.mark.parametrize("stager", ["loads", "bulk"])
@@ -462,6 +630,51 @@ def test_sweep_patches_in_bulk_copied_factors(stager):
         patched.index("__global__ void")
     assert "fp = geom + ev * 7 * NP + t;" not in patched
     assert "fp = sm.f[fbuf][le] + t;" in patched
-    assert "(SRC == kPrecomputed && misaligned(geom))" in patched
+    assert "(SRC == kPrecomputed && misaligned(geom, 16))" in patched
     with pytest.raises(ValueError, match="anchor"):
         line_staging_sweep.with_bulk_factors(patched)
+
+
+class _Occupancy:
+    """A library whose occupancy query answers `blocks` and records its
+    arguments."""
+
+    def __init__(self, blocks):
+        self.blocks, self.calls = blocks, []
+
+    def axhelm_line_blocks_per_sm(self, *args):
+        self.calls.append(args)
+        return self.blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ops.LINE_VARIANTS)
+def test_line_grid_takes_what_the_card_holds(monkeypatch, variant, dtype):
+    """At N1 = 4 and 8 the persistent grid keeps LINE_BLOCKS_PER_SM blocks
+    an SM without asking the card; at every other N1 it asks the occupancy
+    calculator (the geometry source's enum value, bf16 or not, N1), caches
+    the answer, and refuses one below 1."""
+    import contextlib
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    lib = _Occupancy(3)
+    monkeypatch.setattr(build, "library", lambda: lib)
+    ops._line_blocks.cache_clear()
+    dev = torch.device("cpu")
+    for n1 in (4, 8):
+        assert ops._line_blocks(variant, dtype, n1, dev) == \
+            ops.LINE_BLOCKS_PER_SM
+    assert lib.calls == []
+    for n1 in (2, 11, 16):
+        assert ops._line_blocks(variant, dtype, n1, dev) == 3
+        assert ops._line_blocks(variant, dtype, n1, dev) == 3
+    assert lib.calls == [(chip_smoke.VARIANTS.index(variant),
+                          int(dtype == torch.bfloat16), n1)
+                         for n1 in (2, 11, 16)]
+    assert ops.line_launch(11, 4096, 132, 3) == (1, 396)
+    lib.blocks = 0
+    ops._line_blocks.cache_clear()
+    with pytest.raises(RuntimeError, match="occupancy"):
+        ops._line_blocks(variant, dtype, 13, dev)
+    ops._line_blocks.cache_clear()
+    assert build.QUERIES == {"axhelm_line_blocks_per_sm": [ctypes.c_int] * 3}

@@ -8,7 +8,7 @@ orders 3 and 7 -- the wrapper's refusals (a misaligned operand of the line
 body and an order above N1_CLUSTER_MAX - 1 among them), the gather's run-to-run
 behaviour, and solves through the kernels: float32 single and stacked
 right-hand sides (the comparison with the reference backend), order 5
-through the generic body, and the mixed-precision bf16_x32 refinement;
+(through the tuned bodies), and the mixed-precision bf16_x32 refinement;
 the solver loops as replayed CUDA graphs — bitwise equal to the same
 loops run eagerly, no host sync in a replay, one capture per loop, a
 fault striking inside a replayed chunk — and the resilient solve letting
@@ -557,8 +557,10 @@ def test_generic_body_matches_tuned_bodies(card, variant, helm, n, dtype):
                                           ("partial", False)])
 def test_order_5_solve_runs_the_generic_body(card, variant, helm):
     """`setup_problem` and `solve` at order 5 on the card: every operator
-    application one launch of the entry point (the generic body, N1 = 6),
-    and the iterations of the reference backend within +-1."""
+    application one launch of the entry point (the generic body's until
+    the tuned bodies took N1 = 6; tests/test_torch_tuned_cuda.py solves
+    through the generic body at order 16), and the iterations of the
+    reference backend within +-1."""
     box = mesh_gen.box_mesh(4, 4, 4, 5)
     mesh = mesh_gen.deform_affine(box, seed=2) \
         if variant == "parallelepiped" else \
@@ -682,8 +684,11 @@ def test_block_solver_captures_once_per_width(card):
                                           ("merged", True)])
 def test_order_5_solve_captured_through_the_generic_body(card, variant,
                                                          helm):
-    """At order 5 every launch is the generic body's, which opts in to
-    its dynamic shared memory at every launch: inside a capture too."""
+    """At order 5 (the tuned bodies since they took N1 = 6) a captured
+    solve launches as the eager one; tests/test_torch_tuned_cuda.py
+    captures the bodies that opt in to dynamic shared memory at every
+    launch, the generic body at order 16 and the column body at order
+    15."""
     mesh = mesh_gen.deform_trilinear(mesh_gen.box_mesh(4, 4, 4, 5), seed=3)
     prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
                                  backend="cuda", device=card)

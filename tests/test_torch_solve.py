@@ -218,13 +218,34 @@ def test_new_variant_solves_match_reference(variant, helm, setup):
 @pytest.mark.parametrize("helm", [False, True])
 @pytest.mark.parametrize("variant", ["precomputed", "trilinear"])
 def test_order_5_solve_matches_reference(variant, helm):
-    """Order 5 (N1 = 6, which on the card only the generic body runs) on
-    the 2^3 mesh: the port's solve through the kernels' wrapper (backend
-    "cuda", whose plain versions run on the CPU) against the reference
-    package's solve: the same status, iterations within +-1."""
+    """Order 5 (N1 = 6, which on the card the tuned bodies run) on the 2^3
+    mesh: the port's solve through the kernels' wrapper (backend "cuda",
+    whose plain versions run on the CPU) against the reference package's
+    solve: the same status, iterations within +-1."""
     mesh = _mesh(order=5)
     x_true = np.random.default_rng(4).standard_normal(mesh.n_global)
     tol, max_iter = 1e-6, 400
+    jres = _jax_solve(mesh, variant, helm, x_true, tol, max_iter)
+    prob = tnek.setup_problem(convert.mesh_from_numpy(mesh), variant=variant,
+                              helmholtz=helm, backend="cuda", device="cpu")
+    b = tnek.rhs_from_solution(prob, torch.as_tensor(x_true,
+                                                     dtype=torch.float32))
+    tres = tnek.solve(prob, b, tol=tol, max_iter=max_iter)
+    assert int(tres.status) == int(jres.status) == SolveStatus.CONVERGED
+    assert abs(int(tres.iterations) - int(jres.iterations)) <= 1
+
+
+@pytest.mark.parametrize("helm", [False, True])
+@pytest.mark.parametrize("variant", ["precomputed", "trilinear"])
+def test_order_9_solve_matches_reference(variant, helm):
+    """Order 9 (N1 = 10, the slice's main order: on the card the column
+    body reads D-hat from shared memory there, and the line body reads K3's
+    w3 and K4's Lam fields where it uses them) on the 2^3 mesh: the port's
+    solve through the kernels' wrapper against the reference package's:
+    the same status, iterations within +-1."""
+    mesh = _mesh(order=9)
+    x_true = np.random.default_rng(4).standard_normal(mesh.n_global)
+    tol, max_iter = 1e-6, 600
     jres = _jax_solve(mesh, variant, helm, x_true, tol, max_iter)
     prob = tnek.setup_problem(convert.mesh_from_numpy(mesh), variant=variant,
                               helmholtz=helm, backend="cuda", device="cpu")
