@@ -21,9 +21,11 @@ each:
               with the body each runs (K2, K5: one thread per node column;
               K1, K3, K4: one thread per node line, each at every N1 from 2
               to 16; every entry point's
-              generic body, cluster body and staged body (its seven
-              launches: three contractions, the factors, three transposed
-              contractions; the contractions shared by the five
+              generic body, plane body (its three launches: the t
+              contraction and its transpose shared by the five variants,
+              the plane pass each variant's own) and staged body (its
+              seven launches: three contractions, the factors, three
+              transposed contractions; the contractions shared by the five
               variants), N1 a runtime argument; and the timing-only
               one-thread-per-node `_rowwise` twins of K1-K5); no
               instantiation may spill
@@ -173,28 +175,30 @@ each:
               iteration spent in it; the same for each bf16 kernel beside
               its fp32 twin; K1-K5 in turns with their one-thread-per-node
               body (`ops.rowwise`: old, new, new, old); the generic body of
-              each (`ops.generic`) at orders 16, 19 and 23, E=216; the
+              each (`ops.generic`) at orders 16, 19 and 23, E=216, beside
+              the plane body's timing-only twin (`ops.plane`); the
               gather at 16^3 in its fixed order in turns with index_add_
               (c = 1 and 4), bitwise repeatable
-  6b. high_order  the cluster body (`csrc/axhelm_cluster.cu`: an element
-              split across a thread-block cluster, N1 above ops.N1_MAX =
-              24 up to ops.N1_CLUSTER_MAX = 48): every entry point at N1 =
+  6b. high_order  the plane body (`csrc/axhelm_plane.cu`: three launches,
+              the t contraction, a pass a t-plane and its transpose, on
+              register-tiled fp32 products, N1 above ops.N1_MAX = 24 up to
+              ops.N1_PLANE_MAX = 48): every entry point at N1 =
               25, 32 and the cap (E = 64; 8 at the cap), c in {1, 4},
               random per-node lambdas, against its plain version (the
               tolerances and the one-ulp rule of 3 and 3b), and at the
               main path's shape; the order-31 main paths on the 4x4x4 box
               (64 elements, 1,953,125 dofs; the six of phase 5), 200
               iterations, captured and eager in turns (2 solves a turn):
-              x bitwise equal, one cluster launch per application; each
+              x bitwise equal, one entry-point launch per application; each
               on the 2x1x1 box against the reference backend (the same
               status, iterations +-1, Helmholtz within 1%, x within
               1e-3); each variant's bf16_x32 solve at tol 0.03 on the
               4x4x4 box, its status and inner iterations recorded; each
-              cluster entry point timed at E = 64 (a CUDA graph of 50
+              plane entry point timed at E = 64 (a CUDA graph of 50
               calls) beside its bound and its plain version
   6c. staged  the staged body (`csrc/axhelm_staged.cu`: an application
               as seven launches over fp32 scratch, N1 above
-              ops.N1_CLUSTER_MAX = 48): every entry point at N1 = 49, 57,
+              ops.N1_PLANE_MAX = 48): every entry point at N1 = 49, 57,
               64 and 96, E = 1, 3 and 8, c in {1, 4}, random per-node
               lambdas, against its plain version (the tolerances and the
               one-ulp rule of 3 and 3b); the order-63 main paths on the
@@ -207,9 +211,10 @@ each:
               staged entry point timed at E = 8, N1 = 64 (a CUDA graph of
               50 calls) beside its bound, its plain version and the
               memory one call allocates and frees (its scratch, read from
-              the allocator's peak), and the timing-only twin `ops.staged` at the cluster
-              body's N1 = 25, 32 and 48, E = 64, beside the cluster body's
-              times of 6b; the registers and spills of its instantiations
+              the allocator's peak), and the timing-only twin
+              `ops.staged` at the plane body's N1 = 25, 32 and 48, E = 64,
+              beside the plane body's times of 6b; the registers and
+              spills of its instantiations
   6d. tuned  the tuned bodies at every N1 from 2 to 16 (their checks in
               3 and 3b): the 16^3 order-9 main path's calls against the
               plain version; its six fp32 main paths (3,048,625 dofs), 200
@@ -232,7 +237,7 @@ each:
      their times at every N1 from 2 to 16 beside the generic body's
      (`by_n1`); their ten
      generic bodies, launched on the order-19 solves; their ten
-     cluster bodies, launched on the order-31 solves; and their ten
+     plane bodies, launched on the order-31 solves; and their ten
      staged bodies, launched on the order-63 solves),
      then the card line, then the result line.
 
@@ -273,7 +278,7 @@ BODY = {"precomputed": "line", "trilinear": "column",
         "parallelepiped": "line", "merged": "line", "partial": "column"}
 SOURCE = {"node": f"{_CSRC}/axhelm.cu", "column": f"{_CSRC}/axhelm_column.cu",
           "line": f"{_CSRC}/axhelm_line.cu", "any": f"{_CSRC}/axhelm.cu",
-          "cluster": f"{_CSRC}/axhelm_cluster.cu",
+          "plane": f"{_CSRC}/axhelm_plane.cu",
           "staged": f"{_CSRC}/axhelm_staged.cu"}
 # The tuned bodies (csrc/axhelm_column.cu, axhelm_line.cu) run every N1 from
 # 2 to ops.N1_TUNED_MAX = 16: phases 3 and 3b check them at every such N1 on
@@ -296,18 +301,18 @@ LOW_ORDER = 5
 GENERIC_ORDERS = (16, 19, 23)
 GENERIC_MAIN_ORDER = 19
 GENERIC_BOX = (6, 6, 6)
-# Phase `high_order`, the cluster body (N1 above ops.N1_MAX = 24, up to
-# ops.N1_CLUSTER_MAX = 48): the orders it is checked and timed at (N1 = 25,
-# 32 and the cap), at CLUSTER_ELEMS elements (CLUSTER_ELEMS_CAP in the
+# Phase `high_order`, the plane body (N1 above ops.N1_MAX = 24, up to
+# ops.N1_PLANE_MAX = 48): the orders it is checked and timed at (N1 = 25,
+# 32 and the cap), at PLANE_ELEMS elements (PLANE_ELEMS_CAP in the
 # check at the cap); its main path, the order-31 solve on a 4x4x4 box (64
 # elements, 1,953,125 dofs: the 16^3 order-7 config's scale in fewer,
 # larger elements), HIGH_ORDER_ITERS iterations captured and eager in
 # turns, HIGH_ORDER_REPEATS solves a turn; and the 2x1x1 box of its
 # comparison with the reference backend (converged to HIGH_ORDER_TOL,
 # status and iterations +-1, x within HIGH_ORDER_X_BOUND).
-CLUSTER_ORDERS = (24, 31, 47)
-CLUSTER_ELEMS = 64
-CLUSTER_ELEMS_CAP = 8
+PLANE_ORDERS = (24, 31, 47)
+PLANE_ELEMS = 64
+PLANE_ELEMS_CAP = 8
 HIGH_ORDER = 31
 HIGH_ORDER_BOX = (4, 4, 4)
 HIGH_ORDER_SMALL_BOX = (2, 1, 1)
@@ -318,12 +323,11 @@ HIGH_ORDER_MAX_ITER = 2000
 HIGH_ORDER_X_BOUND = 1e-3
 # Unmasked Helmholtz needs ~700 iterations on that box, over which the fp32
 # sums of the kernels and of the plain version, in other orders, drift
-# apart: merged took 697 iterations against the plain version's 694 (the
-# PR's first chip call, tests/test_torch_cluster_cuda.py).  Its iterations
-# are held within this share of the reference backend's, Poisson's within
-# +-1.
+# apart: merged takes 697 iterations against the plain version's 694
+# (phase `high_order`).  Its iterations are held within this share of the
+# reference backend's, Poisson's within +-1.
 HIGH_ORDER_HELMHOLTZ_ITER_SHARE = 0.01
-# Phase `staged`, the staged body (N1 above ops.N1_CLUSTER_MAX = 48): the
+# Phase `staged`, the staged body (N1 above ops.N1_PLANE_MAX = 48): the
 # orders it is checked at (N1 = 49, 57, 64, 96; 49 and 57 fit no
 # power-of-two tile, 96 takes two tiles of output rows), each at the
 # STAGED_ELEMS element counts; its main path, the order-63 solve on a
@@ -331,19 +335,23 @@ HIGH_ORDER_HELMHOLTZ_ITER_SHARE = 0.01
 # in 8 elements), run as phase `high_order` runs its own; the 2x1x1 box at
 # STAGED_SMALL_ORDER of its comparison with the reference backend (the
 # rules of `high_order`); its times at the main path's E and N1; and the
-# timing-only twin `ops.staged` timed at the cluster body's orders,
-# CLUSTER_ELEMS elements, beside the cluster body.
+# timing-only twin `ops.staged` timed at the plane body's orders,
+# PLANE_ELEMS elements, beside the plane body.
 STAGED_ORDERS = (48, 56, 63, 95)
 STAGED_ELEMS = (1, 3, 8)
 STAGED_ORDER = 63
 STAGED_BOX = (2, 2, 2)
 STAGED_SMALL_ORDER = 48
-STAGED_TWIN_ORDERS = CLUSTER_ORDERS
+STAGED_TWIN_ORDERS = PLANE_ORDERS
 # the staged body's kernels (ptxas_instantiations' "pass"): the six
 # contractions every variant shares, and each variant's pointwise pass
 STAGED_SHARED_PASSES = ("grad_r", "grad_s", "grad_t", "first_r",
                         "accumulate_s", "last_t")
 STAGED_VARIANT_PASSES = ("factors",)
+# the plane body's kernels (ptxas_instantiations' "pass"): the two line
+# contractions every variant shares, and each variant's plane pass
+PLANE_SHARED_PASSES = ("line_first", "line_last")
+PLANE_VARIANT_PASSES = ("plane",)
 _TPU_KERNEL = "src/repro/kernels/axhelm/kernel.py"
 REPLACES = {"precomputed": f"{_TPU_KERNEL}:122",
             "trilinear": f"{_TPU_KERNEL}:126",
@@ -766,13 +774,14 @@ def padded_parity(what: str, svc, prob, columns, tol: float,
 def ptxas_instantiations(report: str):
     """Per kernel instantiation of a `-Xptxas -v` report: its variant, body
     ("node": axhelm_kernel, "column": axhelm_column_kernel, "line":
-    axhelm_line_kernel, "any": the generic axhelm_any_kernel, "cluster":
-    axhelm_cluster_kernel, "staged": axhelm_staged_contract_kernel and
-    axhelm_staged_factors_kernel), N1 (None for the generic, cluster and
-    staged bodies, whose N1 is a runtime argument), storage dtype,
-    registers, shared memory and spill bytes; a staged kernel also its
-    "pass" (see STAGED_SHARED_PASSES, whose kernels have variant None);
-    {"kernel": name} for an entry function of another name."""
+    axhelm_line_kernel, "any": the generic axhelm_any_kernel, "plane":
+    axhelm_plane_kernel and axhelm_plane_line_kernel, "staged":
+    axhelm_staged_contract_kernel and axhelm_staged_factors_kernel), N1
+    (None for the generic, plane and staged bodies, whose N1 is a runtime
+    argument), storage dtype, registers, shared memory and spill bytes; a
+    plane or staged kernel also its "pass" (see PLANE_SHARED_PASSES and
+    STAGED_SHARED_PASSES, whose kernels have variant None); {"kernel":
+    name} for an entry function of another name."""
     inst, cur = [], None
     dirs, modes = "rst", ("grad", "first", "accumulate", "last")
     for line in report.splitlines():
@@ -781,11 +790,12 @@ def ptxas_instantiations(report: str):
             # axhelm_kernel<N1, GeomSource, T>, axhelm_column_kernel<...> and
             # axhelm_line_kernel<...> mangle as
             # ILi<N1>E...GeomSourceE<n>E<T>E, T = f or 13__nv_bfloat16, and
-            # axhelm_any_kernel<GeomSource, T> and axhelm_cluster_kernel<...>
-            # as I...GeomSourceE<n>E<T>E; axhelm_staged_contract_kernel<DIR,
-            # MODE, T> as ILi<DIR>ELi<MODE>E<T>E and
-            # axhelm_staged_factors_kernel<GeomSource, T> as the generic's
-            k = re.search(r"axhelm_(column_|line_|any_|cluster_)?kernelI"
+            # axhelm_any_kernel<GeomSource, T> and axhelm_plane_kernel<...>
+            # as I...GeomSourceE<n>E<T>E; axhelm_plane_line_kernel<LAST, T>
+            # as ILb<LAST>E<T>E; axhelm_staged_contract_kernel<DIR, MODE, T>
+            # as ILi<DIR>ELi<MODE>E<T>E and axhelm_staged_factors_kernel<
+            # GeomSource, T> as the generic's
+            k = re.search(r"axhelm_(column_|line_|any_|plane_)?kernelI"
                           r"(?:Li(\d+)E)?"
                           r".*?GeomSourceE?(\d+)E(f|\d+__nv_bfloat16)E",
                           m.group(1))
@@ -793,12 +803,21 @@ def ptxas_instantiations(report: str):
                            r"(?:Li(\d)ELi(\d)E)?"
                            r"(?:.*?GeomSourceE?(\d+)E)?(f|\d+__nv_bfloat16)E",
                            m.group(1))
+            pl = re.search(r"axhelm_plane_line_kernelILb([01])E"
+                           r"(f|\d+__nv_bfloat16)E", m.group(1))
             cur = {"kernel": m.group(1)}
-            if k:
+            if pl:
+                cur = {"variant": None, "body": "plane",
+                       "pass": PLANE_SHARED_PASSES[int(pl.group(1))],
+                       "n1": None,
+                       "dtype": "f32" if pl.group(2) == "f" else "bf16"}
+            elif k:
                 cur = {"variant": VARIANTS[int(k.group(3))],
                        "body": (k.group(1) or "node_").rstrip("_"),
                        "n1": int(k.group(2)) if k.group(2) else None,
                        "dtype": "f32" if k.group(4) == "f" else "bf16"}
+                if cur["body"] == "plane":
+                    cur["pass"] = "plane"
             elif st:
                 step = "factors" if st.group(1) == "factors" else \
                     f"{modes[int(st.group(3))]}_{dirs[int(st.group(2))]}"
@@ -1133,7 +1152,7 @@ def main() -> None:
         c["registers"], c["smem_bytes"]] for c in inst
         if c.get("body") in ("column", "line") and "registers" in c}
     expected |= {(v, body, None, dt) for v in VARIANTS for dt in DTYPES
-                 for body in ("any", "cluster")}
+                 for body in ("any", "plane")}
     # the staged body's kernels: each variant's factors and last
     # contraction, and the contractions every variant shares
     expected |= {(v, "staged", None, dt) for v in VARIANTS + (None,)
@@ -1147,6 +1166,16 @@ def main() -> None:
                           for dt in DTYPES])
     expected |= {(v, "node", n, dt) for v in ops.ROWWISE_VARIANTS
                  for n in ops.ROWWISE_N1 for dt in DTYPES}
+    # the plane body's kernels: each variant's plane pass, and the line
+    # contractions every variant shares
+    expected |= {(None, "plane", None, dt) for dt in DTYPES}
+    plane_passes = sorted((c["variant"] or "", c["pass"], c["dtype"])
+                          for c in inst if c.get("body") == "plane")
+    want_plane = sorted([("", step, dt) for step in PLANE_SHARED_PASSES
+                         for dt in DTYPES] +
+                        [(v, step, dt) for v in VARIANTS
+                         for step in PLANE_VARIANT_PASSES
+                         for dt in DTYPES])
     missing = sorted(expected - reported)
     if missing:     # an unfamiliar ptxas format: show the report as it is
         build_line["ptxas"] = report
@@ -1157,6 +1186,9 @@ def main() -> None:
     require(staged_passes == want_passes,
             f"the staged body's kernels {staged_passes}, expected "
             f"{want_passes}")
+    require(plane_passes == want_plane,
+            f"the plane body's kernels {plane_passes}, expected "
+            f"{want_plane}")
     require(not spilled, f"instantiations spill registers: {spilled}")
 
     # 3. kernels against their plain versions ------------------------------
@@ -1172,9 +1204,9 @@ def main() -> None:
         """The generic body's C symbol for an entry point."""
         return f"{entry(variant, dt)}_any"
 
-    def cluster_name(variant, dt):
-        """The cluster body's C symbol for an entry point."""
-        return f"{entry(variant, dt)}_cluster"
+    def plane_name(variant, dt):
+        """The plane body's C symbol for an entry point."""
+        return f"{entry(variant, dt)}_plane"
 
     def staged_name(variant, dt):
         """The staged body's C symbol for an entry point."""
@@ -1182,12 +1214,12 @@ def main() -> None:
 
     def body_name(variant, dt, n1):
         """The C symbol an entry point's launch at `n1` reaches."""
-        return {"any": generic_name, "cluster": cluster_name,
+        return {"any": generic_name, "plane": plane_name,
                 "staged": staged_name}.get(
             ops.body_of(variant, n1), entry)(variant, dt)
 
     names = [name(v, dt)
-             for name in (entry, generic_name, cluster_name, staged_name)
+             for name in (entry, generic_name, plane_name, staged_name)
              for v, dt in entries]
     worst = dict.fromkeys(names, 0.0)
     cases = {dt: [] for dt in DTYPES}
@@ -1204,7 +1236,7 @@ def main() -> None:
 
     ulps = {name(v, "bf16"): {"kernel": [0, 0, 0], "plain": [0, 0, 0]}
             for v in VARIANTS
-            for name in (entry, generic_name, cluster_name, staged_name)}
+            for name in (entry, generic_name, plane_name, staged_name)}
     small_ulps = {}     # outputs off and outputs of the small bf16 calls
 
     def rounding_check(name, y, y_p, x, b, variant, geom, label, kw):
@@ -1242,8 +1274,8 @@ def main() -> None:
         against the correctly rounded result); returns the largest
         absolute difference (in fp32).  At N1 in ops.KERNEL_N1 the call
         runs the entry point's tuned body, at every other N1 up to
-        ops.N1_MAX its generic body, above that its cluster body, above
-        ops.N1_CLUSTER_MAX its staged body."""
+        ops.N1_MAX its generic body, above that its plane body, above
+        ops.N1_PLANE_MAX its staged body."""
         y = ops.axhelm(x, b, variant, geom, **kw)
         torch.cuda.synchronize()
         y_p = ops.reference(x, b, variant, geom, **kw)
@@ -2663,6 +2695,8 @@ def main() -> None:
             geom, kw = operands(variant, verts, b, helm, *lams, dt=dt)
             ms = graph_ms(lambda: ops.generic(x, b, variant, geom,
                                               helmholtz=helm, **kw))
+            plane_twin_ms = graph_ms(lambda: ops.plane(
+                x, b, variant, geom, helmholtz=helm, **kw))
             plain_ms = event_ms(lambda: ops.reference(x, b, variant, geom,
                                                       helmholtz=helm, **kw),
                                 reps=5, warmup=1)
@@ -2671,9 +2705,10 @@ def main() -> None:
             timing_any[generic_name(variant, dt)][f"order{order}"] = {
                 "E": e, "N1": b.n1,
                 "equation": "helmholtz" if helm else "poisson",
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-                "roofline_share": bound_ms / ms}
+                "ms": ms, "plane_twin_ms": plane_twin_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": nbytes,
+                "flops": flops, "roofline_share": bound_ms / ms}
             del geom, kw, verts, x
         del x32
         torch.cuda.empty_cache()
@@ -2736,8 +2771,9 @@ def main() -> None:
           "ms": "CUDA graph of 50 calls, median of 5 replays; K1-K5: "
                 "the mean of two such medians, in turns with their "
                 "one-thread-per-node body (ms_rowwise, turns_ms: old, new, "
-                "new, old); the generic body (`generic`) alone; "
-                "ncols4: K1 at c = 4, in turns the same way",
+                "new, old); the generic body (`generic`) alone, then the "
+                "plane body's twin (`plane_twin_ms`, ops.plane) on the "
+                "same call; ncols4: K1 at c = 4, in turns the same way",
           "generic": timing_any,
           "ms_eager": "200 eager calls back to back, CUDA events",
           "library": "none: no single PyTorch call computes axhelm",
@@ -2840,26 +2876,25 @@ def main() -> None:
                                            helm=MAIN_HELMHOLTZ[variant])
         return solves, small, refined
 
-    # 6b. high_order: the cluster body, N1 above ops.N1_MAX ---------------
-    # (a) every entry point at CLUSTER_ORDERS against its plain version;
+    # 6b. high_order: the plane body, N1 above ops.N1_MAX -----------------
+    # (a) every entry point at PLANE_ORDERS against its plain version;
     # (b) the order-31 main paths on the 4x4x4 box, captured and eager in
     # turns; each on the 2x1x1 box against the reference backend; each
     # variant's bf16_x32 solve at tol 0.03 on the 4x4x4 box, its status and
     # inner iterations recorded (a refined solve's outcome hinges on a few
-    # ulps: PERF.md); (c) each cluster entry point timed at CLUSTER_ELEMS.
+    # ulps: PERF.md); (c) each plane entry point timed at PLANE_ELEMS.
     t_high = time.perf_counter()
     boxes = {order: mesh_gen.box_mesh(*HIGH_ORDER_BOX, order)
-             for order in CLUSTER_ORDERS}
+             for order in PLANE_ORDERS}
     high_cases = {dt: len(cases[dt]) for dt in DTYPES}
-    for order in CLUSTER_ORDERS:
+    for order in PLANE_ORDERS:
         b = basis(order)
-        require(ops.body_of("trilinear", b.n1) == "cluster",
-                f"N1={b.n1} does not run the cluster body")
-        e = CLUSTER_ELEMS_CAP if b.n1 == ops.N1_CLUSTER_MAX else \
-            CLUSTER_ELEMS
+        require(ops.body_of("trilinear", b.n1) == "plane",
+                f"N1={b.n1} does not run the plane body")
+        e = PLANE_ELEMS_CAP if b.n1 == ops.N1_PLANE_MAX else PLANE_ELEMS
         check_order(b, e, {v: mesh_for(v, boxes[order])
                            for v in ("trilinear", "parallelepiped")},
-                    order, cluster_name)
+                    order, plane_name)
     # the main path's call: E = 64, N1 = 32, c = 1, setup's scalar lambdas
     b_hi = basis(HIGH_ORDER)
     hi_meshes = {v: mesh_for(v, boxes[HIGH_ORDER]) for v in ("trilinear",
@@ -2868,25 +2903,24 @@ def main() -> None:
     small_meshes = {v: mesh_for(v, small_box) for v in ("trilinear",
                                                         "parallelepiped")}
     e_hi = len(boxes[HIGH_ORDER].verts)
-    check_main_call(b_hi, hi_meshes, cluster_name)
+    check_main_call(b_hi, hi_meshes, plane_name)
     high_kernels = kernel_record(
-        [cluster_name(v, dt) for dt in DTYPES for v in VARIANTS], high_cases)
+        [plane_name(v, dt) for dt in DTYPES for v in VARIANTS], high_cases)
     # (b) the solves
     high_solves, high_small, high_bf16 = high_order_solves(
         f"4^3 order {HIGH_ORDER}", hi_meshes, small_meshes,
         f"2x1x1 order {HIGH_ORDER}")
-    # (c) the cluster body's times: E = 64, c = 1, each variant's main
+    # (c) the plane body's times: E = 64, c = 1, each variant's main
     # equation with setup's scalar lambdas, fp32 and bf16
-    timing_cluster = {cluster_name(v, dt): {} for v, dt in entries}
-    for order in CLUSTER_ORDERS:
+    timing_plane = {plane_name(v, dt): {} for v, dt in entries}
+    for order in PLANE_ORDERS:
         b = basis(order)
         meshes = {v: mesh_for(v, boxes[order]) for v in ("trilinear",
                                                          "parallelepiped")}
         e = len(boxes[order].verts)
         gen.manual_seed(order + 1)
         x32 = torch.randn((e,) + (b.n1,) * 3, generator=gen, device=dev)
-        launch = dict(zip(("cluster", "planes", "threads", "grid",
-                           "smem_bytes"), ops.cluster_launch(b.n1, e)))
+        launch = ops.plane_launch(b.n1, e, 1)._asdict()
         for variant, dt in entries:
             x = x32.to(torch_dtype[dt])
             helm = MAIN_HELMHOLTZ[variant]
@@ -2901,8 +2935,8 @@ def main() -> None:
                                 reps=3, warmup=1)
             bound_ms, bound_by, nbytes, flops = axhelm_bound(
                 variant, e, b.n1, helm, word=WORD_BYTES[dt])
-            timing_cluster[cluster_name(variant, dt)][f"order{order}"] = {
-                "E": e, "N1": b.n1, **launch,
+            timing_plane[plane_name(variant, dt)][f"order{order}"] = {
+                "E": e, "N1": b.n1, "design": launch,
                 "equation": "helmholtz" if helm else "poisson",
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "bytes": nbytes, "flops": flops,
@@ -2911,7 +2945,8 @@ def main() -> None:
         del x32, meshes
         torch.cuda.empty_cache()
     emit({"phase": "high_order", "card": card,
-          "orders": CLUSTER_ORDERS, "n1_cluster_max": ops.N1_CLUSTER_MAX,
+          "orders": PLANE_ORDERS, "n1_plane_max": ops.N1_PLANE_MAX,
+          "kernels_per_application": ops.PLANE_KERNELS,
           "kernels": high_kernels,
           "mesh": "x".join(map(str, HIGH_ORDER_BOX)), "order": HIGH_ORDER,
           "elements": e_hi, "dofs": boxes[HIGH_ORDER].n_global,
@@ -2927,11 +2962,15 @@ def main() -> None:
           "bf16_x32": {"tol": 0.03, "max_iter": REFINED_MAX_ITER,
                        "solves": high_bf16},
           "ms": "CUDA graph of 50 calls, median of 5 replays",
-          "timing": timing_cluster,
+          "timing": timing_plane,
+          "registers": [{k: c.get(k) for k in (
+              "variant", "pass", "dtype", "registers", "smem_bytes",
+              "spill_stores", "spill_loads")}
+              for c in inst if c.get("body") == "plane"],
           "seconds": time.perf_counter() - t_high})
     del boxes, hi_meshes, small_meshes
 
-    # 6c. staged: the staged body, N1 above ops.N1_CLUSTER_MAX -----------
+    # 6c. staged: the staged body, N1 above ops.N1_PLANE_MAX -------------
     # (a) every entry point at STAGED_ORDERS against its plain version
     # (the vertices of a 2x2x2 box do not depend on the order); (b) the
     # order-63 main paths on the 2x2x2 box, captured and eager in turns,
@@ -2939,7 +2978,7 @@ def main() -> None:
     # STAGED_SMALL_ORDER against the reference backend; each variant's
     # bf16_x32 solve at tol 0.03 on the 2x2x2 box; (c) each staged entry
     # point timed at the main path's E and N1, and the timing-only twin at
-    # the cluster body's orders; (d) the registers and spills of its
+    # the plane body's orders; (d) the registers and spills of its
     # kernels (phase 2).
     t_staged = time.perf_counter()
     staged_cases = {dt: len(cases[dt]) for dt in DTYPES}
@@ -2972,11 +3011,11 @@ def main() -> None:
     st_setup = {key: r["kernel"]["setup_peak_bytes"]
                 for key, r in st_solves.items()}
     # (c) times: the staged body at the main path's E = 8, N1 = 64, and
-    # the twin at the cluster body's orders (E = 64), each entry point's
+    # the twin at the plane body's orders (E = 64), each entry point's
     # main equation with setup's scalar lambdas, fp32 and bf16
     timing_staged = {staged_name(v, dt): {} for v, dt in entries}
     for order, e, twin in [(STAGED_ORDER, e_st, False)] + \
-            [(o, CLUSTER_ELEMS, True) for o in STAGED_TWIN_ORDERS]:
+            [(o, PLANE_ELEMS, True) for o in STAGED_TWIN_ORDERS]:
         b = basis(order)
         meshes = st_main if not twin else {
             v: mesh_for(v, mesh_gen.box_mesh(*HIGH_ORDER_BOX, 1))
@@ -3014,11 +3053,10 @@ def main() -> None:
                    "bytes": nbytes, "flops": flops,
                    "roofline_share": bound_ms / ms}
             if twin:
-                cl = timing_cluster[cluster_name(variant, dt)][
-                    f"order{order}"]
+                pl = timing_plane[plane_name(variant, dt)][f"order{order}"]
                 row["twin"] = "ops.staged"
-                row["cluster_ms"] = cl["ms"]
-                row["staged_over_cluster"] = ms / cl["ms"]
+                row["plane_ms"] = pl["ms"]
+                row["staged_over_plane"] = ms / pl["ms"]
             else:
                 row["plain_ms"] = event_ms(
                     lambda: ops.reference(x, b, variant, geom,
@@ -3236,18 +3274,19 @@ def main() -> None:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "order": GENERIC_MAIN_ORDER,
             "by_order": {o: {k: by_order[o][k] for k in
-                             ("ms", "plain_ms", "bound_ms", "bound_by")}
+                             ("ms", "plane_twin_ms", "plain_ms", "bound_ms",
+                              "bound_by")}
                          for o in by_order}})
     for variant, dt in entries:
-        name = cluster_name(variant, dt)
-        by_order = timing_cluster[name]
+        name = plane_name(variant, dt)
+        by_order = timing_plane[name]
         t = by_order[f"order{HIGH_ORDER}"]
         launches = high_solves[main_key(variant)]["kernel"][
             "main_path_read"]["launches"] if dt == "f32" else \
             high_bf16[variant]["launches"].get(entry(variant, dt), 0)
         kernels.append({
             "name": name, "variant": variant, "storage": dt,
-            "route": "cuda", "source": SOURCE["cluster"],
+            "route": "cuda", "source": SOURCE["plane"],
             "replaces": REPLACES[variant],
             "main_path": f"4^3 order {HIGH_ORDER} "
                          f"{'fp32' if dt == 'f32' else 'bf16_x32 tol=0.03'} "
@@ -3258,7 +3297,7 @@ def main() -> None:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "order": HIGH_ORDER,
             "by_order": {o: {k: by_order[o][k] for k in
-                             ("N1", "cluster", "ms", "plain_ms", "bound_ms",
+                             ("N1", "ms", "plain_ms", "bound_ms",
                               "bound_by")}
                          for o in by_order}})
     for variant, dt in entries:
@@ -3281,7 +3320,7 @@ def main() -> None:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "order": STAGED_ORDER,
             "twin_by_order": {o: {k: by_order[o][k] for k in
-                                  ("N1", "ms", "cluster_ms", "bound_ms")}
+                                  ("N1", "ms", "plane_ms", "bound_ms")}
                               for o in by_order if "twin" in by_order[o]}})
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} was not launched on "

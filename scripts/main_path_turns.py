@@ -21,12 +21,26 @@ median of 5 such runs in microseconds a call.  Then each entry point's
 kernel time at N1 = 4 and 8 (orders 3 and 7 on the 16^3 box, E = 4096, c =
 1, its main equation with setup's scalar lambdas, fp32 and bf16): a CUDA
 graph of 50 calls, the median of 5 replays (the tree's own
-`chip_smoke.graph_ms`).  Prints one JSON line per process and writes them
-all to main_path_turns.json in the output directory.
+`chip_smoke.graph_ms`).
 
-Run:  python3 scripts/main_path_turns.py OLD_TREE NEW_TREE
+With --orders (e.g. 24,31,47), each process also times the ten entry
+points at each of those orders on the 4x4x4 box (E = 64, c = 1, the main
+equation with setup's scalar lambdas, the same way) beside the staged
+body's timing-only twin `ops.staged` on the same operands; runs the six
+order-HIGH_ORDER main paths on the 4x4x4 box as it runs the 16^3 ones;
+and runs the staged body at N1 = 49 (E = 64) and 64 (E = 8): each entry
+point's output on a seeded x as a SHA-256 of its bytes, and its time.
+The last line sums the turns up: each tree's times as the mean of its two
+runs, side by side.
+
+Prints one JSON line per process and writes them all to
+main_path_turns.json in the output directory.
+
+Run:  python3 scripts/main_path_turns.py OLD_TREE NEW_TREE [--orders 24,31,47]
 """
 
+import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -41,18 +55,21 @@ VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged", "partial")
 # (variant, helmholtz): each variant's main equation, and trilinear
 # Helmholtz (merged's yardstick), as chip_smoke.py's phase 5 runs them
 PATHS = [(v, v == "merged") for v in VARIANTS] + [("trilinear", True)]
+HIGH_BOX = (4, 4, 4)      # the box of --orders (E = 64)
+HIGH_ORDER = 31           # the order of the main paths --orders adds
+# the staged body's runs of --orders: (order, box)
+STAGED_RUNS = ((48, (4, 4, 4)), (63, (2, 2, 2)))
 
 
-def worker(tree: Path) -> dict:
-    """The main paths of one tree, in this process."""
-    sys.path.insert(0, str(tree / "src"))
+def main_paths(meshes: dict) -> dict:
+    """The six main paths on `meshes` (the affine and trilinear
+    deformations of one box): per path the status, the iterations and the
+    ms per iteration of REPEATS solves after a warm-up."""
     import torch
 
     from repro_torch.configs.nekbone import CONFIG
-    from repro_torch.core import axhelm as core_axhelm
-    from repro_torch.core import mesh_gen, nekbone
-    from repro_torch.core.spectral import basis
-    from repro_torch.kernels.axhelm import build, ops
+    from repro_torch.core import nekbone
+    from repro_torch.kernels.axhelm import ops
     from repro_torch.resilience.status import SolveStatus
     try:    # a tree whose launches count once per graph replay
         from repro_torch.core.graphs import count
@@ -60,13 +77,7 @@ def worker(tree: Path) -> dict:
         def count(counter, key):
             counter[key] += 1
 
-    t0 = time.perf_counter()
-    build.library()
-    out = {"tree": str(tree), "build_s": time.perf_counter() - t0,
-           "paths": {}}
-    box = mesh_gen.box_mesh(*CONFIG.elements, CONFIG.order)
-    meshes = {"affine": mesh_gen.deform_affine(box, seed=2),
-              "trilinear": mesh_gen.deform_trilinear(box, seed=3)}
+    paths = {}
     for variant, helm in PATHS:
         mesh = meshes["affine" if variant == "parallelepiped"
                       else "trilinear"]
@@ -95,16 +106,60 @@ def worker(tree: Path) -> dict:
             name = ops.entry_point(variant, torch.float32)
             if ops.launch_counts[name] != applications["n"] or \
                     applications["n"] == 0:
-                raise SystemExit(f"{tree}: {variant}: {name} launched "
+                raise SystemExit(f"{variant}: {name} launched "
                                  f"{ops.launch_counts[name]} times for "
                                  f"{applications['n']} applications")
         iters = int(res.iterations)
         ms = sorted(w * 1e3 / max(iters, 1) for w in walls)
         q1, med, q3 = statistics.quantiles(ms, n=4)
-        out["paths"][f"{variant}/{'helmholtz' if helm else 'poisson'}"] = {
+        paths[f"{variant}/{'helmholtz' if helm else 'poisson'}"] = {
             "status": SolveStatus(int(res.status)).name,
             "iterations": iters, "ms_per_iteration": med,
             "ms_per_iteration_q1": q1, "ms_per_iteration_q3": q3}
+        del prob, b
+        torch.cuda.empty_cache()
+    return paths
+
+
+def worker(tree: Path, orders: tuple) -> dict:
+    """The main paths of one tree, in this process."""
+    sys.path.insert(0, str(tree / "src"))
+    import torch
+
+    from repro_torch.configs.nekbone import CONFIG
+    from repro_torch.core import axhelm as core_axhelm
+    from repro_torch.core import mesh_gen
+    from repro_torch.core.spectral import basis
+    from repro_torch.kernels.axhelm import build, ops
+
+    t0 = time.perf_counter()
+    build.library()
+    out = {"tree": str(tree), "build_s": time.perf_counter() - t0}
+
+    def meshes_of(box):
+        return {"affine": mesh_gen.deform_affine(box, seed=2),
+                "trilinear": mesh_gen.deform_trilinear(box, seed=3)}
+
+    def operands(variant, dtype, b, meshes):
+        """An entry point's geom and kwargs at basis b on `meshes`, its main
+        equation with setup's scalar lambdas."""
+        helm = variant == "merged"
+        mesh = meshes["affine" if variant == "parallelepiped"
+                      else "trilinear"]
+        verts = torch.as_tensor(mesh.verts, dtype=torch.float32,
+                                device="cuda")
+        lams = {"lam0": 1.0, "lam1": 0.1} if helm else {}
+        elem_ops, _, _ = core_axhelm.make_axhelm_elem_ops(
+            variant, b, verts, helmholtz=helm, dtype=dtype, backend="cuda",
+            device="cuda", **lams)
+        return elem_ops.pop("geom"), dict(elem_ops, helmholtz=helm)
+
+    def seeded_x(order, e, n1):
+        gen = torch.Generator(device="cuda").manual_seed(order)
+        return torch.randn((e,) + (n1,) * 3, generator=gen, device="cuda")
+
+    out["paths"] = main_paths(meshes_of(
+        mesh_gen.box_mesh(*CONFIG.elements, CONFIG.order)))
     out["wrapper_us"] = {}
     b = basis(CONFIG.order)
     small = mesh_gen.deform_trilinear(mesh_gen.box_mesh(4, 4, 4,
@@ -131,61 +186,142 @@ def worker(tree: Path) -> dict:
     out["kernel_us"] = {}
     for order in (3, 7):
         b = basis(order)
-        box = mesh_gen.box_mesh(*CONFIG.elements, order)
-        meshes = {"affine": mesh_gen.deform_affine(box, seed=2),
-                  "trilinear": mesh_gen.deform_trilinear(box, seed=3)}
-        gen = torch.Generator(device="cuda").manual_seed(order)
-        x32 = torch.randn((len(box.verts),) + (b.n1,) * 3, generator=gen,
-                          device="cuda")
+        meshes = meshes_of(mesh_gen.box_mesh(*CONFIG.elements, order))
+        x32 = seeded_x(order, len(meshes["trilinear"].verts), b.n1)
         for dtype in (torch.float32, torch.bfloat16):
             for variant in VARIANTS:
-                helm = variant == "merged"
-                mesh = meshes["affine" if variant == "parallelepiped"
-                              else "trilinear"]
-                verts = torch.as_tensor(mesh.verts, dtype=torch.float32,
-                                        device="cuda")
-                lams = {"lam0": 1.0, "lam1": 0.1} if helm else {}
-                elem_ops, _, _ = core_axhelm.make_axhelm_elem_ops(
-                    variant, b, verts, helmholtz=helm, dtype=dtype,
-                    backend="cuda", device="cuda", **lams)
-                geom = elem_ops.pop("geom")
+                geom, kw = operands(variant, dtype, b, meshes)
                 x = x32.to(dtype)
                 key = f"{ops.entry_point(variant, dtype)}/N1={b.n1}"
                 out["kernel_us"][key] = 1e3 * graph_ms(
-                    lambda: ops.axhelm(x, b, variant, geom, helmholtz=helm,
-                                       **elem_ops))
-                del geom, elem_ops, x
+                    lambda: ops.axhelm(x, b, variant, geom, **kw))
+                del geom, kw, x
+    if not orders:
+        return out
+
+    out["orders_us"] = {}
+    for order in orders:
+        b = basis(order)
+        meshes = meshes_of(mesh_gen.box_mesh(*HIGH_BOX, order))
+        x32 = seeded_x(order, len(meshes["trilinear"].verts), b.n1)
+        for dtype in (torch.float32, torch.bfloat16):
+            for variant in VARIANTS:
+                geom, kw = operands(variant, dtype, b, meshes)
+                x = x32.to(dtype)
+                out["orders_us"][f"{ops.entry_point(variant, dtype)}/"
+                                 f"N1={b.n1}"] = {
+                    "body": ops.body_of(variant, b.n1),
+                    "us": 1e3 * graph_ms(
+                        lambda: ops.axhelm(x, b, variant, geom, **kw)),
+                    "staged_us": 1e3 * graph_ms(
+                        lambda: ops.staged(x, b, variant, geom, **kw))}
+                del geom, kw, x
+        del x32
+        torch.cuda.empty_cache()
+    out["high_order_paths"] = main_paths(meshes_of(
+        mesh_gen.box_mesh(*HIGH_BOX, HIGH_ORDER)))
+    out["staged"] = {}
+    for order, box in STAGED_RUNS:
+        b = basis(order)
+        meshes = meshes_of(mesh_gen.box_mesh(*box, order))
+        x32 = seeded_x(order, len(meshes["trilinear"].verts), b.n1)
+        for dtype in (torch.float32, torch.bfloat16):
+            for variant in VARIANTS:
+                geom, kw = operands(variant, dtype, b, meshes)
+                x = x32.to(dtype)
+                y = ops.axhelm(x, b, variant, geom, **kw)
+                torch.cuda.synchronize()
+                out["staged"][f"{ops.entry_point(variant, dtype)}/"
+                              f"N1={b.n1}"] = {
+                    "body": ops.body_of(variant, b.n1),
+                    "sha256": hashlib.sha256(
+                        y.view(torch.uint8).cpu().numpy().tobytes())
+                    .hexdigest(),
+                    "us": 1e3 * graph_ms(
+                        lambda: ops.axhelm(x, b, variant, geom, **kw))}
+                del geom, kw, x, y
+        del x32
+        torch.cuda.empty_cache()
+    return out
+
+
+def summary(lines: list) -> dict:
+    """Each tree's numbers as the mean of its two runs, side by side."""
+    runs = {label: [r for r in lines[1:] if r["label"] == label]
+            for label in ("old", "new")}
+
+    def mean(label, *path):
+        vals = []
+        for r in runs[label]:
+            v = r
+            for key in path:
+                v = v.get(key) if isinstance(v, dict) else None
+            if v is not None:
+                vals.append(v)
+        return statistics.fmean(vals) if len(vals) == 2 else None
+
+    out = {"summary": "mean of each tree's two runs"}
+    for section in ("orders_us", "staged"):
+        keys = runs["new"][0].get(section, {})
+        out[section] = {key: {
+            "old_us": mean("old", section, key, "us"),
+            "new_us": mean("new", section, key, "us"),
+            **({"staged_us": mean("new", section, key, "staged_us")}
+               if section == "orders_us" else
+               {"bitwise_same": len({r[section][key]["sha256"]
+                                    for r in lines[1:]
+                                    if key in r.get(section, {})}) == 1})}
+            for key in keys}
+    for section in ("paths", "high_order_paths"):
+        keys = runs["new"][0].get(section, {})
+        out[section] = {key: {
+            label: mean(label, section, key, "ms_per_iteration")
+            for label in ("old", "new")} for key in keys}
+    out["kernel_us"] = {key: {label: mean(label, "kernel_us", key)
+                              for label in ("old", "new")}
+                        for key in runs["new"][0].get("kernel_us", {})}
     return out
 
 
 def main() -> None:
-    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
-        print(json.dumps(worker(Path(sys.argv[2]).resolve())), flush=True)
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("old", nargs="?")
+    parser.add_argument("new", nargs="?")
+    parser.add_argument("--orders", default="",
+                        help="comma-separated orders, e.g. 24,31,47")
+    parser.add_argument("--worker", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    orders = tuple(int(o) for o in args.orders.split(",") if o)
+    if args.worker:
+        print(json.dumps(worker(Path(args.worker).resolve(), orders)),
+              flush=True)
         return
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("main_path_turns: no CUDA device")
-    if len(sys.argv) != 3:
+    if args.old is None or args.new is None:
         sys.exit(__doc__)
-    old, new = (Path(a).resolve() for a in sys.argv[1:])
+    old, new = Path(args.old).resolve(), Path(args.new).resolve()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=False).stdout.strip()
     lines = [{"card": smi, "order": ["old", "new", "new", "old"],
-              "old": str(old), "new": str(new)}]
+              "old": str(old), "new": str(new), "orders": orders}]
     print(json.dumps(lines[0]), flush=True)
     for label, tree in (("old", old), ("new", new), ("new", new),
                         ("old", old)):
         run = subprocess.run([sys.executable, __file__, "--worker",
-                              str(tree)], capture_output=True, text=True,
-                             check=False)
+                              str(tree), "--orders", args.orders],
+                             capture_output=True, text=True, check=False)
         if run.returncode != 0:
             sys.exit(f"{label} tree {tree} failed:\n{run.stderr[-3000:]}")
         line = dict(json.loads(run.stdout.strip().splitlines()[-1]),
                     label=label)
         lines.append(line)
         print(json.dumps(line), flush=True)
+    lines.append(summary(lines))
+    print(json.dumps(lines[-1]), flush=True)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "main_path_turns.json").write_text(
         json.dumps(lines, indent=1))

@@ -24,8 +24,8 @@ hand-written kernels through `kernels.axhelm.ops`, which runs their plain
 versions on CPU tensors), and "auto" — "cuda" for float32 and bfloat16 on
 a CUDA device, "reference" on the CPU; float64 on a CUDA device raises at
 setup rather than leaving the kernels quietly.  The kernels run orders up
-to `N1_STAGED_MAX - 1` (above `N1_CLUSTER_MAX - 1` through the staged
-body).  Both backends take the same operands and share one plain version,
+to `N1_STAGED_MAX - 1` (orders `N1_MAX` to `N1_PLANE_MAX - 1` through the
+plane body, above that through the staged body).  Both backends take the same operands and share one plain version,
 `kernels/axhelm/ref.py`.
 
 bfloat16 is a storage type: the operator computes in float32 and rounds its
@@ -197,8 +197,8 @@ def _resolve_backend(backend: Optional[str], dtype: torch.dtype,
     the plain version runs on the card only when the caller asks for it.
     On a CPU device "cuda" runs the kernels' plain versions.  The kernels
     run N1 = order + 1 up to `kops.N1_STAGED_MAX` (above `kops.N1_MAX`
-    through the cluster body, above `kops.N1_CLUSTER_MAX` through the
-    staged body): a larger `n1` raises for "auto" and "cuda" on a CUDA
+    through the plane body, above `kops.N1_PLANE_MAX` through the staged
+    body): a larger `n1` raises for "auto" and "cuda" on a CUDA
     device.
     """
     if backend is None:

@@ -6,11 +6,12 @@ generic body of every variant at any N1 (``*_any`` entry points) and the
 one-thread-per-node body (K1-K5 as timing-only ``*_rowwise`` entry
 points), ``axhelm_column.cu`` the one-thread-per-column body (K2, K5),
 ``axhelm_line.cu`` the one-thread-per-line body (K1, K3, K4),
-``axhelm_cluster.cu`` the body that splits an element across a thread-block
-cluster (every variant above the generic body's N1, ``*_cluster`` entry
-points), ``axhelm_staged.cu`` the body that stages an element's
-contractions through device memory (every variant above the cluster body's
-N1, ``*_staged`` entry points), all five including ``axhelm_common.cuh``.  One ``nvcc -c`` per
+``axhelm_plane.cu`` the body that runs an element's contractions as
+register-tiled products, its t-planes a block each (every variant above the
+generic body's N1, ``*_plane`` entry points), ``axhelm_staged.cu`` the body
+that stages an element's contractions through device memory (every variant
+above the plane body's N1, ``*_staged`` entry points), all five including
+``axhelm_common.cuh``.  One ``nvcc -c`` per
 source, or per part of a source that ``PARTS`` splits (the column and line
 bodies' instantiations at N1 = 2 to 16, ``-DAXHELM_PART=p``), runs at the
 same time, then one link makes the shared library,
@@ -39,7 +40,7 @@ __all__ = ["SOURCES", "HEADERS", "PARTS", "NVCC_FLAGS", "LINK_FLAGS",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "axhelm.cu", _CSRC / "axhelm_column.cu",
-           _CSRC / "axhelm_line.cu", _CSRC / "axhelm_cluster.cu",
+           _CSRC / "axhelm_line.cu", _CSRC / "axhelm_plane.cu",
            _CSRC / "axhelm_staged.cu")
 HEADERS = (_CSRC / "axhelm_common.cuh",)
 # Sources compiled in several parts, by file name: each part instantiates
@@ -183,16 +184,15 @@ SIGNATURES = {
     # lam0)
     **{f"{variant}_any": [_PTR] * 8 + [_I32] * 4 + [_PTR]
        for variant in _VARIANTS},
-    # the cluster body, N1 above ops.N1_MAX up to ops.N1_CLUSTER_MAX, the
-    # generic body's arguments plus the cluster's: x, y, geom, lam0, lam1,
-    # dhat, xi, w3 | n1, n_elem, ncols, helmholtz, cluster size, planes a
-    # block | stream
-    **{f"{variant}_cluster": [_PTR] * 8 + [_I32] * 6 + [_PTR]
-       for variant in _VARIANTS},
-    # the staged body, N1 above ops.N1_CLUSTER_MAX, the generic body's
+    # the staged body, N1 above ops.N1_PLANE_MAX, the generic body's
     # arguments plus the fp32 scratch: x, y, geom, lam0, lam1, dhat, xi,
     # w3, scratch | n1, n_elem, ncols, helmholtz | stream
     **{f"{variant}_staged": [_PTR] * 9 + [_I32] * 4 + [_PTR]
+       for variant in _VARIANTS},
+    # the plane body, N1 above ops.N1_MAX up to ops.N1_PLANE_MAX, the staged
+    # body's arguments: x, y, geom, lam0, lam1, dhat, xi, w3, scratch | n1,
+    # n_elem, ncols, helmholtz | stream
+    **{f"{variant}_plane": [_PTR] * 9 + [_I32] * 4 + [_PTR]
        for variant in _VARIANTS},
 }
 
@@ -214,8 +214,8 @@ def symbol(name: str, suffix: str) -> str:
 def library() -> ctypes.CDLL:
     """The built library with the C signature of every entry point,
     ``axhelm_<variant>_f32`` and ``axhelm_<variant>_bf16``, of the generic
-    body's ``axhelm_<variant>_<suffix>_any``, of the cluster body's
-    ``axhelm_<variant>_<suffix>_cluster``, of the staged body's
+    body's ``axhelm_<variant>_<suffix>_any``, of the plane body's
+    ``axhelm_<variant>_<suffix>_plane``, of the staged body's
     ``axhelm_<variant>_<suffix>_staged``, of the timing-only
     ``axhelm_<variant>_<suffix>_rowwise`` and of `QUERIES`, declared."""
     lib = ctypes.CDLL(str(build()))

@@ -26,13 +26,14 @@
 // element's geometry words, x and the three weighted gradient components
 // live in dynamic shared memory (4 (N1^2 + 32 + 4 N1^3) bytes: 227 KB, what
 // a block may have on the H100, holds N1 <= 24; above that the entry points
-// run the cluster body of axhelm_cluster.cu, which splits an element across
-// a thread-block cluster).  Per column: x into shared
-// memory; per node the factors (node_factors, the node body's arithmetic)
-// and the weighted gradient; per node y, recomputing the mass term for
-// Helmholtz.  The factors are recomputed per column and nothing is tuned:
-// it is plain fp32 FFMA and reads every value of a contraction from shared
-// memory N1 times, like the node body, and has to be right, not fast.
+// run the plane body of axhelm_plane.cu, which runs an element's
+// contractions as register-tiled products, a t-plane a block).  Per column:
+// x into shared memory; per node the factors (node_factors, the node
+// body's arithmetic) and the weighted gradient; per node y, recomputing the
+// mass term for Helmholtz.  The factors are recomputed per column and
+// nothing is tuned: it is plain fp32 FFMA and reads every value of a
+// contraction from shared memory N1 times, like the node body, and has to
+// be right, not fast.
 //
 // The node body (axhelm_<variant>_<T>_rowwise, N1 = 4 and 8; timing only,
 // the wrapper's axhelm never calls it; chip_smoke.py times it beside the

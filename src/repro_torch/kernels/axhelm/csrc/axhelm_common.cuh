@@ -2,14 +2,15 @@
 // sources (the variants of the TPU kernel's _kernel), the storage
 // conversions, the hoisted Alg. 3 (the column body's K2/K5 and the line
 // body's K4) and the per-node factors of the node walk (the generic body of
-// axhelm.cu, the cluster body of axhelm_cluster.cu and the staged body's
+// axhelm.cu, the plane body of axhelm_plane.cu and the staged body's
 // pointwise pass in axhelm_staged.cu).  axhelm.cu holds the generic body
 // and the one-thread-per-node twins, axhelm_column.cu the
 // one-thread-per-column body (K2, K5), axhelm_line.cu the
-// one-thread-per-line body (K1, K3, K4), axhelm_cluster.cu the body that
-// splits an element across a thread-block cluster (N1 above the generic
-// body's 24), axhelm_staged.cu the body that stages an element's
-// contractions through device memory (N1 above the cluster body's 48).
+// one-thread-per-line body (K1, K3, K4), axhelm_plane.cu the body that
+// runs an element's contractions as register-tiled products, a t-plane a
+// block (N1 above the generic body's 24), axhelm_staged.cu the body that
+// stages an element's contractions through device memory (N1 above the
+// plane body's 48).
 #pragma once
 
 #include <cstdint>
@@ -147,8 +148,8 @@ __device__ __forceinline__ float det_j(const float* c0, const float* c1,
          c0[2] * (c1[0] * c2[1] - c1[1] * c2[0]);
 }
 
-// The node walk of the generic and cluster bodies (axhelm.cu,
-// axhelm_cluster.cu) and the staged body's pointwise pass
+// The node walk of the generic body (axhelm.cu), the plane body's plane
+// pass (axhelm_plane.cu) and the staged body's pointwise pass
 // (axhelm_staged.cu): the factors of one node, loaded or recomputed.
 
 struct Factors {

@@ -1,6 +1,6 @@
-// axhelm_staged.cu -- the axhelm element operator for elements that no
-// thread-block cluster holds: every variant at N1 above ops.N1_CLUSTER_MAX
-// (48), an application run as a short sequence of launches that stage the
+// axhelm_staged.cu -- the axhelm element operator for the largest
+// elements: every variant at N1 above ops.N1_PLANE_MAX (48), an
+// application run as a short sequence of launches that stage the
 // sum-factorisation contractions through device memory and L2 (sm_90a),
 // with a plain C interface (bound from Python with ctypes).
 //
@@ -8,11 +8,9 @@
 // of the one pl.pallas_call (kernel.py:233), in all five of its variants
 // (K1 precomputed :122-125, K2 trilinear :126-131, K3 parallelepiped
 // :132-136, K4 merged :137-153, K5 partial :154-157) and both storage types,
-// at the orders the cluster body of axhelm_cluster.cu cannot hold: _kernel
-// takes any N1 from the shape of x (kernel.py:159), and an 8-block slab of
-// the cluster body needs 278,840 bytes a block at N1 = 49, more than the
-// 232,448 a block may have; at N1 = 100 one fp32 element (4 MB) is more
-// than the shared memory of 16 blocks.
+// at the orders above the plane body of axhelm_plane.cu: _kernel takes any
+// N1 from the shape of x (kernel.py:159); at N1 = 100 one fp32 element (4
+// MB) is more than the shared memory of 16 blocks.
 //
 // Per element e and column c (c runs over the nrhs*d columns, which all
 // share the element's factors):

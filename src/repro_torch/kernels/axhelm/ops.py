@@ -36,38 +36,42 @@ point runs the generic body (`csrc/axhelm.cu`, the `*_any` symbols): one
 block an element walks its N1^3 nodes, N1 a runtime argument, with D-hat,
 x and the weighted gradient in dynamic shared memory
 (`generic_smem_bytes`); above N1_MAX that does not fit in a block's shared
-memory.  From N1_MAX + 1 to `N1_CLUSTER_MAX` (orders 24 to 47) each entry
-point runs the cluster body (`csrc/axhelm_cluster.cu`, the `*_cluster`
-symbols): an element split across a cluster of P blocks, each holding
-K = ceil(N1 / P) of its t-planes, the t contractions reading the peers'
-planes through distributed shared memory (`cluster_launch`); above
-N1_CLUSTER_MAX no cluster holds an element.  Above N1_CLUSTER_MAX (orders
-48 and up) each entry point runs the staged body (`csrc/axhelm_staged.cu`,
-the `*_staged` symbols): one application is `STAGED_KERNELS` launches, the
-six contractions as tiled products that stage whole lines of the
-contracted axis in shared memory and a pointwise pass for the factors,
-over fp32 scratch of 3 E ncols N1^3 words (and E N1^3 more for the
-Helmholtz mass) that the wrapper allocates with `torch.empty` at every
+memory.  From N1_MAX + 1 to `N1_PLANE_MAX` (orders 24 to 47) each entry
+point runs the plane body (`csrc/axhelm_plane.cu`, the `*_plane`
+symbols): one application is `PLANE_KERNELS` launches -- the t
+contraction of x into fp32 scratch T, a pass of one block per (element,
+t-plane) that runs the plane's r and s contractions, the factors and the
+transposed r and s contractions, writing s_t over T and the partial y into
+a second scratch field, and the transposed t contraction into y -- each
+product a register tile of PLANE_REG x PLANE_REG outputs a thread, over
+2 E ncols N1^3 words of scratch (`plane_launch`).  Above N1_PLANE_MAX
+(orders 48 and up) each entry point runs the staged body
+(`csrc/axhelm_staged.cu`, the `*_staged` symbols): one application is
+`STAGED_KERNELS` launches, the six contractions as tiled products that
+stage whole lines of the contracted axis in shared memory and a pointwise
+pass for the factors, over fp32 scratch of 3 E ncols N1^3 words (and E
+N1^3 more for the Helmholtz mass) (`staged_launch`).  The plane and staged
+bodies' scratch is allocated by the wrapper with `torch.empty` at every
 call (under a CUDA graph's capture it comes from the graph's pool, the
-same memory at every replay; `staged_launch`).  Its one limit is a
-block's shared memory, N1 up to `N1_STAGED_MAX`; a scratch the card
-cannot hold is refused by that `torch.empty`, which raises
-`torch.OutOfMemoryError` with the size.  None needs element padding: the column
-and line bodies mask their ragged last group, the staged body its ragged
+same memory at every replay); the staged body's one limit is a block's
+shared memory, N1 up to `N1_STAGED_MAX`; a scratch the card cannot hold
+is refused by that `torch.empty`, which raises `torch.OutOfMemoryError`
+with the size.  None needs element padding: the column and line bodies
+mask their ragged last group, the plane and staged bodies their ragged
 tiles.  `launch_counts` counts one launch of each entry point
 (`entry_point(variant, dtype)`, the C symbol) per application, whichever
 body it ran, so a run can show that a solve went through the kernels it
 expects (`KERNELS_PER_APPLICATION` records the CUDA kernels one
-application of each body launches: 7 for the staged body, 1 for every
-other); a launch captured into a solver loop's CUDA graph
-counts once for every replay of the graph (`core.graphs.count`).  Three
-timing-only twins count nothing and `axhelm` never reaches them:
-`rowwise` launches a variant on the one-thread-per-node body at N1 in
-ROWWISE_N1 (4 and 8), beside the bodies that replaced it, `generic` the
-generic body
-at any N1 up to N1_MAX, beside the tuned bodies, and `staged` the staged
-body at any N1 up to N1_STAGED_MAX, beside the generic and cluster
-bodies.
+application of each body launches: 3 for the plane body, 7 for the staged
+body, 1 for every other; a design fact, not counted); a launch captured
+into a solver loop's CUDA graph counts once for every replay of the graph
+(`core.graphs.count`).  Four timing-only twins count nothing and `axhelm`
+never reaches them: `rowwise` launches a variant on the one-thread-per-node
+body at N1 in ROWWISE_N1 (4 and 8), beside the bodies that replaced it,
+`generic` the generic body at any N1 up to N1_MAX, beside the tuned
+bodies, `plane` the plane body at any N1 up to N1_PLANE_MAX, beside the
+generic body, and `staged` the staged body at any N1 up to N1_STAGED_MAX,
+beside the plane body.
 """
 
 from __future__ import annotations
@@ -91,15 +95,19 @@ __all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
            "column_elems", "column_threads", "column_min_blocks",
            "column_smem_bytes", "line_elems", "line_threads", "line_rolls",
            "line_min_blocks", "line_smem_bytes", "staged_alignment",
-           "GENERIC_THREADS", "CLUSTER_THREADS", "CLUSTER_MAX",
-           "N1_CLUSTER_MAX", "STAGED_THREADS", "STAGED_TILE",
+           "GENERIC_THREADS", "SMEM_PER_SM", "SMEM_RESERVED", "PLANE_REG",
+           "PLANE_LINE_LANES", "PLANE_LINE_TILE", "PLANE_MIN_BLOCKS",
+           "PLANE_FACTOR_WORDS", "PLANE_ARRAYS", "PLANE_STATIC_SMEM",
+           "PLANE_KERNELS", "N1_PLANE_MAX", "STAGED_THREADS", "STAGED_TILE",
            "FACTOR_THREADS", "STAGED_KERNELS", "N1_STAGED_MAX",
            "KERNELS_PER_APPLICATION",
            "entry_point", "column_launch", "line_launch", "generic_launch",
-           "generic_smem_bytes", "cluster_smem_bytes", "cluster_launch",
+           "generic_smem_bytes", "plane_lanes", "plane_pitch",
+           "plane_smem_bytes", "plane_line_smem_bytes", "plane_launch",
+           "PlaneLaunch",
            "staged_smem_bytes", "staged_launch", "StagedLaunch",
            "launch_counts", "reset_launch_counts",
-           "axhelm", "rowwise", "generic", "staged", "reference",
+           "axhelm", "rowwise", "generic", "plane", "staged", "reference",
            "unrounded"]
 
 KERNEL_VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged",
@@ -149,11 +157,31 @@ GENERIC_THREADS = 512  # most threads a block of the generic body
 # generic body's N1: generic_smem_bytes(N1_MAX) fits, N1_MAX + 1 does not
 SMEM_PER_BLOCK = 232448
 N1_MAX = 24
-CLUSTER_THREADS = 512  # most threads a block of the cluster body
-CLUSTER_MAX = 8        # the portable cluster size limit, blocks
-# the largest N1 whose slab fits in a block of an 8-block cluster
-# (cluster_smem_bytes): the cluster body's cap
-N1_CLUSTER_MAX = 48
+# shared memory an SM has on the H100 (228 KB), and what the runtime
+# reserves of it for each resident block
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+# The plane body (csrc/axhelm_plane.cu): PLANE_REG x PLANE_REG outputs a
+# thread in every product; its line kernel (launches 1 and 3)
+# PLANE_LINE_LANES lanes along the lines, PLANE_LINE_TILE lines a block;
+# its plane kernel ceil(N1 / PLANE_REG)^2 threads in whole warps,
+# PLANE_MIN_BLOCKS blocks an SM promised (kPlaneMinBlocks), PLANE_ARRAYS
+# arrays of a plane's size in shared memory, the node's factors held there
+# too (PLANE_FACTOR_WORDS words a node) when an application has several
+# columns, PLANE_STATIC_SMEM bytes of static shared memory (the element's
+# geometry words); PLANE_KERNELS launches an application
+PLANE_REG = 4
+PLANE_LINE_LANES = 32
+PLANE_LINE_TILE = PLANE_REG * PLANE_LINE_LANES
+PLANE_MIN_BLOCKS = 3
+PLANE_FACTOR_WORDS = 7
+PLANE_ARRAYS = 5
+PLANE_STATIC_SMEM = 128
+PLANE_KERNELS = 3
+# the entry points run the plane body up to this N1 (orders 24 to 47), the
+# largest its tiles' threads and registers are sized for (kPlaneN1Max); the
+# staged body's range starts above it
+N1_PLANE_MAX = 48
 # The staged body (csrc/axhelm_staged.cu): STAGED_THREADS threads a
 # contraction block, its tile (output rows, lines, D-hat columns a step),
 # FACTOR_THREADS a block of its pointwise pass, STAGED_KERNELS launches an
@@ -164,8 +192,9 @@ STAGED_TILE = (64, 64, 16)
 FACTOR_THREADS = 256
 STAGED_KERNELS = 7
 # CUDA kernels one application of each body launches
-KERNELS_PER_APPLICATION = {"column": 1, "line": 1, "any": 1, "cluster": 1,
-                           "rowwise": 1, "staged": STAGED_KERNELS}
+KERNELS_PER_APPLICATION = {"column": 1, "line": 1, "any": 1,
+                           "plane": PLANE_KERNELS, "rowwise": 1,
+                           "staged": STAGED_KERNELS}
 # storage dtype -> the suffix of its entry points in csrc/axhelm.cu
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -195,31 +224,65 @@ def generic_launch(n1: int, n_elem: int) -> tuple[int, int, int]:
     return threads, n_elem, generic_smem_bytes(n1)
 
 
-def cluster_smem_bytes(n1: int, planes: int) -> int:
-    """Dynamic shared memory of one cluster-body block (kernel
-    `axhelm_cluster_kernel`): D-hat with rows padded to N1 + 1 floats, 32
-    floats of element geometry, and x and the three weighted gradient
-    components of `planes` t-planes (4 planes N1^2 floats)."""
-    return 4 * (n1 * (n1 + 1) + 32 + 4 * planes * n1 * n1)
+def plane_lanes(n1: int) -> int:
+    """Threads along each axis of a plane-body tile: N1 rounded up to
+    PLANE_REG, over PLANE_REG (`lanes_of` in the source)."""
+    return -(-n1 // PLANE_REG)
 
 
-def cluster_launch(n1: int, n_elem: int
-                   ) -> tuple[int, int, int, int, int]:
-    """(cluster size P, planes a block K, threads, grid, shared-memory
-    bytes) of the cluster body: P the smallest power of two up to
-    CLUSTER_MAX whose slab of K = ceil(N1 / P) t-planes fits in a block's
-    shared memory; P blocks an element (the last one's slab may be short,
-    or empty), at most CLUSTER_THREADS threads a block, whole warps."""
-    p = 1
-    while p <= CLUSTER_MAX:
-        k = -(-n1 // p)
-        if cluster_smem_bytes(n1, k) <= SMEM_PER_BLOCK:
-            threads = min(CLUSTER_THREADS, -(-k * n1 * n1 // 32) * 32)
-            return p, k, threads, n_elem * p, cluster_smem_bytes(n1, k)
-        p *= 2
-    raise ValueError(f"no cluster of at most {CLUSTER_MAX} blocks holds an "
-                     f"element of N1={n1} (N1_CLUSTER_MAX = "
-                     f"{N1_CLUSTER_MAX})")
+def plane_pitch(n1: int) -> int:
+    """The plane kernel's row pitch in floats (`pitch_of` in the source):
+    N1 | 1, odd, so that the rows a warp reads at once meet in no bank."""
+    return n1 | 1
+
+
+def plane_smem_bytes(n1: int, hold: bool) -> int:
+    """Dynamic shared memory of one plane-kernel block: PLANE_ARRAYS arrays
+    of N1 rows of `plane_pitch` floats (D-hat, s_r, s_s, the planes of T
+    and x), and, when the block holds the factors for several columns
+    (`hold`), PLANE_FACTOR_WORDS floats a node."""
+    return 4 * (PLANE_ARRAYS * n1 * plane_pitch(n1)
+                + (PLANE_FACTOR_WORDS * n1 * n1 if hold else 0))
+
+
+def plane_line_smem_bytes(n1: int) -> int:
+    """Dynamic shared memory of one line-kernel block of the plane body:
+    D-hat or its transpose over N1 rows of PLANE_REG * plane_lanes(N1)
+    outputs, and a panel of PLANE_LINE_TILE lines of the whole contracted
+    axis, fp32."""
+    return 4 * n1 * (PLANE_REG * plane_lanes(n1) + PLANE_LINE_TILE)
+
+
+class PlaneLaunch(NamedTuple):
+    """The launches of one plane-body application (`plane_launch`)."""
+
+    line_threads: int                  # a block of launches 1 and 3
+    line_grid: tuple[int, int]         # (E ncols batch rows, line tiles)
+    line_smem_bytes: int               # its dynamic shared memory
+    plane_threads: int                 # a block of launch 2
+    plane_grid: int                    # E N1: one block per (element, k)
+    plane_smem_bytes: int              # its dynamic shared memory
+    scratch_bytes: int                 # fp32 T and Ypart
+    kernels: int                       # launches an application
+
+
+def plane_launch(n1: int, n_elem: int, ncols: int) -> PlaneLaunch:
+    """The plane body's launches for E = n_elem elements of ncols columns:
+    launches 1 and 3 one block per batch row (element, column) and tile of
+    PLANE_LINE_TILE lines, PLANE_LINE_LANES x plane_lanes(N1) threads (a
+    warp one output row); launch 2 one block per (element, t-plane), the
+    plane's tiles in whole warps, holding the factors when ncols > 1; the
+    scratch, two fp32 fields of E ncols N1^3 words."""
+    lanes = plane_lanes(n1)
+    return PlaneLaunch(
+        line_threads=PLANE_LINE_LANES * lanes,
+        line_grid=(n_elem * ncols, -(-n1 * n1 // PLANE_LINE_TILE)),
+        line_smem_bytes=plane_line_smem_bytes(n1),
+        plane_threads=-(-lanes * lanes // 32) * 32,
+        plane_grid=n_elem * n1,
+        plane_smem_bytes=plane_smem_bytes(n1, ncols > 1),
+        scratch_bytes=4 * 2 * ncols * n_elem * n1 ** 3,
+        kernels=PLANE_KERNELS)
 
 
 def staged_smem_bytes(n1: int) -> int:
@@ -501,13 +564,28 @@ def generic(x: torch.Tensor, basis: SpectralBasis, variant: str,
                    twin="any").reshape(x.shape)
 
 
+def plane(x: torch.Tensor, basis: SpectralBasis, variant: str,
+          geom: torch.Tensor, lam0: Optional[torch.Tensor] = None,
+          lam1: Optional[torch.Tensor] = None,
+          helmholtz: bool = False) -> torch.Tensor:
+    """A variant on the plane body of `csrc/axhelm_plane.cu` at any N1
+    from 2 to N1_PLANE_MAX, on CUDA tensors: for tests and timing beside
+    `axhelm`, which takes the plane body only above N1_MAX.  Counts no
+    launch."""
+    check_variant(variant)
+    helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
+    xb = _as_batched(x)
+    return _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
+                   twin="plane").reshape(x.shape)
+
+
 def staged(x: torch.Tensor, basis: SpectralBasis, variant: str,
            geom: torch.Tensor, lam0: Optional[torch.Tensor] = None,
            lam1: Optional[torch.Tensor] = None,
            helmholtz: bool = False) -> torch.Tensor:
     """A variant on the staged body of `csrc/axhelm_staged.cu` at any N1
     from 2 to N1_STAGED_MAX, on CUDA tensors: for tests and timing beside
-    `axhelm`, which takes the staged body only above N1_CLUSTER_MAX.
+    `axhelm`, which takes the staged body only above N1_PLANE_MAX.
     Counts no launch."""
     check_variant(variant)
     helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
@@ -568,9 +646,11 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
                            twin: Optional[str] = None) -> None:
     """Everything the CUDA kernel does not take raises here: an N1 below 2;
     for the generic body's twin (`twin="any"`) one above N1_MAX, for the
-    node body (`twin="rowwise"`) one outside ROWWISE_N1; for the staged body
-    (above N1_CLUSTER_MAX, or `twin="staged"`) one whose panel does not fit
-    in a block's shared memory (above N1_STAGED_MAX); a storage dtype other than float32 or
+    node body (`twin="rowwise"`) one outside ROWWISE_N1, for the plane
+    body's twin (`twin="plane"`) one above N1_PLANE_MAX; for the staged
+    body (above N1_PLANE_MAX, or `twin="staged"`) one whose panel
+    does not fit in a block's shared memory (above N1_STAGED_MAX); a
+    storage dtype other than float32 or
     bfloat16, an operand whose dtype is not x's, another device, a shape
     off the layout, or a non-contiguous tensor."""
     n1 = basis.n1
@@ -585,6 +665,11 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
     if twin == "rowwise" and n1 not in ROWWISE_N1:
         raise ValueError(f"the one-thread-per-node body is instantiated for "
                          f"N1 in {ROWWISE_N1}, got N1={n1} (order {basis.n})")
+    if twin == "plane" and n1 > N1_PLANE_MAX:
+        raise ValueError(f"the plane body runs N1 up to N1_PLANE_MAX = "
+                         f"{N1_PLANE_MAX}: its tiles' threads and registers "
+                         f"are sized for no larger plane; got N1={n1} "
+                         f"(order {basis.n})")
     staged_body = body_of(variant, n1, twin) == "staged"
     if staged_body and n1 > N1_STAGED_MAX:
         raise ValueError(f"the staged body runs N1 up to N1_STAGED_MAX = "
@@ -673,16 +758,16 @@ def _ptr(t: Optional[torch.Tensor]):
 def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
     """The body a launch runs: "column" or "line" (the tuned bodies, at N1
     in KERNEL_N1: 2 to N1_TUNED_MAX), "any" (the generic body: N1 above
-    N1_TUNED_MAX up to N1_MAX, or the `generic` twin), "cluster" (N1 above
-    N1_MAX up to N1_CLUSTER_MAX),
-    "staged" (N1 above N1_CLUSTER_MAX, or the `staged` twin) or "rowwise"
-    (the node body of the `rowwise` twin)."""
+    N1_TUNED_MAX up to N1_MAX, or the `generic` twin), "plane" (N1 above
+    N1_MAX up to N1_PLANE_MAX, or the `plane` twin), "staged" (N1 above
+    N1_PLANE_MAX, or the `staged` twin) or "rowwise" (the node body of the
+    `rowwise` twin)."""
     if twin is not None:
         return twin
-    if n1 > N1_CLUSTER_MAX:
+    if n1 > N1_PLANE_MAX:
         return "staged"
     if n1 > N1_MAX:
-        return "cluster"
+        return "plane"
     if n1 > N1_TUNED_MAX:
         return "any"
     return "column" if variant in COLUMN_VARIANTS else "line"
@@ -691,8 +776,9 @@ def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
 def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
             twin: Optional[str] = None) -> torch.Tensor:
     """Launch `variant` on x's current stream, through the body `body_of`
-    names, and count an entry point's launch; a timing-only `twin` ("rowwise", "any" or "staged") counts none.  The
-    staged body's scratch is allocated here, on x's device, at every call:
+    names, and count an entry point's launch; a timing-only `twin`
+    ("rowwise", "any", "plane" or "staged") counts none.  The plane and
+    staged bodies' scratch is allocated here, on x's device, at every call:
     within a CUDA graph's capture it comes from the graph's pool and the
     graph keeps it, so every replay runs on the same memory."""
     _check_kernel_operands(xb, basis, variant, geom, lam0, lam1, twin)
@@ -715,14 +801,12 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
         if body == "any":
             rc = fn(*common, _ptr(xi), _ptr(w3), *sizes, int(helmholtz),
                     stream)
-        elif body == "cluster":
-            p, k, *_ = cluster_launch(basis.n1, e)
-            rc = fn(*common, _ptr(xi), _ptr(w3), *sizes, int(helmholtz), p,
-                    k, stream)
-        elif body == "staged":
-            scratch = torch.empty(
+        elif body in ("plane", "staged"):
+            nbytes = plane_launch(basis.n1, e, ncols).scratch_bytes \
+                if body == "plane" else \
                 staged_launch(basis.n1, e, ncols, helmholtz).scratch_bytes
-                // 4, dtype=torch.float32, device=xb.device)
+            scratch = torch.empty(nbytes // 4, dtype=torch.float32,
+                                  device=xb.device)
             rc = fn(*common, _ptr(xi), _ptr(w3), _ptr(scratch), *sizes,
                     int(helmholtz), stream)
         elif body == "column":

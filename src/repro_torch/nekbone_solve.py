@@ -15,7 +15,7 @@ Run:  PYTHONPATH=src python -m repro_torch.nekbone_solve \
           [--dist-backend nccl]
 
 --order N runs on the card at every order, each through its axhelm body
-(`kernels.axhelm.ops.body_of`): `--elements 4 4 4 --order 31` the cluster
+(`kernels.axhelm.ops.body_of`): `--elements 4 4 4 --order 31` the plane
 body (1,953,125 dofs), `--elements 2 2 2 --order 63` the staged body
 (2,048,383 dofs).
 

@@ -226,16 +226,16 @@ def test_n1_max_is_the_largest_element_a_block_holds():
     """D-hat, 32 geometry words, x and the three weighted components in
     fp32: 16 N1^3 + 4 N1^2 + 128 bytes, 223,616 at N1 = 24, 252,628 at 25,
     against the 232,448 bytes a block may have on the H100.  N1_MAX stays
-    the generic body's cap; above it the entry points run the cluster body
-    up to N1_CLUSTER_MAX = 48 (tests/test_torch_axhelm_cluster.py)."""
+    the generic body's cap; above it the entry points run the plane body
+    up to N1_PLANE_MAX = 48 (tests/test_torch_axhelm_plane.py)."""
     assert ops.generic_smem_bytes(24) == 223616
     assert ops.generic_smem_bytes(25) == 252628
     assert max(n for n in range(2, 64)
                if ops.generic_smem_bytes(n) <= ops.SMEM_PER_BLOCK) \
         == ops.N1_MAX == 24
     assert ops.body_of("trilinear", ops.N1_MAX) == "any"
-    assert ops.body_of("trilinear", ops.N1_MAX + 1) == "cluster"
-    assert ops.N1_CLUSTER_MAX == 48
+    assert ops.body_of("trilinear", ops.N1_MAX + 1) == "plane"
+    assert ops.N1_PLANE_MAX == 48
 
 
 def _geom_meta(variant, e, n1, dtype=torch.float32):
@@ -283,13 +283,13 @@ def test_axhelm_routes_each_order_to_its_body(fake_card, variant, n1):
 def test_body_of_routes_at_the_tuned_and_generic_edges(fake_card, monkeypatch,
                                                        variant, n1):
     """`body_of` and the launch it makes at the edges of the tuned range
-    (N1 = 2 to 16), the generic body's (17 to 24) and the cluster body's
+    (N1 = 2 to 16), the generic body's (17 to 24) and the plane body's
     first N1: N1 = 1 (order 0, which has no GLL basis) is refused before
     any launch."""
     b = tbasis(n1 - 1) if n1 > 1 else types.SimpleNamespace(n=0, n1=1)
     e, helm = 3, variant == "merged"
     want = {1: None, 15: "tuned", 16: "tuned", 17: "any", 24: "any",
-            25: "cluster"}[n1]
+            25: "plane"}[n1]
     tuned = "column" if variant in ops.COLUMN_VARIANTS else "line"
     if want is not None:
         assert ops.body_of(variant, n1) == (tuned if want == "tuned"
@@ -339,14 +339,14 @@ def test_wrapper_refuses_an_order_it_has_no_body_for(n1, twin, match):
     """Above N1_STAGED_MAX (the staged body's panel outgrows a block's
     shared memory) and below 2 no body runs; the generic body's twin only
     up to N1_MAX; the node body only at the tuned N1.  The wrapper raises
-    before it looks at the tensors; above N1_CLUSTER_MAX it takes the
+    before it looks at the tensors; above N1_PLANE_MAX it takes the
     order (the staged body) and stops at the device."""
     b = type("B", (), {"n1": n1, "n": n1 - 1})
     x = _meta((3, 1, 1) + (n1,) * 3 if n1 < 100 else (3, 1, 1, 1, 1, 1))
     with pytest.raises(ValueError, match=match):
         ops._check_kernel_operands(x, b, "trilinear", _meta((3, 8, 3)),
                                    None, None, twin)
-    big = ops.N1_CLUSTER_MAX + 1
+    big = ops.N1_PLANE_MAX + 1
     with pytest.raises(ValueError, match="CUDA device"):
         ops._check_kernel_operands(_meta((3, 1, 1) + (big,) * 3),
                                    tbasis(big - 1), "trilinear",
@@ -357,15 +357,15 @@ def test_setup_refuses_orders_above_n1_max_on_a_card():
     """`_resolve_backend` raises for "auto" and "cuda" on a CUDA device
     above N1_STAGED_MAX (the way it refuses float64), before anything
     touches the device, and takes the kernels up to it (above N1_MAX
-    through the cluster body, above N1_CLUSTER_MAX through the staged
+    through the plane body, above N1_PLANE_MAX through the staged
     body); "cuda" on the CPU runs the plain version at any order."""
     f32, cuda, cpu = torch.float32, torch.device("cuda"), torch.device("cpu")
     big = ops.N1_STAGED_MAX + 1
     for backend in (None, "auto", "cuda"):
         with pytest.raises(ValueError, match="N1_STAGED_MAX"):
             taxhelm._resolve_backend(backend, f32, cuda, big)
-        for n1 in (ops.N1_MAX, ops.N1_MAX + 1, ops.N1_CLUSTER_MAX,
-                   ops.N1_CLUSTER_MAX + 1, 64, ops.N1_STAGED_MAX):
+        for n1 in (ops.N1_MAX, ops.N1_MAX + 1, ops.N1_PLANE_MAX,
+                   ops.N1_PLANE_MAX + 1, 64, ops.N1_STAGED_MAX):
             assert taxhelm._resolve_backend(backend, f32, cuda,
                                             n1) == "cuda"
     assert taxhelm._resolve_backend("cuda", f32, cpu, big) == "cuda"
@@ -393,19 +393,32 @@ def test_ptxas_report_names_the_generic_body():
                     "registers": 57, "smem_bytes": 0}
 
 
-_CLUSTER_REPORT = """\
-ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__1f2e3d4c_17_axhelm_cluster_cu_0a1b2c3d21axhelm_cluster_kernelILN13axhelm_detail10GeomSourceE1EfEEvPKT0_PS3_S5_S5_S5_PKfS8_S8_iiii' for 'sm_90a'
-ptxas info    : Function properties for _ZN41_GLOBAL__N__1f2e3d4c_17_axhelm_cluster_cu_0a1b2c3d21axhelm_cluster_kernelILN13axhelm_detail10GeomSourceE1EfEEvPKT0_PS3_S5_S5_S5_PKfS8_S8_iiii
+_PLANE_REPORT = """\
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__c65e9103_15_axhelm_plane_cu_486765ee19axhelm_plane_kernelILN13axhelm_detail10GeomSourceE1EfEEvNS_9PlaneArgsIT0_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__c65e9103_15_axhelm_plane_cu_486765ee19axhelm_plane_kernelILN13axhelm_detail10GeomSourceE1EfEEvNS_9PlaneArgsIT0_EE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 62 registers, used 1 barriers, 404 bytes cmem[0]
+ptxas info    : Used 128 registers, used 1 barriers, 128 bytes smem
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__c65e9103_15_axhelm_plane_cu_486765ee24axhelm_plane_line_kernelILb1E13__nv_bfloat16EEvNS_9PlaneArgsIT0_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__c65e9103_15_axhelm_plane_cu_486765ee24axhelm_plane_line_kernelILb1E13__nv_bfloat16EEvNS_9PlaneArgsIT0_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers
 """
 
 
-def test_ptxas_report_names_the_cluster_body():
-    (inst,) = chip_smoke.ptxas_instantiations(_CLUSTER_REPORT)
-    assert inst == {"variant": "trilinear", "body": "cluster", "n1": None,
-                    "dtype": "f32", "spill_stores": 0, "spill_loads": 0,
-                    "registers": 62, "smem_bytes": 0}
+def test_ptxas_report_names_the_plane_body():
+    """The plane body's kernels as phase 2 parses them (names as nvcc 12.9
+    mangles them for sm_90a): a variant's plane pass, and a line
+    contraction every variant shares (variant None)."""
+    plane, line = chip_smoke.ptxas_instantiations(_PLANE_REPORT)
+    assert plane == {"variant": "trilinear", "body": "plane",
+                     "pass": "plane", "n1": None, "dtype": "f32",
+                     "spill_stores": 0, "spill_loads": 0,
+                     "registers": 128, "smem_bytes": 128}
+    assert line == {"variant": None, "body": "plane", "pass": "line_last",
+                    "n1": None, "dtype": "bf16", "spill_stores": 0,
+                    "spill_loads": 0, "registers": 40, "smem_bytes": 0}
+    assert chip_smoke.PLANE_SHARED_PASSES == ("line_first", "line_last")
+    assert chip_smoke.PLANE_VARIANT_PASSES == ("plane",)
 
 
 def test_chip_smoke_checks_the_generic_body_where_it_runs():

@@ -1,5 +1,5 @@
 """The staged body of the axhelm kernels (`csrc/axhelm_staged.cu`), which
-runs every variant at N1 above the cluster body's N1_CLUSTER_MAX, on the
+runs every variant at N1 above the plane body's N1_PLANE_MAX, on the
 CPU: what of it is not CUDA.
 
 * Its walk, written here in the kernel's order: seven launches over fp32
@@ -290,7 +290,7 @@ def test_n1_staged_max_is_the_largest_panel_a_block_holds():
     assert ops.N1_STAGED_MAX == 878
     assert ops.staged_smem_bytes(878) == 232376
     assert ops.staged_smem_bytes(64) == 20736
-    assert ops.N1_CLUSTER_MAX < ops.N1_STAGED_MAX
+    assert ops.N1_PLANE_MAX < ops.N1_STAGED_MAX
     with pytest.raises(ValueError, match="N1_STAGED_MAX"):
         ops._check_kernel_operands(
             _meta((1, 1, 1, 1, 1, 1)),
@@ -300,18 +300,17 @@ def test_n1_staged_max_is_the_largest_panel_a_block_holds():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n1", [ops.N1_CLUSTER_MAX, ops.N1_CLUSTER_MAX + 1,
-                                64])
+@pytest.mark.parametrize("n1", [ops.N1_PLANE_MAX, ops.N1_PLANE_MAX + 1, 64])
 @pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
 def test_axhelm_routes_orders_above_the_cluster_cap_to_the_staged_body(
         fake_card, variant, n1, dtype):
-    """N1 up to N1_CLUSTER_MAX reaches the cluster body (`*_cluster`), N1
-    above it the staged body (`*_staged`: the generic body's arguments
-    plus the scratch, (3 ncols + helmholtz) E N1^3 floats allocated at the
-    call); either
-    way one launch of the entry point is counted, and its body records how
-    many CUDA kernels an application launches (seven for the staged
-    body)."""
+    """N1 up to N1_PLANE_MAX reaches the plane body (`*_plane`), N1 above
+    it the staged body (`*_staged`); both take the generic body's
+    arguments plus the scratch they allocate at the call (the plane body 2
+    ncols E N1^3 floats, the staged body (3 ncols + helmholtz) E N1^3);
+    either way one launch of the entry point is counted, and its body
+    records how many CUDA kernels an application launches (three for the
+    plane body, seven for the staged body)."""
     b = tbasis(n1 - 1)
     e, ncols, helm = 3, 2, variant == "merged"
     before = dict(ops.launch_counts)
@@ -320,20 +319,17 @@ def test_axhelm_routes_orders_above_the_cluster_cap_to_the_staged_body(
                **_lams_meta(variant, e, n1, dtype))
     (name, args), = fake_card.calls
     entry = ops.entry_point(variant, dtype)
-    body = "staged" if n1 > ops.N1_CLUSTER_MAX else "cluster"
+    body = "staged" if n1 > ops.N1_PLANE_MAX else "plane"
     assert ops.body_of(variant, n1) == body
     assert name == f"{entry}_{body}" == build.symbol(
         f"{variant}_{body}", ops.KERNEL_DTYPES[dtype])
     assert len(args) == len(build.SIGNATURES[f"{variant}_{body}"])
     assert args[-1] == 7
-    if body == "staged":
-        assert args[9:13] == (n1, e, ncols, int(helm))
-    else:
-        assert args[8:12] == (n1, e, ncols, int(helm))
+    assert args[9:13] == (n1, e, ncols, int(helm))
     assert ops.launch_counts[entry] == before[entry] + 1
     assert sum(ops.launch_counts.values()) == sum(before.values()) + 1
     assert ops.KERNELS_PER_APPLICATION[body] == (7 if body == "staged"
-                                                 else 1)
+                                                 else 3)
 
 
 @pytest.mark.parametrize("n1", [25, 32, 48, 64])
@@ -341,7 +337,7 @@ def test_axhelm_routes_orders_above_the_cluster_cap_to_the_staged_body(
 def test_the_staged_twin_runs_any_order_and_counts_nothing(fake_card,
                                                            variant, n1):
     """`staged` (the staged body at any N1, timing only) takes the staged
-    body at the cluster body's orders too, and counts no launch."""
+    body at the plane body's orders too, and counts no launch."""
     b = tbasis(n1 - 1)
     e = 3
     before = dict(ops.launch_counts)
@@ -393,10 +389,10 @@ def test_chip_smoke_checks_the_staged_body_where_it_runs():
     """The orders chip_smoke.py checks the staged body at run it, its main
     path's among them; its source holds the kernels."""
     n1s = [o + 1 for o in chip_smoke.STAGED_ORDERS]
-    assert all(n1 > ops.N1_CLUSTER_MAX for n1 in n1s)
+    assert all(n1 > ops.N1_PLANE_MAX for n1 in n1s)
     assert chip_smoke.STAGED_ORDER + 1 in n1s
-    assert chip_smoke.STAGED_SMALL_ORDER + 1 > ops.N1_CLUSTER_MAX
-    assert all(o + 1 <= ops.N1_CLUSTER_MAX
+    assert chip_smoke.STAGED_SMALL_ORDER + 1 > ops.N1_PLANE_MAX
+    assert all(o + 1 <= ops.N1_PLANE_MAX
                for o in chip_smoke.STAGED_TWIN_ORDERS)
     source = (chip_smoke.ROOT / chip_smoke.SOURCE["staged"]).read_text()
     assert "axhelm_staged_contract_kernel" in source
@@ -408,7 +404,7 @@ def test_chip_smoke_checks_the_staged_body_where_it_runs():
 @pytest.fixture
 def one_thread():
     """torch on one thread for a solve's many small operations (see
-    tests/test_torch_axhelm_cluster.py)."""
+    tests/test_torch_axhelm_plane.py)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

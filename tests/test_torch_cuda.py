@@ -5,7 +5,7 @@ counts, against the correctly rounded result for bf16, and on solves that
 must not reach their timing-only one-thread-per-node twins; the generic
 body of every variant at orders 1 to 15, and beside the tuned bodies at
 orders 3 and 7 -- the wrapper's refusals (a misaligned operand of the line
-body and an order above N1_CLUSTER_MAX - 1 among them), the gather's run-to-run
+body and an order above N1_PLANE_MAX - 1 among them), the gather's run-to-run
 behaviour, and solves through the kernels: float32 single and stacked
 right-hand sides (the comparison with the reference backend), order 5
 (through the tuned bodies), and the mixed-precision bf16_x32 refinement;
@@ -142,13 +142,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card, variant):
     with pytest.raises(ValueError, match="CUDA device"):
         ops.axhelm(x, b, variant, geom.cpu(), **kw)
     # every order up to N1_STAGED_MAX - 1 runs (test_generic_body_*, above
-    # N1_MAX - 1 tests/test_torch_cluster_cuda.py, above N1_CLUSTER_MAX - 1
+    # N1_MAX - 1 tests/test_torch_plane_cuda.py, above N1_PLANE_MAX - 1
     # the staged body, tests/test_torch_staged_cuda.py); one past the
-    # cluster body's cap the wrapper runs.  Above N1_STAGED_MAX a staged
+    # plane body's cap the wrapper runs.  Above N1_STAGED_MAX a staged
     # contraction block's panel does not fit in shared memory: the wrapper
     # raises before it reads the tensors, and so does setup on the card
     # (a stand-in basis: no 879^3 arrays)
-    bb, xb, geomb, kwb = _operands(variant, ops.N1_CLUSTER_MAX, 2, 1, helm,
+    bb, xb, geomb, kwb = _operands(variant, ops.N1_PLANE_MAX, 2, 1, helm,
                                    card)
     assert ops.body_of(variant, bb.n1) == "staged"
     assert ops.axhelm(xb, bb, variant, geomb, **kwb).shape == xb.shape

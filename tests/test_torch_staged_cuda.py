@@ -1,7 +1,7 @@
 """Card tests of the staged body (`csrc/axhelm_staged.cu`): every entry
 point, float32 and bfloat16 storage, at N1 = 49 and 64 (E = 3 with three
 columns and E = 8 with one), and the timing-only `ops.staged` twin at the
-cluster body's N1 = 32, against its plain PyTorch version, the launch
+plane body's N1 = 32, against its plain PyTorch version, the launch
 counted once under the entry point and its seven kernels beside it; the
 2x1x1 order-48 solve through the kernels against the reference backend;
 the 2x2x2 order-63 solve captured against eager, bitwise.
@@ -58,7 +58,7 @@ def test_staged_body_matches_plain_version(card, variant, helm, n, e,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant,helm", _VARIANT_EQUATIONS)
 def test_staged_twin_at_a_cluster_order(card, variant, helm, dtype):
-    """`ops.staged` at N1 = 32, where `axhelm` runs the cluster body:
+    """`ops.staged` at N1 = 32, where `axhelm` runs the plane body:
     the same answer, no launch counted."""
     b, x, geom, kw = _operands(variant, 31, 5, 2, helm, card, dtype=dtype)
     before = dict(ops.launch_counts)
