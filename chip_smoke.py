@@ -24,10 +24,11 @@ each:
               generic body, plane body (its three launches: the t
               contraction and its transpose shared by the five variants,
               the plane pass each variant's own) and staged body (its
-              seven launches: three contractions, the factors, three
-              transposed contractions; the contractions shared by the five
-              variants), N1 a runtime argument; and the timing-only
-              one-thread-per-node `_rowwise` twins of K1-K5); no
+              six launches: the r and s contractions and the three
+              transposed ones, shared by the five variants, and the t
+              contraction with the factors, each variant's own; six
+              kernels an application), N1 a runtime argument; and the
+              timing-only one-thread-per-node `_rowwise` twins of K1-K5); no
               instantiation may spill
   3. kernels  every kernel against its plain version: Poisson and
               Helmholtz with random per-node lam0/lam1 (merged: Helmholtz
@@ -197,9 +198,11 @@ each:
               plane entry point timed at E = 64 (a CUDA graph of 50
               calls) beside its bound and its plain version
   6c. staged  the staged body (`csrc/axhelm_staged.cu`: an application
-              as seven launches over fp32 scratch, N1 above
-              ops.N1_PLANE_MAX = 48): every entry point at N1 = 49, 57,
-              64 and 96, E = 1, 3 and 8, c in {1, 4}, random per-node
+              as six launches over fp32 scratch, 3xTF32 tensor-core
+              contractions, N1 above ops.N1_PLANE_MAX = 48): every entry
+              point at N1 = 49, 57, 64 and 96, E = 1, 3 and 8, c in {1,
+              4}, and at the N1 on each side of its switch from 32 to 16
+              lines an item (328 and 329), E = 1, c = 1, random per-node
               lambdas, against its plain version (the tolerances and the
               one-ulp rule of 3 and 3b); the order-63 main paths on the
               2x2x2 box (8 elements, 2,048,383 dofs; the six of phase 5),
@@ -209,7 +212,8 @@ each:
               against the reference backend (the rules of 6b); each
               variant's bf16_x32 solve at tol 0.03 on the 2x2x2 box; each
               staged entry point timed at E = 8, N1 = 64 (a CUDA graph of
-              50 calls) beside its bound, its plain version and the
+              50 calls) beside its bound, its tensor-core bound
+              (`staged_tensor_bound`), its plain version and the
               memory one call allocates and frees (its scratch, read from
               the allocator's peak), and the timing-only twin
               `ops.staged` at the plane body's N1 = 25, 32 and 48, E = 64,
@@ -262,6 +266,8 @@ ROOT = Path(__file__).resolve().parent
 # Published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+# dense TF32 on the tensor cores; a 3xTF32 product takes three of them
+PEAK_TF32_FLOP_PER_S = 495e12
 RTOL_KERNEL = 1e-4
 # bf16 storage: kernel and plain version each round one fp32 result once
 RTOL_BF16 = 8e-3
@@ -324,8 +330,10 @@ HIGH_ORDER_X_BOUND = 1e-3
 # Unmasked Helmholtz needs ~700 iterations on that box, over which the fp32
 # sums of the kernels and of the plain version, in other orders, drift
 # apart: merged takes 697 iterations against the plain version's 694
-# (phase `high_order`).  Its iterations are held within this share of the
-# reference backend's, Poisson's within +-1.
+# (phase `high_order`), inside the 694-700 that one-ulp re-roundings of the
+# plain version's outputs take (scripts/helmholtz_spread.py).  Its
+# iterations are held within this share of the reference backend's,
+# Poisson's within +-1.
 HIGH_ORDER_HELMHOLTZ_ITER_SHARE = 0.01
 # Phase `staged`, the staged body (N1 above ops.N1_PLANE_MAX = 48): the
 # orders it is checked at (N1 = 49, 57, 64, 96; 49 and 57 fit no
@@ -339,15 +347,20 @@ HIGH_ORDER_HELMHOLTZ_ITER_SHARE = 0.01
 # PLANE_ELEMS elements, beside the plane body.
 STAGED_ORDERS = (48, 56, 63, 95)
 STAGED_ELEMS = (1, 3, 8)
+# the orders on each side of the staged body's switch from 32 to 16 lines
+# an item (ops.N1_STAGED_WIDE_MAX = 328), checked at E = 1, c = 1 (an
+# element of 329^3 nodes is 142 MB in fp32)
+STAGED_SWITCH_ORDERS = (327, 328)
 STAGED_ORDER = 63
 STAGED_BOX = (2, 2, 2)
 STAGED_SMALL_ORDER = 48
 STAGED_TWIN_ORDERS = PLANE_ORDERS
-# the staged body's kernels (ptxas_instantiations' "pass"): the six
-# contractions every variant shares, and each variant's pointwise pass
-STAGED_SHARED_PASSES = ("grad_r", "grad_s", "grad_t", "first_r",
-                        "accumulate_s", "last_t")
-STAGED_VARIANT_PASSES = ("factors",)
+# the staged body's kernels (ptxas_instantiations' "pass"): the five
+# contractions every variant shares, and each variant's t gradient with its
+# factors
+STAGED_SHARED_PASSES = ("grad_r", "grad_s", "first_r", "accumulate_s",
+                        "last_t")
+STAGED_VARIANT_PASSES = ("grad_t",)
 # the plane body's kernels (ptxas_instantiations' "pass"): the two line
 # contractions every variant shares, and each variant's plane pass
 PLANE_SHARED_PASSES = ("line_first", "line_last")
@@ -631,6 +644,37 @@ def axhelm_bound(variant: str, e: int, n1: int, helmholtz: bool = False,
             "operations", nbytes, flops)
 
 
+def staged_tf32_products(word: int = 4) -> tuple[int, int]:
+    """TF32 products the staged body issues a multiply-add in its
+    gradients and in its transposed contractions at `word`-byte storage:
+    (3, 3) for fp32 (lo.hi + hi.lo + hi.hi); (1, 2) for bf16, whose D-hat
+    and x have no lo half (the source's kExactA, kExactB)."""
+    return (3, 3) if word == 4 else (1, 2)
+
+
+def staged_tensor_bound(variant: str, e: int, n1: int,
+                        helmholtz: bool = False, ncols: int = 1,
+                        word: int = 4):
+    """(tensor_bound_ms, bound_by) of one staged-body call: axhelm_bound's
+    bytes, and its operations with the 12 N1^4 products an element and
+    column on the tensor cores and the rest at fp32 -- the least time a
+    body that runs its contractions on the tensor cores could take, so
+    that no share of the staged body reads over 100%.  Each product costs
+    the TF32 products its operands need (staged_tf32_products): fp32
+    storage three in all six contractions (3xTF32, PEAK_TF32 / 3); bf16
+    storage, whose D-hat and x are exact in TF32, one in the three
+    gradients and two in the three transposed contractions."""
+    _, _, nbytes, flops = axhelm_bound(variant, e, n1, helmholtz, ncols,
+                                       word)
+    products = 12 * n1 ** 4 * ncols * e
+    grad, transposed = staged_tf32_products(word)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (products / 2 * (grad + transposed) / PEAK_TF32_FLOP_PER_S
+             + (flops - products) / PEAK_FP32_FLOP_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
 def graph_ms(fn, reps: int = 50, replays: int = 5) -> float:
     """Device time of one call: `reps` calls captured in one CUDA graph,
     replayed `replays` times between CUDA events; the median replay over
@@ -776,7 +820,7 @@ def ptxas_instantiations(report: str):
     ("node": axhelm_kernel, "column": axhelm_column_kernel, "line":
     axhelm_line_kernel, "any": the generic axhelm_any_kernel, "plane":
     axhelm_plane_kernel and axhelm_plane_line_kernel, "staged":
-    axhelm_staged_contract_kernel and axhelm_staged_factors_kernel), N1
+    axhelm_staged_contract_kernel and axhelm_staged_grad_t_kernel), N1
     (None for the generic, plane and staged bodies, whose N1 is a runtime
     argument), storage dtype, registers, shared memory and spill bytes; a
     plane or staged kernel also its "pass" (see PLANE_SHARED_PASSES and
@@ -793,13 +837,13 @@ def ptxas_instantiations(report: str):
             # axhelm_any_kernel<GeomSource, T> and axhelm_plane_kernel<...>
             # as I...GeomSourceE<n>E<T>E; axhelm_plane_line_kernel<LAST, T>
             # as ILb<LAST>E<T>E; axhelm_staged_contract_kernel<DIR, MODE, T>
-            # as ILi<DIR>ELi<MODE>E<T>E and axhelm_staged_factors_kernel<
+            # as ILi<DIR>ELi<MODE>E<T>E and axhelm_staged_grad_t_kernel<
             # GeomSource, T> as the generic's
             k = re.search(r"axhelm_(column_|line_|any_|plane_)?kernelI"
                           r"(?:Li(\d+)E)?"
                           r".*?GeomSourceE?(\d+)E(f|\d+__nv_bfloat16)E",
                           m.group(1))
-            st = re.search(r"axhelm_staged_(contract|factors)_kernelI"
+            st = re.search(r"axhelm_staged_(contract|grad_t)_kernelI"
                            r"(?:Li(\d)ELi(\d)E)?"
                            r"(?:.*?GeomSourceE?(\d+)E)?(f|\d+__nv_bfloat16)E",
                            m.group(1))
@@ -819,7 +863,7 @@ def ptxas_instantiations(report: str):
                 if cur["body"] == "plane":
                     cur["pass"] = "plane"
             elif st:
-                step = "factors" if st.group(1) == "factors" else \
+                step = "grad_t" if st.group(1) == "grad_t" else \
                     f"{modes[int(st.group(3))]}_{dirs[int(st.group(2))]}"
                 cur = {"variant": None if step in STAGED_SHARED_PASSES
                        else VARIANTS[int(st.group(4))],
@@ -1153,8 +1197,8 @@ def main() -> None:
         if c.get("body") in ("column", "line") and "registers" in c}
     expected |= {(v, body, None, dt) for v in VARIANTS for dt in DTYPES
                  for body in ("any", "plane")}
-    # the staged body's kernels: each variant's factors and last
-    # contraction, and the contractions every variant shares
+    # the staged body's kernels: each variant's t gradient, and the
+    # contractions every variant shares
     expected |= {(v, "staged", None, dt) for v in VARIANTS + (None,)
                  for dt in DTYPES}
     staged_passes = sorted((c["variant"] or "", c["pass"], c["dtype"])
@@ -1186,6 +1230,10 @@ def main() -> None:
     require(staged_passes == want_passes,
             f"the staged body's kernels {staged_passes}, expected "
             f"{want_passes}")
+    require(ops.KERNELS_PER_APPLICATION["staged"] == ops.STAGED_KERNELS
+            == len(STAGED_SHARED_PASSES) + len(STAGED_VARIANT_PASSES) == 6,
+            f"the staged body launches {ops.STAGED_KERNELS} kernels an "
+            f"application, expected 6")
     require(plane_passes == want_plane,
             f"the plane body's kernels {plane_passes}, expected "
             f"{want_plane}")
@@ -1330,17 +1378,17 @@ def main() -> None:
         """A box's affine (parallelepiped) and trilinear meshes."""
         return {v: mesh_for(v, box) for v in ("trilinear", "parallelepiped")}
 
-    def check_order(b, e, meshes, seed, name_of):
+    def check_order(b, e, meshes, seed, name_of, cols=(1, 4)):
         """Every entry point at basis b on the first e elements of
         `meshes` against its plain version: each variant's equations, fp32
-        and bf16, c = 1 and 4, random per-node lambdas (torch seed
+        and bf16, c in `cols`, random per-node lambdas (torch seed
         `seed`)."""
         node = (e,) + (b.n1,) * 3
         gen.manual_seed(seed)
         lam0 = 1 + 0.3 * torch.rand(node, generator=gen, device=dev)
         lam1 = 0.5 + 0.2 * torch.rand(node, generator=gen, device=dev)
         xs = {c: torch.randn((e, c, 1) + (b.n1,) * 3, generator=gen,
-                             device=dev) for c in (1, 4)}
+                             device=dev) for c in cols}
         for variant in VARIANTS:
             verts = torch.as_tensor(high_mesh_for(variant, meshes).verts[:e],
                                     dtype=torch.float32, device=dev)
@@ -2991,6 +3039,19 @@ def main() -> None:
         for e in STAGED_ELEMS:
             check_order(b, e, st_meshes, 10 * order + e, staged_name)
         torch.cuda.empty_cache()
+    # both sides of the switch from 32 to 16 lines an item
+    for order in STAGED_SWITCH_ORDERS:
+        b = basis(order)
+        require(ops.body_of("trilinear", b.n1) == "staged",
+                f"N1={b.n1} does not run the staged body")
+        check_order(b, 1, st_meshes, 10 * order + 1, staged_name, cols=(1,))
+        torch.cuda.empty_cache()
+    require(ops.staged_launch(STAGED_SWITCH_ORDERS[0] + 1, 1, 1).lines
+            == ops.STAGED_TILE[1]
+            and ops.staged_launch(STAGED_SWITCH_ORDERS[1] + 1, 1, 1).lines
+            == ops.STAGED_NARROW_LINES,
+            f"orders {STAGED_SWITCH_ORDERS} are not the two sides of the "
+            f"staged body's switch")
     # the main path's call: E = 8, N1 = 64, c = 1, setup's scalar lambdas
     b_st = basis(STAGED_ORDER)
     st_box = mesh_gen.box_mesh(*STAGED_BOX, STAGED_ORDER)
@@ -3042,16 +3103,21 @@ def main() -> None:
                                       **kw))
             bound_ms, bound_by, nbytes, flops = axhelm_bound(
                 variant, e, b.n1, helm, word=WORD_BYTES[dt])
+            tensor_ms, tensor_by = staged_tensor_bound(
+                variant, e, b.n1, helm, word=WORD_BYTES[dt])
             row = {"E": e, "N1": b.n1,
-                   "design": {"contract_grid": launch.contract_grid,
-                              "factor_grid": launch.factor_grid,
+                   "design": {"lines": launch.lines, "items": launch.items,
+                              "passes": launch.passes,
                               "smem_bytes": launch.smem_bytes,
                               "scratch_bytes": launch.scratch_bytes},
                    "transient_bytes": transient,
                    "equation": "helmholtz" if helm else "poisson",
                    "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
                    "bytes": nbytes, "flops": flops,
-                   "roofline_share": bound_ms / ms}
+                   "roofline_share": bound_ms / ms,
+                   "tensor_bound_ms": tensor_ms,
+                   "tensor_bound_by": tensor_by,
+                   "tensor_share": tensor_ms / ms}
             if twin:
                 pl = timing_plane[plane_name(variant, dt)][f"order{order}"]
                 row["twin"] = "ops.staged"
@@ -3072,10 +3138,14 @@ def main() -> None:
                                       "spill_stores", "spill_loads")}
                for c in inst if c.get("body") == "staged"]
     emit({"phase": "staged", "card": card, "orders": STAGED_ORDERS,
-          "elements": STAGED_ELEMS, "n1_staged_max": ops.N1_STAGED_MAX,
+          "elements": STAGED_ELEMS, "switch_orders": STAGED_SWITCH_ORDERS,
+          "n1_staged_max": ops.N1_STAGED_MAX,
           "design": {"tile": ops.STAGED_TILE,
+                     "narrow_lines": ops.STAGED_NARROW_LINES,
+                     "n1_wide_max": ops.N1_STAGED_WIDE_MAX,
+                     "stages": ops.STAGED_STAGES,
                      "kernels_per_application": ops.STAGED_KERNELS,
-                     "note": "from ops.py (staged_launch's tiles, grids and "
+                     "note": "from ops.py (staged_launch's lines, items and "
                              "scratch in each timing row's 'design'), not "
                              "read on the card"},
           "kernels": staged_kernels,

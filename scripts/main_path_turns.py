@@ -30,6 +30,9 @@ body's timing-only twin `ops.staged` on the same operands; runs the six
 order-HIGH_ORDER main paths on the 4x4x4 box as it runs the 16^3 ones;
 and runs the staged body at N1 = 49 (E = 64) and 64 (E = 8): each entry
 point's output on a seeded x as a SHA-256 of its bytes, and its time.
+With --staged, each process runs only the staged body: its times and
+digests at N1 = 49 and 64 as --orders runs them, and the six order-63
+main paths on the 2x2x2 box (2,048,383 dofs) as it runs the 16^3 ones.
 The last line sums the turns up: each tree's times as the mean of its two
 runs, side by side.
 
@@ -37,6 +40,7 @@ Prints one JSON line per process and writes them all to
 main_path_turns.json in the output directory.
 
 Run:  python3 scripts/main_path_turns.py OLD_TREE NEW_TREE [--orders 24,31,47]
+      python3 scripts/main_path_turns.py OLD_TREE NEW_TREE --staged
 """
 
 import argparse
@@ -57,8 +61,10 @@ VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged", "partial")
 PATHS = [(v, v == "merged") for v in VARIANTS] + [("trilinear", True)]
 HIGH_BOX = (4, 4, 4)      # the box of --orders (E = 64)
 HIGH_ORDER = 31           # the order of the main paths --orders adds
-# the staged body's runs of --orders: (order, box)
+# the staged body's runs of --orders and --staged: (order, box)
 STAGED_RUNS = ((48, (4, 4, 4)), (63, (2, 2, 2)))
+# the box of the staged body's main paths (--staged)
+STAGED_BOX = (2, 2, 2)
 
 
 def main_paths(meshes: dict) -> dict:
@@ -121,7 +127,7 @@ def main_paths(meshes: dict) -> dict:
     return paths
 
 
-def worker(tree: Path, orders: tuple) -> dict:
+def worker(tree: Path, orders: tuple, staged_only: bool = False) -> dict:
     """The main paths of one tree, in this process."""
     sys.path.insert(0, str(tree / "src"))
     import torch
@@ -158,6 +164,41 @@ def worker(tree: Path, orders: tuple) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(order)
         return torch.randn((e,) + (n1,) * 3, generator=gen, device="cuda")
 
+    def staged_runs() -> dict:
+        """Each entry point on the staged body at STAGED_RUNS: the digest
+        of its output on a seeded x, and its time."""
+        runs = {}
+        for order, box in STAGED_RUNS:
+            b = basis(order)
+            meshes = meshes_of(mesh_gen.box_mesh(*box, order))
+            x32 = seeded_x(order, len(meshes["trilinear"].verts), b.n1)
+            for dtype in (torch.float32, torch.bfloat16):
+                for variant in VARIANTS:
+                    geom, kw = operands(variant, dtype, b, meshes)
+                    x = x32.to(dtype)
+                    y = ops.axhelm(x, b, variant, geom, **kw)
+                    torch.cuda.synchronize()
+                    runs[f"{ops.entry_point(variant, dtype)}/"
+                         f"N1={b.n1}"] = {
+                        "body": ops.body_of(variant, b.n1),
+                        "sha256": hashlib.sha256(
+                            y.view(torch.uint8).cpu().numpy().tobytes())
+                        .hexdigest(),
+                        "us": 1e3 * graph_ms(
+                            lambda: ops.axhelm(x, b, variant, geom, **kw))}
+                    del geom, kw, x, y
+            del x32
+            torch.cuda.empty_cache()
+        return runs
+
+    sys.path.insert(0, str(tree))
+    from chip_smoke import graph_ms
+
+    if staged_only:
+        out["staged"] = staged_runs()
+        out["staged_paths"] = main_paths(meshes_of(
+            mesh_gen.box_mesh(*STAGED_BOX, STAGED_RUNS[-1][0])))
+        return out
     out["paths"] = main_paths(meshes_of(
         mesh_gen.box_mesh(*CONFIG.elements, CONFIG.order)))
     out["wrapper_us"] = {}
@@ -180,8 +221,6 @@ def worker(tree: Path, orders: tuple) -> dict:
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t) / WRAPPER_CALLS * 1e6)
         out["wrapper_us"][variant] = statistics.median(runs[1:])
-    sys.path.insert(0, str(tree))
-    from chip_smoke import graph_ms
 
     out["kernel_us"] = {}
     for order in (3, 7):
@@ -220,28 +259,7 @@ def worker(tree: Path, orders: tuple) -> dict:
         torch.cuda.empty_cache()
     out["high_order_paths"] = main_paths(meshes_of(
         mesh_gen.box_mesh(*HIGH_BOX, HIGH_ORDER)))
-    out["staged"] = {}
-    for order, box in STAGED_RUNS:
-        b = basis(order)
-        meshes = meshes_of(mesh_gen.box_mesh(*box, order))
-        x32 = seeded_x(order, len(meshes["trilinear"].verts), b.n1)
-        for dtype in (torch.float32, torch.bfloat16):
-            for variant in VARIANTS:
-                geom, kw = operands(variant, dtype, b, meshes)
-                x = x32.to(dtype)
-                y = ops.axhelm(x, b, variant, geom, **kw)
-                torch.cuda.synchronize()
-                out["staged"][f"{ops.entry_point(variant, dtype)}/"
-                              f"N1={b.n1}"] = {
-                    "body": ops.body_of(variant, b.n1),
-                    "sha256": hashlib.sha256(
-                        y.view(torch.uint8).cpu().numpy().tobytes())
-                    .hexdigest(),
-                    "us": 1e3 * graph_ms(
-                        lambda: ops.axhelm(x, b, variant, geom, **kw))}
-                del geom, kw, x, y
-        del x32
-        torch.cuda.empty_cache()
+    out["staged"] = staged_runs()
     return out
 
 
@@ -263,6 +281,8 @@ def summary(lines: list) -> dict:
     out = {"summary": "mean of each tree's two runs"}
     for section in ("orders_us", "staged"):
         keys = runs["new"][0].get(section, {})
+        if not keys:
+            continue
         out[section] = {key: {
             "old_us": mean("old", section, key, "us"),
             "new_us": mean("new", section, key, "us"),
@@ -272,7 +292,7 @@ def summary(lines: list) -> dict:
                                     for r in lines[1:]
                                     if key in r.get(section, {})}) == 1})}
             for key in keys}
-    for section in ("paths", "high_order_paths"):
+    for section in ("paths", "high_order_paths", "staged_paths"):
         keys = runs["new"][0].get(section, {})
         out[section] = {key: {
             label: mean(label, section, key, "ms_per_iteration")
@@ -289,12 +309,14 @@ def main() -> None:
     parser.add_argument("new", nargs="?")
     parser.add_argument("--orders", default="",
                         help="comma-separated orders, e.g. 24,31,47")
+    parser.add_argument("--staged", action="store_true",
+                        help="only the staged body and its order-63 paths")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     orders = tuple(int(o) for o in args.orders.split(",") if o)
     if args.worker:
-        print(json.dumps(worker(Path(args.worker).resolve(), orders)),
-              flush=True)
+        print(json.dumps(worker(Path(args.worker).resolve(), orders,
+                                args.staged)), flush=True)
         return
     import torch
 
@@ -307,12 +329,14 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=False).stdout.strip()
     lines = [{"card": smi, "order": ["old", "new", "new", "old"],
-              "old": str(old), "new": str(new), "orders": orders}]
+              "old": str(old), "new": str(new), "orders": orders,
+              "staged_only": args.staged}]
     print(json.dumps(lines[0]), flush=True)
     for label, tree in (("old", old), ("new", new), ("new", new),
                         ("old", old)):
         run = subprocess.run([sys.executable, __file__, "--worker",
-                              str(tree), "--orders", args.orders],
+                              str(tree), "--orders", args.orders]
+                             + (["--staged"] if args.staged else []),
                              capture_output=True, text=True, check=False)
         if run.returncode != 0:
             sys.exit(f"{label} tree {tree} failed:\n{run.stderr[-3000:]}")

@@ -9,8 +9,9 @@ points), ``axhelm_column.cu`` the one-thread-per-column body (K2, K5),
 ``axhelm_plane.cu`` the body that runs an element's contractions as
 register-tiled products, its t-planes a block each (every variant above the
 generic body's N1, ``*_plane`` entry points), ``axhelm_staged.cu`` the body
-that stages an element's contractions through device memory (every variant
-above the plane body's N1, ``*_staged`` entry points), all five including
+that stages an element's contractions through device memory, on the tensor
+cores (every variant above the plane body's N1, ``*_staged`` entry points),
+all five including
 ``axhelm_common.cuh``.  One ``nvcc -c`` per
 source, or per part of a source that ``PARTS`` splits (the column and line
 bodies' instantiations at N1 = 2 to 16, ``-DAXHELM_PART=p``), runs at the
@@ -185,8 +186,9 @@ SIGNATURES = {
     **{f"{variant}_any": [_PTR] * 8 + [_I32] * 4 + [_PTR]
        for variant in _VARIANTS},
     # the staged body, N1 above ops.N1_PLANE_MAX, the generic body's
-    # arguments plus the fp32 scratch: x, y, geom, lam0, lam1, dhat, xi,
-    # w3, scratch | n1, n_elem, ncols, helmholtz | stream
+    # arguments, D-hat's split in the dhat slot, plus the fp32 scratch: x,
+    # y, geom, lam0, lam1, fragments (ops.staged_fragments), xi, w3,
+    # scratch | n1, n_elem, ncols, helmholtz | stream
     **{f"{variant}_staged": [_PTR] * 9 + [_I32] * 4 + [_PTR]
        for variant in _VARIANTS},
     # the plane body, N1 above ops.N1_MAX up to ops.N1_PLANE_MAX, the staged

@@ -2,8 +2,8 @@
 // sources (the variants of the TPU kernel's _kernel), the storage
 // conversions, the hoisted Alg. 3 (the column body's K2/K5 and the line
 // body's K4) and the per-node factors of the node walk (the generic body of
-// axhelm.cu, the plane body of axhelm_plane.cu and the staged body's
-// pointwise pass in axhelm_staged.cu).  axhelm.cu holds the generic body
+// axhelm.cu, the plane body of axhelm_plane.cu and the staged body's t
+// gradient in axhelm_staged.cu).  axhelm.cu holds the generic body
 // and the one-thread-per-node twins, axhelm_column.cu the
 // one-thread-per-column body (K2, K5), axhelm_line.cu the
 // one-thread-per-line body (K1, K3, K4), axhelm_plane.cu the body that
@@ -149,7 +149,7 @@ __device__ __forceinline__ float det_j(const float* c0, const float* c1,
 }
 
 // The node walk of the generic body (axhelm.cu), the plane body's plane
-// pass (axhelm_plane.cu) and the staged body's pointwise pass
+// pass (axhelm_plane.cu) and the staged body's t gradient
 // (axhelm_staged.cu): the factors of one node, loaded or recomputed.
 
 struct Factors {

@@ -47,14 +47,17 @@ product a register tile of PLANE_REG x PLANE_REG outputs a thread, over
 2 E ncols N1^3 words of scratch (`plane_launch`).  Above N1_PLANE_MAX
 (orders 48 and up) each entry point runs the staged body
 (`csrc/axhelm_staged.cu`, the `*_staged` symbols): one application is
-`STAGED_KERNELS` launches, the six contractions as tiled products that
-stage whole lines of the contracted axis in shared memory and a pointwise
-pass for the factors, over fp32 scratch of 3 E ncols N1^3 words (and E
-N1^3 more for the Helmholtz mass) (`staged_launch`).  The plane and staged
+`STAGED_KERNELS` launches, the six contractions, each a persistent grid
+whose blocks walk items of `staged_lines` whole lines of one batch row
+through a ring of two cp.async panel slots in shared memory and multiply
+them on the tensor cores in 3xTF32 (D-hat's split made here once a basis,
+`staged_fragments`), the t gradient fused with the factors, over fp32
+scratch of 3 E ncols N1^3 words (and E N1^3 more for the Helmholtz mass)
+(`staged_launch`).  The plane and staged
 bodies' scratch is allocated by the wrapper with `torch.empty` at every
 call (under a CUDA graph's capture it comes from the graph's pool, the
-same memory at every replay); the staged body's one limit is a block's
-shared memory, N1 up to `N1_STAGED_MAX`; a scratch the card cannot hold
+same memory at every replay); the staged body runs N1 up to
+`N1_STAGED_MAX`; a scratch the card cannot hold
 is refused by that `torch.empty`, which raises `torch.OutOfMemoryError`
 with the size.  None needs element padding: the column and line bodies
 mask their ragged last group, the plane and staged bodies their ragged
@@ -62,7 +65,7 @@ tiles.  `launch_counts` counts one launch of each entry point
 (`entry_point(variant, dtype)`, the C symbol) per application, whichever
 body it ran, so a run can show that a solve went through the kernels it
 expects (`KERNELS_PER_APPLICATION` records the CUDA kernels one
-application of each body launches: 3 for the plane body, 7 for the staged
+application of each body launches: 3 for the plane body, 6 for the staged
 body, 1 for every other; a design fact, not counted); a launch captured
 into a solver loop's CUDA graph counts once for every replay of the graph
 (`core.graphs.count`).  Four timing-only twins count nothing and `axhelm`
@@ -99,13 +102,16 @@ __all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
            "PLANE_LINE_LANES", "PLANE_LINE_TILE", "PLANE_MIN_BLOCKS",
            "PLANE_FACTOR_WORDS", "PLANE_ARRAYS", "PLANE_STATIC_SMEM",
            "PLANE_KERNELS", "N1_PLANE_MAX", "STAGED_THREADS", "STAGED_TILE",
-           "FACTOR_THREADS", "STAGED_KERNELS", "N1_STAGED_MAX",
+           "STAGED_NARROW_LINES", "STAGED_STAGES", "STAGED_MAX_EXTRAS",
+           "STAGED_KERNELS",
+           "N1_STAGED_WIDE_MAX", "N1_STAGED_MAX",
            "KERNELS_PER_APPLICATION",
            "entry_point", "column_launch", "line_launch", "generic_launch",
            "generic_smem_bytes", "plane_lanes", "plane_pitch",
            "plane_smem_bytes", "plane_line_smem_bytes", "plane_launch",
            "PlaneLaunch",
-           "staged_smem_bytes", "staged_launch", "StagedLaunch",
+           "staged_lines", "staged_smem_bytes", "staged_launch",
+           "StagedLaunch", "tf32_rna", "staged_fragments",
            "launch_counts", "reset_launch_counts",
            "axhelm", "rowwise", "generic", "plane", "staged", "reference",
            "unrounded"]
@@ -182,15 +188,20 @@ PLANE_KERNELS = 3
 # largest its tiles' threads and registers are sized for (kPlaneN1Max); the
 # staged body's range starts above it
 N1_PLANE_MAX = 48
-# The staged body (csrc/axhelm_staged.cu): STAGED_THREADS threads a
-# contraction block, its tile (output rows, lines, D-hat columns a step),
-# FACTOR_THREADS a block of its pointwise pass, STAGED_KERNELS launches an
-# application (three contractions, the factors, three transposed
-# contractions)
-STAGED_THREADS = 256
-STAGED_TILE = (64, 64, 16)
-FACTOR_THREADS = 256
-STAGED_KERNELS = 7
+# The staged body (csrc/axhelm_staged.cu): STAGED_THREADS threads a block
+# (four warps, two rows of two), its tile (output rows a pass over the
+# panel: two m16 tiles a warp; lines an item, half a warp; the depth of an
+# mma k-step), STAGED_NARROW_LINES
+# lines an item above N1_STAGED_WIDE_MAX, STAGED_STAGES panel slots in the
+# ring, STAGED_MAX_EXTRAS operands an epilogue stages a pass at most,
+# STAGED_KERNELS launches an application (the r and s gradients, the t
+# gradient with the factors, three transposed contractions)
+STAGED_THREADS = 128
+STAGED_TILE = (64, 32, 8)
+STAGED_NARROW_LINES = 16
+STAGED_STAGES = 2
+STAGED_MAX_EXTRAS = 3
+STAGED_KERNELS = 6
 # CUDA kernels one application of each body launches
 KERNELS_PER_APPLICATION = {"column": 1, "line": 1, "any": 1,
                            "plane": PLANE_KERNELS, "rowwise": 1,
@@ -285,52 +296,131 @@ def plane_launch(n1: int, n_elem: int, ncols: int) -> PlaneLaunch:
         kernels=PLANE_KERNELS)
 
 
-def staged_smem_bytes(n1: int) -> int:
-    """Dynamic shared memory of one staged-body contraction block (kernel
-    `axhelm_staged_contract_kernel`): its panel, the whole contracted axis
-    of its lines (N1 rows of lines + 1 floats, padded), and one step of
-    D-hat (D-hat columns a step x output rows), fp32."""
-    rows, lines, depth = STAGED_TILE
-    return 4 * (n1 * (lines + 1) + depth * rows)
+def _staged_slot_floats(n1: int, lines: int) -> int:
+    """Floats of one panel slot (`slot_floats` in the source): the larger
+    of the row-major panel (N1 padded to 8 rows of lines + 8) and the
+    line-major one (lines rows of N1 padded to 8, + 4)."""
+    kp = -(-n1 // 8) * 8
+    return max(kp * (lines + 8), lines * (kp + 4))
 
 
-# the largest N1 whose panel fits in a block's shared memory: the staged
-# body's one limit of its own
-N1_STAGED_MAX = max(n for n in range(2, 1024)
-                    if staged_smem_bytes(n) <= SMEM_PER_BLOCK)
+def staged_smem_bytes(n1: int, lines: Optional[int] = None,
+                      extras: int = 0) -> int:
+    """Dynamic shared memory of one staged-body block (kernels
+    `axhelm_staged_contract_kernel` and `axhelm_staged_grad_t_kernel`):
+    STAGED_STAGES panel slots, the epilogue tile (64 rows of lines + 8, or
+    lines rows of 64 + 4), `extras` operands of the epilogue staged a pass
+    (64 rows of lines + 8 each: S0 and S1 in the t gradient, S0 in the
+    accumulating pass, S0 and for Helmholtz the mass and x in the last;
+    up to STAGED_MAX_EXTRAS) and 32 words of element geometry, fp32;
+    `lines` defaults to `staged_lines(n1)`."""
+    rows = STAGED_TILE[0]
+    lines = staged_lines(n1) if lines is None else lines
+    tile = max(rows * (lines + 8), lines * (rows + 4))
+    return 4 * (STAGED_STAGES * _staged_slot_floats(n1, lines) + tile
+                + extras * rows * (lines + 8) + 32)
+
+
+# the largest N1 at which two blocks of STAGED_TILE[1] lines an item fit an
+# SM (kWideMax in the source); above it an item has STAGED_NARROW_LINES
+# lines
+N1_STAGED_WIDE_MAX = max(n for n in range(2, 2048)
+                         if 2 * (staged_smem_bytes(n, STAGED_TILE[1])
+                                 + SMEM_RESERVED) <= SMEM_PER_SM)
+
+
+def staged_lines(n1: int) -> int:
+    """Lines a staged-body item at N1 (`staged_lines` in the source)."""
+    return STAGED_TILE[1] if n1 <= N1_STAGED_WIDE_MAX else STAGED_NARROW_LINES
+
+
+# the staged body's range (kStagedMax in the source, whose entry points
+# refuse above it too): every N1 of the seven-launch body it replaced, the
+# largest its checks have run.  Shared memory does not set it: a narrow
+# block, the epilogue's operands included, would fit up to N1 = 1080.
+N1_STAGED_MAX = 878
 
 
 class StagedLaunch(NamedTuple):
     """The launches of one staged-body application (`staged_launch`)."""
 
-    threads: int                       # a contraction block
-    tile: tuple[int, int, int]         # output rows, lines, D-hat columns
-    contract_grid: tuple[int, int]     # (E ncols batch rows, line tiles)
-    factor_threads: int                # a block of the pointwise pass
-    factor_grid: int                   # E * node chunks
-    smem_bytes: int                    # a contraction block's
+    threads: int                       # a block
+    tile: tuple[int, int, int]         # output rows, lines, k-step depth
+    lines: int                         # lines an item at this N1
+    items: int                         # (batch row, line tile) items
+    passes: int                        # passes of 64 output rows an item
+    k_steps: int                       # mma k-steps of a pass
+    smem_bytes: int                    # a block's, without the extras
     scratch_bytes: int                 # fp32 S0, S1, S2 (and the mass)
+    fragment_bytes: int                # D-hat's split (staged_fragments)
     kernels: int                       # launches an application
 
 
 def staged_launch(n1: int, n_elem: int, ncols: int,
                   helmholtz: bool = False) -> StagedLaunch:
     """The staged body's launches for E = n_elem elements of ncols columns:
-    each contraction one block per batch row (element, column) and tile of
-    lines, ceil(N1^2 / lines) tiles (the last may be ragged); the pointwise
-    pass ceil(N1^3 / FACTOR_THREADS) blocks an element; the scratch, three
-    fp32 components of E ncols N1^3 words, and for Helmholtz the mass of
-    each node, E N1^3 words more."""
-    _, lines, _ = STAGED_TILE
+    every launch one item per batch row (element, column) and tile of
+    `staged_lines(N1)` lines, ceil(N1^2 / lines) tiles (the last may be
+    ragged), walked by a persistent grid (on the card: the SMs times the
+    blocks an SM the occupancy calculator allows, or the items if fewer);
+    an item's outputs in ceil(N1 / 64) passes of 64 rows, each summed over
+    ceil(N1 / 8) k-steps; the scratch, three fp32 components of E ncols
+    N1^3 words, and for Helmholtz the mass of each node, E N1^3 words
+    more."""
+    lines = staged_lines(n1)
+    rows, _, depth = STAGED_TILE
     np_ = n1 ** 3
+    m_tiles, k_steps = -(-n1 // 16), -(-n1 // depth)
     return StagedLaunch(
-        threads=STAGED_THREADS, tile=STAGED_TILE,
-        contract_grid=(n_elem * ncols, -(-n1 * n1 // lines)),
-        factor_threads=FACTOR_THREADS,
-        factor_grid=n_elem * -(-np_ // FACTOR_THREADS),
-        smem_bytes=staged_smem_bytes(n1),
+        threads=STAGED_THREADS, tile=STAGED_TILE, lines=lines,
+        items=n_elem * ncols * -(-n1 * n1 // lines),
+        passes=-(-n1 // rows), k_steps=k_steps,
+        smem_bytes=staged_smem_bytes(n1, lines),
         scratch_bytes=4 * (3 * ncols + int(helmholtz)) * n_elem * np_,
+        fragment_bytes=4 * 2 * m_tiles * k_steps * 256,
         kernels=STAGED_KERNELS)
+
+
+def tf32_rna(a):
+    """float32 values rounded to tf32 as `cvt.rna.tf32.f32` rounds them:
+    to 10 mantissa bits, to nearest, ties away from zero (a numpy array of
+    float32 in, float32 out, the low 13 bits zero)."""
+    import numpy as np
+
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def staged_fragments(dhat) -> "numpy.ndarray":
+    """D-hat's 3xTF32 split in the order the staged body's products read it
+    (the dhat slot of its entry points): for A = D-hat, then A = its
+    transpose, zero-padded to N1 rounded up to 16 rows and 8 columns, each
+    (m16 tile, k-step) as 32 lanes x 4 values of hi = tf32_rna(A), then 32
+    x 4 of lo = tf32_rna(A - hi), lane l = 4 g + t holding A[16 mt + g][8
+    ks + t], A[.. + g + 8][..], A[..][.. + t + 4], A[.. + 8][.. + 4] (the
+    A fragment of mma.m16n8k8.tf32).  `dhat` is a float32 (N1, N1)
+    array."""
+    import numpy as np
+
+    d = np.asarray(dhat, dtype=np.float32)
+    n1 = d.shape[0]
+    mp, kp = -(-n1 // 16) * 16, -(-n1 // 8) * 8
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    rows = g[:, None] + 8 * (np.arange(4) % 2)[None, :]      # (32, 4)
+    cols = t[:, None] + 4 * (np.arange(4) // 2)[None, :]
+    out = []
+    for a_mat in (d, d.T):
+        pad = np.zeros((mp, kp), np.float32)
+        pad[:n1, :n1] = a_mat
+        hi = tf32_rna(pad)
+        lo = tf32_rna(pad - hi)
+        for mt in range(mp // 16):
+            for ks in range(kp // 8):
+                for half in (hi, lo):
+                    out.append(half[16 * mt + rows, 8 * ks + cols])
+    return np.stack(out).reshape(-1)
 
 
 def _min_blocks(threads: int) -> int:
@@ -648,8 +738,8 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
     for the generic body's twin (`twin="any"`) one above N1_MAX, for the
     node body (`twin="rowwise"`) one outside ROWWISE_N1, for the plane
     body's twin (`twin="plane"`) one above N1_PLANE_MAX; for the staged
-    body (above N1_PLANE_MAX, or `twin="staged"`) one whose panel
-    does not fit in a block's shared memory (above N1_STAGED_MAX); a
+    body (above N1_PLANE_MAX, or `twin="staged"`) one above
+    N1_STAGED_MAX; a
     storage dtype other than float32 or
     bfloat16, an operand whose dtype is not x's, another device, a shape
     off the layout, or a non-contiguous tensor."""
@@ -673,10 +763,9 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
     staged_body = body_of(variant, n1, twin) == "staged"
     if staged_body and n1 > N1_STAGED_MAX:
         raise ValueError(f"the staged body runs N1 up to N1_STAGED_MAX = "
-                         f"{N1_STAGED_MAX}: a contraction block's panel of "
-                         f"{staged_smem_bytes(n1)} bytes does not fit in the "
-                         f"{SMEM_PER_BLOCK} bytes of shared memory a block "
-                         f"may have; got N1={n1} (order {basis.n})")
+                         f"{N1_STAGED_MAX}, the range of the seven-launch "
+                         f"body it replaced and of its checks; got N1={n1} "
+                         f"(order {basis.n})")
     named = [("x", xb), ("geom", geom), ("lam0", lam0), ("lam1", lam1)]
     named = [(n, t) for n, t in named if t is not None]
     for name, t in named:
@@ -721,6 +810,17 @@ def _constants(n: int, storage: torch.dtype, device: torch.device):
     return tuple(torch.as_tensor(a, dtype=storage, device=device)
                  .to(compute).contiguous()
                  for a in (b.dhat, b.points, b.w3))
+
+
+@functools.lru_cache(maxsize=None)
+def _staged_fragments(n: int, storage: torch.dtype,
+                      device: torch.device) -> torch.Tensor:
+    """`staged_fragments` of D-hat as `_constants` rounds it for the
+    storage dtype, float32 on `device`: the staged body's dhat slot, made
+    once a basis."""
+    dhat, _, _ = _constants(n, storage, torch.device("cpu"))
+    return torch.as_tensor(staged_fragments(dhat.to(torch.float32).numpy()),
+                           device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -807,6 +907,9 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
                 staged_launch(basis.n1, e, ncols, helmholtz).scratch_bytes
             scratch = torch.empty(nbytes // 4, dtype=torch.float32,
                                   device=xb.device)
+            if body == "staged":     # D-hat's split in the dhat slot
+                frag = _staged_fragments(basis.n, xb.dtype, xb.device)
+                common = common[:5] + (_ptr(frag),)
             rc = fn(*common, _ptr(xi), _ptr(w3), _ptr(scratch), *sizes,
                     int(helmholtz), stream)
         elif body == "column":

@@ -1,10 +1,12 @@
 """Card tests of the staged body (`csrc/axhelm_staged.cu`): every entry
 point, float32 and bfloat16 storage, at N1 = 49 and 64 (E = 3 with three
-columns and E = 8 with one), and the timing-only `ops.staged` twin at the
-plane body's N1 = 32, against its plain PyTorch version, the launch
-counted once under the entry point and its seven kernels beside it; the
-2x1x1 order-48 solve through the kernels against the reference backend;
-the 2x2x2 order-63 solve captured against eager, bitwise.
+columns and E = 8 with one), at the N1 on each side of its switch from 32
+to 16 lines an item (328 and 329, E = 1), and the timing-only
+`ops.staged` twin at the plane body's N1 = 32, against its plain PyTorch
+version, the launch counted once under the entry point (six CUDA kernels
+an application); the 2x1x1 order-48 solve through the kernels against the
+reference backend; the 2x2x2 order-63 solve captured against eager,
+bitwise, and one application repeated bitwise.
 
 Every test carries the `cuda` marker and skips without a card; whether a
 card is present is decided in the `card` fixture, at run time.  This file
@@ -52,7 +54,31 @@ def test_staged_body_matches_plain_version(card, variant, helm, n, e,
     y = ops.axhelm(x, b, variant, geom, **kw)
     torch.cuda.synchronize()
     assert ops.launch_counts[name] == before + 1
+    assert ops.KERNELS_PER_APPLICATION["staged"] == 6
     _against_plain(y, x, b, variant, geom, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n1", [ops.N1_STAGED_WIDE_MAX,
+                                ops.N1_STAGED_WIDE_MAX + 1])
+@pytest.mark.parametrize("variant,helm", _VARIANT_EQUATIONS)
+def test_staged_body_on_each_side_of_its_switch(card, variant, helm, n1,
+                                                dtype):
+    """One element, one column, at the last N1 of 32 lines an item and the
+    first of 16: the same answer as the plain version, and an application
+    repeated gives the same bits."""
+    b, x, geom, kw = _operands(variant, n1 - 1, 1, 1, helm, card,
+                               dtype=dtype)
+    assert ops.staged_launch(n1, 1, 1).lines == (
+        ops.STAGED_TILE[1] if n1 == ops.N1_STAGED_WIDE_MAX
+        else ops.STAGED_NARROW_LINES)
+    y = ops.axhelm(x, b, variant, geom, **kw)
+    again = ops.axhelm(x, b, variant, geom, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    _against_plain(y, x, b, variant, geom, kw, dtype)
+    del again
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
