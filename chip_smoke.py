@@ -21,7 +21,10 @@ each:
               with the body each runs (K2, K5: one thread per node column;
               K1, K3, K4: one thread per node line, each at every N1 from 2
               to 16; every entry point's
-              generic body, plane body (its three launches: the t
+              generic body, slab body (its two launches: the pass over
+              slabs of t-planes, each variant's own, and the transposed
+              t contraction every variant shares), plane body (its three
+              launches: the t
               contraction and its transpose shared by the five variants,
               the plane pass each variant's own) and staged body (its
               six launches: the r and s contractions and the three
@@ -35,10 +38,11 @@ each:
               only, Lam2/Lam3 of them; partial: Poisson only, gScale): the
               tuned bodies at every N1 from 2 to 16, E in {1, 3, 37}, c in
               {1, 4}; at N1 in {4, 8} also c in {1, 3, nrhs*d = 2*3}, E =
-              37, and each variant's main-path shape; the generic body (c
-              in {1, 6}) at orders 16, 19 and 23, and at its main path's
-              shape (the 6x6x6 box at order 19); max|y_k - y_p| / max|y_p|
-              <= 1e-4
+              37, and each variant's main-path shape; the slab body
+              (`ops.slab`) at every N1 from 17 to 24, E in {1, 3, 216}, c
+              in {1, 4}, and the body `ops.MIDDLE_BODIES` routes at the
+              order-19 main path's shape (the 6x6x6 box);
+              max|y_k - y_p| / max|y_p| <= 1e-4
   3b. kernels_bf16  the same cases with bf16 storage, c in {1, 3, 6};
               <= 8e-3 (one bf16 ulp of the largest entry); and against
               the correctly rounded result (the plain version in float64,
@@ -175,9 +179,10 @@ each:
               its bound, the plain version's time and the share of a solve
               iteration spent in it; the same for each bf16 kernel beside
               its fp32 twin; K1-K5 in turns with their one-thread-per-node
-              body (`ops.rowwise`: old, new, new, old); the generic body of
-              each (`ops.generic`) at orders 16, 19 and 23, E=216, beside
-              the plane body's timing-only twin (`ops.plane`); the
+              body (`ops.rowwise`: old, new, new, old); the slab body of
+              each (`ops.slab`) at orders 16, 19 and 23, E=216, in turns
+              with the generic body (`ops.generic`) and the plane body's
+              timing-only twin (`ops.plane`), with bound and share; the
               gather at 16^3 in its fixed order in turns with index_add_
               (c = 1 and 4), bitwise repeatable
   6b. high_order  the plane body (`csrc/axhelm_plane.cu`: three launches,
@@ -230,17 +235,18 @@ each:
               4096, c = 1 (a CUDA graph of 20 calls), beside the generic
               body's timing-only twin, its bound and its plain version;
               registers and shared memory of every instantiation
-  6e. generic the generic body's main path (orders 16 to 23): the 6x6x6
-              box at order 19 (1,520,875 dofs), its six fp32 main paths and
-              bf16_x32 solves, and the 2x1x1 order-19 box against the
-              reference backend, as 6d runs its own
+  6e. generic the main path of orders 16 to 23 (the slab body at order
+              19): the 6x6x6 box at order 19 (1,520,875 dofs), its six fp32
+              main paths and bf16_x32 solves, and the 2x1x1 order-19 box
+              against the reference backend, as 6d runs its own
   7. the `kernels` line (ten entry points, each launched on its main
      path and, as `launches_sharded`, on the sharded ones, psum and
      neighbour exchange together, and as `launches_serve` by the served
      streams of 5h and 5i, `launches_order9` on the order-9 solves, and
      their times at every N1 from 2 to 16 beside the generic body's
      (`by_n1`); their ten
-     generic bodies, launched on the order-19 solves; their ten
+     slab bodies, launched on the order-19 solves (`by_order`: beside the
+     generic body and the plane twin at orders 16, 19, 23); their ten
      plane bodies, launched on the order-31 solves; and their ten
      staged bodies, launched on the order-63 solves),
      then the card line, then the result line.
@@ -284,6 +290,7 @@ BODY = {"precomputed": "line", "trilinear": "column",
         "parallelepiped": "line", "merged": "line", "partial": "column"}
 SOURCE = {"node": f"{_CSRC}/axhelm.cu", "column": f"{_CSRC}/axhelm_column.cu",
           "line": f"{_CSRC}/axhelm_line.cu", "any": f"{_CSRC}/axhelm.cu",
+          "slab": f"{_CSRC}/axhelm_slab.cu",
           "plane": f"{_CSRC}/axhelm_plane.cu",
           "staged": f"{_CSRC}/axhelm_staged.cu"}
 # The tuned bodies (csrc/axhelm_column.cu, axhelm_line.cu) run every N1 from
@@ -299,11 +306,17 @@ TUNED_ELEMS = (1, 3, 37)
 TUNED_ORDER = 9
 TUNED_TIMING_REPS = 20
 LOW_ORDER = 5
-# The orders the generic body (N1 above ops.N1_TUNED_MAX up to ops.N1_MAX
-# = 24) is checked and timed at, and the one its main path runs: the
-# GENERIC_BOX at GENERIC_MAIN_ORDER (216 elements, 1,520,875 dofs: the 16^3
-# order-7 config's scale in fewer, larger elements), as phase `high_order`
-# runs its own, the 2x1x1 box at that order against the reference backend
+# The orders from 16 to 23 (N1 above ops.N1_TUNED_MAX up to
+# ops.N1_SLAB_MAX = 24), where the entry points run the body
+# ops.MIDDLE_BODIES names: the slab body, checked against its plain version
+# at every N1 of SLAB_N1 on SLAB_ELEMS elements (one, a few, the 6x6x6 box);
+# the orders it is timed at beside the generic body and the plane twin
+# (GENERIC_ORDERS), and the one its main path runs: the GENERIC_BOX at
+# GENERIC_MAIN_ORDER (216 elements, 1,520,875 dofs: the 16^3 order-7
+# config's scale in fewer, larger elements), as phase `high_order` runs its
+# own, the 2x1x1 box at that order against the reference backend
+SLAB_N1 = tuple(range(17, 25))
+SLAB_ELEMS = (1, 3, 216)
 GENERIC_ORDERS = (16, 19, 23)
 GENERIC_MAIN_ORDER = 19
 GENERIC_BOX = (6, 6, 6)
@@ -365,6 +378,10 @@ STAGED_VARIANT_PASSES = ("grad_t",)
 # contractions every variant shares, and each variant's plane pass
 PLANE_SHARED_PASSES = ("line_first", "line_last")
 PLANE_VARIANT_PASSES = ("plane",)
+# the slab body's kernels: the transposed t contraction every variant
+# shares, and each variant's pass over its slabs
+SLAB_SHARED_PASSES = ("last",)
+SLAB_VARIANT_PASSES = ("slab",)
 _TPU_KERNEL = "src/repro/kernels/axhelm/kernel.py"
 REPLACES = {"precomputed": f"{_TPU_KERNEL}:122",
             "trilinear": f"{_TPU_KERNEL}:126",
@@ -818,14 +835,16 @@ def padded_parity(what: str, svc, prob, columns, tol: float,
 def ptxas_instantiations(report: str):
     """Per kernel instantiation of a `-Xptxas -v` report: its variant, body
     ("node": axhelm_kernel, "column": axhelm_column_kernel, "line":
-    axhelm_line_kernel, "any": the generic axhelm_any_kernel, "plane":
+    axhelm_line_kernel, "any": the generic axhelm_any_kernel, "slab":
+    axhelm_slab_kernel and axhelm_slab_last_kernel, "plane":
     axhelm_plane_kernel and axhelm_plane_line_kernel, "staged":
     axhelm_staged_contract_kernel and axhelm_staged_grad_t_kernel), N1
-    (None for the generic, plane and staged bodies, whose N1 is a runtime
-    argument), storage dtype, registers, shared memory and spill bytes; a
-    plane or staged kernel also its "pass" (see PLANE_SHARED_PASSES and
-    STAGED_SHARED_PASSES, whose kernels have variant None); {"kernel":
-    name} for an entry function of another name."""
+    (None for the generic, slab, plane and staged bodies, whose N1 is a
+    runtime argument), storage dtype, registers, shared memory and spill
+    bytes; a slab, plane or staged kernel also its "pass" (see
+    SLAB_SHARED_PASSES, PLANE_SHARED_PASSES and STAGED_SHARED_PASSES, whose
+    kernels have variant None); {"kernel": name} for an entry function of
+    another name."""
     inst, cur = [], None
     dirs, modes = "rst", ("grad", "first", "accumulate", "last")
     for line in report.splitlines():
@@ -834,12 +853,14 @@ def ptxas_instantiations(report: str):
             # axhelm_kernel<N1, GeomSource, T>, axhelm_column_kernel<...> and
             # axhelm_line_kernel<...> mangle as
             # ILi<N1>E...GeomSourceE<n>E<T>E, T = f or 13__nv_bfloat16, and
-            # axhelm_any_kernel<GeomSource, T> and axhelm_plane_kernel<...>
-            # as I...GeomSourceE<n>E<T>E; axhelm_plane_line_kernel<LAST, T>
-            # as ILb<LAST>E<T>E; axhelm_staged_contract_kernel<DIR, MODE, T>
-            # as ILi<DIR>ELi<MODE>E<T>E and axhelm_staged_grad_t_kernel<
+            # axhelm_any_kernel<GeomSource, T>, axhelm_slab_kernel<...> and
+            # axhelm_plane_kernel<...> as I...GeomSourceE<n>E<T>E;
+            # axhelm_slab_last_kernel<T> as I<T>E;
+            # axhelm_plane_line_kernel<LAST, T> as ILb<LAST>E<T>E;
+            # axhelm_staged_contract_kernel<DIR, MODE, T> as
+            # ILi<DIR>ELi<MODE>E<T>E and axhelm_staged_grad_t_kernel<
             # GeomSource, T> as the generic's
-            k = re.search(r"axhelm_(column_|line_|any_|plane_)?kernelI"
+            k = re.search(r"axhelm_(column_|line_|any_|slab_|plane_)?kernelI"
                           r"(?:Li(\d+)E)?"
                           r".*?GeomSourceE?(\d+)E(f|\d+__nv_bfloat16)E",
                           m.group(1))
@@ -849,8 +870,14 @@ def ptxas_instantiations(report: str):
                            m.group(1))
             pl = re.search(r"axhelm_plane_line_kernelILb([01])E"
                            r"(f|\d+__nv_bfloat16)E", m.group(1))
+            sl = re.search(r"axhelm_slab_last_kernelI(f|\d+__nv_bfloat16)E",
+                           m.group(1))
             cur = {"kernel": m.group(1)}
-            if pl:
+            if sl:
+                cur = {"variant": None, "body": "slab",
+                       "pass": SLAB_SHARED_PASSES[0], "n1": None,
+                       "dtype": "f32" if sl.group(1) == "f" else "bf16"}
+            elif pl:
                 cur = {"variant": None, "body": "plane",
                        "pass": PLANE_SHARED_PASSES[int(pl.group(1))],
                        "n1": None,
@@ -860,8 +887,8 @@ def ptxas_instantiations(report: str):
                        "body": (k.group(1) or "node_").rstrip("_"),
                        "n1": int(k.group(2)) if k.group(2) else None,
                        "dtype": "f32" if k.group(4) == "f" else "bf16"}
-                if cur["body"] == "plane":
-                    cur["pass"] = "plane"
+                if cur["body"] in ("plane", "slab"):
+                    cur["pass"] = cur["body"]
             elif st:
                 step = "grad_t" if st.group(1) == "grad_t" else \
                     f"{modes[int(st.group(3))]}_{dirs[int(st.group(2))]}"
@@ -1196,7 +1223,7 @@ def main() -> None:
         c["registers"], c["smem_bytes"]] for c in inst
         if c.get("body") in ("column", "line") and "registers" in c}
     expected |= {(v, body, None, dt) for v in VARIANTS for dt in DTYPES
-                 for body in ("any", "plane")}
+                 for body in ("any", "slab", "plane")}
     # the staged body's kernels: each variant's t gradient, and the
     # contractions every variant shares
     expected |= {(v, "staged", None, dt) for v in VARIANTS + (None,)
@@ -1220,6 +1247,15 @@ def main() -> None:
                         [(v, step, dt) for v in VARIANTS
                          for step in PLANE_VARIANT_PASSES
                          for dt in DTYPES])
+    # the slab body's kernels: each variant's pass over its slabs, and the
+    # transposed t contraction every variant shares
+    expected |= {(None, "slab", None, dt) for dt in DTYPES}
+    slab_passes = sorted((c["variant"] or "", c["pass"], c["dtype"])
+                         for c in inst if c.get("body") == "slab")
+    want_slab = sorted([("", step, dt) for step in SLAB_SHARED_PASSES
+                        for dt in DTYPES] +
+                       [(v, step, dt) for v in VARIANTS
+                        for step in SLAB_VARIANT_PASSES for dt in DTYPES])
     missing = sorted(expected - reported)
     if missing:     # an unfamiliar ptxas format: show the report as it is
         build_line["ptxas"] = report
@@ -1237,6 +1273,12 @@ def main() -> None:
     require(plane_passes == want_plane,
             f"the plane body's kernels {plane_passes}, expected "
             f"{want_plane}")
+    require(slab_passes == want_slab,
+            f"the slab body's kernels {slab_passes}, expected {want_slab}")
+    require(ops.KERNELS_PER_APPLICATION["slab"] == ops.SLAB_KERNELS
+            == len(SLAB_SHARED_PASSES) + len(SLAB_VARIANT_PASSES) == 2,
+            f"the slab body launches {ops.SLAB_KERNELS} kernels an "
+            f"application, expected 2")
     require(not spilled, f"instantiations spill registers: {spilled}")
 
     # 3. kernels against their plain versions ------------------------------
@@ -1252,6 +1294,10 @@ def main() -> None:
         """The generic body's C symbol for an entry point."""
         return f"{entry(variant, dt)}_any"
 
+    def slab_name(variant, dt):
+        """The slab body's C symbol for an entry point."""
+        return f"{entry(variant, dt)}_slab"
+
     def plane_name(variant, dt):
         """The plane body's C symbol for an entry point."""
         return f"{entry(variant, dt)}_plane"
@@ -1262,12 +1308,13 @@ def main() -> None:
 
     def body_name(variant, dt, n1):
         """The C symbol an entry point's launch at `n1` reaches."""
-        return {"any": generic_name, "plane": plane_name,
+        return {"any": generic_name, "slab": slab_name, "plane": plane_name,
                 "staged": staged_name}.get(
             ops.body_of(variant, n1), entry)(variant, dt)
 
     names = [name(v, dt)
-             for name in (entry, generic_name, plane_name, staged_name)
+             for name in (entry, generic_name, slab_name, plane_name,
+                          staged_name)
              for v, dt in entries]
     worst = dict.fromkeys(names, 0.0)
     cases = {dt: [] for dt in DTYPES}
@@ -1284,7 +1331,8 @@ def main() -> None:
 
     ulps = {name(v, "bf16"): {"kernel": [0, 0, 0], "plain": [0, 0, 0]}
             for v in VARIANTS
-            for name in (entry, generic_name, plane_name, staged_name)}
+            for name in (entry, generic_name, slab_name, plane_name,
+                         staged_name)}
     small_ulps = {}     # outputs off and outputs of the small bf16 calls
 
     def rounding_check(name, y, y_p, x, b, variant, geom, label, kw):
@@ -1317,19 +1365,23 @@ def main() -> None:
                         f"correctly rounded value (bound {ULP_RATE_BOUND}), "
                         f"{far} by more than one ulp")
 
-    def check(variant, b, x, geom, label, dt="f32", **kw):
+    def check(variant, b, x, geom, label, dt="f32", twin=None, **kw):
         """One kernel call against its plain version (and, for bf16, both
         against the correctly rounded result); returns the largest
         absolute difference (in fp32).  At N1 in ops.KERNEL_N1 the call
-        runs the entry point's tuned body, at every other N1 up to
-        ops.N1_MAX its generic body, above that its plane body, above
-        ops.N1_PLANE_MAX its staged body."""
-        y = ops.axhelm(x, b, variant, geom, **kw)
+        runs the entry point's tuned body, above that up to
+        ops.N1_SLAB_MAX the body ops.MIDDLE_BODIES names, above that its
+        plane body, above ops.N1_PLANE_MAX its staged body; with
+        twin="slab", the slab body through its twin `ops.slab`, whatever
+        the routing."""
+        y = (ops.slab if twin == "slab" else ops.axhelm)(x, b, variant,
+                                                        geom, **kw)
         torch.cuda.synchronize()
         y_p = ops.reference(x, b, variant, geom, **kw)
         torch.cuda.synchronize()
         require(y.dtype == x.dtype, f"{label}: y is {y.dtype}")
-        name = body_name(variant, dt, b.n1)
+        name = slab_name(variant, dt) if twin == "slab" else \
+            body_name(variant, dt, b.n1)
         if dt == "bf16":
             rounding_check(name, y, y_p, x, b, variant, geom, label, kw)
         y, y_p = y.float(), y_p.float()
@@ -1378,11 +1430,11 @@ def main() -> None:
         """A box's affine (parallelepiped) and trilinear meshes."""
         return {v: mesh_for(v, box) for v in ("trilinear", "parallelepiped")}
 
-    def check_order(b, e, meshes, seed, name_of, cols=(1, 4)):
+    def check_order(b, e, meshes, seed, name_of, cols=(1, 4), twin=None):
         """Every entry point at basis b on the first e elements of
         `meshes` against its plain version: each variant's equations, fp32
         and bf16, c in `cols`, random per-node lambdas (torch seed
-        `seed`)."""
+        `seed`); `twin` as `check` takes it."""
         node = (e,) + (b.n1,) * 3
         gen.manual_seed(seed)
         lam0 = 1 + 0.3 * torch.rand(node, generator=gen, device=dev)
@@ -1401,7 +1453,7 @@ def main() -> None:
                     check(variant, b, x[:, 0, 0] if c == 1 else x, geom,
                           f"{name_of(variant, dt)} N1={b.n1} E={e} "
                           f"{'helmholtz' if helm else 'poisson'} c={c}",
-                          dt=dt, helmholtz=helm, **kw)
+                          dt=dt, twin=twin, helmholtz=helm, **kw)
 
     def check_main_call(b, meshes, name_of, into=None):
         """Each entry point's call on its main path (every element of
@@ -1434,8 +1486,27 @@ def main() -> None:
             check_order(basis(n1_case - 1), e, tuned_meshes, 100 * n1_case + e,
                         entry)
     tuned_cases = {dt: len(cases[dt]) for dt in DTYPES}
+    # the slab body at every N1 from 17 to 24, through its twin: E = 1, 3
+    # and 216 (the GENERIC_BOX's elements), c = 1 and 4, both storage types
+    slab_meshes = meshes_of(mesh_gen.box_mesh(*GENERIC_BOX, 1))
+    for n1_case in SLAB_N1:
+        for e in SLAB_ELEMS:
+            check_order(basis(n1_case - 1), e, slab_meshes, 100 * n1_case + e,
+                        slab_name, twin="slab")
+    slab_cases = {dt: len(cases[dt]) - tuned_cases[dt] for dt in DTYPES}
+    # where ops.MIDDLE_BODIES routes an entry point to another body, the
+    # entry points at that N1 as they run
+    other_n1 = sorted({n for (n, _), body in ops.MIDDLE_BODIES.items()
+                       if body != "slab"})
+    for n1_case in other_n1:
+        for e in SLAB_ELEMS:
+            check_order(basis(n1_case - 1), e, slab_meshes, 200 * n1_case + e,
+                        lambda v, dt: body_name(v, dt, n1_case))
+    routed_elsewhere = sorted({body_name(v, dt, n) for (n, v), body
+                               in ops.MIDDLE_BODIES.items()
+                               if body != "slab" for dt in DTYPES})
     e_odd = 37
-    # the generic body's main path: the GENERIC_BOX at GENERIC_MAIN_ORDER
+    # the main path of orders 16 to 23: the GENERIC_BOX at GENERIC_MAIN_ORDER
     b_gen = basis(GENERIC_MAIN_ORDER)
     gen_box = mesh_gen.box_mesh(*GENERIC_BOX, GENERIC_MAIN_ORDER)
     gen_meshes = meshes_of(gen_box)
@@ -1469,35 +1540,6 @@ def main() -> None:
                                  f"nrhs={nrhs} d={d}")
                         check(variant, b, x.contiguous(), geom, label, dt=dt,
                               helmholtz=helm, **kw)
-        # the generic body: every variant at the orders of GENERIC_ORDERS
-        for order in GENERIC_ORDERS:
-            b = basis(order)
-            n1_case = b.n1
-            box = mesh_gen.box_mesh(4, 4, 3, order)
-            node = (e_odd,) + (n1_case,) * 3
-            for variant in VARIANTS:
-                verts = torch.as_tensor(mesh_for(variant, box).verts[:e_odd],
-                                        dtype=torch.float32, device=dev)
-                for helm in EQUATIONS[variant]:
-                    for nrhs, d in ((1, 1), (2, 3)):
-                        shape = (e_odd, nrhs, d) + (n1_case,) * 3
-                        x = torch.as_tensor(rng.standard_normal(shape),
-                                            dtype=torch_dtype[dt],
-                                            device=dev)
-                        lam0 = torch.as_tensor(1 + 0.3 * rng.random(node),
-                                               dtype=torch.float32,
-                                               device=dev)
-                        lam1 = torch.as_tensor(0.5 + 0.2 * rng.random(node),
-                                               dtype=torch.float32,
-                                               device=dev) if helm else None
-                        geom, kw = operands(variant, verts, b, helm, lam0,
-                                            lam1, dt=dt)
-                        label = (f"{generic_name(variant, dt)} N1={n1_case} "
-                                 f"E={e_odd} "
-                                 f"{'helmholtz' if helm else 'poisson'} "
-                                 f"nrhs={nrhs} d={d}")
-                        check(variant, b, x, geom, label, dt=dt,
-                              helmholtz=helm, **kw)
         for variant in VARIANTS:
             helm = MAIN_HELMHOLTZ[variant]
             verts = torch.as_tensor(cfg_mesh_for(variant).verts,
@@ -1511,21 +1553,28 @@ def main() -> None:
                 f"N1={n1} {'helmholtz' if helm else 'poisson'} c=1",
                 dt=dt, helmholtz=helm, **kw)
             del geom, kw, x, verts
-    check_main_call(b_gen, gen_meshes, generic_name)
+    check_main_call(b_gen, gen_meshes,
+                    lambda v, dt: body_name(v, dt, b_gen.n1))
     for name, (off, total) in small_ulps.items():
         require(off <= ULP_RATE_BOUND * total,
                 f"{name}: {off} of the {total} outputs of its small bf16 "
                 f"calls off the correctly rounded value (bound "
                 f"{ULP_RATE_BOUND})")
     for dt in DTYPES:
-        here = [name(v, dt) for name in (entry, generic_name)
+        here = [name(v, dt) for name in (entry, slab_name)
                 for v in VARIANTS]
         line = {"phase": "kernels" if dt == "f32" else "kernels_bf16",
                 "cases": len(cases[dt]), "tolerance": rtol[dt],
                 "tuned_n1": [ops.KERNEL_N1[0], ops.KERNEL_N1[-1]],
                 "tuned_cases": tuned_cases[dt],
                 "tuned_elements": TUNED_ELEMS,
-                "generic_orders": GENERIC_ORDERS,
+                "slab_n1": SLAB_N1, "slab_elements": SLAB_ELEMS,
+                "slab_cases": slab_cases[dt],
+                "routed_elsewhere_worst_rel_err": {
+                    k: worst[k] for k in routed_elsewhere
+                    if k.split("_")[2] == dt},
+                "middle_bodies": {f"{n}/{v}": body for (n, v), body
+                                  in ops.MIDDLE_BODIES.items()},
                 "worst_rel_err": {k: worst[k] for k in here},
                 "main_path_abs_err": {k: main_abs[k] for k in here}}
         if dt == "bf16":
@@ -2720,10 +2769,11 @@ def main() -> None:
             del geom, kw, verts, x
         del x32
         torch.cuda.empty_cache()
-    # the generic body at GENERIC_ORDERS: E = 216 (the GENERIC_BOX of its
-    # main path at each order), c = 1, each variant's main equation, fp32
-    # and bf16
-    timing_any = {generic_name(v, dt): {} for v, dt in entries}
+    # the slab body at GENERIC_ORDERS beside the generic body and the plane
+    # twin, in turns (slab, generic, plane, plane, generic, slab): E = 216
+    # (the GENERIC_BOX of the main path at each order), c = 1, each
+    # variant's main equation, fp32 and bf16
+    timing_mid = {slab_name(v, dt): {} for v, dt in entries}
     for order in GENERIC_ORDERS:
         b = basis(order)
         box = mesh_gen.box_mesh(*GENERIC_BOX, order)
@@ -2741,22 +2791,28 @@ def main() -> None:
                                     device=dev)
             lams = (1.0, 0.1) if helm else (None, None)
             geom, kw = operands(variant, verts, b, helm, *lams, dt=dt)
-            ms = graph_ms(lambda: ops.generic(x, b, variant, geom,
-                                              helmholtz=helm, **kw))
-            plane_twin_ms = graph_ms(lambda: ops.plane(
-                x, b, variant, geom, helmholtz=helm, **kw))
+            bodies = {"slab": ops.slab, "generic": ops.generic,
+                      "plane": ops.plane}
+            turns = {name: [] for name in bodies}
+            for name in list(bodies) + list(bodies)[::-1]:
+                turns[name].append(graph_ms(lambda: bodies[name](
+                    x, b, variant, geom, helmholtz=helm, **kw)))
+            ms, generic_ms, plane_ms = (statistics.fmean(turns[name])
+                                        for name in bodies)
             plain_ms = event_ms(lambda: ops.reference(x, b, variant, geom,
                                                       helmholtz=helm, **kw),
                                 reps=5, warmup=1)
             bound_ms, bound_by, nbytes, flops = axhelm_bound(
                 variant, e, b.n1, helm, word=WORD_BYTES[dt])
-            timing_any[generic_name(variant, dt)][f"order{order}"] = {
-                "E": e, "N1": b.n1,
+            timing_mid[slab_name(variant, dt)][f"order{order}"] = {
+                "E": e, "N1": b.n1, "body": ops.body_of(variant, b.n1),
                 "equation": "helmholtz" if helm else "poisson",
-                "ms": ms, "plane_twin_ms": plane_twin_ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "bytes": nbytes,
-                "flops": flops, "roofline_share": bound_ms / ms}
+                "ms": ms, "generic_ms": generic_ms, "plane_ms": plane_ms,
+                "turns_ms": turns, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                "flops": flops, "roofline_share": bound_ms / ms,
+                "generic_roofline_share": bound_ms / generic_ms,
+                "plane_roofline_share": bound_ms / plane_ms}
             del geom, kw, verts, x
         del x32
         torch.cuda.empty_cache()
@@ -2819,10 +2875,12 @@ def main() -> None:
           "ms": "CUDA graph of 50 calls, median of 5 replays; K1-K5: "
                 "the mean of two such medians, in turns with their "
                 "one-thread-per-node body (ms_rowwise, turns_ms: old, new, "
-                "new, old); the generic body (`generic`) alone, then the "
-                "plane body's twin (`plane_twin_ms`, ops.plane) on the "
-                "same call; ncols4: K1 at c = 4, in turns the same way",
-          "generic": timing_any,
+                "new, old); orders 16-23 (`middle`): the slab body "
+                "(ops.slab), the generic body (generic_ms, ops.generic) and "
+                "the plane twin (plane_ms, ops.plane), each the mean of "
+                "two such medians in turns (slab, generic, plane, plane, "
+                "generic, slab); ncols4: K1 at c = 4, in turns the same way",
+          "middle": timing_mid,
           "ms_eager": "200 eager calls back to back, CUDA events",
           "library": "none: no single PyTorch call computes axhelm",
           "kernels": timing,
@@ -3258,12 +3316,13 @@ def main() -> None:
           "seconds": time.perf_counter() - t_tuned})
     del tu_box, tu_small
 
-    # 6e. generic: the generic body's main path, N1 above ops.N1_TUNED_MAX
-    # (its checks at GENERIC_ORDERS ran in phases 3 and 3b, its times in
-    # phase 6): the six fp32 main paths on the GENERIC_BOX at
-    # GENERIC_MAIN_ORDER, captured and eager in turns, each on the 2x1x1 box
-    # against the reference backend, each variant's bf16_x32 solve at tol
-    # 0.03 (the rules of `high_order`).
+    # 6e. generic: the main path of orders 16 to 23, N1 above
+    # ops.N1_TUNED_MAX, through the body ops.MIDDLE_BODIES names (the slab
+    # body at GENERIC_MAIN_ORDER; its checks at every N1 ran in phases 3 and
+    # 3b, its times in phase 6): the six fp32 main paths on the GENERIC_BOX
+    # at GENERIC_MAIN_ORDER, captured and eager in turns, each on the 2x1x1
+    # box against the reference backend, each variant's bf16_x32 solve at
+    # tol 0.03 (the rules of `high_order`).
     t_generic = time.perf_counter()
     gen_small = mesh_gen.box_mesh(*HIGH_ORDER_SMALL_BOX, GENERIC_MAIN_ORDER)
     gen_solves, gen_vs_ref, gen_bf16 = high_order_solves(
@@ -3271,7 +3330,9 @@ def main() -> None:
         gen_meshes, meshes_of(gen_small),
         f"2x1x1 order {GENERIC_MAIN_ORDER}")
     emit({"phase": "generic", "card": card, "orders": GENERIC_ORDERS,
-          "n1": [ops.N1_TUNED_MAX + 1, ops.N1_MAX],
+          "n1": [ops.N1_TUNED_MAX + 1, ops.N1_SLAB_MAX],
+          "middle_bodies": {f"{n}/{v}": body for (n, v), body
+                            in ops.MIDDLE_BODIES.items()},
           "mesh": "x".join(map(str, GENERIC_BOX)),
           "order": GENERIC_MAIN_ORDER, "elements": len(gen_box.verts),
           "dofs": gen_box.n_global, "iterations": HIGH_ORDER_ITERS,
@@ -3324,15 +3385,19 @@ def main() -> None:
                 "ms", "generic_ms", "plain_ms", "bound_ms", "bound_by")}
                 for n1_case, r in timing_tuned[name].items()}})
     for variant, dt in entries:
-        name = generic_name(variant, dt)
-        by_order = timing_any[name]
+        # the order-19 main paths run the slab body (ops.MIDDLE_BODIES)
+        name = body_name(variant, dt, GENERIC_MAIN_ORDER + 1)
+        require(name == slab_name(variant, dt),
+                f"the order-{GENERIC_MAIN_ORDER} main path runs {name}, not "
+                f"the slab body")
+        by_order = timing_mid[name]
         t = by_order[f"order{GENERIC_MAIN_ORDER}"]
         launches = gen_solves[main_key(variant)]["kernel"][
             "main_path_read"]["launches"] if dt == "f32" else \
             gen_bf16[variant]["launches"].get(entry(variant, dt), 0)
         kernels.append({
             "name": name, "variant": variant, "storage": dt,
-            "route": "cuda", "source": SOURCE["any"],
+            "route": "cuda", "source": SOURCE["slab"],
             "replaces": REPLACES[variant],
             "main_path": f"{'x'.join(map(str, GENERIC_BOX))} order "
                          f"{GENERIC_MAIN_ORDER} "
@@ -3344,8 +3409,8 @@ def main() -> None:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "order": GENERIC_MAIN_ORDER,
             "by_order": {o: {k: by_order[o][k] for k in
-                             ("ms", "plane_twin_ms", "plain_ms", "bound_ms",
-                              "bound_by")}
+                             ("N1", "body", "ms", "generic_ms", "plane_ms",
+                              "plain_ms", "bound_ms", "bound_by")}
                          for o in by_order}})
     for variant, dt in entries:
         name = plane_name(variant, dt)

@@ -33,6 +33,14 @@ point's output on a seeded x as a SHA-256 of its bytes, and its time.
 With --staged, each process runs only the staged body: its times and
 digests at N1 = 49 and 64 as --orders runs them, and the six order-63
 main paths on the 2x2x2 box (2,048,383 dofs) as it runs the 16^3 ones.
+With --generic, each process runs only orders 16 to 23: each entry point at
+every N1 from 17 to 24 on the 6x6x6 box (E = 216, c = 1, the main equation
+with setup's scalar lambdas) through the body the tree routes it to
+(`ops.axhelm`), the generic body (`ops.generic`), the plane twin
+(`ops.plane`) and, where the tree has it, the slab twin (`ops.slab`), the
+four in turns on the same operands (routed, generic, plane, slab, then
+back), each a CUDA graph of 50 calls; and the six order-19 main paths on
+the 6x6x6 box (1,520,875 dofs) as it runs the 16^3 ones.
 The last line sums the turns up: each tree's times as the mean of its two
 runs, side by side.
 
@@ -41,6 +49,7 @@ main_path_turns.json in the output directory.
 
 Run:  python3 scripts/main_path_turns.py OLD_TREE NEW_TREE [--orders 24,31,47]
       python3 scripts/main_path_turns.py OLD_TREE NEW_TREE --staged
+      python3 scripts/main_path_turns.py OLD_TREE NEW_TREE --generic
 """
 
 import argparse
@@ -65,6 +74,10 @@ HIGH_ORDER = 31           # the order of the main paths --orders adds
 STAGED_RUNS = ((48, (4, 4, 4)), (63, (2, 2, 2)))
 # the box of the staged body's main paths (--staged)
 STAGED_BOX = (2, 2, 2)
+# --generic: the N1 it times, its box (E = 216) and its main paths' order
+MIDDLE_N1 = tuple(range(17, 25))
+MIDDLE_BOX = (6, 6, 6)
+MIDDLE_ORDER = 19
 
 
 def main_paths(meshes: dict) -> dict:
@@ -127,7 +140,8 @@ def main_paths(meshes: dict) -> dict:
     return paths
 
 
-def worker(tree: Path, orders: tuple, staged_only: bool = False) -> dict:
+def worker(tree: Path, orders: tuple, staged_only: bool = False,
+           middle_only: bool = False) -> dict:
     """The main paths of one tree, in this process."""
     sys.path.insert(0, str(tree / "src"))
     import torch
@@ -194,6 +208,33 @@ def worker(tree: Path, orders: tuple, staged_only: bool = False) -> dict:
     sys.path.insert(0, str(tree))
     from chip_smoke import graph_ms
 
+    if middle_only:
+        out["middle_us"] = {}
+        for n1 in MIDDLE_N1:
+            b = basis(n1 - 1)
+            meshes = meshes_of(mesh_gen.box_mesh(*MIDDLE_BOX, b.n))
+            x32 = seeded_x(b.n, len(meshes["trilinear"].verts), n1)
+            bodies = {"us": ops.axhelm, "generic_us": ops.generic,
+                      "plane_us": ops.plane}
+            if hasattr(ops, "slab"):
+                bodies["slab_us"] = ops.slab
+            for dtype in (torch.float32, torch.bfloat16):
+                for variant in VARIANTS:
+                    geom, kw = operands(variant, dtype, b, meshes)
+                    x = x32.to(dtype)
+                    row = {"body": ops.body_of(variant, n1)}
+                    for name in list(bodies) + list(bodies)[::-1]:
+                        us = 1e3 * graph_ms(lambda: bodies[name](
+                            x, b, variant, geom, **kw))
+                        row[name] = row.get(name, 0.0) + us / 2
+                    out["middle_us"][f"{ops.entry_point(variant, dtype)}/"
+                                     f"N1={n1}"] = row
+                    del geom, kw, x
+            del x32
+            torch.cuda.empty_cache()
+        out["middle_paths"] = main_paths(meshes_of(
+            mesh_gen.box_mesh(*MIDDLE_BOX, MIDDLE_ORDER)))
+        return out
     if staged_only:
         out["staged"] = staged_runs()
         out["staged_paths"] = main_paths(meshes_of(
@@ -292,7 +333,19 @@ def summary(lines: list) -> dict:
                                     for r in lines[1:]
                                     if key in r.get(section, {})}) == 1})}
             for key in keys}
-    for section in ("paths", "high_order_paths", "staged_paths"):
+    keys = runs["new"][0].get("middle_us", {})
+    if keys:
+        out["middle_us"] = {key: {
+            "old_us": mean("old", "middle_us", key, "us"),
+            "new_us": mean("new", "middle_us", key, "us"),
+            "body": runs["new"][0]["middle_us"][key]["body"],
+            **{f"{label}_{name}": mean(label, "middle_us", key, name)
+               for label in ("old", "new")
+               for name in ("generic_us", "plane_us")},
+            "slab_us": mean("new", "middle_us", key, "slab_us")}
+            for key in keys}
+    for section in ("paths", "high_order_paths", "staged_paths",
+                    "middle_paths"):
         keys = runs["new"][0].get(section, {})
         out[section] = {key: {
             label: mean(label, section, key, "ms_per_iteration")
@@ -311,12 +364,16 @@ def main() -> None:
                         help="comma-separated orders, e.g. 24,31,47")
     parser.add_argument("--staged", action="store_true",
                         help="only the staged body and its order-63 paths")
+    parser.add_argument("--generic", action="store_true",
+                        help="only orders 16-23: every entry point through "
+                             "the routed, generic, plane and slab bodies, "
+                             "and the order-19 paths")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     orders = tuple(int(o) for o in args.orders.split(",") if o)
     if args.worker:
         print(json.dumps(worker(Path(args.worker).resolve(), orders,
-                                args.staged)), flush=True)
+                                args.staged, args.generic)), flush=True)
         return
     import torch
 
@@ -330,13 +387,14 @@ def main() -> None:
                          text=True, check=False).stdout.strip()
     lines = [{"card": smi, "order": ["old", "new", "new", "old"],
               "old": str(old), "new": str(new), "orders": orders,
-              "staged_only": args.staged}]
+              "staged_only": args.staged, "generic_only": args.generic}]
     print(json.dumps(lines[0]), flush=True)
     for label, tree in (("old", old), ("new", new), ("new", new),
                         ("old", old)):
         run = subprocess.run([sys.executable, __file__, "--worker",
                               str(tree), "--orders", args.orders]
-                             + (["--staged"] if args.staged else []),
+                             + (["--staged"] if args.staged else [])
+                             + (["--generic"] if args.generic else []),
                              capture_output=True, text=True, check=False)
         if run.returncode != 0:
             sys.exit(f"{label} tree {tree} failed:\n{run.stderr[-3000:]}")

@@ -8,10 +8,13 @@ points), ``axhelm_column.cu`` the one-thread-per-column body (K2, K5),
 ``axhelm_line.cu`` the one-thread-per-line body (K1, K3, K4),
 ``axhelm_plane.cu`` the body that runs an element's contractions as
 register-tiled products, its t-planes a block each (every variant above the
-generic body's N1, ``*_plane`` entry points), ``axhelm_staged.cu`` the body
+generic body's N1, ``*_plane`` entry points), ``axhelm_slab.cu`` the body
+that runs them as register-tiled products a slab of t-planes a block,
+with the whole element staged (N1 = 17 to 24, ``*_slab`` entry points;
+its last launch is the plane body's), ``axhelm_staged.cu`` the body
 that stages an element's contractions through device memory, on the tensor
 cores (every variant above the plane body's N1, ``*_staged`` entry points),
-all five including
+all six including
 ``axhelm_common.cuh``.  One ``nvcc -c`` per
 source, or per part of a source that ``PARTS`` splits (the column and line
 bodies' instantiations at N1 = 2 to 16, ``-DAXHELM_PART=p``), runs at the
@@ -42,7 +45,7 @@ __all__ = ["SOURCES", "HEADERS", "PARTS", "NVCC_FLAGS", "LINK_FLAGS",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "axhelm.cu", _CSRC / "axhelm_column.cu",
            _CSRC / "axhelm_line.cu", _CSRC / "axhelm_plane.cu",
-           _CSRC / "axhelm_staged.cu")
+           _CSRC / "axhelm_slab.cu", _CSRC / "axhelm_staged.cu")
 HEADERS = (_CSRC / "axhelm_common.cuh",)
 # Sources compiled in several parts, by file name: each part instantiates
 # some of the N1 (the AXHELM_*_PART<p> lists in the source), so that the
@@ -196,6 +199,10 @@ SIGNATURES = {
     # n_elem, ncols, helmholtz | stream
     **{f"{variant}_plane": [_PTR] * 9 + [_I32] * 4 + [_PTR]
        for variant in _VARIANTS},
+    # the slab body, N1 from ops.N1_TUNED_MAX + 1 up to ops.N1_SLAB_MAX,
+    # the plane body's arguments
+    **{f"{variant}_slab": [_PTR] * 9 + [_I32] * 4 + [_PTR]
+       for variant in _VARIANTS},
 }
 
 
@@ -217,7 +224,8 @@ def library() -> ctypes.CDLL:
     """The built library with the C signature of every entry point,
     ``axhelm_<variant>_f32`` and ``axhelm_<variant>_bf16``, of the generic
     body's ``axhelm_<variant>_<suffix>_any``, of the plane body's
-    ``axhelm_<variant>_<suffix>_plane``, of the staged body's
+    ``axhelm_<variant>_<suffix>_plane``, of the slab body's
+    ``axhelm_<variant>_<suffix>_slab``, of the staged body's
     ``axhelm_<variant>_<suffix>_staged``, of the timing-only
     ``axhelm_<variant>_<suffix>_rowwise`` and of `QUERIES`, declared."""
     lib = ctypes.CDLL(str(build()))

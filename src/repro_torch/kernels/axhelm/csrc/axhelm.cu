@@ -1,26 +1,31 @@
 // axhelm.cu -- hand-written Hopper (sm_90a) kernels for the axhelm element
 // operator, with a plain C interface (bound from Python with ctypes): the
-// generic body, for every variant at any order, and the one-thread-per-node
-// body, kept as the timing-only twin of the tuned bodies.
+// generic body, for every variant at any order up to ops.N1_MAX, and the
+// one-thread-per-node body, kept as the timing-only twin of the tuned
+// bodies.
 //
 // Replaces the TPU kernel repro/kernels/axhelm/kernel.py::_kernel, the body of
 // the one pl.pallas_call (kernel.py:233), in all five of its variants and
-// both of its storage types, at the N1 the tuned bodies lack: _kernel takes
-// any N1 from the shape of x (kernel.py:159), the tuned bodies only N1 = 4
-// and 8.  At those two, K2 "trilinear" (kernel.py:126-131, Alg. 3) and K5
-// "partial" (kernel.py:154-157, §4.1.2) run the one-thread-per-column body of
+// both of its storage types: _kernel takes any N1 from the shape of x
+// (kernel.py:159).  The entry points run it nowhere now: from N1 = 2 to 16,
+// K2 "trilinear" (kernel.py:126-131, Alg. 3) and K5 "partial"
+// (kernel.py:154-157, §4.1.2) run the one-thread-per-column body of
 // axhelm_column.cu, and K1 "precomputed" (kernel.py:122-125, Alg. 2: the
 // factors read from memory), K3 "parallelepiped" (kernel.py:132-136, Alg. 4:
 // G = gelem[:6]*w3 and gwj = gelem[6]*w3 from 7 words per element) and K4
 // "merged" (kernel.py:137-153, §4.1.1, Helmholtz only: G = adj(K~)*Lam2 and
-// mass = Lam3) the one-thread-per-line body of axhelm_line.cu.
+// mass = Lam3) the one-thread-per-line body of axhelm_line.cu; from 17 to
+// 24 every variant runs the body ops.MIDDLE_BODIES names for the N1, the
+// fastest in the measured turns (PERF.md): the slab body of axhelm_slab.cu.
 //
 // Per element e and column c (c runs over the nrhs*d columns, which all share
 // the element's factors):
 //   y = D^T [lam0 * G (D x)]  (+ mass * x for Helmholtz, mass = lam1 * gwj)
 //
-// The generic body (entry points axhelm_<variant>_<T>_any, what the wrapper
-// launches at every N1 other than 4 and 8, up to ops.N1_MAX): one block an
+// The generic body (entry points axhelm_<variant>_<T>_any, any N1 up to
+// ops.N1_MAX; the timing-only twin ops.generic, beside the tuned and slab
+// bodies, and what the wrapper launches at an N1 ops.MIDDLE_BODIES routes
+// to it, none now): one block an
 // element, at most kAnyThreads threads, each walking the nodes t, t +
 // blockDim, ... of its element; N1 is a runtime argument; D-hat, the
 // element's geometry words, x and the three weighted gradient components

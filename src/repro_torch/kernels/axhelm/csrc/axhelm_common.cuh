@@ -1,16 +1,18 @@
 // axhelm_common.cuh -- what the axhelm kernel bodies share: the geometry
 // sources (the variants of the TPU kernel's _kernel), the storage
-// conversions, the hoisted Alg. 3 (the column body's K2/K5 and the line
-// body's K4) and the per-node factors of the node walk (the generic body of
-// axhelm.cu, the plane body of axhelm_plane.cu and the staged body's t
-// gradient in axhelm_staged.cu).  axhelm.cu holds the generic body
-// and the one-thread-per-node twins, axhelm_column.cu the
-// one-thread-per-column body (K2, K5), axhelm_line.cu the
-// one-thread-per-line body (K1, K3, K4), axhelm_plane.cu the body that
-// runs an element's contractions as register-tiled products, a t-plane a
-// block (N1 above the generic body's 24), axhelm_staged.cu the body that
-// stages an element's contractions through device memory (N1 above the
-// plane body's 48).
+// conversions, the staging of values into shared memory, the hoisted Alg. 3
+// (the column body's K2/K5, the line body's K4 and the slab body's K2, K4,
+// K5) and the per-node factors of the node walk (the generic body of
+// axhelm.cu, the slab body of axhelm_slab.cu, the plane body of
+// axhelm_plane.cu and the staged body's t gradient in axhelm_staged.cu).
+// axhelm.cu holds the generic body and the one-thread-per-node twins,
+// axhelm_column.cu the one-thread-per-column body (K2, K5), axhelm_line.cu
+// the one-thread-per-line body (K1, K3, K4), axhelm_slab.cu the body that
+// runs an element's contractions as register-tiled products, a slab of
+// t-planes a block with the whole element's x in shared memory (N1 from 17
+// to 24), axhelm_plane.cu the body that runs them a t-plane a block (N1
+// above 24), axhelm_staged.cu the body that stages an element's
+// contractions through device memory (N1 above the plane body's 48).
 #pragma once
 
 #include <cstdint>
@@ -81,6 +83,23 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+
+// One value into shared memory (the plane and slab bodies' staging): an
+// asynchronous 4-byte copy from fp32 (cp_async_wait completes it and every
+// cp.async before it), a load and a widening from bf16.
+__device__ __forceinline__ void stage_value(float* dst, const float* src) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void stage_value(float* dst,
+                                            const __nv_bfloat16* src) {
+  *dst = load(src);
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Paper Alg. 3, hoisted along k (the column body's K2/K5 and the line body's

@@ -146,22 +146,6 @@ struct PlaneArgs {
   int n1, ncols, helmholtz;
 };
 
-// One value of the plane into shared memory: an asynchronous 4-byte copy in
-// fp32 (cp_async_wait completes it), a load and a widening in bf16.
-__device__ __forceinline__ void stage_value(float* dst, const float* src) {
-  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void stage_value(float* dst,
-                                            const __nv_bfloat16* src) {
-  *dst = load(src);
-}
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // N1 x N1 values from src (a plane, or D-hat) into s_x, rows of pitch ld.
 template <typename T>
 __device__ __forceinline__ void stage_plane(float* s_x, const T* src, int n1,

@@ -31,12 +31,23 @@ one value at odd N1).  K1 reads its factors from the planar (E, 7,
 N1,N1,N1) operand (`ref.planar_factors`).  The launch shape of both at
 each N1 (`column_elems`, `column_min_blocks`, `line_elems`,
 `line_min_blocks`) mirrors the CUDA source's.
-From N1_TUNED_MAX + 1 to `N1_MAX` (orders 16 to 23) each entry
-point runs the generic body (`csrc/axhelm.cu`, the `*_any` symbols): one
-block an element walks its N1^3 nodes, N1 a runtime argument, with D-hat,
-x and the weighted gradient in dynamic shared memory
-(`generic_smem_bytes`); above N1_MAX that does not fit in a block's shared
-memory.  From N1_MAX + 1 to `N1_PLANE_MAX` (orders 24 to 47) each entry
+From N1_TUNED_MAX + 1 to `N1_SLAB_MAX` (orders 16 to 23) each entry
+point runs the body `MIDDLE_BODIES` names for its N1 and variant, the
+fastest in the measured turns of the three bodies that can run these
+orders (`PERF.md`): the slab body (`csrc/axhelm_slab.cu`, the `*_slab`
+symbols), everywhere but K1 at N1 = 17, whose
+application is `SLAB_KERNELS` launches -- a pass of one block per
+(element, slab of SLAB_PLANES t-planes) that copies the element's whole x
+into shared memory, runs the slab's r, s and t contractions (each a
+register tile of PLANE_REG x PLANE_REG outputs a thread), the factors and
+the transposed r and s contractions, writing s_t and the partial y into
+fp32 scratch, then the transposed t contraction into y, a thread a line --
+over 2 E ncols N1^3 words of scratch (`slab_launch`).  The generic body (`csrc/axhelm.cu`,
+the `*_any` symbols: one block an element walks its N1^3 nodes, with
+D-hat, x and the weighted gradient in dynamic shared memory,
+`generic_smem_bytes`, which above N1_MAX does not fit in a block; K1 at
+N1 = 17) and the plane body can run them too.  From N1_SLAB_MAX + 1 to `N1_PLANE_MAX` (orders 24
+to 47) each entry
 point runs the plane body (`csrc/axhelm_plane.cu`, the `*_plane`
 symbols): one application is `PLANE_KERNELS` launches -- the t
 contraction of x into fp32 scratch T, a pass of one block per (element,
@@ -54,27 +65,30 @@ them on the tensor cores in 3xTF32 (D-hat's split made here once a basis,
 `staged_fragments`), the t gradient fused with the factors, over fp32
 scratch of 3 E ncols N1^3 words (and E N1^3 more for the Helmholtz mass)
 (`staged_launch`).  The plane and staged
-bodies' scratch is allocated by the wrapper with `torch.empty` at every
-call (under a CUDA graph's capture it comes from the graph's pool, the
-same memory at every replay); the staged body runs N1 up to
+bodies' scratch (and the slab body's) is allocated by the wrapper with
+`torch.empty` at every call (under a CUDA graph's capture it comes from
+the graph's pool, the same memory at every replay); the staged body runs
+N1 up to
 `N1_STAGED_MAX`; a scratch the card cannot hold
 is refused by that `torch.empty`, which raises `torch.OutOfMemoryError`
 with the size.  None needs element padding: the column and line bodies
-mask their ragged last group, the plane and staged bodies their ragged
-tiles.  `launch_counts` counts one launch of each entry point
+mask their ragged last group, the plane, slab and staged bodies their
+ragged tiles.  `launch_counts` counts one launch of each entry point
 (`entry_point(variant, dtype)`, the C symbol) per application, whichever
 body it ran, so a run can show that a solve went through the kernels it
 expects (`KERNELS_PER_APPLICATION` records the CUDA kernels one
-application of each body launches: 3 for the plane body, 6 for the staged
-body, 1 for every other; a design fact, not counted); a launch captured
+application of each body launches: 2 for the slab body, 3 for the plane
+body, 6 for the staged body, 1 for every other; a design fact, not
+counted); a launch captured
 into a solver loop's CUDA graph counts once for every replay of the graph
-(`core.graphs.count`).  Four timing-only twins count nothing and `axhelm`
-never reaches them: `rowwise` launches a variant on the one-thread-per-node
-body at N1 in ROWWISE_N1 (4 and 8), beside the bodies that replaced it,
-`generic` the generic body at any N1 up to N1_MAX, beside the tuned
-bodies, `plane` the plane body at any N1 up to N1_PLANE_MAX, beside the
-generic body, and `staged` the staged body at any N1 up to N1_STAGED_MAX,
-beside the plane body.
+(`core.graphs.count`).  Five timing-only twins count nothing and run their
+body whatever `axhelm` routes: `rowwise` launches a variant on the
+one-thread-per-node body at N1 in ROWWISE_N1 (4 and 8), beside the bodies
+that replaced it, `generic` the generic body at any N1 up to N1_MAX,
+beside the tuned and slab bodies, `slab` the slab body at any N1 up to
+N1_SLAB_MAX, `plane` the plane body at any N1 up to N1_PLANE_MAX, beside
+the generic and slab bodies, and `staged` the staged body at any N1 up
+to N1_STAGED_MAX, beside the plane body.
 """
 
 from __future__ import annotations
@@ -101,7 +115,10 @@ __all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
            "GENERIC_THREADS", "SMEM_PER_SM", "SMEM_RESERVED", "PLANE_REG",
            "PLANE_LINE_LANES", "PLANE_LINE_TILE", "PLANE_MIN_BLOCKS",
            "PLANE_FACTOR_WORDS", "PLANE_ARRAYS", "PLANE_STATIC_SMEM",
-           "PLANE_KERNELS", "N1_PLANE_MAX", "STAGED_THREADS", "STAGED_TILE",
+           "PLANE_KERNELS", "N1_PLANE_MAX", "SLAB_PLANES", "SLAB_MIN_BLOCKS",
+           "SLAB_ARRAYS", "SLAB_STATIC_SMEM", "SLAB_LAST_THREADS",
+           "SLAB_KERNELS", "N1_SLAB_MAX", "MIDDLE_BODIES",
+           "STAGED_THREADS", "STAGED_TILE",
            "STAGED_NARROW_LINES", "STAGED_STAGES", "STAGED_MAX_EXTRAS",
            "STAGED_KERNELS",
            "N1_STAGED_WIDE_MAX", "N1_STAGED_MAX",
@@ -109,11 +126,12 @@ __all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
            "entry_point", "column_launch", "line_launch", "generic_launch",
            "generic_smem_bytes", "plane_lanes", "plane_pitch",
            "plane_smem_bytes", "plane_line_smem_bytes", "plane_launch",
-           "PlaneLaunch",
+           "PlaneLaunch", "slab_smem_bytes", "slab_launch", "SlabLaunch",
            "staged_lines", "staged_smem_bytes", "staged_launch",
            "StagedLaunch", "tf32_rna", "staged_fragments",
            "launch_counts", "reset_launch_counts",
-           "axhelm", "rowwise", "generic", "plane", "staged", "reference",
+           "axhelm", "rowwise", "generic", "slab", "plane", "staged",
+           "reference",
            "unrounded"]
 
 KERNEL_VARIANTS = ("precomputed", "trilinear", "parallelepiped", "merged",
@@ -188,6 +206,33 @@ PLANE_KERNELS = 3
 # largest its tiles' threads and registers are sized for (kPlaneN1Max); the
 # staged body's range starts above it
 N1_PLANE_MAX = 48
+# The slab body (csrc/axhelm_slab.cu): SLAB_PLANES t-planes a block of
+# launch 1 (kSlabPlanes, the depth of x_t's register tile), its threads
+# SLAB_PLANES ceil(N1 / PLANE_REG)^2 in whole warps, SLAB_MIN_BLOCKS blocks
+# an SM its registers are bounded for (kSlabMinBlocks), D-hat, the copy of
+# x and SLAB_ARRAYS arrays of a slab's size in shared memory, the factors
+# held there (PLANE_FACTOR_WORDS words a slab node) when an application has
+# several columns, SLAB_STATIC_SMEM bytes of static shared memory (the
+# element's geometry words and Alg. 3's edge differences); launch 2
+# SLAB_LAST_THREADS threads a block (kLastThreads), a thread a line;
+# SLAB_KERNELS launches an application; N1 up to N1_SLAB_MAX (kSlabN1Max),
+# where a block still holds the element's x beside its slab
+SLAB_PLANES = 4
+SLAB_MIN_BLOCKS = 2
+SLAB_ARRAYS = 3
+SLAB_STATIC_SMEM = 4 * (32 + 36)
+SLAB_LAST_THREADS = 128
+SLAB_KERNELS = 2
+N1_SLAB_MAX = 24
+# The body each variant's entry points run at each N1 from N1_TUNED_MAX + 1
+# to N1_SLAB_MAX (orders 16 to 23), keyed (N1, variant): the fastest of the
+# slab, generic and plane bodies for both storage types in the measured
+# turns (scripts/main_path_turns.py --generic, PERF.md) -- the slab body,
+# but K1 at N1 = 17, where the generic body is 0.9-4.6% faster
+MIDDLE_BODIES = {(n1, variant): "slab"
+                 for n1 in range(N1_TUNED_MAX + 1, N1_SLAB_MAX + 1)
+                 for variant in KERNEL_VARIANTS}
+MIDDLE_BODIES[N1_TUNED_MAX + 1, "precomputed"] = "any"
 # The staged body (csrc/axhelm_staged.cu): STAGED_THREADS threads a block
 # (four warps, two rows of two), its tile (output rows a pass over the
 # panel: two m16 tiles a warp; lines an item, half a warp; the depth of an
@@ -204,8 +249,8 @@ STAGED_MAX_EXTRAS = 3
 STAGED_KERNELS = 6
 # CUDA kernels one application of each body launches
 KERNELS_PER_APPLICATION = {"column": 1, "line": 1, "any": 1,
-                           "plane": PLANE_KERNELS, "rowwise": 1,
-                           "staged": STAGED_KERNELS}
+                           "slab": SLAB_KERNELS, "plane": PLANE_KERNELS,
+                           "rowwise": 1, "staged": STAGED_KERNELS}
 # storage dtype -> the suffix of its entry points in csrc/axhelm.cu
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -294,6 +339,53 @@ def plane_launch(n1: int, n_elem: int, ncols: int) -> PlaneLaunch:
         plane_smem_bytes=plane_smem_bytes(n1, ncols > 1),
         scratch_bytes=4 * 2 * ncols * n_elem * n1 ** 3,
         kernels=PLANE_KERNELS)
+
+
+def slab_smem_bytes(n1: int, hold: bool) -> int:
+    """Dynamic shared memory of one slab-body block of launch 1: D-hat in
+    N1 rows of `plane_pitch` floats, rounded up to 16 bytes; the copy of the
+    element's x, N1^3 floats behind a shift of up to 7 in whole 16-byte
+    units (`x_words` in the source); SLAB_ARRAYS arrays of SLAB_PLANES
+    planes (s_r, s_s, s_t) in rows of `plane_pitch` floats; and, when the
+    block holds the factors for several columns (`hold`),
+    PLANE_FACTOR_WORDS floats a slab node."""
+    dhat = -(-n1 * plane_pitch(n1) // 4) * 4
+    x = (n1 ** 3 + 14) // 8 * 8
+    return 4 * (dhat + x
+                + SLAB_ARRAYS * SLAB_PLANES * n1 * plane_pitch(n1)
+                + (PLANE_FACTOR_WORDS * SLAB_PLANES * n1 * n1 if hold else 0))
+
+
+class SlabLaunch(NamedTuple):
+    """The launches of one slab-body application (`slab_launch`)."""
+
+    threads: int                       # a block of launch 1
+    slabs: int                         # slabs of SLAB_PLANES planes an element
+    grid: int                          # E slabs: one block per (element, slab)
+    smem_bytes: int                    # its dynamic shared memory
+    last_threads: int                  # a block of launch 2
+    last_grid: int                     # its blocks: a thread a line
+    scratch_bytes: int                 # fp32 S_t and Ypart
+    kernels: int                       # launches an application
+
+
+def slab_launch(n1: int, n_elem: int, ncols: int) -> SlabLaunch:
+    """The slab body's launches for E = n_elem elements of ncols columns:
+    launch 1 one block per (element, slab of SLAB_PLANES t-planes; the last
+    may be ragged), SLAB_PLANES plane_lanes(N1)^2 threads in whole warps,
+    holding the factors when ncols > 1; launch 2 one thread per line (j, i)
+    of each of the E ncols batch rows, SLAB_LAST_THREADS a block; the
+    scratch, two fp32 fields of E ncols N1^3 words."""
+    lanes = plane_lanes(n1)
+    slabs = -(-n1 // SLAB_PLANES)
+    lines = n_elem * ncols * n1 * n1
+    return SlabLaunch(
+        threads=-(-SLAB_PLANES * lanes * lanes // 32) * 32, slabs=slabs,
+        grid=n_elem * slabs, smem_bytes=slab_smem_bytes(n1, ncols > 1),
+        last_threads=SLAB_LAST_THREADS,
+        last_grid=-(-lines // SLAB_LAST_THREADS),
+        scratch_bytes=4 * 2 * ncols * n_elem * n1 ** 3,
+        kernels=SLAB_KERNELS)
 
 
 def _staged_slot_floats(n1: int, lines: int) -> int:
@@ -654,6 +746,21 @@ def generic(x: torch.Tensor, basis: SpectralBasis, variant: str,
                    twin="any").reshape(x.shape)
 
 
+def slab(x: torch.Tensor, basis: SpectralBasis, variant: str,
+         geom: torch.Tensor, lam0: Optional[torch.Tensor] = None,
+         lam1: Optional[torch.Tensor] = None,
+         helmholtz: bool = False) -> torch.Tensor:
+    """A variant on the slab body of `csrc/axhelm_slab.cu` at any N1 from
+    2 to N1_SLAB_MAX, on CUDA tensors: for tests and timing beside
+    `axhelm`, which takes the slab body where `MIDDLE_BODIES` routes to
+    it.  Counts no launch."""
+    check_variant(variant)
+    helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
+    xb = _as_batched(x)
+    return _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
+                   twin="slab").reshape(x.shape)
+
+
 def plane(x: torch.Tensor, basis: SpectralBasis, variant: str,
           geom: torch.Tensor, lam0: Optional[torch.Tensor] = None,
           lam1: Optional[torch.Tensor] = None,
@@ -737,7 +844,8 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
     """Everything the CUDA kernel does not take raises here: an N1 below 2;
     for the generic body's twin (`twin="any"`) one above N1_MAX, for the
     node body (`twin="rowwise"`) one outside ROWWISE_N1, for the plane
-    body's twin (`twin="plane"`) one above N1_PLANE_MAX; for the staged
+    body's twin (`twin="plane"`) one above N1_PLANE_MAX, for the slab
+    body's twin (`twin="slab"`) one above N1_SLAB_MAX; for the staged
     body (above N1_PLANE_MAX, or `twin="staged"`) one above
     N1_STAGED_MAX; a
     storage dtype other than float32 or
@@ -760,6 +868,10 @@ def _check_kernel_operands(xb, basis, variant, geom, lam0, lam1,
                          f"{N1_PLANE_MAX}: its tiles' threads and registers "
                          f"are sized for no larger plane; got N1={n1} "
                          f"(order {basis.n})")
+    if twin == "slab" and n1 > N1_SLAB_MAX:
+        raise ValueError(f"the slab body runs N1 up to N1_SLAB_MAX = "
+                         f"{N1_SLAB_MAX}: a block holds no larger element's "
+                         f"x beside its slab; got N1={n1} (order {basis.n})")
     staged_body = body_of(variant, n1, twin) == "staged"
     if staged_body and n1 > N1_STAGED_MAX:
         raise ValueError(f"the staged body runs N1 up to N1_STAGED_MAX = "
@@ -857,19 +969,19 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
     """The body a launch runs: "column" or "line" (the tuned bodies, at N1
-    in KERNEL_N1: 2 to N1_TUNED_MAX), "any" (the generic body: N1 above
-    N1_TUNED_MAX up to N1_MAX, or the `generic` twin), "plane" (N1 above
-    N1_MAX up to N1_PLANE_MAX, or the `plane` twin), "staged" (N1 above
-    N1_PLANE_MAX, or the `staged` twin) or "rowwise" (the node body of the
-    `rowwise` twin)."""
+    in KERNEL_N1: 2 to N1_TUNED_MAX), `MIDDLE_BODIES[N1, variant]` (N1 above
+    N1_TUNED_MAX up to N1_SLAB_MAX), "plane" (N1 above N1_SLAB_MAX up to
+    N1_PLANE_MAX), "staged" (N1 above N1_PLANE_MAX), or a twin's own body:
+    "any" (the generic body of the `generic` twin), "slab", "plane",
+    "staged" or "rowwise" (the node body of the `rowwise` twin)."""
     if twin is not None:
         return twin
     if n1 > N1_PLANE_MAX:
         return "staged"
-    if n1 > N1_MAX:
+    if n1 > N1_SLAB_MAX:
         return "plane"
     if n1 > N1_TUNED_MAX:
-        return "any"
+        return MIDDLE_BODIES[n1, variant]
     return "column" if variant in COLUMN_VARIANTS else "line"
 
 
@@ -877,8 +989,9 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
             twin: Optional[str] = None) -> torch.Tensor:
     """Launch `variant` on x's current stream, through the body `body_of`
     names, and count an entry point's launch; a timing-only `twin`
-    ("rowwise", "any", "plane" or "staged") counts none.  The plane and
-    staged bodies' scratch is allocated here, on x's device, at every call:
+    ("rowwise", "any", "slab", "plane" or "staged") counts none.  The slab,
+    plane and staged bodies' scratch is allocated here, on x's device, at
+    every call:
     within a CUDA graph's capture it comes from the graph's pool and the
     graph keeps it, so every replay runs on the same memory."""
     _check_kernel_operands(xb, basis, variant, geom, lam0, lam1, twin)
@@ -901,10 +1014,13 @@ def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
         if body == "any":
             rc = fn(*common, _ptr(xi), _ptr(w3), *sizes, int(helmholtz),
                     stream)
-        elif body in ("plane", "staged"):
-            nbytes = plane_launch(basis.n1, e, ncols).scratch_bytes \
-                if body == "plane" else \
-                staged_launch(basis.n1, e, ncols, helmholtz).scratch_bytes
+        elif body in ("slab", "plane", "staged"):
+            if body == "staged":
+                nbytes = staged_launch(basis.n1, e, ncols,
+                                       helmholtz).scratch_bytes
+            else:
+                nbytes = (slab_launch if body == "slab" else plane_launch)(
+                    basis.n1, e, ncols).scratch_bytes
             scratch = torch.empty(nbytes // 4, dtype=torch.float32,
                                   device=xb.device)
             if body == "staged":     # D-hat's split in the dhat slot

@@ -15,9 +15,10 @@ Run:  PYTHONPATH=src python -m repro_torch.nekbone_solve \
           [--dist-backend nccl]
 
 --order N runs on the card at every order, each through its axhelm body
-(`kernels.axhelm.ops.body_of`): `--elements 4 4 4 --order 31` the plane
-body (1,953,125 dofs), `--elements 2 2 2 --order 63` the staged body
-(2,048,383 dofs).
+(`kernels.axhelm.ops.body_of`): `--elements 6 6 6 --order 19` the slab
+body (1,520,875 dofs), `--elements 4 4 4 --order 31` the plane body
+(1,953,125 dofs), `--elements 2 2 2 --order 63` the staged body (2,048,383
+dofs).
 
 --nrhs R solves R stacked right-hand sides with block PCG (1 is the exact
 single-RHS path) and adds iters/column and wall/rhs to the result line.

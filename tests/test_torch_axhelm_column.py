@@ -566,4 +566,4 @@ def test_chip_smoke_bodies_follow_the_wrapper():
         assert (chip_smoke.ROOT / path).is_file()
     assert {p.name for p in build.SOURCES} == \
         {chip_smoke.SOURCE[b].rsplit("/", 1)[1]
-         for b in ("node", "column", "line", "plane", "staged")}
+         for b in ("node", "column", "line", "slab", "plane", "staged")}

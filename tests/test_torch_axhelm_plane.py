@@ -238,10 +238,11 @@ _REAL_CHECK = ops._check_kernel_operands
 @pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
 def test_axhelm_routes_large_orders_to_the_plane_body(fake_card, variant,
                                                       n1, dtype):
-    """N1 above N1_TUNED_MAX up to N1_MAX reaches the generic body
-    (`*_any`), N1 above it the plane body (`*_plane`, the generic body's
-    arguments plus the scratch, 2 ncols E N1^3 floats allocated at the
-    call); either way the launch counts once under the entry point."""
+    """N1 above N1_TUNED_MAX up to N1_MAX reaches the body MIDDLE_BODIES
+    names (the slab body, `*_slab`, or the generic body, `*_any`), N1 above
+    it the plane body (`*_plane`, the generic body's arguments plus the
+    scratch, 2 ncols E N1^3 floats allocated at the call); either way the
+    launch counts once under the entry point."""
     b = tbasis(n1 - 1)
     e, helm = 3, variant == "merged"
     before = dict(ops.launch_counts)
@@ -251,16 +252,16 @@ def test_axhelm_routes_large_orders_to_the_plane_body(fake_card, variant,
     (name, args), = fake_card.calls
     entry = ops.entry_point(variant, dtype)
     assert n1 > ops.N1_TUNED_MAX
-    body = "plane" if n1 > ops.N1_MAX else "any"
+    body = "plane" if n1 > ops.N1_MAX else ops.MIDDLE_BODIES[n1, variant]
     assert ops.body_of(variant, n1) == body
     assert name == f"{entry}_{body}" == build.symbol(
         f"{variant}_{body}", ops.KERNEL_DTYPES[dtype])
     assert len(args) == len(build.SIGNATURES[f"{variant}_{body}"])
     assert args[-1] == 7
-    if body == "plane":
-        assert args[9:13] == (n1, e, 2, int(helm))
-    else:
+    if body == "any":
         assert args[8:12] == (n1, e, 2, int(helm))
+    else:
+        assert args[9:13] == (n1, e, 2, int(helm))
     assert ops.launch_counts[entry] == before[entry] + 1
     assert sum(ops.launch_counts.values()) == sum(before.values()) + 1
 

@@ -37,6 +37,7 @@ PORT_SCRIPTS = [ROOT / "chip_smoke.py",
                 ROOT / "scripts" / "column_launch_sweep.py",
                 ROOT / "scripts" / "line_staging_sweep.py",
                 ROOT / "scripts" / "main_path_turns.py",
+                ROOT / "scripts" / "slab_phase_probe.py",
                 ROOT / "scripts" / "sharded_spread.py"]
 
 
