@@ -40,8 +40,10 @@ each:
               {1, 4}; at N1 in {4, 8} also c in {1, 3, nrhs*d = 2*3}, E =
               37, and each variant's main-path shape; the slab body
               (`ops.slab`) at every N1 from 17 to 24, E in {1, 3, 216}, c
-              in {1, 4}, and the body `ops.MIDDLE_BODIES` routes at the
-              order-19 main path's shape (the 6x6x6 box);
+              in {1, 4}, and at the order-19 main path's shape (the
+              6x6x6 box); the generic body (`ops.generic`, the timing twin
+              phase 6 holds the slab body against) at N1 = 17, 20 and 24,
+              E = 3, c in {1, 4};
               max|y_k - y_p| / max|y_p| <= 1e-4
   3b. kernels_bf16  the same cases with bf16 storage, c in {1, 3, 6};
               <= 8e-3 (one bf16 ulp of the largest entry); and against
@@ -307,17 +309,19 @@ TUNED_ORDER = 9
 TUNED_TIMING_REPS = 20
 LOW_ORDER = 5
 # The orders from 16 to 23 (N1 above ops.N1_TUNED_MAX up to
-# ops.N1_SLAB_MAX = 24), where the entry points run the body
-# ops.MIDDLE_BODIES names: the slab body, checked against its plain version
-# at every N1 of SLAB_N1 on SLAB_ELEMS elements (one, a few, the 6x6x6 box);
-# the orders it is timed at beside the generic body and the plane twin
-# (GENERIC_ORDERS), and the one its main path runs: the GENERIC_BOX at
+# ops.N1_SLAB_MAX = 24), where the entry points run the slab body, checked
+# against its plain version at every N1 of SLAB_N1 on SLAB_ELEMS elements
+# (one, a few, the 6x6x6 box); the orders it is timed at beside the generic
+# body and the plane twin (GENERIC_ORDERS; the generic body, a timing twin
+# here, checked at their N1 on GENERIC_CHECK_ELEMS elements), and the one
+# its main path runs: the GENERIC_BOX at
 # GENERIC_MAIN_ORDER (216 elements, 1,520,875 dofs: the 16^3 order-7
 # config's scale in fewer, larger elements), as phase `high_order` runs its
 # own, the 2x1x1 box at that order against the reference backend
 SLAB_N1 = tuple(range(17, 25))
 SLAB_ELEMS = (1, 3, 216)
 GENERIC_ORDERS = (16, 19, 23)
+GENERIC_CHECK_ELEMS = 3
 GENERIC_MAIN_ORDER = 19
 GENERIC_BOX = (6, 6, 6)
 # Phase `high_order`, the plane body (N1 above ops.N1_MAX = 24, up to
@@ -1312,6 +1316,9 @@ def main() -> None:
                 "staged": staged_name}.get(
             ops.body_of(variant, n1), entry)(variant, dt)
 
+    # the timing twins `check` can run in place of the routed body
+    twins = {"slab": (ops.slab, slab_name), "any": (ops.generic, generic_name)}
+
     names = [name(v, dt)
              for name in (entry, generic_name, slab_name, plane_name,
                           staged_name)
@@ -1370,17 +1377,16 @@ def main() -> None:
         against the correctly rounded result); returns the largest
         absolute difference (in fp32).  At N1 in ops.KERNEL_N1 the call
         runs the entry point's tuned body, above that up to
-        ops.N1_SLAB_MAX the body ops.MIDDLE_BODIES names, above that its
-        plane body, above ops.N1_PLANE_MAX its staged body; with
-        twin="slab", the slab body through its twin `ops.slab`, whatever
-        the routing."""
-        y = (ops.slab if twin == "slab" else ops.axhelm)(x, b, variant,
-                                                        geom, **kw)
+        ops.N1_SLAB_MAX its slab body, above that its plane body, above
+        ops.N1_PLANE_MAX its staged body; with a `twin` of `twins` ("slab",
+        "any"), that body through its timing twin, whatever the routing."""
+        run, name_of = twins.get(twin, (ops.axhelm, None))
+        y = run(x, b, variant, geom, **kw)
         torch.cuda.synchronize()
         y_p = ops.reference(x, b, variant, geom, **kw)
         torch.cuda.synchronize()
         require(y.dtype == x.dtype, f"{label}: y is {y.dtype}")
-        name = slab_name(variant, dt) if twin == "slab" else \
+        name = name_of(variant, dt) if name_of else \
             body_name(variant, dt, b.n1)
         if dt == "bf16":
             rounding_check(name, y, y_p, x, b, variant, geom, label, kw)
@@ -1494,17 +1500,15 @@ def main() -> None:
             check_order(basis(n1_case - 1), e, slab_meshes, 100 * n1_case + e,
                         slab_name, twin="slab")
     slab_cases = {dt: len(cases[dt]) - tuned_cases[dt] for dt in DTYPES}
-    # where ops.MIDDLE_BODIES routes an entry point to another body, the
-    # entry points at that N1 as they run
-    other_n1 = sorted({n for (n, _), body in ops.MIDDLE_BODIES.items()
-                       if body != "slab"})
-    for n1_case in other_n1:
-        for e in SLAB_ELEMS:
-            check_order(basis(n1_case - 1), e, slab_meshes, 200 * n1_case + e,
-                        lambda v, dt: body_name(v, dt, n1_case))
-    routed_elsewhere = sorted({body_name(v, dt, n) for (n, v), body
-                               in ops.MIDDLE_BODIES.items()
-                               if body != "slab" for dt in DTYPES})
+    # the generic body, phase 6's yardstick for the slab body, at the N1
+    # of GENERIC_ORDERS through its twin: E = GENERIC_CHECK_ELEMS, c = 1
+    # and 4, both storage types
+    generic_n1 = [order + 1 for order in GENERIC_ORDERS]
+    for n1_case in generic_n1:
+        check_order(basis(n1_case - 1), GENERIC_CHECK_ELEMS, slab_meshes,
+                    200 * n1_case, generic_name, twin="any")
+    generic_cases = {dt: len(cases[dt]) - tuned_cases[dt] - slab_cases[dt]
+                     for dt in DTYPES}
     e_odd = 37
     # the main path of orders 16 to 23: the GENERIC_BOX at GENERIC_MAIN_ORDER
     b_gen = basis(GENERIC_MAIN_ORDER)
@@ -1561,7 +1565,7 @@ def main() -> None:
                 f"calls off the correctly rounded value (bound "
                 f"{ULP_RATE_BOUND})")
     for dt in DTYPES:
-        here = [name(v, dt) for name in (entry, slab_name)
+        here = [name(v, dt) for name in (entry, slab_name, generic_name)
                 for v in VARIANTS]
         line = {"phase": "kernels" if dt == "f32" else "kernels_bf16",
                 "cases": len(cases[dt]), "tolerance": rtol[dt],
@@ -1570,13 +1574,12 @@ def main() -> None:
                 "tuned_elements": TUNED_ELEMS,
                 "slab_n1": SLAB_N1, "slab_elements": SLAB_ELEMS,
                 "slab_cases": slab_cases[dt],
-                "routed_elsewhere_worst_rel_err": {
-                    k: worst[k] for k in routed_elsewhere
-                    if k.split("_")[2] == dt},
-                "middle_bodies": {f"{n}/{v}": body for (n, v), body
-                                  in ops.MIDDLE_BODIES.items()},
+                "generic_n1": generic_n1,
+                "generic_elements": GENERIC_CHECK_ELEMS,
+                "generic_cases": generic_cases[dt],
                 "worst_rel_err": {k: worst[k] for k in here},
-                "main_path_abs_err": {k: main_abs[k] for k in here}}
+                "main_path_abs_err": {k: main_abs[k] for k in here
+                                      if k in main_abs}}
         if dt == "bf16":
             line["ulps_from_correctly_rounded"] = {
                 "counts": "outputs 0, 1 and more ulps apart",
@@ -3317,9 +3320,8 @@ def main() -> None:
     del tu_box, tu_small
 
     # 6e. generic: the main path of orders 16 to 23, N1 above
-    # ops.N1_TUNED_MAX, through the body ops.MIDDLE_BODIES names (the slab
-    # body at GENERIC_MAIN_ORDER; its checks at every N1 ran in phases 3 and
-    # 3b, its times in phase 6): the six fp32 main paths on the GENERIC_BOX
+    # ops.N1_TUNED_MAX, through the slab body (its checks at every N1 ran
+    # in phases 3 and 3b, its times in phase 6): the six fp32 main paths on the GENERIC_BOX
     # at GENERIC_MAIN_ORDER, captured and eager in turns, each on the 2x1x1
     # box against the reference backend, each variant's bf16_x32 solve at
     # tol 0.03 (the rules of `high_order`).
@@ -3331,8 +3333,7 @@ def main() -> None:
         f"2x1x1 order {GENERIC_MAIN_ORDER}")
     emit({"phase": "generic", "card": card, "orders": GENERIC_ORDERS,
           "n1": [ops.N1_TUNED_MAX + 1, ops.N1_SLAB_MAX],
-          "middle_bodies": {f"{n}/{v}": body for (n, v), body
-                            in ops.MIDDLE_BODIES.items()},
+          "body": "slab",
           "mesh": "x".join(map(str, GENERIC_BOX)),
           "order": GENERIC_MAIN_ORDER, "elements": len(gen_box.verts),
           "dofs": gen_box.n_global, "iterations": HIGH_ORDER_ITERS,
@@ -3385,7 +3386,7 @@ def main() -> None:
                 "ms", "generic_ms", "plain_ms", "bound_ms", "bound_by")}
                 for n1_case, r in timing_tuned[name].items()}})
     for variant, dt in entries:
-        # the order-19 main paths run the slab body (ops.MIDDLE_BODIES)
+        # the order-19 main paths run the slab body
         name = body_name(variant, dt, GENERIC_MAIN_ORDER + 1)
         require(name == slab_name(variant, dt),
                 f"the order-{GENERIC_MAIN_ORDER} main path runs {name}, not "

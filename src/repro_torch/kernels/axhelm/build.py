@@ -11,7 +11,8 @@ register-tiled products, its t-planes a block each (every variant above the
 generic body's N1, ``*_plane`` entry points), ``axhelm_slab.cu`` the body
 that runs them as register-tiled products a slab of t-planes a block,
 with the whole element staged (N1 = 17 to 24, ``*_slab`` entry points;
-its last launch is the plane body's), ``axhelm_staged.cu`` the body
+its last launch is a kernel of its own, a thread a line, for the plane
+body's transposed t contraction), ``axhelm_staged.cu`` the body
 that stages an element's contractions through device memory, on the tensor
 cores (every variant above the plane body's N1, ``*_staged`` entry points),
 all six including

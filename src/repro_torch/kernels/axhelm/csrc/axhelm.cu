@@ -15,17 +15,16 @@
 // G = gelem[:6]*w3 and gwj = gelem[6]*w3 from 7 words per element) and K4
 // "merged" (kernel.py:137-153, §4.1.1, Helmholtz only: G = adj(K~)*Lam2 and
 // mass = Lam3) the one-thread-per-line body of axhelm_line.cu; from 17 to
-// 24 every variant runs the body ops.MIDDLE_BODIES names for the N1, the
-// fastest in the measured turns (PERF.md): the slab body of axhelm_slab.cu.
+// 24 every variant runs the slab body of axhelm_slab.cu, the fastest in the
+// measured turns but for K1 at N1 = 17 (PERF.md).
 //
 // Per element e and column c (c runs over the nrhs*d columns, which all share
 // the element's factors):
 //   y = D^T [lam0 * G (D x)]  (+ mass * x for Helmholtz, mass = lam1 * gwj)
 //
 // The generic body (entry points axhelm_<variant>_<T>_any, any N1 up to
-// ops.N1_MAX; the timing-only twin ops.generic, beside the tuned and slab
-// bodies, and what the wrapper launches at an N1 ops.MIDDLE_BODIES routes
-// to it, none now): one block an
+// ops.N1_MAX; only the timing-only twin ops.generic, beside the tuned and
+// slab bodies): one block an
 // element, at most kAnyThreads threads, each walking the nodes t, t +
 // blockDim, ... of its element; N1 is a runtime argument; D-hat, the
 // element's geometry words, x and the three weighted gradient components

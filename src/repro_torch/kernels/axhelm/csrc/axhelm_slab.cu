@@ -603,7 +603,10 @@ __global__ void __launch_bounds__(kSlabThreadsMax, kSlabMinBlocks)
 // and of Ypart loaded together (a warp's lines are consecutive words),
 // D-hat's row m (the same for the whole block) from shared memory four
 // values a load.  Each sum runs m upward from 0, then adds Ypart, as the
-// plane body's last launch does.
+// plane body's last launch does.  It computes what that launch
+// (axhelm_plane_line_kernel<true> of axhelm_plane.cu, a warp kReg rows of
+// a tile of lines) computes, and is a kernel of its own by choice: a
+// thread a line measured faster at these N1 (PERF.md, the slab body).
 template <typename T>
 __global__ void __launch_bounds__(kLastThreads)
     axhelm_slab_last_kernel(T* __restrict__ y, const float* __restrict__ dhat,

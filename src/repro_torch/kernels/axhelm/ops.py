@@ -32,21 +32,21 @@ N1,N1,N1) operand (`ref.planar_factors`).  The launch shape of both at
 each N1 (`column_elems`, `column_min_blocks`, `line_elems`,
 `line_min_blocks`) mirrors the CUDA source's.
 From N1_TUNED_MAX + 1 to `N1_SLAB_MAX` (orders 16 to 23) each entry
-point runs the body `MIDDLE_BODIES` names for its N1 and variant, the
-fastest in the measured turns of the three bodies that can run these
-orders (`PERF.md`): the slab body (`csrc/axhelm_slab.cu`, the `*_slab`
-symbols), everywhere but K1 at N1 = 17, whose
-application is `SLAB_KERNELS` launches -- a pass of one block per
-(element, slab of SLAB_PLANES t-planes) that copies the element's whole x
-into shared memory, runs the slab's r, s and t contractions (each a
-register tile of PLANE_REG x PLANE_REG outputs a thread), the factors and
-the transposed r and s contractions, writing s_t and the partial y into
-fp32 scratch, then the transposed t contraction into y, a thread a line --
-over 2 E ncols N1^3 words of scratch (`slab_launch`).  The generic body (`csrc/axhelm.cu`,
-the `*_any` symbols: one block an element walks its N1^3 nodes, with
-D-hat, x and the weighted gradient in dynamic shared memory,
-`generic_smem_bytes`, which above N1_MAX does not fit in a block; K1 at
-N1 = 17) and the plane body can run them too.  From N1_SLAB_MAX + 1 to `N1_PLANE_MAX` (orders 24
+point runs the slab body (`csrc/axhelm_slab.cu`, the `*_slab` symbols),
+the fastest of the three bodies that can run these orders in the
+measured turns (`PERF.md`; K1 at N1 = 17 the one exception, ~2 us behind
+the generic body).  Its application is `SLAB_KERNELS` launches -- a pass
+of one block per (element, slab of SLAB_PLANES t-planes) that copies the
+element's whole x into shared memory, runs the slab's r, s and t
+contractions (each a register tile of PLANE_REG x PLANE_REG outputs a
+thread), the factors and the transposed r and s contractions, writing s_t
+and the partial y into fp32 scratch, then the transposed t contraction
+into y, a thread a line -- over 2 E ncols N1^3 words of scratch
+(`slab_launch`).  The generic body (`csrc/axhelm.cu`, the `*_any`
+symbols: one block an element walks its N1^3 nodes, with D-hat, x and
+the weighted gradient in dynamic shared memory, `generic_smem_bytes`,
+which above N1_MAX does not fit in a block) runs only as the timing twin
+`generic`, and the plane body can run these orders too.  From N1_SLAB_MAX + 1 to `N1_PLANE_MAX` (orders 24
 to 47) each entry
 point runs the plane body (`csrc/axhelm_plane.cu`, the `*_plane`
 symbols): one application is `PLANE_KERNELS` launches -- the t
@@ -117,7 +117,7 @@ __all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
            "PLANE_FACTOR_WORDS", "PLANE_ARRAYS", "PLANE_STATIC_SMEM",
            "PLANE_KERNELS", "N1_PLANE_MAX", "SLAB_PLANES", "SLAB_MIN_BLOCKS",
            "SLAB_ARRAYS", "SLAB_STATIC_SMEM", "SLAB_LAST_THREADS",
-           "SLAB_KERNELS", "N1_SLAB_MAX", "MIDDLE_BODIES",
+           "SLAB_KERNELS", "N1_SLAB_MAX",
            "STAGED_THREADS", "STAGED_TILE",
            "STAGED_NARROW_LINES", "STAGED_STAGES", "STAGED_MAX_EXTRAS",
            "STAGED_KERNELS",
@@ -224,15 +224,6 @@ SLAB_STATIC_SMEM = 4 * (32 + 36)
 SLAB_LAST_THREADS = 128
 SLAB_KERNELS = 2
 N1_SLAB_MAX = 24
-# The body each variant's entry points run at each N1 from N1_TUNED_MAX + 1
-# to N1_SLAB_MAX (orders 16 to 23), keyed (N1, variant): the fastest of the
-# slab, generic and plane bodies for both storage types in the measured
-# turns (scripts/main_path_turns.py --generic, PERF.md) -- the slab body,
-# but K1 at N1 = 17, where the generic body is 0.9-4.6% faster
-MIDDLE_BODIES = {(n1, variant): "slab"
-                 for n1 in range(N1_TUNED_MAX + 1, N1_SLAB_MAX + 1)
-                 for variant in KERNEL_VARIANTS}
-MIDDLE_BODIES[N1_TUNED_MAX + 1, "precomputed"] = "any"
 # The staged body (csrc/axhelm_staged.cu): STAGED_THREADS threads a block
 # (four warps, two rows of two), its tile (output rows a pass over the
 # panel: two m16 tiles a warp; lines an item, half a warp; the depth of an
@@ -737,8 +728,8 @@ def generic(x: torch.Tensor, basis: SpectralBasis, variant: str,
             helmholtz: bool = False) -> torch.Tensor:
     """A variant on the generic body of `csrc/axhelm.cu` at any N1 up to
     N1_MAX, KERNEL_N1 included, on CUDA tensors: for tests and timing
-    beside `axhelm`, which takes the generic body only above N1_TUNED_MAX.
-    Counts no launch."""
+    beside `axhelm`, which takes the generic body at no N1.  Counts no
+    launch."""
     check_variant(variant)
     helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
     xb = _as_batched(x)
@@ -752,8 +743,8 @@ def slab(x: torch.Tensor, basis: SpectralBasis, variant: str,
          helmholtz: bool = False) -> torch.Tensor:
     """A variant on the slab body of `csrc/axhelm_slab.cu` at any N1 from
     2 to N1_SLAB_MAX, on CUDA tensors: for tests and timing beside
-    `axhelm`, which takes the slab body where `MIDDLE_BODIES` routes to
-    it.  Counts no launch."""
+    `axhelm`, which takes the slab body above N1_TUNED_MAX.  Counts no
+    launch."""
     check_variant(variant)
     helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
     xb = _as_batched(x)
@@ -969,8 +960,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
     """The body a launch runs: "column" or "line" (the tuned bodies, at N1
-    in KERNEL_N1: 2 to N1_TUNED_MAX), `MIDDLE_BODIES[N1, variant]` (N1 above
-    N1_TUNED_MAX up to N1_SLAB_MAX), "plane" (N1 above N1_SLAB_MAX up to
+    in KERNEL_N1: 2 to N1_TUNED_MAX), "slab" (N1 above N1_TUNED_MAX up to
+    N1_SLAB_MAX), "plane" (N1 above N1_SLAB_MAX up to
     N1_PLANE_MAX), "staged" (N1 above N1_PLANE_MAX), or a twin's own body:
     "any" (the generic body of the `generic` twin), "slab", "plane",
     "staged" or "rowwise" (the node body of the `rowwise` twin)."""
@@ -981,7 +972,7 @@ def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
     if n1 > N1_SLAB_MAX:
         return "plane"
     if n1 > N1_TUNED_MAX:
-        return MIDDLE_BODIES[n1, variant]
+        return "slab"
     return "column" if variant in COLUMN_VARIANTS else "line"
 
 

@@ -227,7 +227,7 @@ def test_n1_max_is_the_largest_element_a_block_holds():
     fp32: 16 N1^3 + 4 N1^2 + 128 bytes, 223,616 at N1 = 24, 252,628 at 25,
     against the 232,448 bytes a block may have on the H100.  N1_MAX stays
     the generic body's cap (the generic twin's; the entry points run the
-    body MIDDLE_BODIES names up to it, the slab body's N1_SLAB_MAX); above
+    slab body up to it, the slab body's N1_SLAB_MAX); above
     it the entry points run the plane body up to N1_PLANE_MAX = 48
     (tests/test_torch_axhelm_plane.py)."""
     assert ops.generic_smem_bytes(24) == 223616
@@ -235,8 +235,7 @@ def test_n1_max_is_the_largest_element_a_block_holds():
     assert max(n for n in range(2, 64)
                if ops.generic_smem_bytes(n) <= ops.SMEM_PER_BLOCK) \
         == ops.N1_MAX == 24
-    assert ops.body_of("trilinear", ops.N1_MAX) == \
-        ops.MIDDLE_BODIES[ops.N1_MAX, "trilinear"]
+    assert ops.body_of("trilinear", ops.N1_MAX) == "slab"
     assert ops.N1_SLAB_MAX == ops.N1_MAX
     assert ops.body_of("trilinear", ops.N1_MAX + 1) == "plane"
     assert ops.N1_PLANE_MAX == 48
@@ -258,10 +257,9 @@ def _lams_meta(variant, e, n1, dtype=torch.float32):
 @pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
 def test_axhelm_routes_each_order_to_its_body(fake_card, variant, n1):
     """N1 from 2 to N1_TUNED_MAX = 16 reaches the entry point's tuned body,
-    N1 above it up to N1_MAX the body MIDDLE_BODIES names (the slab body,
-    `*_slab`, with the plane body's arguments; or the generic body,
-    `*_any`, one signature for all five); either way the launch counts
-    under the entry point."""
+    N1 above it up to N1_MAX the slab body (`*_slab`, the generic body's
+    arguments and a scratch pointer); either way the launch counts under
+    the entry point."""
     b = tbasis(n1 - 1)
     e, helm = 3, variant == "merged"
     before = dict(ops.launch_counts)
@@ -272,17 +270,15 @@ def test_axhelm_routes_each_order_to_its_body(fake_card, variant, n1):
     entry = ops.entry_point(variant, torch.float32)
     tuned = n1 <= ops.N1_TUNED_MAX
     assert tuned == (n1 in ops.KERNEL_N1)
-    body = None if tuned else ops.MIDDLE_BODIES[n1, variant]
-    key = variant if tuned else f"{variant}_{body}"
-    assert name == (entry if tuned else f"{entry}_{body}")
+    key = variant if tuned else f"{variant}_slab"
+    assert name == (entry if tuned else f"{entry}_slab")
     assert name == build.symbol(key, "f32")
     assert len(args) == len(build.SIGNATURES[key])
     assert ops.body_of(variant, n1) == (
         ("column" if variant in ops.COLUMN_VARIANTS else "line") if tuned
-        else body)
+        else "slab")
     if not tuned:
-        sizes = args[8:12] if body == "any" else args[9:13]
-        assert sizes == (n1, e, 2, int(helm)) and args[-1] == 7
+        assert args[9:13] == (n1, e, 2, int(helm)) and args[-1] == 7
     assert ops.launch_counts[entry] == before[entry] + 1
 
 
@@ -291,14 +287,13 @@ def test_axhelm_routes_each_order_to_its_body(fake_card, variant, n1):
 def test_body_of_routes_at_the_tuned_and_generic_edges(fake_card, monkeypatch,
                                                        variant, n1):
     """`body_of` and the launch it makes at the edges of the tuned range
-    (N1 = 2 to 16), the range MIDDLE_BODIES routes (17 to 24) and the
-    plane body's first N1: N1 = 1 (order 0, which has no GLL basis) is
+    (N1 = 2 to 16), the slab body's (17 to 24) and the plane body's
+    first N1: N1 = 1 (order 0, which has no GLL basis) is
     refused before any launch."""
     b = tbasis(n1 - 1) if n1 > 1 else types.SimpleNamespace(n=0, n1=1)
     e, helm = 3, variant == "merged"
-    want = {1: None, 15: "tuned", 16: "tuned",
-            17: ops.MIDDLE_BODIES.get((17, variant)),
-            24: ops.MIDDLE_BODIES.get((24, variant)), 25: "plane"}[n1]
+    want = {1: None, 15: "tuned", 16: "tuned", 17: "slab", 24: "slab",
+            25: "plane"}[n1]
     tuned = "column" if variant in ops.COLUMN_VARIANTS else "line"
     if want is not None:
         assert ops.body_of(variant, n1) == (tuned if want == "tuned"
@@ -441,3 +436,8 @@ def test_chip_smoke_checks_the_generic_body_where_it_runs():
     assert chip_smoke.SOURCE["any"] == chip_smoke.SOURCE["node"]
     assert "axhelm_any_kernel" in (chip_smoke.ROOT
                                    / chip_smoke.SOURCE["any"]).read_text()
+    # held against its plain version there through its twin, c = 1 and 4
+    script = (chip_smoke.ROOT / "chip_smoke.py").read_text()
+    assert "generic_n1 = [order + 1 for order in GENERIC_ORDERS]" in script
+    assert "generic_name, twin=\"any\")" in script
+    assert chip_smoke.GENERIC_CHECK_ELEMS == 3

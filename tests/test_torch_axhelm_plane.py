@@ -238,9 +238,8 @@ _REAL_CHECK = ops._check_kernel_operands
 @pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
 def test_axhelm_routes_large_orders_to_the_plane_body(fake_card, variant,
                                                       n1, dtype):
-    """N1 above N1_TUNED_MAX up to N1_MAX reaches the body MIDDLE_BODIES
-    names (the slab body, `*_slab`, or the generic body, `*_any`), N1 above
-    it the plane body (`*_plane`, the generic body's arguments plus the
+    """N1 above N1_TUNED_MAX up to N1_MAX reaches the slab body
+    (`*_slab`), N1 above it the plane body (`*_plane`, the generic body's arguments plus the
     scratch, 2 ncols E N1^3 floats allocated at the call); either way the
     launch counts once under the entry point."""
     b = tbasis(n1 - 1)
@@ -252,7 +251,7 @@ def test_axhelm_routes_large_orders_to_the_plane_body(fake_card, variant,
     (name, args), = fake_card.calls
     entry = ops.entry_point(variant, dtype)
     assert n1 > ops.N1_TUNED_MAX
-    body = "plane" if n1 > ops.N1_MAX else ops.MIDDLE_BODIES[n1, variant]
+    body = "plane" if n1 > ops.N1_MAX else "slab"
     assert ops.body_of(variant, n1) == body
     assert name == f"{entry}_{body}" == build.symbol(
         f"{variant}_{body}", ops.KERNEL_DTYPES[dtype])

@@ -1,6 +1,6 @@
 """The slab body of the axhelm kernels (`csrc/axhelm_slab.cu`), which runs
 every variant at the N1 from N1_TUNED_MAX + 1 to N1_SLAB_MAX that
-`ops.MIDDLE_BODIES` routes to it, on the CPU: what of it is not CUDA.
+`ops.body_of` routes to it, on the CPU: what of it is not CUDA.
 
 * Its two launches, written here in float64 in the kernel's order of
   sums: per (element, slab of SLAB_PLANES t-planes) and column, the whole
@@ -246,7 +246,8 @@ def test_slab_constants_follow_the_source():
     """ops' mirror of the slab body's launch shape is the CUDA source's:
     the register tile, the planes a slab, the blocks an SM promised, the
     held words a node, the largest N1, the shared arrays and the pitch;
-    launch 2 is the plane body's."""
+    launch 2 is the slab body's own kernel, a thread a line, not the
+    plane body's line kernel."""
     source = (chip_smoke.ROOT / chip_smoke.SOURCE["slab"]).read_text()
 
     def const(name):
@@ -296,10 +297,9 @@ _REAL_CHECK = ops._check_kernel_operands
 @pytest.mark.parametrize("variant", ops.KERNEL_VARIANTS)
 def test_axhelm_routes_middle_orders_to_their_body(fake_card, variant, n1,
                                                    dtype):
-    """N1 from 17 to 24 reaches the body MIDDLE_BODIES names (one of the
-    slab, generic and plane bodies); the slab and plane bodies take the
-    generic body's arguments plus their scratch; the launch counts once
-    under the entry point."""
+    """N1 from 17 to 24 reaches the slab body, which takes the generic
+    body's arguments plus its scratch; the launch counts once under the
+    entry point."""
     b = tbasis(n1 - 1)
     e, helm = 3, variant == "merged"
     before = dict(ops.launch_counts)
@@ -308,26 +308,29 @@ def test_axhelm_routes_middle_orders_to_their_body(fake_card, variant, n1,
                **_lams_meta(variant, e, n1, dtype))
     (name, args), = fake_card.calls
     entry = ops.entry_point(variant, dtype)
-    body = ops.MIDDLE_BODIES[n1, variant]
-    assert body in ("slab", "any", "plane") and ops.body_of(variant, n1) == body
-    assert name == f"{entry}_{body}" == build.symbol(
-        f"{variant}_{body}", ops.KERNEL_DTYPES[dtype])
-    assert len(args) == len(build.SIGNATURES[f"{variant}_{body}"])
-    sizes = args[8:12] if body == "any" else args[9:13]
-    assert sizes == (n1, e, 2, int(helm)) and args[-1] == 7
+    assert ops.body_of(variant, n1) == "slab"
+    assert name == f"{entry}_slab" == build.symbol(
+        f"{variant}_slab", ops.KERNEL_DTYPES[dtype])
+    assert len(args) == len(build.SIGNATURES[f"{variant}_slab"])
+    assert args[9:13] == (n1, e, 2, int(helm)) and args[-1] == 7
     assert ops.launch_counts[entry] == before[entry] + 1
     assert sum(ops.launch_counts.values()) == sum(before.values()) + 1
 
 
 def test_middle_orders_route_as_the_turns_measured():
-    """MIDDLE_BODIES names a body for every (N1, variant) from 17 to 24:
-    the slab body, but K1 at N1 = 17, where the generic body measured
-    faster in both storage types (PERF.md, the --generic turns)."""
-    assert set(ops.MIDDLE_BODIES) == {(n1, v) for n1 in MIDDLE_N1
-                                      for v in ops.KERNEL_VARIANTS}
-    assert {key for key, body in ops.MIDDLE_BODIES.items()
-            if body != "slab"} == {(17, "precomputed")}
-    assert ops.MIDDLE_BODIES[17, "precomputed"] == "any"
+    """Every variant at every N1 from 17 to 24 runs the slab body, the
+    fastest for nine or ten of the ten entry points at N1 = 17 and for all
+    ten above in the --generic turns (PERF.md); the N1 on either side run
+    the tuned and plane bodies, and the twins keep their own bodies."""
+    tuned = {v: "column" if v in ops.COLUMN_VARIANTS else "line"
+             for v in ops.KERNEL_VARIANTS}
+    for v in ops.KERNEL_VARIANTS:
+        assert [ops.body_of(v, n1) for n1 in MIDDLE_N1] == \
+            ["slab"] * len(MIDDLE_N1)
+        assert ops.body_of(v, MIDDLE_N1[0] - 1) == tuned[v]
+        assert ops.body_of(v, MIDDLE_N1[-1] + 1) == "plane"
+        assert ops.body_of(v, MIDDLE_N1[0], "any") == "any"
+    assert tuple(MIDDLE_N1) == tuple(range(17, 25))
 
 
 _SLAB_REPORT = """\

@@ -157,8 +157,7 @@ def test_order_9_solve_matches_reference_backend(card, variant, helm):
                                             (16, "merged", True)])
 def test_dynamic_shared_memory_bodies_run_captured(card, n, variant, helm):
     """Order 15 (the column body's 67.7 KB and the line body's shared
-    memory above 48 KB) and order 16 (N1 = 17, the body
-    ops.MIDDLE_BODIES names there): bodies
+    memory above 48 KB) and order 16 (N1 = 17, the slab body): bodies
     that opt in to their dynamic shared memory at every launch, inside a
     captured solve too; captured x bitwise the eager x, one entry-point
     launch an application either way."""
@@ -166,7 +165,7 @@ def test_dynamic_shared_memory_bodies_run_captured(card, n, variant, helm):
     prob = nekbone.setup_problem(mesh, variant=variant, helmholtz=helm,
                                  backend="cuda", device=card)
     assert ops.body_of(variant, n + 1) == (
-        ops.MIDDLE_BODIES[n + 1, variant] if n + 1 > ops.N1_TUNED_MAX else
+        "slab" if n + 1 > ops.N1_TUNED_MAX else
         "column" if variant in ops.COLUMN_VARIANTS else "line")
     b = nekbone.rhs_from_solution(prob, nekbone.random_solution(prob))
     name = ops.entry_point(variant, torch.float32)
