@@ -241,6 +241,25 @@ each:
               19): the 6x6x6 box at order 19 (1,520,875 dofs), its six fp32
               main paths and bf16_x32 solves, and the 2x1x1 order-19 box
               against the reference backend, as 6d runs its own
+  6f. lint   every entry of the contract lint (`analysis.lint`, the
+              reference's 14 names) on the card: the dense and refined
+              solves' captured loop bodies recorded (aten ops and
+              collectives) and replayed under sync debug mode "error"; the
+              sharded psum, neighbour and compressed-wire solves on gloo
+              ranks on this card; the service's capture counter after
+              warm-up; each axhelm variant's resolved launch at N1 = 8, 10,
+              20, 32, 64 against the card's shared memory, and its
+              registers and spills from the build's ptxas report; every
+              entry clean; each entry's checks and seconds
+  6g. tune    the launch tuner (`kernels.axhelm.tune`) into a temporary
+              cache: K1 and K2, fp32 and bf16, at N1 = 17, 24, 40, 48 (E =
+              216, 64 above N1 = 24, c = 1), every candidate body timed (a
+              CUDA graph of 20 calls, the median of 5 replays), µs and the
+              winner; a fresh in-process cache resolves every winner from
+              the file; each tuned route against its plain version (the
+              tolerances of 3 and 3b) counted as its entry point's launch;
+              with no cache file every entry point at every N1 from 2 to
+              878 resolves to `ops.body_of`'s route
   7. the `kernels` line (ten entry points, each launched on its main
      path and, as `launches_sharded`, on the sharded ones, psum and
      neighbour exchange together, and as `launches_serve` by the served
@@ -261,7 +280,7 @@ Run:  python3 chip_smoke.py
 import contextlib
 import hashlib
 import json
-import re
+import os
 import statistics
 import subprocess
 import sys
@@ -372,20 +391,6 @@ STAGED_ORDER = 63
 STAGED_BOX = (2, 2, 2)
 STAGED_SMALL_ORDER = 48
 STAGED_TWIN_ORDERS = PLANE_ORDERS
-# the staged body's kernels (ptxas_instantiations' "pass"): the five
-# contractions every variant shares, and each variant's t gradient with its
-# factors
-STAGED_SHARED_PASSES = ("grad_r", "grad_s", "first_r", "accumulate_s",
-                        "last_t")
-STAGED_VARIANT_PASSES = ("grad_t",)
-# the plane body's kernels (ptxas_instantiations' "pass"): the two line
-# contractions every variant shares, and each variant's plane pass
-PLANE_SHARED_PASSES = ("line_first", "line_last")
-PLANE_VARIANT_PASSES = ("plane",)
-# the slab body's kernels: the transposed t contraction every variant
-# shares, and each variant's pass over its slabs
-SLAB_SHARED_PASSES = ("last",)
-SLAB_VARIANT_PASSES = ("slab",)
 _TPU_KERNEL = "src/repro/kernels/axhelm/kernel.py"
 REPLACES = {"precomputed": f"{_TPU_KERNEL}:122",
             "trilinear": f"{_TPU_KERNEL}:126",
@@ -487,6 +492,12 @@ SERVE_RATES = (3.0, 6.0)
 SERVE_TOL = 0.03
 SERVE_MAX_ITER = 3000
 SERVE_TIMED = 3          # timed block solves per bucket width
+# the tune phase: K1 and K2 at N1 where more than one body can run them,
+# on E = 216 elements up to N1_SLAB_MAX, 64 above, one column
+TUNE_VARIANTS = ("precomputed", "trilinear")
+TUNE_N1 = (17, 24, 40, 48)
+TUNE_ELEMS = 216
+TUNE_ELEMS_HIGH = 64
 SERVE_8_MAX_BATCH = 4
 SERVE_8_REQUESTS = 12
 SERVE_8_RATE = 3.0
@@ -836,84 +847,6 @@ def padded_parity(what: str, svc, prob, columns, tol: float,
     return out
 
 
-def ptxas_instantiations(report: str):
-    """Per kernel instantiation of a `-Xptxas -v` report: its variant, body
-    ("node": axhelm_kernel, "column": axhelm_column_kernel, "line":
-    axhelm_line_kernel, "any": the generic axhelm_any_kernel, "slab":
-    axhelm_slab_kernel and axhelm_slab_last_kernel, "plane":
-    axhelm_plane_kernel and axhelm_plane_line_kernel, "staged":
-    axhelm_staged_contract_kernel and axhelm_staged_grad_t_kernel), N1
-    (None for the generic, slab, plane and staged bodies, whose N1 is a
-    runtime argument), storage dtype, registers, shared memory and spill
-    bytes; a slab, plane or staged kernel also its "pass" (see
-    SLAB_SHARED_PASSES, PLANE_SHARED_PASSES and STAGED_SHARED_PASSES, whose
-    kernels have variant None); {"kernel": name} for an entry function of
-    another name."""
-    inst, cur = [], None
-    dirs, modes = "rst", ("grad", "first", "accumulate", "last")
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            # axhelm_kernel<N1, GeomSource, T>, axhelm_column_kernel<...> and
-            # axhelm_line_kernel<...> mangle as
-            # ILi<N1>E...GeomSourceE<n>E<T>E, T = f or 13__nv_bfloat16, and
-            # axhelm_any_kernel<GeomSource, T>, axhelm_slab_kernel<...> and
-            # axhelm_plane_kernel<...> as I...GeomSourceE<n>E<T>E;
-            # axhelm_slab_last_kernel<T> as I<T>E;
-            # axhelm_plane_line_kernel<LAST, T> as ILb<LAST>E<T>E;
-            # axhelm_staged_contract_kernel<DIR, MODE, T> as
-            # ILi<DIR>ELi<MODE>E<T>E and axhelm_staged_grad_t_kernel<
-            # GeomSource, T> as the generic's
-            k = re.search(r"axhelm_(column_|line_|any_|slab_|plane_)?kernelI"
-                          r"(?:Li(\d+)E)?"
-                          r".*?GeomSourceE?(\d+)E(f|\d+__nv_bfloat16)E",
-                          m.group(1))
-            st = re.search(r"axhelm_staged_(contract|grad_t)_kernelI"
-                           r"(?:Li(\d)ELi(\d)E)?"
-                           r"(?:.*?GeomSourceE?(\d+)E)?(f|\d+__nv_bfloat16)E",
-                           m.group(1))
-            pl = re.search(r"axhelm_plane_line_kernelILb([01])E"
-                           r"(f|\d+__nv_bfloat16)E", m.group(1))
-            sl = re.search(r"axhelm_slab_last_kernelI(f|\d+__nv_bfloat16)E",
-                           m.group(1))
-            cur = {"kernel": m.group(1)}
-            if sl:
-                cur = {"variant": None, "body": "slab",
-                       "pass": SLAB_SHARED_PASSES[0], "n1": None,
-                       "dtype": "f32" if sl.group(1) == "f" else "bf16"}
-            elif pl:
-                cur = {"variant": None, "body": "plane",
-                       "pass": PLANE_SHARED_PASSES[int(pl.group(1))],
-                       "n1": None,
-                       "dtype": "f32" if pl.group(2) == "f" else "bf16"}
-            elif k:
-                cur = {"variant": VARIANTS[int(k.group(3))],
-                       "body": (k.group(1) or "node_").rstrip("_"),
-                       "n1": int(k.group(2)) if k.group(2) else None,
-                       "dtype": "f32" if k.group(4) == "f" else "bf16"}
-                if cur["body"] in ("plane", "slab"):
-                    cur["pass"] = cur["body"]
-            elif st:
-                step = "grad_t" if st.group(1) == "grad_t" else \
-                    f"{modes[int(st.group(3))]}_{dirs[int(st.group(2))]}"
-                cur = {"variant": None if step in STAGED_SHARED_PASSES
-                       else VARIANTS[int(st.group(4))],
-                       "body": "staged", "pass": step, "n1": None,
-                       "dtype": "f32" if st.group(5) == "f" else "bf16"}
-            inst.append(cur)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and cur is not None:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur is not None:
-            cur["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes smem", line)
-            cur["smem_bytes"] = int(m.group(1)) if m else 0
-    return inst
-
-
 def sharded_rank(rank: int, world: int, grid, plan: dict) -> dict:
     """One gloo rank of the `sharded` phase (module level: the spawned
     ranks import it).  Every launch count is set to 0 before the rank
@@ -1179,6 +1112,7 @@ def main() -> None:
 
     import numpy as np
 
+    from repro_torch.analysis import lint
     from repro_torch.configs.nekbone import CONFIG
     from repro_torch.core import axhelm as core_axhelm
     from repro_torch.core import gather_scatter as gs
@@ -1186,7 +1120,7 @@ def main() -> None:
     from repro_torch.core import pcg as pcg_mod
     from repro_torch.core.spectral import basis
     from repro_torch.distributed.launch import spawn
-    from repro_torch.kernels.axhelm import build, ops
+    from repro_torch.kernels.axhelm import build, ops, tune
     from repro_torch.resilience.inject import FaultSpec
     from repro_torch.resilience.retry import RetryPolicy, solve_resilient
     from repro_torch.resilience.status import SolveStatus, is_failure
@@ -1213,7 +1147,7 @@ def main() -> None:
     build.library()
     build_s = time.perf_counter() - t0
     report = build.ptxas_report()
-    inst = ptxas_instantiations(report)
+    inst = build.ptxas_instantiations(report)
     build_line = {"phase": "build", "library": str(lib_path.relative_to(ROOT)),
                   "seconds": build_s, "instantiations": inst}
     reported = {(c.get("variant"), c.get("body"), c.get("n1"), c.get("dtype"))
@@ -1234,10 +1168,11 @@ def main() -> None:
                  for dt in DTYPES}
     staged_passes = sorted((c["variant"] or "", c["pass"], c["dtype"])
                            for c in inst if c.get("body") == "staged")
-    want_passes = sorted([("", step, dt) for step in STAGED_SHARED_PASSES
+    want_passes = sorted([("", step, dt)
+                          for step in build.STAGED_SHARED_PASSES
                           for dt in DTYPES] +
                          [(v, step, dt) for v in VARIANTS
-                          for step in STAGED_VARIANT_PASSES
+                          for step in build.STAGED_VARIANT_PASSES
                           for dt in DTYPES])
     expected |= {(v, "node", n, dt) for v in ops.ROWWISE_VARIANTS
                  for n in ops.ROWWISE_N1 for dt in DTYPES}
@@ -1246,20 +1181,22 @@ def main() -> None:
     expected |= {(None, "plane", None, dt) for dt in DTYPES}
     plane_passes = sorted((c["variant"] or "", c["pass"], c["dtype"])
                           for c in inst if c.get("body") == "plane")
-    want_plane = sorted([("", step, dt) for step in PLANE_SHARED_PASSES
+    want_plane = sorted([("", step, dt)
+                         for step in build.PLANE_SHARED_PASSES
                          for dt in DTYPES] +
                         [(v, step, dt) for v in VARIANTS
-                         for step in PLANE_VARIANT_PASSES
+                         for step in build.PLANE_VARIANT_PASSES
                          for dt in DTYPES])
     # the slab body's kernels: each variant's pass over its slabs, and the
     # transposed t contraction every variant shares
     expected |= {(None, "slab", None, dt) for dt in DTYPES}
     slab_passes = sorted((c["variant"] or "", c["pass"], c["dtype"])
                          for c in inst if c.get("body") == "slab")
-    want_slab = sorted([("", step, dt) for step in SLAB_SHARED_PASSES
+    want_slab = sorted([("", step, dt) for step in build.SLAB_SHARED_PASSES
                         for dt in DTYPES] +
                        [(v, step, dt) for v in VARIANTS
-                        for step in SLAB_VARIANT_PASSES for dt in DTYPES])
+                        for step in build.SLAB_VARIANT_PASSES
+                        for dt in DTYPES])
     missing = sorted(expected - reported)
     if missing:     # an unfamiliar ptxas format: show the report as it is
         build_line["ptxas"] = report
@@ -1271,7 +1208,8 @@ def main() -> None:
             f"the staged body's kernels {staged_passes}, expected "
             f"{want_passes}")
     require(ops.KERNELS_PER_APPLICATION["staged"] == ops.STAGED_KERNELS
-            == len(STAGED_SHARED_PASSES) + len(STAGED_VARIANT_PASSES) == 6,
+            == len(build.STAGED_SHARED_PASSES)
+            + len(build.STAGED_VARIANT_PASSES) == 6,
             f"the staged body launches {ops.STAGED_KERNELS} kernels an "
             f"application, expected 6")
     require(plane_passes == want_plane,
@@ -1280,7 +1218,8 @@ def main() -> None:
     require(slab_passes == want_slab,
             f"the slab body's kernels {slab_passes}, expected {want_slab}")
     require(ops.KERNELS_PER_APPLICATION["slab"] == ops.SLAB_KERNELS
-            == len(SLAB_SHARED_PASSES) + len(SLAB_VARIANT_PASSES) == 2,
+            == len(build.SLAB_SHARED_PASSES)
+            + len(build.SLAB_VARIANT_PASSES) == 2,
             f"the slab body launches {ops.SLAB_KERNELS} kernels an "
             f"application, expected 2")
     require(not spilled, f"instantiations spill registers: {spilled}")
@@ -3349,6 +3288,88 @@ def main() -> None:
                        "solves": gen_bf16},
           "seconds": time.perf_counter() - t_generic})
     del gen_meshes, gen_small
+
+    # 6f. lint: every entry of the contract lint's registry on the card ----
+    # (the sharded ones on gloo ranks on this one card, as 5f and 5g run):
+    # the dense and refined loop bodies recorded and replayed under sync
+    # debug mode "error", the ptxas registers and spills of every launch
+    # the axhelm entries resolve
+    t_lint = time.perf_counter()
+    lint_rows = lint.run_entries(list(lint.REGISTRY), dev)
+    emit({"phase": "lint", "card": card,
+          "entries": [{k: r[k] for k in ("entry", "status", "checks",
+                                          "seconds")} for r in lint_rows],
+          "seconds": time.perf_counter() - t_lint})
+    for r in lint_rows:
+        require(r["status"] == "pass",
+                f"lint {r['entry']}: {r['status']} "
+                f"{r.get('error', '')} {r['violations'][:4]}")
+
+    # 6g. tune: the launch tuner's sweep into a cache of its own ----------
+    t_tune = time.perf_counter()
+    tune_rows = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune.") as tmp:
+        os.environ[tune.CACHE_ENV] = str(Path(tmp) / "axhelm_tune.json")
+        tune.clear()
+        try:
+            for variant, dt, n1 in [(v, dt, n1) for v in TUNE_VARIANTS
+                                    for dt in DTYPES for n1 in TUNE_N1]:
+                e = TUNE_ELEMS if n1 <= ops.N1_SLAB_MAX else \
+                    TUNE_ELEMS_HIGH
+                winner, timings = tune.autotune(
+                    variant, n1 - 1, dtype=torch_dtype[dt], e=e, ncols=1,
+                    device=dev)
+                tune_rows.append({
+                    "entry_point": entry(variant, dt), "n1": n1, "e": e,
+                    "static": ops.body_of(variant, n1), "winner": winner,
+                    "us": {body: 1e6 * t for body, t in timings.items()}})
+            # a fresh in-process cache resolves every winner from the file
+            tune.clear()
+            for r, (variant, dt) in zip(tune_rows, [
+                    (v, dt) for v in TUNE_VARIANTS for dt in DTYPES
+                    for _ in TUNE_N1]):
+                got = tune.get_body(variant, r["n1"], torch_dtype[dt],
+                                    device=dev)
+                require(got == r["winner"],
+                        f"tune: {r['entry_point']} at N1={r['n1']} resolves "
+                        f"{got} from the cache file, tuned {r['winner']}")
+                # the tuned route against its plain version, counted as
+                # the entry point's launch
+                b, x, geom, lam0, lam1 = tune._synthetic_inputs(
+                    variant, r["n1"] - 1, torch_dtype[dt], False, 5, 1, dev)
+                before = ops.launch_counts[r["entry_point"]]
+                y = ops.axhelm(x, b, variant, geom, lam0=lam0, lam1=lam1)
+                y_p = ops.reference(x, b, variant, geom, lam0=lam0,
+                                    lam1=lam1)
+                torch.cuda.synchronize()
+                r["max_rel_err"] = float((y.float() - y_p.float()).abs()
+                                         .max() / y_p.float().abs().max())
+                require(r["max_rel_err"] <= rtol[dt],
+                        f"tune: {r['entry_point']} at N1={r['n1']} through "
+                        f"{r['winner']}: relative error "
+                        f"{r['max_rel_err']:.3e} > {rtol[dt]}")
+                require(ops.launch_counts[r["entry_point"]] == before + 1,
+                        f"tune: the tuned route of {r['entry_point']} did "
+                        f"not count one entry-point launch")
+            # with no cache file, every entry point's static route
+            os.environ[tune.CACHE_ENV] = str(Path(tmp) / "absent.json")
+            tune.clear()
+            off = [(v, dt, n1) for v in VARIANTS for dt in DTYPES
+                   for n1 in range(2, ops.N1_STAGED_MAX + 1)
+                   if tune.get_body(v, n1, torch_dtype[dt],
+                                    MAIN_HELMHOLTZ[v], device=dev)
+                   != ops.body_of(v, n1)]
+            require(not off and not (Path(tmp) / "absent.json").exists(),
+                    f"tune: without a cache file {off[:4]} left the "
+                    f"static route")
+        finally:
+            os.environ.pop(tune.CACHE_ENV)
+            tune.clear()
+    emit({"phase": "tune", "card": card, "sweeps": tune_rows,
+          "static_route_checked": f"{len(VARIANTS)} variants x "
+                                  f"{len(DTYPES)} storage types x N1 2-"
+                                  f"{ops.N1_STAGED_MAX}",
+          "seconds": time.perf_counter() - t_tune})
 
     # 7. the kernels line, the card line, the result line -------------------
     def main_path(variant, dt):

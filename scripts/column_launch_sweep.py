@@ -103,7 +103,7 @@ def main() -> None:
         use(setting)
         build.build()
         build.library()
-        inst = [c for c in chip_smoke.ptxas_instantiations(
+        inst = [c for c in build.ptxas_instantiations(
             build.ptxas_report()) if c.get("body") == "column"]
         worst = {}
         for n in (3, 7):

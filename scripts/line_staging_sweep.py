@@ -353,7 +353,7 @@ def main() -> None:
             continue
         built.append(setting)
         build.library()
-        inst = [c for c in chip_smoke.ptxas_instantiations(
+        inst = [c for c in build.ptxas_instantiations(
             build.ptxas_report()) if c.get("body") == "line"]
         worst = {}
         for n in (3, 7):

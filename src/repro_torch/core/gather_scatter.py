@@ -354,6 +354,12 @@ def _tag(rnd: NeighbourRound, direction: int, part: int) -> int:
     return (2 * rnd.tag + direction) * 4 + part
 
 
+def shift_of_tag(tag: int) -> int:
+    """The shift (2 round + direction) a message tag of `_tag` belongs
+    to: the +k or -k halo shift of one offset, whatever its codec part."""
+    return tag // 4
+
+
 def _wire(vals: torch.Tensor, compress: Optional[str]) -> tuple:
     """The contiguous parts one buffer travels as."""
     parts = (vals,) if compress is None else halo_compress(vals, compress)

@@ -48,6 +48,8 @@ from repro_torch.core.mesh_gen import (BoxMesh, MeshPartition,
 from repro_torch.core.pcg import (PCGResult, owned_dot, pcg, pcg_block,
                                   prepare as prepare_loop, refine)
 from repro_torch.core.spectral import SpectralBasis, basis as make_basis
+from repro_torch.kernels.axhelm import ops as kops
+from repro_torch.kernels.axhelm import tune
 from repro_torch.resilience import inject
 
 __all__ = ["NekboneProblem", "ShardedNekboneProblem", "PRECISIONS",
@@ -194,7 +196,8 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
                   device=None,
                   nrhs: int | None = None,
                   precision: str | None = None,
-                  shard_ctx=None):
+                  shard_ctx=None,
+                  launch: str | None = None):
     """Build the global operator + Jacobi diagonal for a mesh/variant.
 
     `variant` is any of `core.axhelm.VARIANTS`; merged is Helmholtz only
@@ -209,8 +212,16 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     defaults to the CUDA device (see :func:`resolve_device`).
 
     `nrhs` declares the RHS-batch width of later `solve` calls, as in the
-    reference; the operator takes any width, and the port has no block
-    size to tune for it, so nothing else depends on it.
+    reference; the operator takes any width, and only ``launch="auto"``
+    depends on it.
+
+    `launch` picks the body each kernel launch runs, as the reference's
+    `block_elems` picks its block: None resolves it through the launch
+    tuner's caches, else `kernels.axhelm.ops.body_of`'s static route
+    (`kernels.axhelm.tune.get_body`); ``"auto"`` runs the tuner's sweep
+    now, at setup, for every configuration neither cache holds — the
+    operator's (and a ``bf16_x32`` problem's bfloat16 one's) at
+    ``d * nrhs`` columns — so no solve pays for it.
 
     `shard_ctx` (a `distributed.context.SolverShardCtx` from
     `make_solver_ctx`, one per rank) partitions the elements over the
@@ -239,6 +250,9 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
             f"dtype=torch.float32, got {str(dtype).removeprefix('torch.')}")
     if nrhs is not None and (int(nrhs) != nrhs or nrhs < 1):
         raise ValueError(f"nrhs must be a positive integer, got {nrhs!r}")
+    if launch not in kops.LAUNCHES:
+        raise ValueError(f"launch must be one of {kops.LAUNCHES}, got "
+                         f"{launch!r}")
     if shard_ctx is not None:
         if device is not None and torch.device(device) != shard_ctx.device:
             raise ValueError(f"device {device} differs from the shard's "
@@ -254,6 +268,9 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     if dirichlet is None:
         dirichlet = not helmholtz  # Poisson needs the mask to be SPD
     mask = torch.as_tensor(mesh.boundary, device=device) if dirichlet else None
+    if launch == "auto":
+        _tune_launches(variant, b, helmholtz, dtype, backend, device,
+                       d * (nrhs or 1), precision)
     if shard_ctx is not None and shard_ctx.n_shards > 1:
         part = partition_elements(mesh, shard_ctx.n_shards,
                                   grid=shard_ctx.grid)
@@ -289,6 +306,22 @@ def setup_problem(mesh: BoxMesh, variant: str = "precomputed", d: int = 1,
     return NekboneProblem(apply, diag, mask, mesh, b, d, helmholtz, variant,
                           op.backend, device, precision, op_lo_apply,
                           GraphCache())
+
+
+def _tune_launches(variant: str, b: SpectralBasis, helmholtz: bool, dtype,
+                   backend, device, ncols: int, precision) -> None:
+    """``launch="auto"``: tune the launches the problem's operators will
+    make (`kernels.axhelm.tune.get_body` with a sweep on a miss) when they
+    run the kernels on a card; the plain version has no launch to tune."""
+    if axhelm_mod._resolve_backend(backend, dtype, device, b.n1) != "cuda" \
+            or torch.device(device).type != "cuda":
+        return
+    # the equation the kernel runs: merged is Helmholtz, partial Poisson
+    helm = {"merged": True, "partial": False}.get(variant, helmholtz)
+    for dt in (dtype,) + ((torch.bfloat16,) if precision == "bf16_x32"
+                          else ()):
+        tune.get_body(variant, b.n1, dt, helm, ncols, device=device,
+                      autotune_now=True)
 
 
 def _neighbour_launch_plan(part: MeshPartition) -> tuple[bool, int]:

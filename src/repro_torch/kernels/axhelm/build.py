@@ -34,6 +34,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,7 +42,10 @@ from pathlib import Path
 
 __all__ = ["SOURCES", "HEADERS", "PARTS", "NVCC_FLAGS", "LINK_FLAGS",
            "SIGNATURES", "QUERIES", "units", "symbol", "library_path", "build",
-           "library", "ptxas_report"]
+           "library", "ptxas_report", "ptxas_instantiations",
+           "STAGED_SHARED_PASSES", "STAGED_VARIANT_PASSES",
+           "PLANE_SHARED_PASSES", "PLANE_VARIANT_PASSES",
+           "SLAB_SHARED_PASSES", "SLAB_VARIANT_PASSES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "axhelm.cu", _CSRC / "axhelm_column.cu",
@@ -247,3 +251,97 @@ def ptxas_report() -> str:
     build()
     path = _report_path()
     return path.read_text() if path.exists() else ""
+
+
+# the staged body's kernels (ptxas_instantiations' "pass"): the five
+# contractions every variant shares, and each variant's t gradient with its
+# factors
+STAGED_SHARED_PASSES = ("grad_r", "grad_s", "first_r", "accumulate_s",
+                        "last_t")
+STAGED_VARIANT_PASSES = ("grad_t",)
+# the plane body's kernels (ptxas_instantiations' "pass"): the two line
+# contractions every variant shares, and each variant's plane pass
+PLANE_SHARED_PASSES = ("line_first", "line_last")
+PLANE_VARIANT_PASSES = ("plane",)
+# the slab body's kernels: the transposed t contraction every variant
+# shares, and each variant's pass over its slabs
+SLAB_SHARED_PASSES = ("last",)
+SLAB_VARIANT_PASSES = ("slab",)
+
+
+def ptxas_instantiations(report: str):
+    """Per kernel instantiation of a `-Xptxas -v` report: its variant, body
+    ("node": axhelm_kernel, "column": axhelm_column_kernel, "line":
+    axhelm_line_kernel, "any": the generic axhelm_any_kernel, "slab":
+    axhelm_slab_kernel and axhelm_slab_last_kernel, "plane":
+    axhelm_plane_kernel and axhelm_plane_line_kernel, "staged":
+    axhelm_staged_contract_kernel and axhelm_staged_grad_t_kernel), N1
+    (None for the generic, slab, plane and staged bodies, whose N1 is a
+    runtime argument), storage dtype, registers, shared memory and spill
+    bytes; a slab, plane or staged kernel also its "pass" (see
+    SLAB_SHARED_PASSES, PLANE_SHARED_PASSES and STAGED_SHARED_PASSES, whose
+    kernels have variant None); {"kernel": name} for an entry function of
+    another name."""
+    inst, cur = [], None
+    dirs, modes = "rst", ("grad", "first", "accumulate", "last")
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            # axhelm_kernel<N1, GeomSource, T>, axhelm_column_kernel<...> and
+            # axhelm_line_kernel<...> mangle as
+            # ILi<N1>E...GeomSourceE<n>E<T>E, T = f or 13__nv_bfloat16, and
+            # axhelm_any_kernel<GeomSource, T>, axhelm_slab_kernel<...> and
+            # axhelm_plane_kernel<...> as I...GeomSourceE<n>E<T>E;
+            # axhelm_slab_last_kernel<T> as I<T>E;
+            # axhelm_plane_line_kernel<LAST, T> as ILb<LAST>E<T>E;
+            # axhelm_staged_contract_kernel<DIR, MODE, T> as
+            # ILi<DIR>ELi<MODE>E<T>E and axhelm_staged_grad_t_kernel<
+            # GeomSource, T> as the generic's
+            k = re.search(r"axhelm_(column_|line_|any_|slab_|plane_)?kernelI"
+                          r"(?:Li(\d+)E)?"
+                          r".*?GeomSourceE?(\d+)E(f|\d+__nv_bfloat16)E",
+                          m.group(1))
+            st = re.search(r"axhelm_staged_(contract|grad_t)_kernelI"
+                           r"(?:Li(\d)ELi(\d)E)?"
+                           r"(?:.*?GeomSourceE?(\d+)E)?(f|\d+__nv_bfloat16)E",
+                           m.group(1))
+            pl = re.search(r"axhelm_plane_line_kernelILb([01])E"
+                           r"(f|\d+__nv_bfloat16)E", m.group(1))
+            sl = re.search(r"axhelm_slab_last_kernelI(f|\d+__nv_bfloat16)E",
+                           m.group(1))
+            cur = {"kernel": m.group(1)}
+            if sl:
+                cur = {"variant": None, "body": "slab",
+                       "pass": SLAB_SHARED_PASSES[0], "n1": None,
+                       "dtype": "f32" if sl.group(1) == "f" else "bf16"}
+            elif pl:
+                cur = {"variant": None, "body": "plane",
+                       "pass": PLANE_SHARED_PASSES[int(pl.group(1))],
+                       "n1": None,
+                       "dtype": "f32" if pl.group(2) == "f" else "bf16"}
+            elif k:
+                cur = {"variant": _VARIANTS[int(k.group(3))],
+                       "body": (k.group(1) or "node_").rstrip("_"),
+                       "n1": int(k.group(2)) if k.group(2) else None,
+                       "dtype": "f32" if k.group(4) == "f" else "bf16"}
+                if cur["body"] in ("plane", "slab"):
+                    cur["pass"] = cur["body"]
+            elif st:
+                step = "grad_t" if st.group(1) == "grad_t" else \
+                    f"{modes[int(st.group(3))]}_{dirs[int(st.group(2))]}"
+                cur = {"variant": None if step in STAGED_SHARED_PASSES
+                       else _VARIANTS[int(st.group(4))],
+                       "body": "staged", "pass": step, "n1": None,
+                       "dtype": "f32" if st.group(5) == "f" else "bf16"}
+            inst.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(m.group(1)) if m else 0
+    return inst

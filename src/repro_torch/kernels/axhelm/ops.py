@@ -81,10 +81,13 @@ application of each body launches: 2 for the slab body, 3 for the plane
 body, 6 for the staged body, 1 for every other; a design fact, not
 counted); a launch captured
 into a solver loop's CUDA graph counts once for every replay of the graph
-(`core.graphs.count`).  Five timing-only twins count nothing and run their
-body whatever `axhelm` routes: `rowwise` launches a variant on the
-one-thread-per-node body at N1 in ROWWISE_N1 (4 and 8), beside the bodies
-that replaced it, `generic` the generic body at any N1 up to N1_MAX,
+(`core.graphs.count`).  `body_of` is the static route; an entry point's
+launch runs the body the launch tuner resolves (`tune.get_body`: its
+in-process cache, its JSON cache, else `body_of`), so a process that
+tuned nothing runs the static route.  Five timing-only twins count nothing
+and run their body whatever `axhelm` routes: `rowwise` launches a
+variant on the one-thread-per-node body at N1 in ROWWISE_N1 (4 and 8),
+beside the bodies that replaced it, `generic` the generic body at any N1 up to N1_MAX,
 beside the tuned and slab bodies, `slab` the slab body at any N1 up to
 N1_SLAB_MAX, `plane` the plane body at any N1 up to N1_PLANE_MAX, beside
 the generic and slab bodies, and `staged` the staged body at any N1 up
@@ -102,6 +105,7 @@ from repro_torch.core import graphs
 from repro_torch.core.spectral import SpectralBasis, basis as make_basis
 from repro_torch.kernels.axhelm import build
 from repro_torch.kernels.axhelm import ref as ref_mod
+from repro_torch.kernels.axhelm import tune
 
 __all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
            "ROWWISE_VARIANTS", "KERNEL_N1", "N1_TUNED_MAX", "ROWWISE_N1",
@@ -120,7 +124,7 @@ __all__ = ["KERNEL_VARIANTS", "COLUMN_VARIANTS", "LINE_VARIANTS",
            "SLAB_KERNELS", "N1_SLAB_MAX",
            "STAGED_THREADS", "STAGED_TILE",
            "STAGED_NARROW_LINES", "STAGED_STAGES", "STAGED_MAX_EXTRAS",
-           "STAGED_KERNELS",
+           "STAGED_KERNELS", "STAGED_MIN_BLOCKS", "LAUNCHES",
            "N1_STAGED_WIDE_MAX", "N1_STAGED_MAX",
            "KERNELS_PER_APPLICATION",
            "entry_point", "column_launch", "line_launch", "generic_launch",
@@ -238,10 +242,16 @@ STAGED_NARROW_LINES = 16
 STAGED_STAGES = 2
 STAGED_MAX_EXTRAS = 3
 STAGED_KERNELS = 6
+# the blocks an SM its __launch_bounds__ promise (a register cap: the
+# persistent grid takes the blocks the occupancy calculator allows)
+STAGED_MIN_BLOCKS = 4
 # CUDA kernels one application of each body launches
 KERNELS_PER_APPLICATION = {"column": 1, "line": 1, "any": 1,
                            "slab": SLAB_KERNELS, "plane": PLANE_KERNELS,
                            "rowwise": 1, "staged": STAGED_KERNELS}
+# the values of `axhelm`'s `launch`: resolve the body through the tuner's
+# caches (None), or tune it on a miss ("auto")
+LAUNCHES = (None, "auto")
 # storage dtype -> the suffix of its entry points in csrc/axhelm.cu
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -680,9 +690,18 @@ def axhelm(x: torch.Tensor, basis: SpectralBasis, variant: str,
            geom: torch.Tensor,
            lam0: Optional[torch.Tensor] = None,
            lam1: Optional[torch.Tensor] = None,
-           helmholtz: bool = False) -> torch.Tensor:
+           helmholtz: bool = False,
+           launch: Optional[str] = None) -> torch.Tensor:
     """Apply axhelm: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors.
+
+    On a CUDA tensor the body that launches is `tune.get_body`'s: the
+    tuner's in-process cache, then its JSON cache, then `body_of`'s
+    static route; ``launch="auto"`` tunes a configuration neither cache
+    holds (`tune.autotune`) first, as the reference's
+    ``block_elems="auto"`` does.  Whichever body runs, the launch counts
+    as the entry point's.  A CPU tensor runs the plain version whatever
+    `launch` says.
 
     x:    (E, N1,N1,N1), (E, d, N1,N1,N1) or (E, nrhs, d, N1,N1,N1) — every
           column reuses the element's single factor set.
@@ -697,12 +716,16 @@ def axhelm(x: torch.Tensor, basis: SpectralBasis, variant: str,
     lam0, lam1: optional per-node (E, N1,N1,N1) fields.
     """
     check_variant(variant)
+    if launch not in LAUNCHES:
+        raise ValueError(f"launch must be one of {LAUNCHES}, got "
+                         f"{launch!r}")
     helmholtz = _pin_equation(variant, lam0, lam1, helmholtz)
     xb = _as_batched(x)
     if xb.device.type == "cpu":
         y = reference(xb, basis, variant, geom, lam0, lam1, helmholtz)
     else:
-        y = _launch(xb, basis, variant, geom, lam0, lam1, helmholtz)
+        y = _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
+                    launch=launch)
     return y.reshape(x.shape)
 
 
@@ -977,20 +1000,26 @@ def body_of(variant: str, n1: int, twin: Optional[str] = None) -> str:
 
 
 def _launch(xb, basis, variant, geom, lam0, lam1, helmholtz,
-            twin: Optional[str] = None) -> torch.Tensor:
-    """Launch `variant` on x's current stream, through the body `body_of`
-    names, and count an entry point's launch; a timing-only `twin`
-    ("rowwise", "any", "slab", "plane" or "staged") counts none.  The slab,
+            twin: Optional[str] = None,
+            launch: Optional[str] = None) -> torch.Tensor:
+    """Launch `variant` on x's current stream, through the body the tuner
+    resolves (`tune.get_body`: a tuned route, else `body_of`'s; `launch`
+    as in `axhelm`), and count an entry point's launch; a timing-only
+    `twin` ("rowwise", "any", "slab", "plane" or "staged", or "column" or
+    "line" for the tuner's sweep) runs its own body and counts none.  The
+    slab,
     plane and staged bodies' scratch is allocated here, on x's device, at
     every call:
     within a CUDA graph's capture it comes from the graph's pool and the
     graph keeps it, so every replay runs on the same memory."""
     _check_kernel_operands(xb, basis, variant, geom, lam0, lam1, twin)
-    body = body_of(variant, basis.n1, twin)
+    e, ncols = xb.shape[0], xb.shape[1] * xb.shape[2]
+    body = twin or tune.get_body(variant, basis.n1, xb.dtype, helmholtz,
+                                 ncols, device=xb.device,
+                                 autotune_now=launch == "auto")
     if body == "line":
         _check_staged_alignment(variant, xb, lam0, lam1)
     y = torch.empty_like(xb)
-    e, ncols = xb.shape[0], xb.shape[1] * xb.shape[2]
     if e == 0 or ncols == 0:
         return y
     name = entry_point(variant, xb.dtype)

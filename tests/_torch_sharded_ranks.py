@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import record
 from repro_torch.core import gather_scatter as gs
 from repro_torch.core import mesh_gen, nekbone
 from repro_torch.core.pcg import owned_dot
@@ -327,24 +328,17 @@ def jax_rows(world, grid, exchange="psum"):
 
 
 def collective_rows(world, grid):
-    """The collectives of one global operator application at nrhs 4: the
-    interface all_reduce of (NS, 4) and globalize's one of (Ng, 4)."""
+    """The collectives of one global operator application at nrhs 4
+    (`analysis.record.CollectiveRecorder`): the interface all_reduce of
+    (NS, 4) and globalize's one of (Ng, 4)."""
     mesh = mesh_3x3x2()
     sh = nekbone.setup_problem(mesh, variant="trilinear", backend="reference",
                                shard_ctx=_ctx(world, grid), nrhs=4)
-    shapes = []
-    real = dist.all_reduce
-
-    def counting(tensor, *args, **kwargs):
-        shapes.append(list(tensor.shape))
-        return real(tensor, *args, **kwargs)
-
-    dist.all_reduce = counting
-    try:
+    with record.CollectiveRecorder() as rec:
         sh.op(torch.ones((mesh.n_global, 4)))
-    finally:
-        dist.all_reduce = real
-    return [{"shapes": shapes, "n_shared": int(sh.partition.n_shared),
+    return [{"shapes": [list(c.shape) for c in rec.events
+                        if c.kind == "all_reduce"],
+             "events": rec.events, "n_shared": int(sh.partition.n_shared),
              "n_global": mesh.n_global}]
 
 
@@ -469,37 +463,53 @@ def nbr_ladder_rows(world, grid):
 
 
 def nbr_collective_rows(world, grid):
-    """The collectives of one neighbour operator application at nrhs 4:
-    every all_reduce's shape, and every point-to-point op of each
-    `batch_isend_irecv` (send or receive, peer, shape, dtype, tag)."""
+    """The collectives of one neighbour operator application at nrhs 4
+    (`analysis.record.CollectiveRecorder`): every all_reduce's shape, and
+    every point-to-point op of each `batch_isend_irecv` (send or receive,
+    peer, shape, dtype, tag)."""
     mesh = mesh_3x3x2() if grid is None else mesh_gen.deform_trilinear(
         mesh_gen.box_mesh(4, 4, 2, 2), seed=3)
     sh = nekbone.setup_problem(mesh, variant="trilinear", backend="reference",
                                shard_ctx=_ctx(world, grid, "neighbour"),
                                nrhs=4)
-    reduced, batches = [], []
-    real_reduce, real_batch = dist.all_reduce, dist.batch_isend_irecv
-
-    def counting(tensor, *args, **kwargs):
-        reduced.append(list(tensor.shape))
-        return real_reduce(tensor, *args, **kwargs)
-
-    def batch(ops):
-        batches.append([["send" if op.op is dist.isend else "recv", op.peer,
-                         list(op.tensor.shape), str(op.tensor.dtype), op.tag]
-                        for op in ops])
-        return real_batch(ops)
-
-    dist.all_reduce, dist.batch_isend_irecv = counting, batch
-    try:
+    with record.CollectiveRecorder() as rec:
         sh.op(torch.ones((mesh.n_global, 4)))
-    finally:
-        dist.all_reduce, dist.batch_isend_irecv = real_reduce, real_batch
     part = sh.partition
-    return [{"rank": dist.get_rank(), "all_reduce": reduced,
-             "batches": batches, "offsets": list(part.nbr_offsets),
+    return [{"rank": dist.get_rank(),
+             "all_reduce": [list(c.shape) for c in rec.events
+                            if c.kind == "all_reduce"],
+             "batches": [[[c.kind, c.peer, list(c.shape), f"torch.{c.dtype}",
+                           c.tag] for c in batch]
+                         for batch in rec.batches()],
+             "events": rec.events, "offsets": list(part.nbr_offsets),
              "widths": [int(t.shape[1]) for t in part.nbr_lo_idx],
              "n_shared": int(part.n_shared), "n_global": mesh.n_global}]
+
+
+def contract_rows(world, grid):
+    """One global operator application of each exchange on the 3x3x2 mesh,
+    recorded after a warm-up application (`analysis.record`): psum,
+    neighbour, and neighbour over the int8 wire, nrhs 1; with the
+    partition's interface size and neighbour offsets (the lint's contract
+    tests)."""
+    mesh = mesh_3x3x2()
+    rows = []
+    for exchange, compress in (("psum", None), ("neighbour", None),
+                               ("neighbour", "int8")):
+        sh = nekbone.setup_problem(
+            mesh, variant="trilinear", backend="reference",
+            shard_ctx=_ctx(world, grid, exchange, compress))
+        x = torch.ones(mesh.n_global)
+        sh.op(x)
+        with record.CollectiveRecorder() as rec, \
+                record.OpRecorder() as ops:
+            sh.op(x)
+        rows.append({"exchange": exchange, "compress": compress,
+                     "events": rec.events, "ops": ops.ops,
+                     "rank": dist.get_rank(),
+                     "n_shared": int(sh.partition.n_shared),
+                     "offsets": list(sh.partition.nbr_offsets)})
+    return rows
 
 
 def nbr_thin_rows(world, grid):
@@ -575,7 +585,8 @@ GROUPS = {"op": op_rows, "solve": solve_rows, "vector": vector_rows,
                                            wires=NEIGHBOUR_WIRES),
           "nbr_ladder": nbr_ladder_rows,
           "nbr_jax": functools.partial(jax_rows, exchange="neighbour"),
-          "nbr_collectives": nbr_collective_rows, "nbr_thin": nbr_thin_rows}
+          "nbr_collectives": nbr_collective_rows, "nbr_thin": nbr_thin_rows,
+          "contracts": contract_rows}
 
 
 def cases(rank, world, grid, groups):

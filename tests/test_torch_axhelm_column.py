@@ -12,7 +12,7 @@
   of D-hat and xi into the kernel's by-value parameter (float32, and the
   bf16-rounded values for bf16 storage), and the arguments `ops` passes to
   each C entry point, against the signatures `build` declares.
-* `chip_smoke.ptxas_instantiations`, which reads the build's -Xptxas -v
+* `build.ptxas_instantiations`, which reads the build's -Xptxas -v
   report into the body, registers and spills of every instantiation.
 
 The kernels themselves run on the card only: tests/test_torch_cuda.py.
@@ -540,7 +540,7 @@ ptxas info    : Used 4 registers
 
 
 def test_ptxas_report_names_body_and_spills():
-    node, column, other = chip_smoke.ptxas_instantiations(_REPORT)
+    node, column, other = build.ptxas_instantiations(_REPORT)
     assert node == {"variant": "trilinear", "body": "node", "n1": 8,
                     "dtype": "f32", "spill_stores": 0, "spill_loads": 0,
                     "registers": 50, "smem_bytes": 8544}

@@ -391,7 +391,7 @@ ptxas info    : Used 57 registers, used 1 barriers, 400 bytes cmem[0]
 
 
 def test_ptxas_report_names_the_generic_body():
-    (inst,) = chip_smoke.ptxas_instantiations(_ANY_REPORT)
+    (inst,) = build.ptxas_instantiations(_ANY_REPORT)
     assert inst == {"variant": "merged", "body": "any", "n1": None,
                     "dtype": "bf16", "spill_stores": 0, "spill_loads": 0,
                     "registers": 57, "smem_bytes": 0}
@@ -413,7 +413,7 @@ def test_ptxas_report_names_the_plane_body():
     """The plane body's kernels as phase 2 parses them (names as nvcc 12.9
     mangles them for sm_90a): a variant's plane pass, and a line
     contraction every variant shares (variant None)."""
-    plane, line = chip_smoke.ptxas_instantiations(_PLANE_REPORT)
+    plane, line = build.ptxas_instantiations(_PLANE_REPORT)
     assert plane == {"variant": "trilinear", "body": "plane",
                      "pass": "plane", "n1": None, "dtype": "f32",
                      "spill_stores": 0, "spill_loads": 0,
@@ -421,8 +421,8 @@ def test_ptxas_report_names_the_plane_body():
     assert line == {"variant": None, "body": "plane", "pass": "line_last",
                     "n1": None, "dtype": "bf16", "spill_stores": 0,
                     "spill_loads": 0, "registers": 40, "smem_bytes": 0}
-    assert chip_smoke.PLANE_SHARED_PASSES == ("line_first", "line_last")
-    assert chip_smoke.PLANE_VARIANT_PASSES == ("plane",)
+    assert build.PLANE_SHARED_PASSES == ("line_first", "line_last")
+    assert build.PLANE_VARIANT_PASSES == ("plane",)
 
 
 def test_chip_smoke_checks_the_generic_body_where_it_runs():

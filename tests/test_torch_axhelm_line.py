@@ -557,7 +557,7 @@ ptxas info    : Used 90 registers, used 1 barriers, 21248 bytes smem, 2736 bytes
 
 
 def test_ptxas_report_names_the_line_body():
-    (line,) = chip_smoke.ptxas_instantiations(_LINE_REPORT)
+    (line,) = build.ptxas_instantiations(_LINE_REPORT)
     assert line == {"variant": "merged", "body": "line", "n1": 8,
                     "dtype": "bf16", "spill_stores": 0, "spill_loads": 0,
                     "registers": 90, "smem_bytes": 21248}

@@ -356,13 +356,13 @@ def test_chip_smoke_checks_the_slab_body_where_it_runs():
     assert tuple(chip_smoke.SLAB_N1) == tuple(MIDDLE_N1)
     assert chip_smoke.SLAB_ELEMS == (1, 3, 216)
     assert chip_smoke.SOURCE["slab"].endswith("csrc/axhelm_slab.cu")
-    assert chip_smoke.SLAB_SHARED_PASSES == ("last",)
-    assert chip_smoke.SLAB_VARIANT_PASSES == ("slab",)
+    assert build.SLAB_SHARED_PASSES == ("last",)
+    assert build.SLAB_VARIANT_PASSES == ("slab",)
     assert all(o + 1 in MIDDLE_N1 for o in chip_smoke.GENERIC_ORDERS)
     assert chip_smoke.GENERIC_MAIN_ORDER in chip_smoke.GENERIC_ORDERS
     assert "axhelm_slab_kernel" in (chip_smoke.ROOT
                                     / chip_smoke.SOURCE["slab"]).read_text()
-    inst, last = chip_smoke.ptxas_instantiations(_SLAB_REPORT)
+    inst, last = build.ptxas_instantiations(_SLAB_REPORT)
     assert inst == {"variant": "partial", "body": "slab", "pass": "slab",
                     "n1": None, "dtype": "bf16", "spill_stores": 0,
                     "spill_loads": 0, "registers": 166, "smem_bytes": 272}

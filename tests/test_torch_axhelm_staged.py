@@ -539,7 +539,7 @@ def test_ptxas_report_names_the_staged_body():
     """The staged body's kernels as phase 2 parses them: two contractions
     every variant shares (variant None) and a variant's t gradient with
     its factors (names as nvcc 12.9 mangles them for sm_90a)."""
-    shared, last, grad_t = chip_smoke.ptxas_instantiations(_STAGED_REPORT)
+    shared, last, grad_t = build.ptxas_instantiations(_STAGED_REPORT)
     spills = {"spill_stores": 0, "spill_loads": 0}
     assert shared == {"variant": None, "body": "staged", "pass": "first_r",
                       "n1": None, "dtype": "bf16", **spills,
@@ -551,10 +551,10 @@ def test_ptxas_report_names_the_staged_body():
                       "pass": "grad_t", "n1": None, "dtype": "f32",
                       **spills, "registers": 40, "smem_bytes": 128}
     assert {"grad_r", "grad_s", "first_r", "accumulate_s",
-            "last_t"} == set(chip_smoke.STAGED_SHARED_PASSES)
-    assert chip_smoke.STAGED_VARIANT_PASSES == ("grad_t",)
-    assert len(chip_smoke.STAGED_SHARED_PASSES) \
-        + len(chip_smoke.STAGED_VARIANT_PASSES) == ops.STAGED_KERNELS
+            "last_t"} == set(build.STAGED_SHARED_PASSES)
+    assert build.STAGED_VARIANT_PASSES == ("grad_t",)
+    assert len(build.STAGED_SHARED_PASSES) \
+        + len(build.STAGED_VARIANT_PASSES) == ops.STAGED_KERNELS
 
 
 def test_chip_smoke_checks_the_staged_body_where_it_runs():

@@ -46,6 +46,8 @@ import torch.multiprocessing as mp
 
 import _torch_sharded_ranks as ranks
 from repro_torch import nekbone_solve
+from repro_torch.analysis.contracts import (CollectiveCensus, EntryArtifacts,
+                                            interface_allreduce)
 from repro_torch.distributed.launch import spawn
 from repro_torch.resilience.status import SolveStatus, is_failure
 
@@ -276,6 +278,9 @@ def test_one_interface_all_reduce_per_application(runs):
     reassembly of the global field."""
     (r,) = runs("slab2")[0]["collectives"]
     assert r["shapes"] == [[r["n_shared"], 4], [r["n_global"], 4]], r
+    art = EntryArtifacts("psum:op", collectives=r["events"])
+    assert CollectiveCensus(exact={"all_reduce": 2, "p2p": 0}, matchers=[
+        interface_allreduce(r["n_shared"], nrhs=4, exact=1)]).check(art) == []
 
 
 # ---------------------------------------------- the neighbour exchange --
@@ -466,6 +471,16 @@ def test_neighbour_application_is_point_to_point(runs, name):
                 want.append(["recv", s + k, [m, 4], "torch.float32",
                              8 * j + 4])
         assert r["batches"][0] == want, r
+        # the same, through the lint's contract: one shift a direction an
+        # offset with a partner, no interface all_reduce
+        shifts = 2 * sum(1 for k in r["offsets"] if s + k < world or s >= k)
+        art = EntryArtifacts(f"neighbour:op@rank{s}",
+                             collectives=r["events"])
+        assert CollectiveCensus(
+            exact={"permute": shifts, "all_reduce": 1,
+                   "p2p": len(want)},
+            matchers=[interface_allreduce(r["n_shared"], exact=0)]
+        ).check(art) == []
     if name == "box4":
         assert len(per_rank[0]["nbr_collectives"][0]["offsets"]) >= 3
 
