@@ -5,10 +5,12 @@ Drives the port's main paths — the single-device Nekbone Jacobi-PCG solve
 with the hand-written axhelm CUDA kernels, once for each of the five axhelm
 variants, and the mixed-precision `bf16_x32` refined solve through the
 bf16-storage kernels, with single and stacked right-hand sides, and the
-solve service that batches requests into bucketed block solves — through
-the entry points a user calls (`setup_problem`, `rhs_from_solution`,
+solve service that batches requests into bucketed block solves; and LM
+serving, qwen3-0.6b at full width behind the continuous-batching engine —
+through the entry points a user calls (`setup_problem`, `rhs_from_solution`,
 `solve`, `resilience.retry.solve_resilient`,
-`serving.solve_service.SolveService`), and holds every kernel, fp32
+`serving.solve_service.SolveService`, `launch.serve`,
+`serving.engine.ServeEngine`), and holds every kernel, fp32
 and bf16, against its plain PyTorch version on the card.  Every solve runs
 its PCG loops as replayed CUDA graphs (`core.graphs`), as users run it,
 unless a phase says it runs one eagerly to compare.  Phases, one line
@@ -260,6 +262,22 @@ each:
               tolerances of 3 and 3b) counted as its entry point's launch;
               with no cache file every entry point at every N1 from 2 to
               878 resolves to `ops.body_of`'s route
+  6h. lm_serve  LM serving (`launch.serve`, `serving.engine`):
+              qwen3-0.6b at full width (28 layers, d_model 1024, vocab
+              151,936; bf16, weights from `torch.Generator` seed 0) behind
+              the continuous-batching engine with `launch/serve.py --preset
+              full`'s traffic (16 requests of 4-31 tokens from numpy seed
+              0, 8 slots, max_len 256, 16 new tokens, no EOS), after one
+              warm-up stream: every request done with 16 tokens; decode
+              steps, tokens a second, slot utilisation, prefill ms an
+              admission, decode-step ms (median, quartiles; a
+              `synchronize()` at each end) beside its byte bound (the
+              weights, the whole KV cache and the logits over
+              PEAK_BYTES_PER_S), peak memory; and the logits of 3 slots
+              over 8 teacher-forced ragged decode steps against a float32
+              prefill of each whole sequence (no cache) on the same
+              bf16-rounded weights: the float32 config within LM_F32_BOUND,
+              the bf16 config within LM_BF16_BOUND (max |d| / max |logit|)
   7. the `kernels` line (ten entry points, each launched on its main
      path and, as `launches_sharded`, on the sharded ones, psum and
      neighbour exchange together, and as `launches_serve` by the served
@@ -514,6 +532,25 @@ SERVE_8_STREAMS = [
     ("bf16_x32/trilinear/helmholtz_unmasked", "trilinear", "trilinear",
      True, False, "bf16_x32", 0.03, "precision:float32")]
 SERVE_8_CHECK_COLS = (2, 4, 8)   # the bucket widths phase 3 never checked
+# The lm_serve phase: the served model and `launch/serve.py --preset
+# full`'s stream; the logit check's prompts (one a slot), its teacher-forced
+# decode steps, and its bounds on max |d| / max |logit| against the float32
+# prefill of the whole sequence: 1e-5 for the float32 config (tightened
+# from 1e-4: 4.5e-7 measured on an H100), 5e-2 (the reference's bf16
+# decode-vs-forward bound; 1.2e-2 measured) for the bf16 one.  Slot
+# utilisation counts the decoded tokens (a request's first token comes
+# from its prefill) over decode steps x slots.
+LM_ARCH = "qwen3-0.6b"
+LM_SLOTS = 8
+LM_REQUESTS = 16
+LM_MAX_LEN = 256
+LM_NEW_TOKENS = 16
+LM_WEIGHT_BYTES = 1_192_493_056
+LM_CHECK_PROMPTS = (5, 17, 29)
+LM_CHECK_STEPS = 8
+LM_CHECK_MAX_LEN = 64
+LM_F32_BOUND = 1e-5
+LM_BF16_BOUND = 5e-2
 
 
 def ulp_distance(a, b):
@@ -1098,6 +1135,164 @@ def sharded_rank(rank: int, world: int, grid, plan: dict) -> dict:
             .numpy()
     out["neighbour"] = nbr
     return out
+
+
+def lm_serve_phase(dev, card: str) -> None:
+    """Phase 6h: qwen3-0.6b at full width behind the LM serving engine, and
+    its decode logits against a float32 full forward (see the docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_served_model, make_requests
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(LM_ARCH)
+    require((cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.dtype) ==
+            (28, 1024, 151_936, "bfloat16"),
+            f"lm_serve: {LM_ARCH} is not the full-width bf16 config: {cfg}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = build_served_model(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    require(weight_bytes == LM_WEIGHT_BYTES,
+            f"lm_serve: {weight_bytes} weight bytes, not {LM_WEIGHT_BYTES}")
+
+    # the served stream: timed prefills and decode steps, after a warm-up
+    prefill_ms, step_ms, live_kv = [], [], []
+    prefill, decode_step = model.prefill, model.decode_step
+
+    def timed(fn, into, engine=None):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            if engine is not None:   # positions the step attends to
+                live_kv.append(int(engine.lengths.sum()) + engine.slots)
+            return out
+        return call
+
+    def stream():
+        engine = ServeEngine(model, max_len=LM_MAX_LEN, slots=LM_SLOTS,
+                             eos_id=-1)
+        reqs = make_requests(cfg.vocab_size, LM_REQUESTS, LM_NEW_TOKENS)
+        for r in reqs:
+            engine.submit(r)
+        return engine, reqs
+
+    engine, _ = stream()
+    engine.run_until_drained()                      # warm-up
+    engine, reqs = stream()
+    model.prefill = timed(prefill, prefill_ms)
+    model.decode_step = timed(decode_step, step_ms, engine)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        del model.prefill, model.decode_step
+    bad = [(r.uid, r.done, len(r.output)) for r in reqs
+           if not r.done or len(r.output) != LM_NEW_TOKENS]
+    require(not bad, f"lm_serve: requests not done with {LM_NEW_TOKENS} "
+            f"tokens (uid, done, tokens): {bad}")
+    require(len(step_ms) == steps, f"lm_serve: {len(step_ms)} decode steps "
+            f"timed in {steps} engine steps")
+    tokens = sum(len(r.output) for r in reqs)
+    kv = engine.cache["main"]["k"]
+    kv_bytes = 2 * kv.numel() * kv.element_size()
+    per_position = kv_bytes // (LM_SLOTS * LM_MAX_LEN)
+    logit_bytes = LM_SLOTS * cfg.padded_vocab * 4
+    step_bytes = weight_bytes + kv_bytes + logit_bytes
+    bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+    live_bound_ms = (weight_bytes + logit_bytes + per_position *
+                     statistics.median(live_kv)) / PEAK_BYTES_PER_S * 1e3
+    q1, _, q3 = statistics.quantiles(step_ms, n=4)
+    med = statistics.median(step_ms)
+
+    # the logits of ragged decode steps against a float32 forward
+    wide = build_model(cfg.replace(dtype="float32"), dev)
+    with torch.no_grad():
+        for mine, theirs in zip(wide.parameters(), model.parameters()):
+            mine.copy_(theirs)                       # the bf16-rounded weights
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n)
+               for n in LM_CHECK_PROMPTS]
+    forced = rng.integers(1, cfg.vocab_size,
+                          size=(len(prompts), LM_CHECK_STEPS))
+
+    def decode_ratio(m):
+        """max |decode - forward| / max |forward| over the steps' real
+        vocabulary, slot by slot."""
+        cache = {"main": {n: torch.zeros(
+            (cfg.num_layers, len(prompts), LM_CHECK_MAX_LEN,
+             cfg.num_kv_heads, cfg.resolved_head_dim), dtype=m.dtype,
+            device=dev) for n in ("k", "v")}}
+        for slot, p in enumerate(prompts):       # the engine's splice
+            _, c1 = m.prefill({"tokens": torch.as_tensor(p[None], device=dev)})
+            for n in ("k", "v"):
+                cache["main"][n][:, slot, :len(p)] = c1["main"][n][:, 0]
+        lengths = np.array([len(p) for p in prompts])
+        worst_d, worst_ref = 0.0, 0.0
+        for t in range(LM_CHECK_STEPS):
+            lg, cache = m.decode_step(
+                torch.as_tensor(forced[:, t:t + 1], device=dev), cache,
+                torch.as_tensor(lengths, device=dev))
+            for slot, p in enumerate(prompts):
+                seq = np.concatenate([p, forced[slot, :t + 1]])
+                ref, _ = wide.prefill(
+                    {"tokens": torch.as_tensor(seq[None], device=dev)})
+                ref = ref[0, -1, :cfg.vocab_size]
+                got = lg[slot, -1, :cfg.vocab_size]
+                worst_d = max(worst_d, float((got - ref).abs().max()))
+                worst_ref = max(worst_ref, float(ref.abs().max()))
+            lengths += 1
+        return worst_d / worst_ref
+
+    ratio_f32 = decode_ratio(wide)
+    ratio_bf16 = decode_ratio(model)
+    require(ratio_f32 <= LM_F32_BOUND, f"lm_serve: float32 decode logits "
+            f"{ratio_f32:.3e} of max |logit| from the forward > "
+            f"{LM_F32_BOUND}")
+    require(ratio_bf16 <= LM_BF16_BOUND, f"lm_serve: bf16 decode logits "
+            f"{ratio_bf16:.3e} of max |logit| from the float32 forward > "
+            f"{LM_BF16_BOUND}")
+    peak = torch.cuda.max_memory_allocated()
+    del wide, model, engine
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_serve", "card": card, "arch": cfg.name,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "padded_vocab": cfg.padded_vocab,
+          "dtype": cfg.dtype, "weight_bytes": weight_bytes,
+          "build_s": build_s, "slots": LM_SLOTS, "max_len": LM_MAX_LEN,
+          "requests": LM_REQUESTS, "new_tokens": LM_NEW_TOKENS,
+          "all_done": True, "tokens": tokens, "decode_steps": steps,
+          "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
+          "slot_utilisation": (tokens - LM_REQUESTS) / (steps * LM_SLOTS),
+          "prefill_ms_median": statistics.median(prefill_ms),
+          "prefills": len(prefill_ms),
+          "step_ms_median": med, "step_ms_q1": q1, "step_ms_q3": q3,
+          "step_bytes": step_bytes, "kv_cache_bytes": kv_bytes,
+          "bound_ms": bound_ms, "bound_by": "bytes",
+          "bound_share": bound_ms / med,
+          "bound_ms_live_kv": live_bound_ms,
+          "peak_bytes": peak, "peak_bytes_above_start": peak - mem_start,
+          "logit_ratio_f32": ratio_f32, "logit_bound_f32": LM_F32_BOUND,
+          "logit_ratio_bf16": ratio_bf16, "logit_bound_bf16": LM_BF16_BOUND,
+          "check_prompts": list(LM_CHECK_PROMPTS),
+          "check_steps": LM_CHECK_STEPS,
+          "seconds": time.perf_counter() - t_phase})
 
 
 def main() -> None:
@@ -3370,6 +3565,9 @@ def main() -> None:
                                   f"{len(DTYPES)} storage types x N1 2-"
                                   f"{ops.N1_STAGED_MAX}",
           "seconds": time.perf_counter() - t_tune})
+
+    # 6h. lm_serve: qwen3-0.6b behind the LM serving engine -------------
+    lm_serve_phase(dev, card)
 
     # 7. the kernels line, the card line, the result line -------------------
     def main_path(variant, dt):

@@ -1,10 +1,12 @@
-"""Carry state across from the reference package: mesh and setup products.
+"""Carry state across from the reference package: mesh and setup products,
+and LM weights.
 
 The solver has no weights; its state is the mesh and the per-element setup
-products (geometric factors, vertices, lambda fields).  These functions
-take them as numpy arrays — what ``np.asarray`` makes of the reference
-package's arrays — so the port never imports the reference package and a
-test can feed both packages identical setup products.
+products (geometric factors, vertices, lambda fields).  The LM's state is
+its parameter tree.  These functions take them as numpy arrays — what
+``np.asarray`` makes of the reference package's arrays — so the port never
+imports the reference package and a test can feed both packages identical
+state.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from repro_torch.core.mesh_gen import BoxMesh
 from repro_torch.kernels.axhelm.ref import gelem_from_verts, planar_factors
 
-__all__ = ["mesh_from_numpy", "elem_ops_from_numpy"]
+__all__ = ["mesh_from_numpy", "elem_ops_from_numpy", "lm_params_from_numpy"]
 
 # elem_ops key sets of the reference make_axhelm_elem_ops, per variant:
 # its reference backend's operands, then its kernel backend's "geom"
@@ -81,3 +83,35 @@ def elem_ops_from_numpy(variant: str, elem_ops: dict, device) -> dict:
         if name in arrays:
             arrays[slot] = arrays.pop(name)
     return {name: t.to(device).contiguous() for name, t in arrays.items()}
+
+
+def _tensor_from_numpy(arr) -> torch.Tensor:
+    """A tensor of the array's values; bfloat16 (numpy's ml_dtypes type,
+    which torch.from_numpy refuses) goes through float32, exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def lm_params_from_numpy(cfg, params, device=None):
+    """The port's `DecoderLM` for `cfg` on `device` (the CUDA device unless
+    the caller names another), holding the reference's parameter tree given
+    as numpy arrays (``jax.tree.map(np.asarray, params)``).
+
+    The leading 'layers' axis is unstacked into the model's layers and the
+    (d_in, d_out) weight layout is kept.  The reference's `rope_table` leaf
+    (rope_policy="precomputed") is not carried: the port's table is a
+    buffer made by `rope.rope_table` (ROADMAP Queue 3).
+    """
+    from repro_torch.models.registry import build_model
+
+    model = build_model(cfg, device=device)
+
+    def convert(tree):
+        return {name: _tensor_from_numpy(v) if not isinstance(v, dict)
+                else convert(v) for name, v in tree.items()}
+
+    model.load_params(convert({name: v for name, v in params.items()
+                               if name != "rope_table"}))
+    return model

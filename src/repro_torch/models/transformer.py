@@ -1,0 +1,287 @@
+"""Decoder-only LM: GQA blocks, prefill and ragged decode with a KV cache
+(the reference's `models/transformer.py`, dense path).
+
+`DecoderLM` is an `nn.Module` whose parameters mirror the reference's tree
+(`param_specs`), one `ParamTree` a layer in an `nn.ModuleList`.  The layers
+run as a Python loop.  The reference's `hoist_barrier`, `remat_wrap` and
+`scan_group` have no counterpart: they are fences and schedules for XLA
+(stopping hoisted upcasts, choosing what a scan rematerialises), not
+mathematics.  Nor do its `ctx`/`constraint` sharding hooks: this module is
+single-device, and `ShardCtx` comes with the multi-card LM slice.  The MoE
+layers and the vision projection raise until their slices land (ROADMAP
+Queue 1, item 5).
+
+With rope_policy="precomputed" the (131072, Dh/2, 2) rope table is a
+buffer filled by `rope.rope_table` at construction, not a parameter (the
+reference declares it a parameter, so its init fills it with random
+values; ROADMAP Queue 3).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.nekbone import resolve_device
+from repro_torch.models import attention, rope
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (embed, embedding_spec, linear,
+                                       linear_spec, rms_norm, rms_norm_spec)
+from repro_torch.models.losses import project_logits
+from repro_torch.models.params import ParamSpec, ParamTree
+
+__all__ = ["DecoderLM", "stack_specs", "ROPE_TABLE_LEN", "DECODE_CHUNK"]
+
+# rows of the precomputed rope table (the reference's)
+ROPE_TABLE_LEN = 131_072
+# the KV block of decode attention's flash-decode walk (`attn_decode`)
+DECODE_CHUNK = 4096
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def stack_specs(spec, n: int):
+    """Add a leading 'layers' dim of size n to every ParamSpec in a tree."""
+    return {name: ParamSpec((n,) + s.shape, ("layers",) + s.axes,
+                            dtype=s.dtype, init_scale=s.init_scale)
+            if isinstance(s, ParamSpec) else stack_specs(s, n)
+            for name, s in spec.items()}
+
+
+def attn_spec(cfg: ModelConfig, dtype):
+    d, h, kv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    spec = {
+        "wq": linear_spec(d, h * dh, ("fsdp", "model"), bias=cfg.qkv_bias,
+                          dtype=dtype),
+        "wk": linear_spec(d, kv * dh, ("fsdp", "model"), bias=cfg.qkv_bias,
+                          dtype=dtype),
+        "wv": linear_spec(d, kv * dh, ("fsdp", "model"), bias=cfg.qkv_bias,
+                          dtype=dtype),
+        "wo": linear_spec(h * dh, d, ("model", "fsdp"), dtype=dtype),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = rms_norm_spec(dh)
+        spec["k_norm"] = rms_norm_spec(dh)
+    return spec
+
+
+def _qkv(p, x, cfg: ModelConfig, positions, rope_tab):
+    b, s, _ = x.shape
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = linear(p["wq"], x).reshape(b, s, h, dh)
+    k = linear(p["wk"], x).reshape(b, s, kv, dh)
+    v = linear(p["wv"], x).reshape(b, s, kv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    q, k = rope.apply_rope(q, k, positions, cfg.rope_theta, rope_tab)
+    return q, k, v
+
+
+def attn_apply(p, x, cfg: ModelConfig, positions, rope_tab):
+    q, k, v = _qkv(p, x, cfg, positions, rope_tab)
+    o = attention.causal_attention(q, k, v, chunk=cfg.attn_chunk)
+    b, s = x.shape[:2]
+    o = o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+    return linear(p["wo"], o), (k, v)
+
+
+def attn_decode(p, x, cfg: ModelConfig, k_cache, v_cache, cur_len,
+                rope_tab):
+    """x: (B, 1, D); caches: (B, Smax, KV, Dh), written in place.
+
+    cur_len is an int (lock-step decode) or a (B,) integer tensor (ragged
+    continuous batching): per-slot rope position, per-slot cache write.
+    """
+    b = x.shape[0]
+    ragged = torch.is_tensor(cur_len) and cur_len.ndim == 1
+    if ragged:
+        cur_len = cur_len.to(device=x.device, dtype=torch.long)
+        positions = cur_len[:, None]
+    else:
+        cur_len = int(cur_len)
+        positions = torch.full((b, 1), cur_len, dtype=torch.long,
+                               device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions, rope_tab)
+    if ragged:
+        idx = torch.arange(b, device=x.device)
+        k_cache[idx, cur_len] = k[:, 0].to(k_cache.dtype)
+        v_cache[idx, cur_len] = v[:, 0].to(v_cache.dtype)
+        length = cur_len + 1
+    else:
+        k_cache[:, cur_len] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, cur_len] = v[:, 0].to(v_cache.dtype)
+        length = torch.full((b,), cur_len + 1, dtype=torch.long,
+                            device=x.device)
+    o = attention.decode_attention(q, k_cache, v_cache, length,
+                                   chunk=DECODE_CHUNK)
+    o = o.reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim)
+    return linear(p["wo"], o)
+
+
+def mlp_spec(cfg: ModelConfig, dtype):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": linear_spec(d, f, ("fsdp", "model"), dtype=dtype),
+        "w_up": linear_spec(d, f, ("fsdp", "model"), dtype=dtype),
+        "w_down": linear_spec(f, d, ("model", "fsdp"), dtype=dtype),
+    }
+
+
+def mlp_apply(p, x):
+    h = F.silu(linear(p["w_gate"], x)) * linear(p["w_up"], x)
+    return linear(p["w_down"], h)
+
+
+def layer_spec(cfg: ModelConfig, dtype):
+    return {
+        "ln1": rms_norm_spec(cfg.d_model),
+        "attn": attn_spec(cfg, dtype),
+        "ln2": rms_norm_spec(cfg.d_model),
+        "mlp": mlp_spec(cfg, dtype),
+    }
+
+
+def layer_apply(p, x, cfg: ModelConfig, positions, rope_tab):
+    """One block over a whole sequence; returns (x, (k, v))."""
+    a, kv = attn_apply(p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
+                       positions, rope_tab)
+    x = x + a
+    h = rms_norm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h), kv
+
+
+def layer_decode(p, x, cfg: ModelConfig, k_cache, v_cache, cur_len,
+                 rope_tab):
+    a = attn_decode(p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
+                    k_cache, v_cache, cur_len, rope_tab)
+    x = x + a
+    h = rms_norm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h)
+
+
+def _unstack(tree, i: int):
+    return {name: v[i] if torch.is_tensor(v) else _unstack(v, i)
+            for name, v in tree.items()}
+
+
+class DecoderLM(nn.Module):
+    """Dense decoder LM (the reference's MoE and VLM branches raise).
+
+    Its parameters live on `device` (the CUDA device unless the caller
+    names another; "meta" gives shapes without allocating) and start
+    uninitialised: fill them with `load_params(init_from_specs(...))` or
+    `convert.lm_params_from_numpy`.
+    """
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if cfg.is_moe:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue "
+                f"1, item 5, slice 3)")
+        if cfg.vision_patches:
+            raise NotImplementedError(
+                f"{cfg.name}: the vision projection is not ported yet "
+                f"(ROADMAP Queue 1, item 5, slice 4)")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = _DTYPES[cfg.dtype]
+        spec = self.param_specs()
+        self.embed = ParamTree(spec["embed"], device)
+        self.layers = nn.ModuleList(
+            ParamTree(layer_spec(cfg, self.dtype), device)
+            for _ in range(cfg.num_layers))
+        self.ln_f = ParamTree(spec["ln_f"], device)
+        self.head = ParamTree(spec["head"], device) if "head" in spec \
+            else None
+        self.register_buffer(
+            "rope_table", rope.rope_table(ROPE_TABLE_LEN,
+                                          cfg.resolved_head_dim,
+                                          cfg.rope_theta, device)
+            if cfg.rope_policy == "precomputed" else None)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["table"].device
+
+    # ---------------------------------------------------------- specs ----
+    def param_specs(self) -> Dict:
+        """The reference's parameter tree (dense path), layers stacked along
+        a leading 'layers' axis; the rope table is a buffer, not in it."""
+        cfg, dt = self.cfg, self.dtype
+        spec = {
+            "embed": embedding_spec(cfg.padded_vocab, cfg.d_model, dtype=dt),
+            "layers": stack_specs(layer_spec(cfg, dt), cfg.num_layers),
+            "ln_f": rms_norm_spec(cfg.d_model),
+        }
+        if not cfg.tie_embeddings:
+            spec["head"] = linear_spec(cfg.d_model, cfg.padded_vocab,
+                                       ("fsdp", "vocab"), dtype=dt)
+        return spec
+
+    def load_params(self, params) -> None:
+        """Copy a tree of `param_specs`' shapes (layers stacked) in."""
+        expected = set(self.param_specs())
+        if set(params) != expected:
+            raise KeyError(f"parameter tree has {sorted(params)}, the model "
+                           f"{sorted(expected)}")
+        for i, layer in enumerate(self.layers):
+            layer.load(_unstack(params["layers"], i))
+        self.embed.load(params["embed"])
+        self.ln_f.load(params["ln_f"])
+        if self.head is not None:
+            self.head.load(params["head"])
+
+    def _embed_inputs(self, batch):
+        x = embed(self.embed, batch["tokens"], self.dtype)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        return x, positions
+
+    # ----------------------------------------------------------- serve ----
+    def cache_spec(self, batch: int, max_len: int):
+        """{"main": {"k", "v"}}: (L, B, max_len, KV, Dh) meta tensors."""
+        shape = (self.cfg.num_layers, batch, max_len, self.cfg.num_kv_heads,
+                 self.cfg.resolved_head_dim)
+        return {"main": {name: torch.empty(shape, dtype=self.dtype,
+                                           device="meta")
+                         for name in ("k", "v")}}
+
+    @torch.no_grad()
+    def prefill(self, batch):
+        """batch {"tokens": (B, S) integer tensor} -> (the last position's
+        masked float32 logits (B, 1, V_padded), a cache of length S)."""
+        cfg = self.cfg
+        x, positions = self._embed_inputs(batch)
+        b, s = x.shape[:2]
+        shape = (cfg.num_layers, b, s, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        ks = torch.zeros(shape, dtype=self.dtype, device=x.device)
+        vs = torch.zeros(shape, dtype=self.dtype, device=x.device)
+        for li, lp in enumerate(self.layers):
+            x, (k, v) = layer_apply(lp, x, cfg, positions, self.rope_table)
+            ks[li] = k
+            vs[li] = v
+        x = rms_norm(self.ln_f, x, cfg.norm_eps)
+        lg = project_logits(x[:, -1:], self.embed, self.head, cfg.vocab_size)
+        return lg, {"main": {"k": ks, "v": vs}}
+
+    @torch.no_grad()
+    def decode_step(self, token, cache, cur_len):
+        """token: (B, 1) integer tensor; cur_len: int or (B,) tensor.
+
+        Writes each layer's new K/V into `cache` in place and returns
+        (masked float32 logits (B, 1, V_padded), cache)."""
+        cfg = self.cfg
+        x = embed(self.embed, token, self.dtype)
+        ks, vs = cache["main"]["k"], cache["main"]["v"]
+        for li, lp in enumerate(self.layers):
+            x = layer_decode(lp, x, cfg, ks[li], vs[li], cur_len,
+                             self.rope_table)
+        x = rms_norm(self.ln_f, x, cfg.norm_eps)
+        lg = project_logits(x, self.embed, self.head, cfg.vocab_size)
+        return lg, cache

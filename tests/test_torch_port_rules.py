@@ -12,8 +12,10 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch import serve_solves
+from repro_torch import configs, serve_lm, serve_solves
 from repro_torch.core import mesh_gen, nekbone
+from repro_torch.launch import serve as lm_serve
+from repro_torch.models.registry import build_model
 from repro_torch.core.spectral import basis
 from repro_torch.kernels.axhelm import build, ops
 
@@ -89,6 +91,16 @@ warm = svc.warmup()
 svc.submit(SolveRequest(uid=0, b=b))
 svc.step()
 assert warm == 4 and svc.trace_count == warm, (warm, svc.trace_count)
+from repro_torch import configs
+from repro_torch.launch.serve import build_served_model, make_requests
+from repro_torch.serving.engine import ServeEngine
+lm = build_served_model(configs.reduced("qwen3_0_6b"), "cpu")
+engine = ServeEngine(lm, max_len=32, slots=2, eos_id=-1)
+lm_reqs = make_requests(lm.cfg.vocab_size, 3, max_new_tokens=3)
+for r in lm_reqs:
+    engine.submit(r)
+engine.run_until_drained()
+assert all(len(r.output) == 3 for r in lm_reqs)
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print("ok", int(res.iterations))
 """
@@ -132,6 +144,17 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         serve_solves.main(["--nx", "1", "--order", "2"])
     prob = nekbone.setup_problem(mesh, device="cpu")
     assert prob.device.type == "cpu" and prob.backend == "reference"
+    # LM serving: the launcher, the serve_lm twin and the model itself
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_serve.main(["--arch", "qwen3-0.6b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_serve.main(["--arch", "qwen3-0.6b", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(configs.reduced("qwen3_0_6b"))
+    model = build_model(configs.reduced("qwen3_0_6b"), device="cpu")
+    assert model.device.type == "cpu"
 
 
 def _meta(shape, dtype):
