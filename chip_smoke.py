@@ -5,12 +5,14 @@ Drives the port's main paths — the single-device Nekbone Jacobi-PCG solve
 with the hand-written axhelm CUDA kernels, once for each of the five axhelm
 variants, and the mixed-precision `bf16_x32` refined solve through the
 bf16-storage kernels, with single and stacked right-hand sides, and the
-solve service that batches requests into bucketed block solves; and LM
-serving, qwen3-0.6b at full width behind the continuous-batching engine —
-through the entry points a user calls (`setup_problem`, `rhs_from_solution`,
-`solve`, `resilience.retry.solve_resilient`,
+solve service that batches requests into bucketed block solves; LM
+serving, qwen3-0.6b at full width behind the continuous-batching engine;
+and LM training of qwen3-0.6b at full width, with checkpoints and restarts
+— through the entry points a user calls (`setup_problem`,
+`rhs_from_solution`, `solve`, `resilience.retry.solve_resilient`,
 `serving.solve_service.SolveService`, `launch.serve`,
-`serving.engine.ServeEngine`), and holds every kernel, fp32
+`serving.engine.ServeEngine`, `launch.train`,
+`training.fault_tolerance.run_resilient`), and holds every kernel, fp32
 and bf16, against its plain PyTorch version on the card.  Every solve runs
 its PCG loops as replayed CUDA graphs (`core.graphs`), as users run it,
 unless a phase says it runs one eagerly to compare.  Phases, one line
@@ -278,6 +280,24 @@ each:
               prefill of each whole sequence (no cache) on the same
               bf16-rounded weights: the float32 config within LM_F32_BOUND,
               the bf16 config within LM_BF16_BOUND (max |d| / max |logit|)
+  6i. lm_train  LM training (`launch.train`, `training/`, `data/`):
+              qwen3-0.6b at full width through `launch/train.py --preset
+              full`'s run (bf16, remat "full", seq 4096, batch 4 of 256 in
+              2 microbatches, float32 AdamW, weights from
+              `torch.Generator` seed 0) under `run_resilient`: a warm-up
+              step and 5 timed ones (ms median and quartiles on the host
+              clock, a `synchronize()` at each end; forward and backward,
+              clip and update on CUDA events), tokens a second, the
+              losses, grad norms and rates, peak memory, the anchor
+              checkpoint's bytes and seconds (in a temporary directory);
+              the same at 8-bit AdamW for 3 steps (losses within
+              LM_TRAIN_8BIT_BOUND of the float32 run's, equal at step 0;
+              update ms, optimizer state bytes); bf16 against float32 at
+              batch 1, seq 512 (loss, grad_norm); the reduced config
+              learning (25 steps) and a run with failures at steps 6 and
+              11 against an uninterrupted one (bitwise, or within 2 x the
+              rates applied); the step's FLOP bound at PEAK_BF16_FLOP_PER_S
+              and its share, and the float32 P.V products
   7. the `kernels` line (ten entry points, each launched on its main
      path and, as `launches_sharded`, on the sharded ones, psum and
      neighbour exchange together, and as `launches_serve` by the served
@@ -298,6 +318,7 @@ Run:  python3 chip_smoke.py
 import contextlib
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -551,6 +572,34 @@ LM_CHECK_STEPS = 8
 LM_CHECK_MAX_LEN = 64
 LM_F32_BOUND = 1e-5
 LM_BF16_BOUND = 5e-2
+# The lm_train phase: `launch/train.py --preset full`'s run of qwen3-0.6b
+# (bf16, remat "full", seq 4096, the shape's global batch 256 cut to 4 in
+# 2 microbatches, float32 AdamW), LM_TRAIN_STEPS steps of which the first
+# is a warm-up; the same run at 8-bit AdamW for LM_TRAIN_8BIT_STEPS steps,
+# its losses within LM_TRAIN_8BIT_BOUND of the float32 run's (equal at step
+# 0; the schedule's rate is 0 at step 0, so step 2's loss is the first
+# after an update); bf16 against float32 on the bf16-rounded weights at
+# batch 1, seq LM_TRAIN_CHECK_SEQ (loss and grad_norm, relative); the
+# reduced config learning (LM_TRAIN_LEARN_STEPS steps at lr 1e-2, warmup
+# 5, grad_accum 2, the last loss below the first by more than
+# LM_TRAIN_LEARN_DROP, as tests/test_training.py::test_loss_decreases asks
+# of the reference) and restarting (failures at LM_TRAIN_FAIL_AT,
+# checkpoints every 5, LM_TRAIN_RESTART_STEPS steps at lr 1e-2, warmup 2,
+# against an uninterrupted run).
+LM_TRAIN_STEPS = 6
+LM_TRAIN_8BIT_STEPS = 3
+LM_TRAIN_8BIT_BOUND = 1e-3
+LM_TRAIN_CHECK_SEQ = 512
+# tightened from 1e-2 and 5e-2: 9.6e-7 and 2.8e-5 measured on an H100
+LM_TRAIN_LOSS_BOUND = 1e-4
+LM_TRAIN_GNORM_BOUND = 1e-3
+LM_TRAIN_LEARN_STEPS = 25
+LM_TRAIN_LEARN_DROP = 0.3
+LM_TRAIN_FAIL_AT = (6, 11)
+LM_TRAIN_RESTART_STEPS = 15
+LM_PARAMS = 596_180_992
+# dense bf16 on the tensor cores (NVIDIA data sheet, SXM, 700 W)
+PEAK_BF16_FLOP_PER_S = 989e12
 
 
 def ulp_distance(a, b):
@@ -1292,6 +1341,263 @@ def lm_serve_phase(dev, card: str) -> None:
           "logit_ratio_bf16": ratio_bf16, "logit_bound_bf16": LM_BF16_BOUND,
           "check_prompts": list(LM_CHECK_PROMPTS),
           "check_steps": LM_CHECK_STEPS,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def lm_train_phase(dev, card: str) -> None:
+    """Phase 6i: LM training through `launch/train.py`'s path (see the
+    docstring)."""
+    import gc
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.serve import build_served_model
+    from repro_torch.models.config import SHAPE_CASES
+    from repro_torch.models.registry import build_model
+    from repro_torch.training import checkpoint, optimizer as opt_mod
+    from repro_torch.training.fault_tolerance import (FailureInjector,
+                                                      run_resilient)
+    from repro_torch.training.train_loop import (TrainConfig, init_state,
+                                                 make_train_step)
+
+    t_phase = time.perf_counter()
+
+    def memory_base() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in opt_mod.tree_leaves(tree))
+
+    # the clip starts a step's update: an event there splits the step
+    marks = []
+    real_clip, real_save = opt_mod.clip_by_global_norm, checkpoint.save
+
+    def marked_clip(*args, **kwargs):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return real_clip(*args, **kwargs)
+
+    def timed(step, rows):
+        """`step` on the host clock (a synchronize() at each end) and on
+        CUDA events: forward and backward up to the clip, clip and update
+        after it."""
+        def call(state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            marks.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            start.record()
+            state, m = step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            rows.append({"step_ms": (time.perf_counter() - t) * 1e3,
+                         "fwd_bwd_ms": start.elapsed_time(marks[0]),
+                         "clip_update_ms": marks[0].elapsed_time(end),
+                         **{k: float(m[k]) for k in
+                            ("loss", "grad_norm", "lr")}})
+            return state, m
+        return call
+
+    saves = []
+
+    def timed_save(ckpt_dir, step, state, blocking=True):
+        t = time.perf_counter()
+        path = real_save(ckpt_dir, step, state, blocking)
+        checkpoint.wait_pending()
+        saves.append({"step": step, "seconds": time.perf_counter() - t,
+                      "bytes": os.path.getsize(Path(path) / "arrays.npz")})
+        return path
+
+    def quartiles(values):
+        q1, med, q3 = statistics.quantiles(values, n=4)
+        return {"median": statistics.median(values), "q1": q1, "q3": q3}
+
+    opt_mod.clip_by_global_norm, checkpoint.save = marked_clip, timed_save
+    try:
+        # 1. full width, float32 AdamW, through run_resilient
+        base = memory_base()
+        run = launch_train.build_run(LM_ARCH, "full", steps=LM_TRAIN_STEPS,
+                                     device=dev)
+        cfg, data = run.cfg, run.data
+        require((cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.dtype,
+                 cfg.remat) == (28, 1024, 151_936, "bfloat16", "full"),
+                f"lm_train: {LM_ARCH} is not the full-width bf16 config "
+                f"with remat full: {cfg}")
+        require((data.batch, data.seq, run.tcfg.grad_accum) == (4, 4096, 2),
+                f"lm_train: the full preset runs batch {data.batch}, seq "
+                f"{data.seq}, grad_accum {run.tcfg.grad_accum}")
+        n_params = sum(p.numel() for p in run.model.parameters())
+        require(n_params == LM_PARAMS, f"lm_train: {n_params} parameters")
+        accum = run.tcfg.grad_accum
+        rows = []
+        with tempfile.TemporaryDirectory() as tmp:
+            state, hist = run_resilient(
+                timed(run.step, rows), run.state, data.batch_at,
+                num_steps=LM_TRAIN_STEPS, ckpt_dir=tmp,
+                ckpt_every=LM_TRAIN_STEPS + 1)
+        require(int(state["step"]) == LM_TRAIN_STEPS and
+                hist["completed_steps"] == LM_TRAIN_STEPS and
+                len(rows) == LM_TRAIN_STEPS and len(saves) == 1,
+                f"lm_train: {hist}, {len(rows)} steps timed, "
+                f"{len(saves)} checkpoints")
+        require(all(math.isfinite(r["loss"]) and math.isfinite(
+            r["grad_norm"]) for r in rows), f"lm_train: {rows}")
+        opt_bytes = nbytes(state["opt"])
+        peak = torch.cuda.max_memory_allocated() - base
+        del run, state
+        timed_rows = rows[1:]
+        step_q = quartiles([r["step_ms"] for r in timed_rows])
+
+        # 2. the same at 8-bit AdamW
+        base = memory_base()
+        run8 = launch_train.build_run(LM_ARCH, "full", steps=LM_TRAIN_STEPS,
+                                      device=dev, eight_bit_optimizer=True)
+        rows8, state8 = [], run8.state
+        step8 = timed(run8.step, rows8)
+        for i in range(LM_TRAIN_8BIT_STEPS):
+            state8, _ = step8(state8, run8.data.batch_at(i))
+        opt_bytes8 = nbytes(state8["opt"])
+        peak8 = torch.cuda.max_memory_allocated() - base
+        del run8, state8, step8
+        require(rows8[0]["loss"] == rows[0]["loss"],
+                f"lm_train: 8-bit step-0 loss {rows8[0]['loss']} != "
+                f"{rows[0]['loss']}")
+        rel8 = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(rows8, rows)]
+        require(max(rel8) <= LM_TRAIN_8BIT_BOUND,
+                f"lm_train: 8-bit losses {rel8} from the float32 run's")
+    finally:
+        opt_mod.clip_by_global_norm, checkpoint.save = real_clip, real_save
+
+    # 3. bf16 against float32 on the bf16-rounded weights
+    memory_base()
+    check = SyntheticLM(cfg, batch=1, seq=LM_TRAIN_CHECK_SEQ, seed=1,
+                        device=dev).batch_at(0)
+    tcfg = TrainConfig(total_steps=LM_TRAIN_STEPS)
+    model16 = build_served_model(cfg, dev, seed=0)
+    wide = build_model(cfg.replace(dtype="float32"), dev)
+    with torch.no_grad():
+        for mine, theirs in zip(wide.parameters(), model16.parameters()):
+            mine.copy_(theirs)
+    check_m = {}
+    for name, m in (("bf16", model16), ("f32", wide)):
+        _, met = make_train_step(m, tcfg)(init_state(m, tcfg), check)
+        check_m[name] = {k: float(met[k]) for k in ("loss", "grad_norm")}
+    del model16, wide
+    loss_rel = abs(check_m["bf16"]["loss"] - check_m["f32"]["loss"]) / abs(
+        check_m["f32"]["loss"])
+    gnorm_rel = abs(check_m["bf16"]["grad_norm"] -
+                    check_m["f32"]["grad_norm"]) / check_m["f32"]["grad_norm"]
+    require(loss_rel <= LM_TRAIN_LOSS_BOUND, f"lm_train: bf16 loss "
+            f"{loss_rel:.3e} from float32 > {LM_TRAIN_LOSS_BOUND}")
+    require(gnorm_rel <= LM_TRAIN_GNORM_BOUND, f"lm_train: bf16 grad_norm "
+            f"{gnorm_rel:.3e} from float32 > {LM_TRAIN_GNORM_BOUND}")
+
+    # 4. the reduced config: learning, and a restarted run
+    memory_base()
+    small = launch_train.build_run(LM_ARCH, "demo", steps=60, device=dev,
+                                   lr=1e-2, warmup=5, grad_accum=2)
+    learn, small_state = [], small.state
+    t = time.perf_counter()
+    for i in range(LM_TRAIN_LEARN_STEPS):
+        small_state, m = small.step(small_state, small.data.batch_at(i))
+        learn.append(m["loss"])
+    torch.cuda.synchronize()
+    learn_s = time.perf_counter() - t
+    learn = [float(v) for v in learn]
+    require(learn[-1] < learn[0] - LM_TRAIN_LEARN_DROP,
+            f"lm_train: the reduced config did not learn: {learn}")
+    finals = {}
+    for name, inj in (("plain", None),
+                      ("faults", FailureInjector(fail_at=LM_TRAIN_FAIL_AT))):
+        r = launch_train.build_run(LM_ARCH, "demo", steps=40, device=dev,
+                                   lr=1e-2, warmup=2)
+        with tempfile.TemporaryDirectory() as tmp:
+            final, hist = run_resilient(r.step, r.state, r.data.batch_at,
+                                        num_steps=LM_TRAIN_RESTART_STEPS,
+                                        ckpt_dir=tmp, ckpt_every=5,
+                                        injector=inj)
+        finals[name] = (final, hist)
+    hist = finals["faults"][1]
+    require(hist["restarts"] == len(LM_TRAIN_FAIL_AT) and
+            int(finals["faults"][0]["step"]) == LM_TRAIN_RESTART_STEPS,
+            f"lm_train: restarted run {hist}")
+    pairs = list(zip(opt_mod.tree_leaves(finals["plain"][0]["params"]),
+                     opt_mod.tree_leaves(finals["faults"][0]["params"])))
+    restart_bitwise = all(torch.equal(a, b) for a, b in pairs)
+    restart_diff = max(float((a.detach().float() - b.detach().float())
+                             .abs().max()) for a, b in pairs)
+    del finals, small, small_state
+    sched = opt_mod.cosine_schedule(1e-2, 2, 40)
+    lr_sum = float(sched(torch.arange(LM_TRAIN_RESTART_STEPS)).sum())
+    require(restart_bitwise or restart_diff <= 2 * lr_sum,
+            f"lm_train: the restarted run's parameters {restart_diff:.3e} "
+            f"from the uninterrupted run's (> 2 x the rates, {lr_sum:.3e})")
+
+    # 5. the step's FLOP bound: 6 N a token (the tied head included) and
+    # causal attention; and the float32 P.V products as the step runs them
+    # (every KV block, forward, recompute and two backward products)
+    b, s = data.batch, data.seq
+    h, dh, layers = cfg.num_heads, cfg.resolved_head_dim, cfg.num_layers
+    attn_per_token = 3 * layers * 2 * 2 * (s / 2) * h * dh
+    flops = b * s * (6 * n_params + attn_per_token)
+    bound_ms = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    pv_flops = layers * 4 * 2 * b * h * s * s * dh
+    emit({"phase": "lm_train", "card": card, "arch": cfg.name,
+          "layers": layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "padded_vocab": cfg.padded_vocab, "dtype": cfg.dtype,
+          "remat": cfg.remat, "params": n_params, "batch": b, "seq": s,
+          "global_batch_cut_from": SHAPE_CASES["train_4k"].global_batch,
+          "grad_accum": accum,
+          "steps": LM_TRAIN_STEPS, "warmup_steps": 1,
+          "step_ms": step_q,
+          "fwd_bwd_ms": quartiles([r["fwd_bwd_ms"] for r in timed_rows]),
+          "clip_update_ms": quartiles([r["clip_update_ms"]
+                                       for r in timed_rows]),
+          "warmup_step_ms": rows[0]["step_ms"],
+          "tokens_per_s": b * s / (step_q["median"] / 1e3),
+          "losses": [r["loss"] for r in rows],
+          "grad_norms": [r["grad_norm"] for r in rows],
+          "lrs": [r["lr"] for r in rows],
+          "peak_bytes_above_start": peak, "opt_state_bytes": opt_bytes,
+          "checkpoint_bytes": saves[0]["bytes"],
+          "checkpoint_s": saves[0]["seconds"],
+          "eight_bit": {"steps": LM_TRAIN_8BIT_STEPS,
+                        "losses": [r["loss"] for r in rows8],
+                        "loss_rel_to_fp32": rel8,
+                        "bound": LM_TRAIN_8BIT_BOUND,
+                        "step_ms": [r["step_ms"] for r in rows8],
+                        "clip_update_ms": [r["clip_update_ms"]
+                                           for r in rows8],
+                        "opt_state_bytes": opt_bytes8,
+                        "peak_bytes_above_start": peak8},
+          "bf16_vs_f32": {"batch": 1, "seq": LM_TRAIN_CHECK_SEQ, **{
+              f"{k}_{n}": v[k] for n, v in check_m.items() for k in v},
+              "loss_rel": loss_rel, "loss_bound": LM_TRAIN_LOSS_BOUND,
+              "grad_norm_rel": gnorm_rel,
+              "grad_norm_bound": LM_TRAIN_GNORM_BOUND},
+          "reduced": {"learn_losses": learn, "learn_s": learn_s,
+                      "restart_history": hist,
+                      "restart_bitwise": restart_bitwise,
+                      "restart_max_abs_diff": restart_diff,
+                      "restart_lr_sum": lr_sum},
+          "model_flops": flops, "bound_ms": bound_ms, "bound_by": "flops",
+          "bound_share": bound_ms / step_q["median"],
+          "float32_products": "causal_attention's P.V (einsum bhqk,bkhd "
+                              "of float32 p and v, models/attention.py:"
+                              "86-87) and its two backward products; the "
+                              "scores are a bf16 product made float32",
+          "pv_f32_flops": pv_flops,
+          "pv_f32_ms_at_peak": pv_flops / PEAK_FP32_FLOP_PER_S * 1e3,
           "seconds": time.perf_counter() - t_phase})
 
 
@@ -3568,6 +3874,9 @@ def main() -> None:
 
     # 6h. lm_serve: qwen3-0.6b behind the LM serving engine -------------
     lm_serve_phase(dev, card)
+
+    # 6i. lm_train: qwen3-0.6b trained through launch/train.py's path ----
+    lm_train_phase(dev, card)
 
     # 7. the kernels line, the card line, the result line -------------------
     def main_path(variant, dt):

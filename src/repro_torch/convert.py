@@ -1,5 +1,5 @@
 """Carry state across from the reference package: mesh and setup products,
-and LM weights.
+LM weights and LM train states.
 
 The solver has no weights; its state is the mesh and the per-element setup
 products (geometric factors, vertices, lambda fields).  The LM's state is
@@ -17,7 +17,8 @@ import torch
 from repro_torch.core.mesh_gen import BoxMesh
 from repro_torch.kernels.axhelm.ref import gelem_from_verts, planar_factors
 
-__all__ = ["mesh_from_numpy", "elem_ops_from_numpy", "lm_params_from_numpy"]
+__all__ = ["mesh_from_numpy", "elem_ops_from_numpy", "lm_params_from_numpy",
+           "train_state_from_numpy"]
 
 # elem_ops key sets of the reference make_axhelm_elem_ops, per variant:
 # its reference backend's operands, then its kernel backend's "geom"
@@ -115,3 +116,40 @@ def lm_params_from_numpy(cfg, params, device=None):
     model.load_params(convert({name: v for name, v in params.items()
                                if name != "rope_table"}))
     return model
+
+
+def _numpy_leaves(tree) -> list:
+    """A numpy tree's arrays in the reference's order (dict keys sorted,
+    a NamedTuple's fields in turn)."""
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in _numpy_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [a for v in tree for a in _numpy_leaves(v)]
+    return [tree]
+
+
+def train_state_from_numpy(cfg, state, device=None):
+    """(the port's `DecoderLM` for `cfg`, its train state) on `device` (the
+    CUDA device unless the caller names another), holding the reference's
+    whole train state given as numpy arrays (``jax.tree.map(np.asarray,
+    state)``): the parameters, the AdamW moments (the 8-bit `QState`s when
+    the reference's state has them) and its counters.  The state is the
+    port's `train_loop.init_state` filled leaf by leaf, in the reference's
+    order; the `rope_table` leaf and its moments are not carried (see
+    `lm_params_from_numpy`)."""
+    from repro_torch.training.optimizer import tree_fill
+    from repro_torch.training.train_loop import TrainConfig, init_state
+
+    def drop_rope(tree):
+        return {k: v for k, v in tree.items() if k != "rope_table"}
+
+    params = drop_rope(state["params"])
+    model = lm_params_from_numpy(cfg, params, device=device)
+    mu = drop_rope(state["opt"]["mu"])
+    eight_bit = hasattr(mu["embed"]["table"]["m"], "q")     # a QState
+    port = init_state(model, TrainConfig(eight_bit_optimizer=eight_bit))
+    ref = {"opt": {"count": state["opt"]["count"], "mu": mu},
+           "params": params, "step": state["step"]}
+    tree_fill(port, [_tensor_from_numpy(a) for a in _numpy_leaves(ref)])
+    return model, port
+

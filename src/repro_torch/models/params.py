@@ -102,6 +102,11 @@ class ParamTree(nn.Module):
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
+    def tree(self):
+        """The parameters as a dict tree of the spec's names."""
+        return dict(self._parameters) | {
+            name: m.tree() for name, m in self._modules.items()}
+
     @torch.no_grad()
     def load(self, values) -> None:
         """Copy a dict tree of tensors of this tree's shapes into it."""

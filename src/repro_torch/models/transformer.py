@@ -1,39 +1,50 @@
-"""Decoder-only LM: GQA blocks, prefill and ragged decode with a KV cache
-(the reference's `models/transformer.py`, dense path).
+"""Decoder-only LM: GQA blocks, the training loss, prefill and ragged decode
+with a KV cache (the reference's `models/transformer.py`, dense path).
 
 `DecoderLM` is an `nn.Module` whose parameters mirror the reference's tree
 (`param_specs`), one `ParamTree` a layer in an `nn.ModuleList`.  The layers
-run as a Python loop.  The reference's `hoist_barrier`, `remat_wrap` and
-`scan_group` have no counterpart: they are fences and schedules for XLA
-(stopping hoisted upcasts, choosing what a scan rematerialises), not
-mathematics.  Nor do its `ctx`/`constraint` sharding hooks: this module is
-single-device, and `ShardCtx` comes with the multi-card LM slice.  The MoE
-layers and the vision projection raise until their slices land (ROADMAP
-Queue 1, item 5).
+run as a Python loop.  `loss` follows the reference's rematerialisation
+(`remat_wrap`, `cfg.remat`, `cfg.scan_group`) with `torch.utils.checkpoint`:
+"full" recomputes each layer in the backward, "dots" saves the outputs of
+its matrix products without batch dimensions and recomputes the rest, and
+`scan_group` > 1 checkpoints groups of layers around per-layer checkpoints.
+The reference's `hoist_barrier` has no counterpart: it is a fence for XLA
+(stopping hoisted upcasts), not mathematics.  Nor do its `ctx`/`constraint`
+sharding hooks: this module is single-device, and `ShardCtx` comes with the
+multi-card LM slice.  The MoE layers and the vision projection raise until
+their slices land (ROADMAP Queue 1, item 5).
+
+Parameters are made with requires_grad=False; `training.train_loop.
+init_state` switches them on.  `prefill` and `decode_step` run under
+`torch.no_grad()` either way.
 
 With rope_policy="precomputed" the (131072, Dh/2, 2) rope table is a
 buffer filled by `rope.rope_table` at construction, not a parameter (the
 reference declares it a parameter, so its init fills it with random
-values; ROADMAP Queue 3).
+values and its training updates it; ROADMAP Queue 3).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.nekbone import resolve_device
 from repro_torch.models import attention, rope
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embedding_spec, linear,
                                        linear_spec, rms_norm, rms_norm_spec)
-from repro_torch.models.losses import project_logits
+from repro_torch.models.losses import chunked_ce, project_logits
 from repro_torch.models.params import ParamSpec, ParamTree
 
-__all__ = ["DecoderLM", "stack_specs", "ROPE_TABLE_LEN", "DECODE_CHUNK"]
+__all__ = ["DecoderLM", "stack_specs", "remat_wrap", "ROPE_TABLE_LEN",
+           "DECODE_CHUNK"]
 
 # rows of the precomputed rope table (the reference's)
 ROPE_TABLE_LEN = 131_072
@@ -48,6 +59,29 @@ def stack_specs(spec, n: int):
                             dtype=s.dtype, init_scale=s.init_scale)
             if isinstance(s, ParamSpec) else stack_specs(s, n)
             for name, s in spec.items()}
+
+
+# the products "dots" saves: those without batch dimensions (the linear
+# layers; attention's batched products are recomputed), the counterpart of
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn, mode: str):
+    """fn under the reference's remat mode: "none", "dots" or "full"."""
+    if mode == "none":
+        return fn
+    if mode == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_products)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=context_fn)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def attn_spec(cfg: ModelConfig, dtype):
@@ -223,6 +257,16 @@ class DecoderLM(nn.Module):
                                        ("fsdp", "vocab"), dtype=dt)
         return spec
 
+    def param_tree(self) -> Dict:
+        """The parameters themselves as `param_specs`' tree, with "layers"
+        a list of per-layer trees (the reference stacks them)."""
+        tree = {"embed": self.embed.tree(),
+                "layers": [layer.tree() for layer in self.layers],
+                "ln_f": self.ln_f.tree()}
+        if self.head is not None:
+            tree["head"] = self.head.tree()
+        return tree
+
     def load_params(self, params) -> None:
         """Copy a tree of `param_specs`' shapes (layers stacked) in."""
         expected = set(self.param_specs())
@@ -241,6 +285,47 @@ class DecoderLM(nn.Module):
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         return x, positions
+
+    # ----------------------------------------------------------- train ----
+    def _stack(self, x, positions):
+        """The layers over a whole sequence under `cfg.remat`; with
+        `cfg.scan_group` > 1 dividing the layer count, groups of that many
+        layers are checkpointed around their per-layer checkpoints (the
+        reference's two-level scan)."""
+        cfg = self.cfg
+
+        def one(xc, lp):
+            return layer_apply(lp, xc, cfg, positions, self.rope_table)[0]
+
+        step = remat_wrap(one, cfg.remat)
+        layers = list(self.layers)
+        g = cfg.scan_group
+        if g > 1 and len(layers) % g == 0:
+            def group_body(xc, group):
+                for lp in group:
+                    xc = step(xc, lp)
+                return xc
+
+            group_step = remat_wrap(group_body, cfg.remat)
+            for i in range(0, len(layers), g):
+                x = group_step(x, layers[i:i + g])
+            return x
+        for lp in layers:
+            x = step(x, lp)
+        return x
+
+    def loss(self, batch):
+        """batch {"tokens": (B, S) integer tensor} -> (loss, {"ce", "aux"}):
+        the mean next-token CE (`chunked_ce`) plus router_aux_weight times
+        the router's auxiliary loss, which is 0 for the dense family."""
+        cfg = self.cfg
+        x, positions = self._embed_inputs(batch)
+        x = self._stack(x, positions)
+        x = rms_norm(self.ln_f, x, cfg.norm_eps)
+        ce = chunked_ce(x, batch["tokens"][:, 1:], self.embed, self.head,
+                        cfg.vocab_size)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
     # ----------------------------------------------------------- serve ----
     def cache_spec(self, batch: int, max_len: int):

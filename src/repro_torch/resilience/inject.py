@@ -27,6 +27,11 @@ The poisoned node is the CENTER node of the chosen element, element-
 interior for order >= 2: never masked, never shared.  The initial-residual
 application (``it = -1``) and out-of-loop uses of the operator are never
 corrupted.
+
+`SimulatedFailure` lives here so the training-side
+`training.fault_tolerance.FailureInjector` (host-level, step-keyed) and this
+solver-side injector share one failure vocabulary; the training module
+re-exports it.
 """
 
 from __future__ import annotations
@@ -37,8 +42,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["FaultSpec", "FAULT_MODES", "bitflip_scale", "fault_dof",
-           "poison", "wrap_operator"]
+__all__ = ["FaultSpec", "SimulatedFailure", "FAULT_MODES", "bitflip_scale",
+           "fault_dof", "poison", "wrap_operator"]
 
 FAULT_MODES = ("nan", "bitflip", "drop_exchange")
 
@@ -48,6 +53,10 @@ def bitflip_scale(dtype: torch.dtype) -> float:
     magnitude while the product stays representable, so the fault corrupts
     the iteration, not the arithmetic."""
     return float(torch.finfo(dtype).max) ** 0.75
+
+
+class SimulatedFailure(RuntimeError):
+    """A scheduled, injected failure fired (host-level injectors raise it)."""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,12 +9,17 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from repro_torch import configs, serve_lm, serve_solves
+from repro_torch import configs, quickstart, serve_lm, serve_solves, train_lm
 from repro_torch.core import mesh_gen, nekbone
+from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import serve as lm_serve
+from repro_torch.launch import train as lm_train
+from repro_torch.training.optimizer import tree_leaves
+from repro_torch.training.train_loop import TrainConfig, init_state
 from repro_torch.models.registry import build_model
 from repro_torch.core.spectral import basis
 from repro_torch.kernels.axhelm import build, ops
@@ -40,7 +45,8 @@ PORT_SCRIPTS = [ROOT / "chip_smoke.py",
                 ROOT / "scripts" / "line_staging_sweep.py",
                 ROOT / "scripts" / "main_path_turns.py",
                 ROOT / "scripts" / "slab_phase_probe.py",
-                ROOT / "scripts" / "sharded_spread.py"]
+                ROOT / "scripts" / "sharded_spread.py",
+                ROOT / "scripts" / "lm_train_trace.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + PORT_SCRIPTS,
@@ -101,6 +107,12 @@ for r in lm_reqs:
     engine.submit(r)
 engine.run_until_drained()
 assert all(len(r.output) == 3 for r in lm_reqs)
+from repro_torch.launch.train import build_run
+run = build_run("qwen3-0.6b", "demo", steps=2, device="cpu")
+state = run.state
+for i in range(2):
+    state, m = run.step(state, run.data.batch_at(i))
+assert int(state["step"]) == 2 and bool(m["loss"].isfinite())
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print("ok", int(res.iterations))
 """
@@ -155,6 +167,66 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         build_model(configs.reduced("qwen3_0_6b"))
     model = build_model(configs.reduced("qwen3_0_6b"), device="cpu")
     assert model.device.type == "cpu"
+    # LM training: the launcher, the train_lm twin, the quickstart, the data
+    cfg = configs.reduced("qwen3_0_6b")
+    for main, argv in ((lm_train.main, ["--arch", "qwen3-0.6b"]),
+                       (lm_train.main, ["--arch", "qwen3-0.6b", "--preset",
+                                        "full", "--device", "cuda"]),
+                       (train_lm.main, []), (quickstart.main, [])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyntheticLM(cfg, batch=2, seq=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_train.build_run("qwen3-0.6b")
+
+
+def test_train_state_lives_on_the_models_device():
+    """The train state is made where the model is (the meta device here),
+    never on the CPU; the data lands where it is told."""
+    model = build_model(configs.get("qwen3-0.6b"), device="meta")
+    for eight_bit in (False, True):
+        state = init_state(model, TrainConfig(eight_bit_optimizer=eight_bit))
+        assert {t.device.type for t in tree_leaves(state)} == {"meta"}
+    batch = SyntheticLM(configs.reduced("qwen3_0_6b"), 2, 8,
+                        device="meta").batch_at(0)
+    assert batch["tokens"].device.type == "meta"
+
+
+def test_training_and_data_name_no_cpu_fallback():
+    """`training/` and `data/` never choose the CPU: the one "cpu" in them
+    is the checkpoint's host copy (`checkpoint._to_numpy`)."""
+    found = []
+    for path in sorted((PORT / "training").glob("*.py")) + sorted(
+            (PORT / "data").glob("*.py")):
+        tree = ast.parse(path.read_text())
+        for fn in ast.walk(tree):
+            if not isinstance(fn, ast.FunctionDef):
+                continue
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Constant) and node.value == "cpu":
+                    found.append((path.name, fn.name))
+    assert sorted(set(found)) == [("checkpoint.py", "_to_numpy")], found
+
+
+def test_training_entry_points_run_on_the_cpu_when_told(tmp_path, capsys):
+    """The launcher's demo preset, the train_lm twin with an injected
+    failure and the quickstart, each on the CPU; --multi-pod raises."""
+    state, hist = lm_train.main(["--arch", "qwen3-0.6b", "--steps", "2",
+                                 "--device", "cpu", "--ckpt-dir",
+                                 str(tmp_path / "launch")])
+    assert int(state["step"]) == 2 and hist["restarts"] == 0
+    state, hist = train_lm.main(["--steps", "3", "--batch", "2", "--seq",
+                                 "16", "--inject-failure", "1", "--device",
+                                 "cpu", "--ckpt-dir", str(tmp_path / "lm")])
+    assert int(state["step"]) == 3 and hist["restarts"] == 1
+    losses = quickstart.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "no CUDA kernel runs" in out and "quickstart OK" in out
+    assert len(losses) == 20 and all(np.isfinite(losses))
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        lm_train.main(["--arch", "qwen3-0.6b", "--multi-pod", "--device",
+                       "cpu"])
 
 
 def _meta(shape, dtype):
