@@ -7,7 +7,9 @@ variants, and the mixed-precision `bf16_x32` refined solve through the
 bf16-storage kernels, with single and stacked right-hand sides, and the
 solve service that batches requests into bucketed block solves; LM
 serving, qwen3-0.6b at full width behind the continuous-batching engine;
-and LM training of qwen3-0.6b at full width, with checkpoints and restarts
+LM training of qwen3-0.6b at full width, with checkpoints and restarts;
+and the MoE family, moonshot-v1-16b-a3b served at full width and full
+depth and trained at full width with its depth cut
 — through the entry points a user calls (`setup_problem`,
 `rhs_from_solution`, `solve`, `resilience.retry.solve_resilient`,
 `serving.solve_service.SolveService`, `launch.serve`,
@@ -298,6 +300,35 @@ each:
               11 against an uninterrupted one (bitwise, or within 2 x the
               rates applied); the step's FLOP bound at PEAK_BF16_FLOP_PER_S
               and its share, and the float32 P.V products
+  6j. lm_serve_moe  the MoE family behind the engine: moonshot-v1-16b-a3b
+              at full width and full depth (48 layers, the first dense;
+              64 experts, top-6, 2 shared; 28,386,592,768 parameters,
+              56,785,903,616 bytes; bf16, weights from `torch.Generator`
+              seed 0 written in place), after the dense models are freed;
+              lm_serve's stream after a warm-up stream whose routes are
+              recorded (the timed one repeats them): every request done
+              with 16 tokens, tokens a second, decode-step ms (median,
+              quartiles), prefill ms an admission, the build's and the
+              stream's peak memory (under 80 GB); the share of routed
+              assignments dropped by capacity at decode and at prefill; a
+              decode step's byte bound as the reference computes it (every
+              expert's weights) and counting only the experts its tokens
+              were routed to; the logits of lm_serve's check on a depth-cut
+              copy (the dense layer and two MoE layers, float32 and bf16
+              from the same bf16-rounded weights, a capacity factor at which
+              nothing is dropped): float32 within LM_F32_BOUND, bf16 within
+              LM_MOE_BF16_BOUND, and the share of routes that flip between
+              the two copies on the same sequences
+  6k. lm_train_moe  moonshot at full width through `launch/train.py
+              --preset full --layers 3` (the dense layer and two MoE
+              layers; the cut printed): lm_train's batch, sequence and
+              microbatches, 6 float32 AdamW steps (one a warm-up) and 3
+              8-bit ones on the host clock, step 0 bitwise the same in
+              both, 8-bit losses within LM_TRAIN_8BIT_BOUND; tokens a
+              second, peak memory, the losses and aux losses; the step's
+              FLOP bound over the active parameters and its share; the
+              reduced config restarted twice under `run_resilient`,
+              bitwise the uninterrupted run
   7. the `kernels` line (ten entry points, each launched on its main
      path and, as `launches_sharded`, on the sharded ones, psum and
      neighbour exchange together, and as `launches_serve` by the served
@@ -600,6 +631,28 @@ LM_TRAIN_RESTART_STEPS = 15
 LM_PARAMS = 596_180_992
 # dense bf16 on the tensor cores (NVIDIA data sheet, SXM, 700 W)
 PEAK_BF16_FLOP_PER_S = 989e12
+# The lm_serve_moe phase: moonshot-v1-16b-a3b at full width and full
+# depth (its parameters and weight bytes: the router and the norms are
+# float32) behind the engine with lm_serve's stream.  Its logit check runs
+# on a depth-cut copy (the dense layer and two MoE layers; a float32 copy
+# of all 48 would be ~114 GB) at a capacity factor at which no assignment
+# is dropped (capacity >= tokens: factor >= E / k), the float32 copy within
+# LM_F32_BOUND and the bf16 one within LM_MOE_BF16_BOUND, the bound
+# predicted before the first run: a route whose 6th and 7th experts lie
+# closer than the bf16 rounding of the router's input flips, the share of
+# such routes printed.
+LM_MOE_ARCH = "moonshot-v1-16b-a3b"
+LM_MOE_PARAMS = 28_386_592_768
+LM_MOE_WEIGHT_BYTES = 56_785_903_616
+LM_MOE_CHECK_LAYERS = 3
+LM_MOE_CHECK_CAPACITY = 16.0
+LM_MOE_BF16_BOUND = 1e-1
+# The lm_train_moe phase: `launch/train.py --preset full --layers 3`'s
+# run of moonshot (the dense layer and two MoE layers at full width; the
+# whole model's float32 AdamW state alone would be ~340 GB), float32 and
+# 8-bit AdamW for lm_train's steps; the reduced config restarted at
+# lm_train's failures, bitwise the uninterrupted run.
+LM_MOE_TRAIN_LAYERS = 3
 
 
 def ulp_distance(a, b):
@@ -1186,6 +1239,64 @@ def sharded_rank(rank: int, world: int, grid, plan: dict) -> dict:
     return out
 
 
+def decode_logit_ratio(m, wide, prompts, forced, dev) -> float:
+    """max |decode - forward| / max |forward| over the real vocabulary:
+    `m`'s ragged decode steps (a slot a prompt, each prompt prefilled at
+    batch 1 and spliced in as the engine does, then the teacher-forced
+    tokens of `forced`) against `wide`'s prefill of each whole sequence."""
+    import numpy as np
+    import torch
+
+    cfg = m.cfg
+    cache = {part: {n: torch.zeros(sd.shape, dtype=sd.dtype, device=dev)
+                    for n, sd in leaves.items()}
+             for part, leaves in m.cache_spec(len(prompts),
+                                              LM_CHECK_MAX_LEN).items()}
+    for slot, p in enumerate(prompts):           # the engine's splice
+        _, c1 = m.prefill({"tokens": torch.as_tensor(p[None], device=dev)})
+        for part, leaves in c1.items():
+            for n, small in leaves.items():
+                cache[part][n][:, slot, :len(p)] = small[:, 0]
+    lengths = np.array([len(p) for p in prompts])
+    worst_d, worst_ref = 0.0, 0.0
+    for t in range(forced.shape[1]):
+        lg, cache = m.decode_step(
+            torch.as_tensor(forced[:, t:t + 1], device=dev), cache,
+            torch.as_tensor(lengths, device=dev))
+        for slot, p in enumerate(prompts):
+            seq = np.concatenate([p, forced[slot, :t + 1]])
+            ref, _ = wide.prefill(
+                {"tokens": torch.as_tensor(seq[None], device=dev)})
+            ref = ref[0, -1, :cfg.vocab_size]
+            got = lg[slot, -1, :cfg.vocab_size]
+            worst_d = max(worst_d, float((got - ref).abs().max()))
+            worst_ref = max(worst_ref, float(ref.abs().max()))
+        lengths += 1
+    return worst_d / worst_ref
+
+
+@contextlib.contextmanager
+def recorded_routes(into: list):
+    """While the block runs, every MoE layer call's routes are appended to
+    `into`: {"tokens", "capacity", "expert" (T, k), "keep" (T, k)}, device
+    tensors, in call order."""
+    from repro_torch.models import moe
+
+    real = moe._route
+
+    def route(xf, router_w, cfg, capacity):
+        disp, probs, ids = real(xf, router_w, cfg, capacity)
+        into.append({"tokens": xf.shape[0], "capacity": capacity,
+                     "expert": disp.expert, "keep": disp.keep})
+        return disp, probs, ids
+
+    moe._route = route
+    try:
+        yield into
+    finally:
+        moe._route = real
+
+
 def lm_serve_phase(dev, card: str) -> None:
     """Phase 6h: qwen3-0.6b at full width behind the LM serving engine, and
     its decode logits against a float32 full forward (see the docstring)."""
@@ -1281,36 +1392,8 @@ def lm_serve_phase(dev, card: str) -> None:
     forced = rng.integers(1, cfg.vocab_size,
                           size=(len(prompts), LM_CHECK_STEPS))
 
-    def decode_ratio(m):
-        """max |decode - forward| / max |forward| over the steps' real
-        vocabulary, slot by slot."""
-        cache = {"main": {n: torch.zeros(
-            (cfg.num_layers, len(prompts), LM_CHECK_MAX_LEN,
-             cfg.num_kv_heads, cfg.resolved_head_dim), dtype=m.dtype,
-            device=dev) for n in ("k", "v")}}
-        for slot, p in enumerate(prompts):       # the engine's splice
-            _, c1 = m.prefill({"tokens": torch.as_tensor(p[None], device=dev)})
-            for n in ("k", "v"):
-                cache["main"][n][:, slot, :len(p)] = c1["main"][n][:, 0]
-        lengths = np.array([len(p) for p in prompts])
-        worst_d, worst_ref = 0.0, 0.0
-        for t in range(LM_CHECK_STEPS):
-            lg, cache = m.decode_step(
-                torch.as_tensor(forced[:, t:t + 1], device=dev), cache,
-                torch.as_tensor(lengths, device=dev))
-            for slot, p in enumerate(prompts):
-                seq = np.concatenate([p, forced[slot, :t + 1]])
-                ref, _ = wide.prefill(
-                    {"tokens": torch.as_tensor(seq[None], device=dev)})
-                ref = ref[0, -1, :cfg.vocab_size]
-                got = lg[slot, -1, :cfg.vocab_size]
-                worst_d = max(worst_d, float((got - ref).abs().max()))
-                worst_ref = max(worst_ref, float(ref.abs().max()))
-            lengths += 1
-        return worst_d / worst_ref
-
-    ratio_f32 = decode_ratio(wide)
-    ratio_bf16 = decode_ratio(model)
+    ratio_f32 = decode_logit_ratio(wide, wide, prompts, forced, dev)
+    ratio_bf16 = decode_logit_ratio(model, wide, prompts, forced, dev)
     require(ratio_f32 <= LM_F32_BOUND, f"lm_serve: float32 decode logits "
             f"{ratio_f32:.3e} of max |logit| from the forward > "
             f"{LM_F32_BOUND}")
@@ -1598,6 +1681,379 @@ def lm_train_phase(dev, card: str) -> None:
                               "scores are a bf16 product made float32",
           "pv_f32_flops": pv_flops,
           "pv_f32_ms_at_peak": pv_flops / PEAK_FP32_FLOP_PER_S * 1e3,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def lm_serve_moe_phase(dev, card: str) -> None:
+    """Phase 6j: moonshot-v1-16b-a3b at full width and full depth behind
+    the LM serving engine, and its logits on a depth-cut copy (see the
+    docstring)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_served_model, make_requests
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(LM_MOE_ARCH)
+    require((cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.dtype,
+             cfg.num_experts, cfg.experts_per_token, cfg.moe_d_ff,
+             cfg.num_shared_experts, cfg.first_dense_layers) ==
+            (48, 2048, 163_840, "bfloat16", 64, 6, 1408, 2, 1),
+            f"lm_serve_moe: {LM_MOE_ARCH} is not the full bf16 config: "
+            f"{cfg}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = build_served_model(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() - mem_start
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    require(n_params == LM_MOE_PARAMS and weight_bytes ==
+            LM_MOE_WEIGHT_BYTES, f"lm_serve_moe: {n_params} parameters, "
+            f"{weight_bytes} weight bytes")
+    n_moe = len(model.layers)
+    routed_bytes = sum(p.numel() * p.element_size() for layer in model.layers
+                       for p in layer.moe.experts.parameters())
+    expert_bytes = routed_bytes // (n_moe * cfg.num_experts)
+
+    prefill_ms, step_ms = [], []
+    prefill, decode_step = model.prefill, model.decode_step
+
+    def stream():
+        engine = ServeEngine(model, max_len=LM_MAX_LEN, slots=LM_SLOTS,
+                             eos_id=-1)
+        reqs = make_requests(cfg.vocab_size, LM_REQUESTS, LM_NEW_TOKENS)
+        for r in reqs:
+            engine.submit(r)
+        return engine, reqs
+
+    def tagged(fn, into):
+        """fn, its calls' routes going to `into`."""
+        def call(*args):
+            with recorded_routes(into):
+                return fn(*args)
+        return call
+
+    def timed(fn, into):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    # the warm-up stream, its routes recorded; the timed stream repeats it
+    # (the same weights, requests and routes) without the recording
+    routes = {"prefill": [], "decode": []}
+    engine, _ = stream()
+    model.prefill = tagged(prefill, routes["prefill"])
+    model.decode_step = tagged(decode_step, routes["decode"])
+    try:
+        warm_steps = engine.run_until_drained()
+    finally:
+        del model.prefill, model.decode_step
+    engine, reqs = stream()
+    model.prefill = timed(prefill, prefill_ms)
+    model.decode_step = timed(decode_step, step_ms)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        del model.prefill, model.decode_step
+    bad = [(r.uid, r.done, len(r.output)) for r in reqs
+           if not r.done or len(r.output) != LM_NEW_TOKENS]
+    require(not bad, f"lm_serve_moe: requests not done with "
+            f"{LM_NEW_TOKENS} tokens (uid, done, tokens): {bad}")
+    require(steps == warm_steps == len(step_ms) and
+            len(routes["decode"]) == n_moe * steps and
+            len(routes["prefill"]) == n_moe * LM_REQUESTS,
+            f"lm_serve_moe: {steps} steps ({warm_steps} warm), "
+            f"{len(step_ms)} timed, {len(routes['decode'])} decode and "
+            f"{len(routes['prefill'])} prefill routes")
+    peak = torch.cuda.max_memory_allocated()
+    require(peak < 80e9, f"lm_serve_moe: peak memory {peak} bytes")
+
+    def drops(recs):
+        dropped = sum(int((~r["keep"]).sum()) for r in recs)
+        return {"dropped": dropped,
+                "assignments": sum(r["keep"].numel() for r in recs),
+                "share": dropped / sum(r["keep"].numel() for r in recs),
+                "capacities": sorted({r["capacity"] for r in recs}),
+                "tokens": sorted({r["tokens"] for r in recs})}
+
+    # experts a decode step reads when only the routed ones are read
+    used = [sum(int(torch.unique(r["expert"][r["keep"]]).numel())
+                for r in routes["decode"][i:i + n_moe])
+            for i in range(0, len(routes["decode"]), n_moe)]
+    tokens = sum(len(r.output) for r in reqs)
+    kv_bytes = sum(2 * c["k"].numel() * c["k"].element_size()
+                   for c in engine.cache.values())
+    logit_bytes = LM_SLOTS * cfg.padded_vocab * 4
+    step_bytes = weight_bytes + kv_bytes + logit_bytes
+    routed_step_bytes = (step_bytes - routed_bytes +
+                         statistics.median(used) * expert_bytes)
+    bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+    routed_bound_ms = routed_step_bytes / PEAK_BYTES_PER_S * 1e3
+    q1, _, q3 = statistics.quantiles(step_ms, n=4)
+    med = statistics.median(step_ms)
+    pq1, _, pq3 = statistics.quantiles(prefill_ms, n=4)
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the logits on a depth-cut copy, float32 and bf16 from the same
+    # bf16-rounded weights, at a capacity with no drop
+    cut = cfg.replace(num_layers=LM_MOE_CHECK_LAYERS,
+                      capacity_factor=LM_MOE_CHECK_CAPACITY)
+    small = build_served_model(cut, dev, seed=0)
+    wide = build_model(cut.replace(dtype="float32"), dev)
+    with torch.no_grad():
+        for mine, theirs in zip(wide.parameters(), small.parameters()):
+            mine.copy_(theirs)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n)
+               for n in LM_CHECK_PROMPTS]
+    forced = rng.integers(1, cfg.vocab_size,
+                          size=(len(prompts), LM_CHECK_STEPS))
+    check = []
+    with recorded_routes(check):
+        ratio_f32 = decode_logit_ratio(wide, wide, prompts, forced, dev)
+        ratio_bf16 = decode_logit_ratio(small, wide, prompts, forced, dev)
+    check_dropped = sum(int((~r["keep"]).sum()) for r in check)
+    # the routes of the same whole sequences through both copies
+    seqs = [np.concatenate([p, f]) for p, f in zip(prompts, forced)]
+    r16, r32 = [], []
+    for m, into in ((small, r16), (wide, r32)):
+        with recorded_routes(into):
+            for seq in seqs:
+                m.prefill({"tokens": torch.as_tensor(seq[None], device=dev)})
+    flipped = sum(int(a["expert"].numel() - (
+        a["expert"][:, :, None] == b["expert"][:, None, :]).any(-1).sum())
+        for a, b in zip(r16, r32))
+    routed = sum(a["expert"].numel() for a in r16)
+    del small, wide
+    torch.cuda.empty_cache()
+    require(check_dropped == 0, f"lm_serve_moe: the check dropped "
+            f"{check_dropped} assignments at capacity factor "
+            f"{LM_MOE_CHECK_CAPACITY}")
+    require(ratio_f32 <= LM_F32_BOUND, f"lm_serve_moe: float32 decode "
+            f"logits {ratio_f32:.3e} of max |logit| from the forward > "
+            f"{LM_F32_BOUND}")
+    require(ratio_bf16 <= LM_MOE_BF16_BOUND, f"lm_serve_moe: bf16 decode "
+            f"logits {ratio_bf16:.3e} of max |logit| from the float32 "
+            f"forward > {LM_MOE_BF16_BOUND} (routes flipped: {flipped} of "
+            f"{routed})")
+    emit({"phase": "lm_serve_moe", "card": card, "arch": cfg.name,
+          "layers": cfg.num_layers, "dense_layers": cfg.first_dense_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+          "dtype": cfg.dtype, "params": n_params,
+          "weight_bytes": weight_bytes, "routed_expert_bytes": routed_bytes,
+          "build_s": build_s, "build_peak_bytes_above_start": build_peak,
+          "mem_at_start": mem_start, "slots": LM_SLOTS,
+          "max_len": LM_MAX_LEN, "requests": LM_REQUESTS,
+          "new_tokens": LM_NEW_TOKENS, "all_done": True, "tokens": tokens,
+          "decode_steps": steps, "wall_s": wall_s,
+          "tokens_per_s": tokens / wall_s,
+          "prefill_ms": {"median": statistics.median(prefill_ms),
+                         "q1": pq1, "q3": pq3},
+          "prefills": len(prefill_ms),
+          "step_ms_median": med, "step_ms_q1": q1, "step_ms_q3": q3,
+          "dropped_decode": drops(routes["decode"]),
+          "dropped_prefill": drops(routes["prefill"]),
+          "step_bytes": step_bytes, "kv_cache_bytes": kv_bytes,
+          "bound_ms": bound_ms, "bound_by": "bytes",
+          "bound_share": bound_ms / med,
+          "experts_read_a_step": {"median": statistics.median(used),
+                                  "min": min(used), "max": max(used),
+                                  "of": n_moe * cfg.num_experts},
+          "routed_step_bytes": routed_step_bytes,
+          "routed_bound_ms": routed_bound_ms,
+          "peak_bytes": peak, "peak_bytes_above_start": peak - mem_start,
+          "check": {"layers": LM_MOE_CHECK_LAYERS,
+                    "capacity_factor": LM_MOE_CHECK_CAPACITY,
+                    "dropped": check_dropped,
+                    "prompts": list(LM_CHECK_PROMPTS),
+                    "steps": LM_CHECK_STEPS,
+                    "logit_ratio_f32": ratio_f32,
+                    "logit_bound_f32": LM_F32_BOUND,
+                    "logit_ratio_bf16": ratio_bf16,
+                    "logit_bound_bf16": LM_MOE_BF16_BOUND,
+                    "routes_flipped": flipped, "routes": routed,
+                    "flip_share": flipped / routed},
+          "seconds": time.perf_counter() - t_phase})
+
+
+def lm_train_moe_phase(dev, card: str) -> None:
+    """Phase 6k: moonshot-v1-16b-a3b trained at full width, its depth cut
+    (see the docstring)."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.config import SHAPE_CASES
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.fault_tolerance import (FailureInjector,
+                                                      run_resilient)
+
+    t_phase = time.perf_counter()
+
+    def memory_base() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def run_steps(run, n):
+        rows, state = [], run.state
+        for i in range(n):
+            batch = run.data.batch_at(i)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = run.step(state, batch)
+            torch.cuda.synchronize()
+            rows.append({"step_ms": (time.perf_counter() - t) * 1e3,
+                         **{k: float(m[k]) for k in
+                            ("loss", "ce", "aux", "grad_norm", "lr")}})
+        return state, rows
+
+    def quartiles(values):
+        q1, _, q3 = statistics.quantiles(values, n=4)
+        return {"median": statistics.median(values), "q1": q1, "q3": q3}
+
+    # 1. full width, the depth cut, float32 AdamW
+    base = memory_base()
+    run = launch_train.build_run(LM_MOE_ARCH, "full", steps=LM_TRAIN_STEPS,
+                                 device=dev, layers=LM_MOE_TRAIN_LAYERS)
+    cfg, data, model = run.cfg, run.data, run.model
+    require((cfg.num_layers, len(model.dense_layers), len(model.layers),
+             cfg.d_model, cfg.num_experts, cfg.experts_per_token,
+             cfg.vocab_size, cfg.dtype, cfg.remat) ==
+            (LM_MOE_TRAIN_LAYERS, 1, LM_MOE_TRAIN_LAYERS - 1, 2048, 64, 6,
+             163_840, "bfloat16", "full"),
+            f"lm_train_moe: not the full-width cut of {LM_MOE_ARCH}: {cfg}")
+    require((data.batch, data.seq, run.tcfg.grad_accum) == (4, 4096, 2),
+            f"lm_train_moe: the full preset runs batch {data.batch}, seq "
+            f"{data.seq}, grad_accum {run.tcfg.grad_accum}")
+    n_params = sum(p.numel() for p in model.parameters())
+    routed_params = sum(p.numel() for layer in model.layers
+                        for p in layer.moe.experts.parameters())
+    expert_params = routed_params // (len(model.layers) * cfg.num_experts)
+    active = (n_params - routed_params - model.embed["table"].numel() +
+              len(model.layers) * cfg.experts_per_token * expert_params)
+    n_moe = len(model.layers)
+    accum = run.tcfg.grad_accum
+    del model
+    state, rows = run_steps(run, LM_TRAIN_STEPS)
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["aux"] > 0 for r in rows), f"lm_train_moe: {rows}")
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for t in opt_mod.tree_leaves(state["opt"]))
+    peak = torch.cuda.max_memory_allocated() - base
+    del run, state
+
+    # 2. the same at 8-bit AdamW: step 0 is the same gradient, bitwise
+    base = memory_base()
+    run8 = launch_train.build_run(LM_MOE_ARCH, "full", steps=LM_TRAIN_STEPS,
+                                  device=dev, layers=LM_MOE_TRAIN_LAYERS,
+                                  eight_bit_optimizer=True)
+    state8, rows8 = run_steps(run8, LM_TRAIN_8BIT_STEPS)
+    opt_bytes8 = sum(t.numel() * t.element_size()
+                     for t in opt_mod.tree_leaves(state8["opt"]))
+    peak8 = torch.cuda.max_memory_allocated() - base
+    del run8, state8
+    require(all(rows8[0][k] == rows[0][k] for k in ("loss", "aux",
+                                                     "grad_norm")),
+            f"lm_train_moe: 8-bit step 0 {rows8[0]} is not the float32 "
+            f"run's {rows[0]}")
+    rel8 = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            for a, b in zip(rows8, rows)]
+    require(max(rel8) <= LM_TRAIN_8BIT_BOUND,
+            f"lm_train_moe: 8-bit losses {rel8} from the float32 run's")
+
+    # 3. the reduced config restarted twice against an uninterrupted run
+    memory_base()
+    finals = {}
+    for name, inj in (("plain", None),
+                      ("faults", FailureInjector(fail_at=LM_TRAIN_FAIL_AT))):
+        r = launch_train.build_run(LM_MOE_ARCH, "demo", steps=40, device=dev,
+                                   lr=1e-2, warmup=2)
+        with tempfile.TemporaryDirectory() as tmp:
+            final, hist = run_resilient(r.step, r.state, r.data.batch_at,
+                                        num_steps=LM_TRAIN_RESTART_STEPS,
+                                        ckpt_dir=tmp, ckpt_every=5,
+                                        injector=inj)
+        finals[name] = (final, hist)
+    hist = finals["faults"][1]
+    require(hist["restarts"] == len(LM_TRAIN_FAIL_AT) and
+            int(finals["faults"][0]["step"]) == LM_TRAIN_RESTART_STEPS,
+            f"lm_train_moe: restarted run {hist}")
+    pairs = list(zip(opt_mod.tree_leaves(finals["plain"][0]),
+                     opt_mod.tree_leaves(finals["faults"][0])))
+    restart_bitwise = all(torch.equal(a, b) for a, b in pairs)
+    del finals
+    require(restart_bitwise, "lm_train_moe: the restarted run's state is "
+            "not bitwise the uninterrupted run's")
+
+    # 4. the step's FLOP bound over the active parameters (a token's k
+    # routed experts, the shared ones, attention, the head; no embedding
+    # product) and causal attention, as lm_train counts it
+    b, s = data.batch, data.seq
+    h, dh, layers = cfg.num_heads, cfg.resolved_head_dim, cfg.num_layers
+    attn_per_token = 3 * layers * 2 * 2 * (s / 2) * h * dh
+    flops = b * s * (6 * active + attn_per_token)
+    bound_ms = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    timed_rows = rows[1:]
+    step_q = quartiles([r["step_ms"] for r in timed_rows])
+    emit({"phase": "lm_train_moe", "card": card, "arch": cfg.name,
+          "depth_cut": {"layers": layers, "of": configs.get(
+              LM_MOE_ARCH).num_layers, "dense_layers": layers - n_moe,
+              "moe_layers": n_moe},
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+          "capacity_factor": cfg.capacity_factor, "dtype": cfg.dtype,
+          "remat": cfg.remat, "params": n_params,
+          "active_params": active, "batch": b, "seq": s,
+          "global_batch_cut_from": SHAPE_CASES["train_4k"].global_batch,
+          "grad_accum": accum,
+          "steps": LM_TRAIN_STEPS, "warmup_steps": 1, "step_ms": step_q,
+          "warmup_step_ms": rows[0]["step_ms"],
+          "tokens_per_s": b * s / (step_q["median"] / 1e3),
+          "losses": [r["loss"] for r in rows],
+          "ce": [r["ce"] for r in rows], "aux": [r["aux"] for r in rows],
+          "grad_norms": [r["grad_norm"] for r in rows],
+          "lrs": [r["lr"] for r in rows],
+          "peak_bytes_above_start": peak, "opt_state_bytes": opt_bytes,
+          "eight_bit": {"steps": LM_TRAIN_8BIT_STEPS,
+                        "losses": [r["loss"] for r in rows8],
+                        "loss_rel_to_fp32": rel8,
+                        "bound": LM_TRAIN_8BIT_BOUND,
+                        "step_ms": [r["step_ms"] for r in rows8],
+                        "opt_state_bytes": opt_bytes8,
+                        "peak_bytes_above_start": peak8},
+          "reduced_restart": {"history": hist,
+                              "bitwise": restart_bitwise},
+          "model_flops": flops, "bound_ms": bound_ms, "bound_by": "flops",
+          "bound_share": bound_ms / step_q["median"],
           "seconds": time.perf_counter() - t_phase})
 
 
@@ -3877,6 +4333,12 @@ def main() -> None:
 
     # 6i. lm_train: qwen3-0.6b trained through launch/train.py's path ----
     lm_train_phase(dev, card)
+
+    # 6j. lm_serve_moe: moonshot-v1-16b-a3b, full width and depth, served
+    lm_serve_moe_phase(dev, card)
+
+    # 6k. lm_train_moe: moonshot-v1-16b-a3b trained at full width, cut ----
+    lm_train_moe_phase(dev, card)
 
     # 7. the kernels line, the card line, the result line -------------------
     def main_path(variant, dt):

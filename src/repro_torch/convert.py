@@ -100,10 +100,12 @@ def lm_params_from_numpy(cfg, params, device=None):
     the caller names another), holding the reference's parameter tree given
     as numpy arrays (``jax.tree.map(np.asarray, params)``).
 
-    The leading 'layers' axis is unstacked into the model's layers and the
-    (d_in, d_out) weight layout is kept.  The reference's `rope_table` leaf
-    (rope_policy="precomputed") is not carried: the port's table is a
-    buffer made by `rope.rope_table` (ROADMAP Queue 3).
+    The leading 'layers' axis of "layers" (and of the MoE family's
+    "dense_layers") is unstacked into the model's layers, and the (d_in,
+    d_out) weight layout is kept; the MoE layers' "moe" subtrees (router,
+    experts, shared experts) come across as they are.  The reference's
+    `rope_table` leaf (rope_policy="precomputed") is not carried: the
+    port's table is a buffer made by `rope.rope_table` (ROADMAP Queue 3).
     """
     from repro_torch.models.registry import build_model
 

@@ -23,7 +23,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core.nekbone import resolve_device
 from repro_torch.models.config import reduced_config
-from repro_torch.models.params import init_from_specs
+from repro_torch.models.params import fill_from_specs
 from repro_torch.models.registry import build_model
 from repro_torch.serving.engine import Request, ServeEngine
 
@@ -31,13 +31,14 @@ __all__ = ["build_served_model", "make_requests", "main"]
 
 
 def build_served_model(cfg, device=None, seed: int = 0):
-    """`build_model(cfg)` on `device` with weights drawn by
-    `init_from_specs` from a `torch.Generator` on that device seeded
-    `seed`."""
+    """`build_model(cfg)` on `device` with the weights `init_from_specs`
+    draws from a `torch.Generator` on that device seeded `seed`, written
+    into the model's parameters in place (`fill_from_specs`): the build
+    holds one copy of the weights."""
     device = resolve_device(device)
     model = build_model(cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    model.load_params(init_from_specs(model.param_specs(), gen, device))
+    fill_from_specs(model.param_specs(), model.param_tree(), gen)
     return model
 
 

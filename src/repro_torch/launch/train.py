@@ -1,15 +1,17 @@
-"""Training launcher: the dense LM on one device (the reference's
+"""Training launcher: the dense and MoE LMs on one device (the reference's
 `launch/train.py`).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
-      [--shape train_4k] [--preset demo|full] [--steps N] \\
+      [--shape train_4k] [--preset demo|full] [--steps N] [--layers L] \\
       [--ckpt-dir DIR] [--device cuda]
 
 --preset demo trains the reduced config at batch 8, seq 64.  --preset full
 trains the architecture at its full width on one card: the shape's
 sequence length (4096 for train_4k) and its global batch (256) cut to
 FULL_BATCH = 4 at FULL_GRAD_ACCUM = 2 microbatches, which one H100 80GB
-holds with remat "full"; the cut is printed.  The reference runs the full
+holds with remat "full"; the cut is printed.  --layers L cuts the depth
+to L layers (the MoE family's dense layers kept first): moonshot-v1-16b-a3b
+at full width trains on one card only so cut.  The reference runs the full
 preset on its production mesh; --multi-pod raises here (the mesh is ROADMAP
 Queue 1, item 5, slice 8).  The weights are random, from `torch.Generator`
 seed 0; the data is `SyntheticLM`.  It runs on the card unless --device
@@ -55,14 +57,17 @@ class TrainRun(NamedTuple):
 
 def build_run(arch: str, preset: str = "demo", shape: str = "train_4k",
               steps: int = 100, device=None, seed: int = 0,
-              **tcfg_fields) -> TrainRun:
+              layers: int | None = None, **tcfg_fields) -> TrainRun:
     """The launcher's run on `device` (the CUDA device unless the caller
-    names another): `preset`'s config and batch, weights drawn by
-    `init_from_specs` from a `torch.Generator` seeded `seed`, and
-    `TrainConfig(total_steps=steps, grad_accum=..., **tcfg_fields)`."""
+    names another): `preset`'s config (cut to `layers` layers when given)
+    and batch, weights drawn by `launch.serve.build_served_model` from a
+    `torch.Generator` seeded `seed`, and `TrainConfig(total_steps=steps,
+    grad_accum=..., **tcfg_fields)`."""
     device = resolve_device(device)
     case = SHAPE_CASES[shape]
     cfg = configs.get(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     if preset == "demo":
         cfg = reduced_config(cfg)
         batch, seq, accum = 8, 64, 1
@@ -85,6 +90,8 @@ def _parse_args(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--preset", default="demo", choices=["demo", "full"])
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--device", default=None,
@@ -99,11 +106,14 @@ def main(argv=None):
             "--multi-pod needs the mesh, which is not ported yet (ROADMAP "
             "Queue 1, item 5, slice 8)")
     run = build_run(args.arch, args.preset, args.shape, args.steps,
-                    args.device)
+                    args.device, layers=args.layers)
     cfg, data = run.cfg, run.data
     device = run.model.device
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
+    if args.layers is not None:
+        print(f"depth cut from {configs.get(args.arch).num_layers} to "
+              f"{cfg.num_layers} layers", flush=True)
     print(f"model: {cfg.name} preset={args.preset} layers={cfg.num_layers} "
           f"d_model={cfg.d_model} vocab={cfg.vocab_size} dtype={cfg.dtype} "
           f"remat={cfg.remat} device={device} ({name})", flush=True)

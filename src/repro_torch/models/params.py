@@ -18,7 +18,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-__all__ = ["ParamSpec", "ParamTree", "init_from_specs", "spec_bytes"]
+__all__ = ["ParamSpec", "ParamTree", "init_from_specs", "fill_from_specs",
+           "spec_bytes", "FILL_CHUNK"]
+
+# the most float32 values `fill_from_specs` draws at once (1 GiB)
+FILL_CHUNK = 1 << 28
 
 
 class ParamSpec:
@@ -76,6 +80,60 @@ def init_from_specs(specs, generator: torch.Generator, device):
                 for name, s in tree.items()}
 
     return walk(specs)
+
+
+@torch.no_grad()
+def fill_from_specs(specs, params, generator: torch.Generator) -> None:
+    """Write `init_from_specs(specs, generator, ...)`'s values into
+    `params` in place: a tree of the spec's names whose leaves are tensors,
+    where a list of like trees (a model's layers) stands for a spec stacked
+    on a leading 'layers' axis (`DecoderLM.param_tree`).
+
+    The leaves are drawn in the spec tree's order, from the same generator
+    stream, and a leaf of at most FILL_CHUNK values in one draw, as
+    `init_from_specs` draws it: such a leaf gets `init_from_specs`' bits.
+    A larger leaf is drawn in pieces of FILL_CHUNK values in its element
+    order, so that no leaf is ever held whole in float32 beside the
+    parameters: it gets other values of the same distribution (a
+    truncated-normal draw depends on the size of the tensor drawn).
+    """
+    def leaf(s: ParamSpec, tensors):
+        if s.init_scale == 0.0 or (len(s.shape) <= 1 and s.init_scale != -1.0):
+            for t in tensors:
+                t.zero_()
+            return
+        if len(s.shape) <= 1:
+            for t in tensors:
+                t.fill_(1)
+            return
+        std = s.init_scale / math.sqrt(max(math.prod(s.shape[:-1]), 1))
+        flat = [t.view(-1) for t in tensors]
+        total = sum(t.numel() for t in flat)
+        ti = off = 0                   # the tensor and offset written next
+        for start in range(0, total, FILL_CHUNK):
+            n = min(FILL_CHUNK, total - start)
+            val = torch.empty(n, dtype=torch.float32, device=generator.device)
+            nn.init.trunc_normal_(val, 0.0, 1.0, -2.0, 2.0,
+                                  generator=generator)
+            val = val * std
+            done = 0
+            while done < n:
+                m = min(n - done, flat[ti].numel() - off)
+                flat[ti][off:off + m].copy_(val[done:done + m])
+                done, off = done + m, off + m
+                if off == flat[ti].numel():
+                    ti, off = ti + 1, 0
+
+    def walk(spec, target):
+        for name, s in spec.items():
+            sub = [t[name] for t in target] if isinstance(target, list) \
+                else target[name]
+            if isinstance(s, ParamSpec):
+                leaf(s, sub if isinstance(sub, list) else [sub])
+            else:
+                walk(s, sub)
+
+    walk(specs, params)
 
 
 class ParamTree(nn.Module):

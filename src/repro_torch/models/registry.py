@@ -1,9 +1,9 @@
 """Model registry: family -> model class (the reference's
 `models/registry.py`).
 
-The port serves the dense family.  Every other family raises, naming the
-slice of ROADMAP Queue 1, item 5 that brings it; `configs.get` refuses no
-family, so this is where an unported one stops.
+The port runs the dense and MoE families.  Every other family raises,
+naming the slice of ROADMAP Queue 1, item 5 that brings it; `configs.get`
+refuses no family, so this is where an unported one stops.
 """
 
 from __future__ import annotations
@@ -13,11 +13,10 @@ from repro_torch.models.transformer import DecoderLM
 
 __all__ = ["build_model", "FAMILIES", "PENDING"]
 
-FAMILIES = {"dense": DecoderLM}
+FAMILIES = {"dense": DecoderLM, "moe": DecoderLM}
 
 # family -> where ROADMAP Queue 1, item 5 ports it
 PENDING = {
-    "moe": "slice 3 (the MoE family)",
     "vlm": "slice 4 (the VLM stub)",
     "hybrid": "slice 5 (SSM/hybrid)",
     "ssm": "slice 6 (xLSTM)",

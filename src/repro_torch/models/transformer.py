@@ -1,18 +1,23 @@
 """Decoder-only LM: GQA blocks, the training loss, prefill and ragged decode
-with a KV cache (the reference's `models/transformer.py`, dense path).
+with a KV cache (the reference's `models/transformer.py`, dense and MoE
+paths).
 
 `DecoderLM` is an `nn.Module` whose parameters mirror the reference's tree
-(`param_specs`), one `ParamTree` a layer in an `nn.ModuleList`.  The layers
-run as a Python loop.  `loss` follows the reference's rematerialisation
-(`remat_wrap`, `cfg.remat`, `cfg.scan_group`) with `torch.utils.checkpoint`:
+(`param_specs`), one `ParamTree` a layer in an `nn.ModuleList`.  The MoE
+family's layers carry `models.moe`'s layer in place of the MLP, behind
+`cfg.first_dense_layers` dense layers (`dense_layers`, run first; their
+KV cache is the cache's "dense" part); each MoE layer's router loss is
+summed into the loss's "aux".  The layers run as a Python loop.  `loss`
+follows the reference's rematerialisation (`remat_wrap`, `cfg.remat`,
+`cfg.scan_group`) with `torch.utils.checkpoint`:
 "full" recomputes each layer in the backward, "dots" saves the outputs of
 its matrix products without batch dimensions and recomputes the rest, and
 `scan_group` > 1 checkpoints groups of layers around per-layer checkpoints.
 The reference's `hoist_barrier` has no counterpart: it is a fence for XLA
 (stopping hoisted upcasts), not mathematics.  Nor do its `ctx`/`constraint`
 sharding hooks: this module is single-device, and `ShardCtx` comes with the
-multi-card LM slice.  The MoE layers and the vision projection raise until
-their slices land (ROADMAP Queue 1, item 5).
+multi-card LM slice.  The vision projection raises until its slice lands
+(ROADMAP Queue 1, item 5, slice 4).
 
 Parameters are made with requires_grad=False; `training.train_loop.
 init_state` switches them on.  `prefill` and `decode_step` run under
@@ -36,7 +41,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.nekbone import resolve_device
-from repro_torch.models import attention, rope
+from repro_torch.models import attention, moe as moe_mod, rope
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embedding_spec, linear,
                                        linear_spec, rms_norm, rms_norm_spec)
@@ -170,22 +175,32 @@ def mlp_apply(p, x):
     return linear(p["w_down"], h)
 
 
-def layer_spec(cfg: ModelConfig, dtype):
-    return {
+def layer_spec(cfg: ModelConfig, dtype, use_moe: bool):
+    spec = {
         "ln1": rms_norm_spec(cfg.d_model),
         "attn": attn_spec(cfg, dtype),
         "ln2": rms_norm_spec(cfg.d_model),
-        "mlp": mlp_spec(cfg, dtype),
     }
+    if use_moe:
+        spec["moe"] = moe_mod.moe_spec(cfg, dtype)
+    else:
+        spec["mlp"] = mlp_spec(cfg, dtype)
+    return spec
 
 
 def layer_apply(p, x, cfg: ModelConfig, positions, rope_tab):
-    """One block over a whole sequence; returns (x, (k, v))."""
+    """One block over a whole sequence; returns (x, the float32 router
+    loss (0 for a dense block), (k, v))."""
     a, kv = attn_apply(p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
                        positions, rope_tab)
     x = x + a
     h = rms_norm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h), kv
+    if "moe" in p:
+        m, aux = moe_mod.moe_apply(p["moe"], h, cfg)
+    else:
+        m = mlp_apply(p["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + m, aux, kv
 
 
 def layer_decode(p, x, cfg: ModelConfig, k_cache, v_cache, cur_len,
@@ -194,6 +209,8 @@ def layer_decode(p, x, cfg: ModelConfig, k_cache, v_cache, cur_len,
                     k_cache, v_cache, cur_len, rope_tab)
     x = x + a
     h = rms_norm(p["ln2"], x, cfg.norm_eps)
+    if "moe" in p:
+        return x + moe_mod.moe_apply(p["moe"], h, cfg)[0]
     return x + mlp_apply(p["mlp"], h)
 
 
@@ -203,20 +220,16 @@ def _unstack(tree, i: int):
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder LM (the reference's MoE and VLM branches raise).
+    """Dense and MoE decoder LM (the reference's VLM branch raises).
 
     Its parameters live on `device` (the CUDA device unless the caller
     names another; "meta" gives shapes without allocating) and start
-    uninitialised: fill them with `load_params(init_from_specs(...))` or
-    `convert.lm_params_from_numpy`.
+    uninitialised: fill them with `params.fill_from_specs`,
+    `load_params` or `convert.lm_params_from_numpy`.
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue "
-                f"1, item 5, slice 3)")
         if cfg.vision_patches:
             raise NotImplementedError(
                 f"{cfg.name}: the vision projection is not ported yet "
@@ -226,9 +239,13 @@ class DecoderLM(nn.Module):
         self.dtype = _DTYPES[cfg.dtype]
         spec = self.param_specs()
         self.embed = ParamTree(spec["embed"], device)
+        n_dense = self._n_dense()
+        self.dense_layers = nn.ModuleList(
+            ParamTree(layer_spec(cfg, self.dtype, use_moe=False), device)
+            for _ in range(n_dense))
         self.layers = nn.ModuleList(
-            ParamTree(layer_spec(cfg, self.dtype), device)
-            for _ in range(cfg.num_layers))
+            ParamTree(layer_spec(cfg, self.dtype, cfg.is_moe), device)
+            for _ in range(cfg.num_layers - n_dense))
         self.ln_f = ParamTree(spec["ln_f"], device)
         self.head = ParamTree(spec["head"], device) if "head" in spec \
             else None
@@ -242,16 +259,24 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed["table"].device
 
+    def _n_dense(self) -> int:
+        return self.cfg.first_dense_layers if self.cfg.is_moe else 0
+
     # ---------------------------------------------------------- specs ----
     def param_specs(self) -> Dict:
-        """The reference's parameter tree (dense path), layers stacked along
+        """The reference's parameter tree, each stack's layers stacked along
         a leading 'layers' axis; the rope table is a buffer, not in it."""
         cfg, dt = self.cfg, self.dtype
+        n_dense = self._n_dense()
         spec = {
             "embed": embedding_spec(cfg.padded_vocab, cfg.d_model, dtype=dt),
-            "layers": stack_specs(layer_spec(cfg, dt), cfg.num_layers),
+            "layers": stack_specs(layer_spec(cfg, dt, cfg.is_moe),
+                                  cfg.num_layers - n_dense),
             "ln_f": rms_norm_spec(cfg.d_model),
         }
+        if n_dense:
+            spec["dense_layers"] = stack_specs(
+                layer_spec(cfg, dt, use_moe=False), n_dense)
         if not cfg.tie_embeddings:
             spec["head"] = linear_spec(cfg.d_model, cfg.padded_vocab,
                                        ("fsdp", "vocab"), dtype=dt)
@@ -259,10 +284,14 @@ class DecoderLM(nn.Module):
 
     def param_tree(self) -> Dict:
         """The parameters themselves as `param_specs`' tree, with "layers"
-        a list of per-layer trees (the reference stacks them)."""
+        and "dense_layers" lists of per-layer trees (the reference stacks
+        them)."""
         tree = {"embed": self.embed.tree(),
                 "layers": [layer.tree() for layer in self.layers],
                 "ln_f": self.ln_f.tree()}
+        if len(self.dense_layers):
+            tree["dense_layers"] = [layer.tree()
+                                    for layer in self.dense_layers]
         if self.head is not None:
             tree["head"] = self.head.tree()
         return tree
@@ -273,8 +302,9 @@ class DecoderLM(nn.Module):
         if set(params) != expected:
             raise KeyError(f"parameter tree has {sorted(params)}, the model "
                            f"{sorted(expected)}")
-        for i, layer in enumerate(self.layers):
-            layer.load(_unstack(params["layers"], i))
+        for stack in ("layers", "dense_layers"):
+            for i, layer in enumerate(getattr(self, stack)):
+                layer.load(_unstack(params[stack], i))
         self.embed.load(params["embed"])
         self.ln_f.load(params["ln_f"])
         if self.head is not None:
@@ -288,53 +318,70 @@ class DecoderLM(nn.Module):
 
     # ----------------------------------------------------------- train ----
     def _stack(self, x, positions):
-        """The layers over a whole sequence under `cfg.remat`; with
-        `cfg.scan_group` > 1 dividing the layer count, groups of that many
-        layers are checkpointed around their per-layer checkpoints (the
+        """The dense layers, then the layers, over a whole sequence under
+        `cfg.remat`; returns (x, the router losses summed).  With
+        `cfg.scan_group` > 1 dividing the count of `layers`, groups of that
+        many are checkpointed around their per-layer checkpoints (the
         reference's two-level scan)."""
         cfg = self.cfg
 
         def one(xc, lp):
-            return layer_apply(lp, xc, cfg, positions, self.rope_table)[0]
+            return layer_apply(lp, xc, cfg, positions, self.rope_table)[:2]
 
         step = remat_wrap(one, cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in self.dense_layers:
+            x, a = step(x, lp)
+            aux = aux + a
         layers = list(self.layers)
         g = cfg.scan_group
         if g > 1 and len(layers) % g == 0:
             def group_body(xc, group):
+                total = torch.zeros((), dtype=torch.float32,
+                                    device=xc.device)
                 for lp in group:
-                    xc = step(xc, lp)
-                return xc
+                    xc, a = step(xc, lp)
+                    total = total + a
+                return xc, total
 
             group_step = remat_wrap(group_body, cfg.remat)
             for i in range(0, len(layers), g):
-                x = group_step(x, layers[i:i + g])
-            return x
+                x, a = group_step(x, layers[i:i + g])
+                aux = aux + a
+            return x, aux
         for lp in layers:
-            x = step(x, lp)
-        return x
+            x, a = step(x, lp)
+            aux = aux + a
+        return x, aux
 
     def loss(self, batch):
         """batch {"tokens": (B, S) integer tensor} -> (loss, {"ce", "aux"}):
         the mean next-token CE (`chunked_ce`) plus router_aux_weight times
-        the router's auxiliary loss, which is 0 for the dense family."""
+        the routers' auxiliary losses summed over the layers (0 for the
+        dense family)."""
         cfg = self.cfg
         x, positions = self._embed_inputs(batch)
-        x = self._stack(x, positions)
+        x, aux = self._stack(x, positions)
         x = rms_norm(self.ln_f, x, cfg.norm_eps)
         ce = chunked_ce(x, batch["tokens"][:, 1:], self.embed, self.head,
                         cfg.vocab_size)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
     # ----------------------------------------------------------- serve ----
+    def _stacks(self):
+        """(cache part, layers) in the order they run."""
+        parts = [("dense", self.dense_layers)] if len(self.dense_layers) \
+            else []
+        return parts + [("main", self.layers)]
+
     def cache_spec(self, batch: int, max_len: int):
-        """{"main": {"k", "v"}}: (L, B, max_len, KV, Dh) meta tensors."""
-        shape = (self.cfg.num_layers, batch, max_len, self.cfg.num_kv_heads,
-                 self.cfg.resolved_head_dim)
-        return {"main": {name: torch.empty(shape, dtype=self.dtype,
-                                           device="meta")
-                         for name in ("k", "v")}}
+        """{"main": {"k", "v"}} and, with dense layers ahead of the MoE
+        ones, {"dense": {"k", "v"}}: (L, B, max_len, KV, Dh) meta tensors,
+        L the part's layers."""
+        return {part: {name: torch.empty(
+            (len(layers), batch, max_len, self.cfg.num_kv_heads,
+             self.cfg.resolved_head_dim), dtype=self.dtype, device="meta")
+            for name in ("k", "v")} for part, layers in self._stacks()}
 
     @torch.no_grad()
     def prefill(self, batch):
@@ -343,17 +390,21 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         x, positions = self._embed_inputs(batch)
         b, s = x.shape[:2]
-        shape = (cfg.num_layers, b, s, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        ks = torch.zeros(shape, dtype=self.dtype, device=x.device)
-        vs = torch.zeros(shape, dtype=self.dtype, device=x.device)
-        for li, lp in enumerate(self.layers):
-            x, (k, v) = layer_apply(lp, x, cfg, positions, self.rope_table)
-            ks[li] = k
-            vs[li] = v
+        cache = {}
+        for part, layers in self._stacks():
+            shape = (len(layers), b, s, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            ks = torch.zeros(shape, dtype=self.dtype, device=x.device)
+            vs = torch.zeros(shape, dtype=self.dtype, device=x.device)
+            for li, lp in enumerate(layers):
+                x, _, (k, v) = layer_apply(lp, x, cfg, positions,
+                                           self.rope_table)
+                ks[li] = k
+                vs[li] = v
+            cache[part] = {"k": ks, "v": vs}
         x = rms_norm(self.ln_f, x, cfg.norm_eps)
         lg = project_logits(x[:, -1:], self.embed, self.head, cfg.vocab_size)
-        return lg, {"main": {"k": ks, "v": vs}}
+        return lg, cache
 
     @torch.no_grad()
     def decode_step(self, token, cache, cur_len):
@@ -363,10 +414,11 @@ class DecoderLM(nn.Module):
         (masked float32 logits (B, 1, V_padded), cache)."""
         cfg = self.cfg
         x = embed(self.embed, token, self.dtype)
-        ks, vs = cache["main"]["k"], cache["main"]["v"]
-        for li, lp in enumerate(self.layers):
-            x = layer_decode(lp, x, cfg, ks[li], vs[li], cur_len,
-                             self.rope_table)
+        for part, layers in self._stacks():
+            ks, vs = cache[part]["k"], cache[part]["v"]
+            for li, lp in enumerate(layers):
+                x = layer_decode(lp, x, cfg, ks[li], vs[li], cur_len,
+                                 self.rope_table)
         x = rms_norm(self.ln_f, x, cfg.norm_eps)
         lg = project_logits(x, self.embed, self.head, cfg.vocab_size)
         return lg, cache

@@ -46,7 +46,8 @@ PORT_SCRIPTS = [ROOT / "chip_smoke.py",
                 ROOT / "scripts" / "main_path_turns.py",
                 ROOT / "scripts" / "slab_phase_probe.py",
                 ROOT / "scripts" / "sharded_spread.py",
-                ROOT / "scripts" / "lm_train_trace.py"]
+                ROOT / "scripts" / "lm_train_trace.py",
+                ROOT / "scripts" / "lm_serve_moe_trace.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + PORT_SCRIPTS,
@@ -108,11 +109,13 @@ for r in lm_reqs:
 engine.run_until_drained()
 assert all(len(r.output) == 3 for r in lm_reqs)
 from repro_torch.launch.train import build_run
-run = build_run("qwen3-0.6b", "demo", steps=2, device="cpu")
-state = run.state
-for i in range(2):
-    state, m = run.step(state, run.data.batch_at(i))
-assert int(state["step"]) == 2 and bool(m["loss"].isfinite())
+for arch in ("qwen3-0.6b", "moonshot-v1-16b-a3b"):
+    run = build_run(arch, "demo", steps=2, device="cpu")
+    state = run.state
+    for i in range(2):
+        state, m = run.step(state, run.data.batch_at(i))
+    assert int(state["step"]) == 2 and bool(m["loss"].isfinite())
+assert float(m["aux"]) > 0.9
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print("ok", int(res.iterations))
 """
