@@ -8,8 +8,11 @@ bf16-storage kernels, with single and stacked right-hand sides, and the
 solve service that batches requests into bucketed block solves; LM
 serving, qwen3-0.6b at full width behind the continuous-batching engine;
 LM training of qwen3-0.6b at full width, with checkpoints and restarts;
-and the MoE family, moonshot-v1-16b-a3b served at full width and full
-depth and trained at full width with its depth cut
+the MoE family, moonshot-v1-16b-a3b served at full width and full
+depth and trained at full width with its depth cut; the hybrid family,
+zamba2-2.7b served at full width and full depth and trained at full
+width; and the VLM stub, phi-3-vision-4.2b prefilled with patches,
+decoded and trained at full width
 — through the entry points a user calls (`setup_problem`,
 `rhs_from_solution`, `solve`, `resilience.retry.solve_resilient`,
 `serving.solve_service.SolveService`, `launch.serve`,
@@ -329,6 +332,35 @@ each:
               FLOP bound over the active parameters and its share; the
               reduced config restarted twice under `run_resilient`,
               bitwise the uninterrupted run
+  6l. lm_serve_hybrid  the hybrid family behind the engine: zamba2-2.7b
+              at full width and full depth (54 Mamba-2 blocks, the shared
+              attention block at 9 sites; 2,422,532,000 parameters; bf16,
+              weights from `torch.Generator` seed 0) with lm_serve's
+              warm-up and timed streams: every request done with 16
+              tokens, tokens a second, decode-step ms (median, quartiles)
+              beside its byte bound (the weights, the shared block read
+              again at each further site, every block's ssm and conv
+              states read and written, the KV cache, the logits, over
+              PEAK_BYTES_PER_S), prefill ms an admission, peak memory;
+              lm_serve's logit check against a float32 copy of the whole
+              model (LM_F32_BOUND, LM_BF16_BOUND)
+  6m. lm_train_hybrid  zamba2-2.7b through `launch/train.py --preset full`
+              at full depth: lm_train's batch, sequence and microbatches, 6
+              float32 AdamW steps (one a warm-up) and 3 8-bit ones on the
+              host clock, step 0 the same in both, 8-bit losses within
+              LM_TRAIN_8BIT_BOUND; tokens a second, peak memory, optimizer
+              state bytes; the step's FLOP bound (bf16 products at
+              PEAK_BF16_FLOP_PER_S plus the SSD's float32 products at
+              PEAK_FP32_FLOP_PER_S) and its share; the reduced config
+              restarted twice, bitwise the uninterrupted run
+  6n. lm_vlm  phi-3-vision-4.2b at full width and full depth (3,825,404,928
+              parameters; bf16): a prefill at batch LM_VLM_BATCH of 144
+              patches of width 1024 and LM_VLM_TEXT text tokens (numpy
+              seed 1), 16 greedy decode steps through `decode_step` (ms
+              each, beside the step's byte bound), every step's logits
+              against a float32 copy's prefill of the longer sequence and
+              the copy's own decode steps (LM_F32_BOUND, LM_BF16_BOUND);
+              then trained at full depth as lm_train_hybrid
   7. the `kernels` line (ten entry points, each launched on its main
      path and, as `launches_sharded`, on the sharded ones, psum and
      neighbour exchange together, and as `launches_serve` by the served
@@ -653,6 +685,31 @@ LM_MOE_BF16_BOUND = 1e-1
 # 8-bit AdamW for lm_train's steps; the reduced config restarted at
 # lm_train's failures, bitwise the uninterrupted run.
 LM_MOE_TRAIN_LAYERS = 3
+# The lm_serve_hybrid phase: zamba2-2.7b at full width and full depth (54
+# Mamba-2 blocks, the shared attention block at 9 sites; its parameters and
+# weight bytes: a_log, dt_bias, d_skip and the norm scales are float32)
+# behind the engine with lm_serve's stream, its logits checked as
+# lm_serve's are (a float32 copy of the whole model fits beside it).
+LM_HYBRID_ARCH = "zamba2-2.7b"
+LM_HYBRID_PARAMS = 2_422_532_000
+LM_HYBRID_WEIGHT_BYTES = 4_845_658_240
+# The lm_train_hybrid phase: `launch/train.py --preset full` of zamba2 at
+# full depth (its float32 AdamW state and the checkpointed blocks fit in
+# 80 GB); lm_train's steps, float32 then 8-bit AdamW, and the reduced
+# config restarted at lm_train's failures.
+# The lm_vlm phase: phi-3-vision-4.2b at full width and full depth, bf16:
+# a prefill at batch LM_VLM_BATCH of 144 patches (width 1024) and
+# LM_VLM_TEXT text tokens, then LM_NEW_TOKENS greedy decode steps through
+# `decode_step` (no engine: it takes token prompts only), the logits held
+# against a float32 copy's prefill of each longer sequence (LM_F32_BOUND,
+# LM_BF16_BOUND); then `launch/train.py --preset full` at full depth, as
+# lm_train_hybrid.
+LM_VLM_ARCH = "phi-3-vision-4.2b"
+LM_VLM_PARAMS = 3_825_404_928
+LM_VLM_WEIGHT_BYTES = 7_651_209_216
+LM_VLM_BATCH = 8
+LM_VLM_TEXT = 48
+LM_VLM_MAX_LEN = 256
 
 
 def ulp_distance(a, b):
@@ -1256,7 +1313,7 @@ def decode_logit_ratio(m, wide, prompts, forced, dev) -> float:
         _, c1 = m.prefill({"tokens": torch.as_tensor(p[None], device=dev)})
         for part, leaves in c1.items():
             for n, small in leaves.items():
-                cache[part][n][:, slot, :len(p)] = small[:, 0]
+                cache[part][n][:, slot, :small.shape[2]] = small[:, 0]
     lengths = np.array([len(p) for p in prompts])
     worst_d, worst_ref = 0.0, 0.0
     for t in range(forced.shape[1]):
@@ -1297,6 +1354,77 @@ def recorded_routes(into: list):
         moe._route = real
 
 
+def _memory_base() -> int:
+    """Free what earlier work left and reset the peak; the bytes still
+    allocated."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _quartiles(values):
+    q1, _, q3 = statistics.quantiles(values, n=4)
+    return {"median": statistics.median(values), "q1": q1, "q3": q3}
+
+
+def _timed_steps(run, n):
+    """n steps of a `launch.train` run on the host clock (a synchronize()
+    at each end): the state and a row of metrics a step."""
+    import torch
+
+    rows, state = [], run.state
+    for i in range(n):
+        batch = run.data.batch_at(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = run.step(state, batch)
+        torch.cuda.synchronize()
+        rows.append({"step_ms": (time.perf_counter() - t) * 1e3,
+                     **{k: float(m[k]) for k in
+                        ("loss", "ce", "aux", "grad_norm", "lr")}})
+    return state, rows
+
+
+def _reduced_restart_bitwise(arch: str, dev, phase: str) -> dict:
+    """The reduced config of `arch` under `run_resilient` with failures at
+    LM_TRAIN_FAIL_AT, against an uninterrupted run: the history and
+    whether the final states are bitwise the same."""
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.fault_tolerance import (FailureInjector,
+                                                      run_resilient)
+
+    finals = {}
+    for name, inj in (("plain", None),
+                      ("faults", FailureInjector(fail_at=LM_TRAIN_FAIL_AT))):
+        r = launch_train.build_run(arch, "demo", steps=40, device=dev,
+                                   lr=1e-2, warmup=2)
+        with tempfile.TemporaryDirectory() as tmp:
+            final, hist = run_resilient(r.step, r.state, r.data.batch_at,
+                                        num_steps=LM_TRAIN_RESTART_STEPS,
+                                        ckpt_dir=tmp, ckpt_every=5,
+                                        injector=inj)
+        finals[name] = (final, hist)
+    hist = finals["faults"][1]
+    require(hist["restarts"] == len(LM_TRAIN_FAIL_AT) and
+            int(finals["faults"][0]["step"]) == LM_TRAIN_RESTART_STEPS,
+            f"{phase}: restarted run {hist}")
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        opt_mod.tree_leaves(finals["plain"][0]),
+        opt_mod.tree_leaves(finals["faults"][0])))
+    require(bitwise, f"{phase}: the reduced config's restarted state is "
+            f"not bitwise the uninterrupted run's")
+    return {"history": hist, "bitwise": bitwise}
+
+
 def lm_serve_phase(dev, card: str) -> None:
     """Phase 6h: qwen3-0.6b at full width behind the LM serving engine, and
     its decode logits against a float32 full forward (see the docstring)."""
@@ -1313,10 +1441,7 @@ def lm_serve_phase(dev, card: str) -> None:
     require((cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.dtype) ==
             (28, 1024, 151_936, "bfloat16"),
             f"lm_serve: {LM_ARCH} is not the full-width bf16 config: {cfg}")
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    mem_start = torch.cuda.memory_allocated()
+    mem_start = _memory_base()
     t0 = time.perf_counter()
     model = build_served_model(cfg, dev, seed=0)
     torch.cuda.synchronize()
@@ -1430,8 +1555,6 @@ def lm_serve_phase(dev, card: str) -> None:
 def lm_train_phase(dev, card: str) -> None:
     """Phase 6i: LM training through `launch/train.py`'s path (see the
     docstring)."""
-    import gc
-
     import torch
 
     from repro_torch.data.pipeline import SyntheticLM
@@ -1446,13 +1569,6 @@ def lm_train_phase(dev, card: str) -> None:
                                                  make_train_step)
 
     t_phase = time.perf_counter()
-
-    def memory_base() -> int:
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        return torch.cuda.memory_allocated()
 
     def nbytes(tree) -> int:
         return sum(t.numel() * t.element_size()
@@ -1500,14 +1616,10 @@ def lm_train_phase(dev, card: str) -> None:
                       "bytes": os.path.getsize(Path(path) / "arrays.npz")})
         return path
 
-    def quartiles(values):
-        q1, med, q3 = statistics.quantiles(values, n=4)
-        return {"median": statistics.median(values), "q1": q1, "q3": q3}
-
     opt_mod.clip_by_global_norm, checkpoint.save = marked_clip, timed_save
     try:
         # 1. full width, float32 AdamW, through run_resilient
-        base = memory_base()
+        base = _memory_base()
         run = launch_train.build_run(LM_ARCH, "full", steps=LM_TRAIN_STEPS,
                                      device=dev)
         cfg, data = run.cfg, run.data
@@ -1538,10 +1650,10 @@ def lm_train_phase(dev, card: str) -> None:
         peak = torch.cuda.max_memory_allocated() - base
         del run, state
         timed_rows = rows[1:]
-        step_q = quartiles([r["step_ms"] for r in timed_rows])
+        step_q = _quartiles([r["step_ms"] for r in timed_rows])
 
         # 2. the same at 8-bit AdamW
-        base = memory_base()
+        base = _memory_base()
         run8 = launch_train.build_run(LM_ARCH, "full", steps=LM_TRAIN_STEPS,
                                       device=dev, eight_bit_optimizer=True)
         rows8, state8 = [], run8.state
@@ -1562,7 +1674,7 @@ def lm_train_phase(dev, card: str) -> None:
         opt_mod.clip_by_global_norm, checkpoint.save = real_clip, real_save
 
     # 3. bf16 against float32 on the bf16-rounded weights
-    memory_base()
+    _memory_base()
     check = SyntheticLM(cfg, batch=1, seq=LM_TRAIN_CHECK_SEQ, seed=1,
                         device=dev).batch_at(0)
     tcfg = TrainConfig(total_steps=LM_TRAIN_STEPS)
@@ -1586,7 +1698,7 @@ def lm_train_phase(dev, card: str) -> None:
             f"{gnorm_rel:.3e} from float32 > {LM_TRAIN_GNORM_BOUND}")
 
     # 4. the reduced config: learning, and a restarted run
-    memory_base()
+    _memory_base()
     small = launch_train.build_run(LM_ARCH, "demo", steps=60, device=dev,
                                    lr=1e-2, warmup=5, grad_accum=2)
     learn, small_state = [], small.state
@@ -1643,8 +1755,8 @@ def lm_train_phase(dev, card: str) -> None:
           "grad_accum": accum,
           "steps": LM_TRAIN_STEPS, "warmup_steps": 1,
           "step_ms": step_q,
-          "fwd_bwd_ms": quartiles([r["fwd_bwd_ms"] for r in timed_rows]),
-          "clip_update_ms": quartiles([r["clip_update_ms"]
+          "fwd_bwd_ms": _quartiles([r["fwd_bwd_ms"] for r in timed_rows]),
+          "clip_update_ms": _quartiles([r["clip_update_ms"]
                                        for r in timed_rows]),
           "warmup_step_ms": rows[0]["step_ms"],
           "tokens_per_s": b * s / (step_q["median"] / 1e3),
@@ -1706,11 +1818,7 @@ def lm_serve_moe_phase(dev, card: str) -> None:
             (48, 2048, 163_840, "bfloat16", 64, 6, 1408, 2, 1),
             f"lm_serve_moe: {LM_MOE_ARCH} is not the full bf16 config: "
             f"{cfg}")
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    mem_start = torch.cuda.memory_allocated()
+    mem_start = _memory_base()
     t0 = time.perf_counter()
     model = build_served_model(cfg, dev, seed=0)
     torch.cuda.synchronize()
@@ -1900,160 +2008,469 @@ def lm_serve_moe_phase(dev, card: str) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
-def lm_train_moe_phase(dev, card: str) -> None:
-    """Phase 6k: moonshot-v1-16b-a3b trained at full width, its depth cut
-    (see the docstring)."""
-    import gc
-
+def lm_train_family(dev, phase: str, arch: str, layers, flops_of,
+                    check_rows=None) -> dict:
+    """`launch/train.py --preset full [--layers L]`'s run of `arch`
+    (lm_train's batch, sequence and microbatches, remat "full"):
+    LM_TRAIN_STEPS float32 AdamW steps (the first a warm-up) and
+    LM_TRAIN_8BIT_STEPS 8-bit ones on the host clock, step 0's loss equal
+    in both and the 8-bit losses within LM_TRAIN_8BIT_BOUND; the reduced
+    config restarted; the step's FLOP bound.  `flops_of(model, batch, seq)`
+    checks the family's shape and returns ({"bf16": n, "f32": n}, the
+    family's fields of the line); each type's products count at its peak.
+    `check_rows(rows, rows8)`, where given, holds the family's own metrics
+    and returns more fields.  Returns the fields of the phase's line."""
     import torch
 
     from repro_torch import configs
     from repro_torch.launch import train as launch_train
     from repro_torch.models.config import SHAPE_CASES
     from repro_torch.training import optimizer as opt_mod
-    from repro_torch.training.fault_tolerance import (FailureInjector,
-                                                      run_resilient)
 
-    t_phase = time.perf_counter()
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in opt_mod.tree_leaves(tree))
 
-    def memory_base() -> int:
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        return torch.cuda.memory_allocated()
-
-    def run_steps(run, n):
-        rows, state = [], run.state
-        for i in range(n):
-            batch = run.data.batch_at(i)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            state, m = run.step(state, batch)
-            torch.cuda.synchronize()
-            rows.append({"step_ms": (time.perf_counter() - t) * 1e3,
-                         **{k: float(m[k]) for k in
-                            ("loss", "ce", "aux", "grad_norm", "lr")}})
-        return state, rows
-
-    def quartiles(values):
-        q1, _, q3 = statistics.quantiles(values, n=4)
-        return {"median": statistics.median(values), "q1": q1, "q3": q3}
-
-    # 1. full width, the depth cut, float32 AdamW
-    base = memory_base()
-    run = launch_train.build_run(LM_MOE_ARCH, "full", steps=LM_TRAIN_STEPS,
-                                 device=dev, layers=LM_MOE_TRAIN_LAYERS)
-    cfg, data, model = run.cfg, run.data, run.model
-    require((cfg.num_layers, len(model.dense_layers), len(model.layers),
-             cfg.d_model, cfg.num_experts, cfg.experts_per_token,
-             cfg.vocab_size, cfg.dtype, cfg.remat) ==
-            (LM_MOE_TRAIN_LAYERS, 1, LM_MOE_TRAIN_LAYERS - 1, 2048, 64, 6,
-             163_840, "bfloat16", "full"),
-            f"lm_train_moe: not the full-width cut of {LM_MOE_ARCH}: {cfg}")
+    full = configs.get(arch)
+    base = _memory_base()
+    run = launch_train.build_run(arch, "full", steps=LM_TRAIN_STEPS,
+                                 device=dev, layers=layers)
+    cfg, data = run.cfg, run.data
+    if layers is not None:
+        print(f"{phase}: depth cut from {full.num_layers} to "
+              f"{cfg.num_layers} layers", flush=True)
+    require((cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.dtype,
+             cfg.remat) == (layers or full.num_layers, full.d_model,
+                            full.vocab_size, "bfloat16", "full"),
+            f"{phase}: not the full-width bf16 config with remat full: {cfg}")
     require((data.batch, data.seq, run.tcfg.grad_accum) == (4, 4096, 2),
-            f"lm_train_moe: the full preset runs batch {data.batch}, seq "
+            f"{phase}: the full preset runs batch {data.batch}, seq "
             f"{data.seq}, grad_accum {run.tcfg.grad_accum}")
-    n_params = sum(p.numel() for p in model.parameters())
-    routed_params = sum(p.numel() for layer in model.layers
-                        for p in layer.moe.experts.parameters())
-    expert_params = routed_params // (len(model.layers) * cfg.num_experts)
-    active = (n_params - routed_params - model.embed["table"].numel() +
-              len(model.layers) * cfg.experts_per_token * expert_params)
-    n_moe = len(model.layers)
+    n_params = sum(p.numel() for p in run.model.parameters())
+    flops, fields = flops_of(run.model, data.batch, data.seq)
     accum = run.tcfg.grad_accum
-    del model
-    state, rows = run_steps(run, LM_TRAIN_STEPS)
+    state, rows = _timed_steps(run, LM_TRAIN_STEPS)
     require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
-                and r["aux"] > 0 for r in rows), f"lm_train_moe: {rows}")
-    opt_bytes = sum(t.numel() * t.element_size()
-                    for t in opt_mod.tree_leaves(state["opt"]))
+                for r in rows), f"{phase}: {rows}")
+    opt_bytes = nbytes(state["opt"])
     peak = torch.cuda.max_memory_allocated() - base
     del run, state
 
-    # 2. the same at 8-bit AdamW: step 0 is the same gradient, bitwise
-    base = memory_base()
-    run8 = launch_train.build_run(LM_MOE_ARCH, "full", steps=LM_TRAIN_STEPS,
-                                  device=dev, layers=LM_MOE_TRAIN_LAYERS,
+    base = _memory_base()
+    run8 = launch_train.build_run(arch, "full", steps=LM_TRAIN_STEPS,
+                                  device=dev, layers=layers,
                                   eight_bit_optimizer=True)
-    state8, rows8 = run_steps(run8, LM_TRAIN_8BIT_STEPS)
-    opt_bytes8 = sum(t.numel() * t.element_size()
-                     for t in opt_mod.tree_leaves(state8["opt"]))
+    state8, rows8 = _timed_steps(run8, LM_TRAIN_8BIT_STEPS)
+    opt_bytes8 = nbytes(state8["opt"])
     peak8 = torch.cuda.max_memory_allocated() - base
     del run8, state8
-    require(all(rows8[0][k] == rows[0][k] for k in ("loss", "aux",
-                                                     "grad_norm")),
-            f"lm_train_moe: 8-bit step 0 {rows8[0]} is not the float32 "
-            f"run's {rows[0]}")
+    require(rows8[0]["loss"] == rows[0]["loss"],
+            f"{phase}: 8-bit step-0 loss {rows8[0]['loss']} != "
+            f"{rows[0]['loss']}")
     rel8 = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
             for a, b in zip(rows8, rows)]
     require(max(rel8) <= LM_TRAIN_8BIT_BOUND,
-            f"lm_train_moe: 8-bit losses {rel8} from the float32 run's")
+            f"{phase}: 8-bit losses {rel8} from the float32 run's")
+    if check_rows is not None:
+        fields = {**fields, **check_rows(rows, rows8)}
 
-    # 3. the reduced config restarted twice against an uninterrupted run
-    memory_base()
-    finals = {}
-    for name, inj in (("plain", None),
-                      ("faults", FailureInjector(fail_at=LM_TRAIN_FAIL_AT))):
-        r = launch_train.build_run(LM_MOE_ARCH, "demo", steps=40, device=dev,
-                                   lr=1e-2, warmup=2)
-        with tempfile.TemporaryDirectory() as tmp:
-            final, hist = run_resilient(r.step, r.state, r.data.batch_at,
-                                        num_steps=LM_TRAIN_RESTART_STEPS,
-                                        ckpt_dir=tmp, ckpt_every=5,
-                                        injector=inj)
-        finals[name] = (final, hist)
-    hist = finals["faults"][1]
-    require(hist["restarts"] == len(LM_TRAIN_FAIL_AT) and
-            int(finals["faults"][0]["step"]) == LM_TRAIN_RESTART_STEPS,
-            f"lm_train_moe: restarted run {hist}")
-    pairs = list(zip(opt_mod.tree_leaves(finals["plain"][0]),
-                     opt_mod.tree_leaves(finals["faults"][0])))
-    restart_bitwise = all(torch.equal(a, b) for a, b in pairs)
-    del finals
-    require(restart_bitwise, "lm_train_moe: the restarted run's state is "
-            "not bitwise the uninterrupted run's")
-
-    # 4. the step's FLOP bound over the active parameters (a token's k
-    # routed experts, the shared ones, attention, the head; no embedding
-    # product) and causal attention, as lm_train counts it
+    _memory_base()
+    restart = _reduced_restart_bitwise(arch, dev, phase)
+    step_q = _quartiles([r["step_ms"] for r in rows[1:]])
+    bound_ms = (flops["bf16"] / PEAK_BF16_FLOP_PER_S +
+                flops["f32"] / PEAK_FP32_FLOP_PER_S) * 1e3
     b, s = data.batch, data.seq
-    h, dh, layers = cfg.num_heads, cfg.resolved_head_dim, cfg.num_layers
-    attn_per_token = 3 * layers * 2 * 2 * (s / 2) * h * dh
-    flops = b * s * (6 * active + attn_per_token)
-    bound_ms = flops / PEAK_BF16_FLOP_PER_S * 1e3
-    timed_rows = rows[1:]
-    step_q = quartiles([r["step_ms"] for r in timed_rows])
-    emit({"phase": "lm_train_moe", "card": card, "arch": cfg.name,
-          "depth_cut": {"layers": layers, "of": configs.get(
-              LM_MOE_ARCH).num_layers, "dense_layers": layers - n_moe,
-              "moe_layers": n_moe},
-          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-          "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
-          "capacity_factor": cfg.capacity_factor, "dtype": cfg.dtype,
-          "remat": cfg.remat, "params": n_params,
-          "active_params": active, "batch": b, "seq": s,
-          "global_batch_cut_from": SHAPE_CASES["train_4k"].global_batch,
-          "grad_accum": accum,
-          "steps": LM_TRAIN_STEPS, "warmup_steps": 1, "step_ms": step_q,
-          "warmup_step_ms": rows[0]["step_ms"],
-          "tokens_per_s": b * s / (step_q["median"] / 1e3),
-          "losses": [r["loss"] for r in rows],
-          "ce": [r["ce"] for r in rows], "aux": [r["aux"] for r in rows],
-          "grad_norms": [r["grad_norm"] for r in rows],
-          "lrs": [r["lr"] for r in rows],
-          "peak_bytes_above_start": peak, "opt_state_bytes": opt_bytes,
-          "eight_bit": {"steps": LM_TRAIN_8BIT_STEPS,
-                        "losses": [r["loss"] for r in rows8],
-                        "loss_rel_to_fp32": rel8,
-                        "bound": LM_TRAIN_8BIT_BOUND,
-                        "step_ms": [r["step_ms"] for r in rows8],
-                        "opt_state_bytes": opt_bytes8,
-                        "peak_bytes_above_start": peak8},
-          "reduced_restart": {"history": hist,
-                              "bitwise": restart_bitwise},
-          "model_flops": flops, "bound_ms": bound_ms, "bound_by": "flops",
+    return {"depth_cut": None if layers is None else {
+                "layers": cfg.num_layers, "of": full.num_layers},
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat,
+            "params": n_params, **fields, "batch": b, "seq": s,
+            "global_batch_cut_from": SHAPE_CASES["train_4k"].global_batch,
+            "grad_accum": accum, "steps": LM_TRAIN_STEPS, "warmup_steps": 1,
+            "step_ms": step_q, "warmup_step_ms": rows[0]["step_ms"],
+            "tokens_per_s": b * s / (step_q["median"] / 1e3),
+            "losses": [r["loss"] for r in rows],
+            "grad_norms": [r["grad_norm"] for r in rows],
+            "lrs": [r["lr"] for r in rows],
+            "peak_bytes_above_start": peak, "opt_state_bytes": opt_bytes,
+            "eight_bit": {"steps": LM_TRAIN_8BIT_STEPS,
+                          "losses": [r["loss"] for r in rows8],
+                          "loss_rel_to_fp32": rel8,
+                          "bound": LM_TRAIN_8BIT_BOUND,
+                          "step_ms": [r["step_ms"] for r in rows8],
+                          "opt_state_bytes": opt_bytes8,
+                          "peak_bytes_above_start": peak8},
+            "reduced_restart": restart,
+            "model_flops": flops, "bound_ms": bound_ms, "bound_by": "flops",
+            "bound_share": bound_ms / step_q["median"]}
+
+
+def moe_train_flops(model, batch: int, seq: int):
+    """The MoE cut's shape (the dense layer, then MoE layers of 64 experts,
+    top-6) and its step's bf16 products over the active parameters (a
+    token's k routed experts, the shared ones, attention, the head; no
+    embedding product) with causal attention, as lm_train counts them."""
+    cfg = model.cfg
+    require((len(model.dense_layers), len(model.layers), cfg.num_experts,
+             cfg.experts_per_token) ==
+            (1, cfg.num_layers - 1, 64, 6),
+            f"lm_train_moe: not the MoE layout of {LM_MOE_ARCH}: {cfg}")
+    n_params = sum(p.numel() for p in model.parameters())
+    routed = sum(p.numel() for layer in model.layers
+                 for p in layer.moe.experts.parameters())
+    expert = routed // (len(model.layers) * cfg.num_experts)
+    active = (n_params - routed - model.embed["table"].numel() +
+              len(model.layers) * cfg.experts_per_token * expert)
+    flops = batch * seq * (6 * active +
+                           _attention_flops(cfg.num_layers, cfg, seq))
+    return {"bf16": flops, "f32": 0}, {
+        "dense_layers": len(model.dense_layers),
+        "moe_layers": len(model.layers), "experts": cfg.num_experts,
+        "top_k": cfg.experts_per_token,
+        "capacity_factor": cfg.capacity_factor, "active_params": active}
+
+
+def moe_train_rows(rows, rows8) -> dict:
+    """The MoE run's aux losses (positive at every step) and its step 0's
+    aux and gradient norm, bitwise the same at 8-bit AdamW."""
+    require(all(r["aux"] > 0 for r in rows), f"lm_train_moe: {rows}")
+    require(all(rows8[0][k] == rows[0][k] for k in ("aux", "grad_norm")),
+            f"lm_train_moe: 8-bit step 0 {rows8[0]} is not the float32 "
+            f"run's {rows[0]}")
+    return {"ce": [r["ce"] for r in rows], "aux": [r["aux"] for r in rows]}
+
+
+def lm_train_moe_phase(dev, card: str) -> None:
+    """Phase 6k: moonshot-v1-16b-a3b trained at full width, its depth cut
+    (see the docstring)."""
+    t_phase = time.perf_counter()
+    line = lm_train_family(dev, "lm_train_moe", LM_MOE_ARCH,
+                           LM_MOE_TRAIN_LAYERS, moe_train_flops,
+                           moe_train_rows)
+    emit({"phase": "lm_train_moe", "card": card, "arch": LM_MOE_ARCH,
+          **line, "seconds": time.perf_counter() - t_phase})
+
+
+def _attention_flops(sites: int, cfg, seq: int) -> float:
+    """A token's causal attention products, forward and backward, at
+    `sites` applications (as lm_train counts them)."""
+    return 3 * sites * 2 * 2 * (seq / 2) * cfg.num_heads * \
+        cfg.resolved_head_dim
+
+
+def hybrid_train_flops(model, batch: int, seq: int):
+    """A hybrid step's products, forward and backward (3 x forward): bf16
+    -- each Mamba block's in_proj and out_proj, the shared block's
+    weights at each of its sites, the head, and attention at the sites;
+    float32 -- the SSD's products: the intra-chunk scores and their
+    product with the inputs over a query's (chunk + 1) / 2 keys (causal,
+    as attention counts s / 2), the chunk states, the inter-chunk term.
+    No fields of its own."""
+    cfg = model.cfg
+    mats = sum(blk["in_proj"]["w"].numel() + blk["out_proj"]["w"].numel()
+               for blk in model.mamba)
+    shared = sum(p.numel() for p in model.shared.parameters())
+    head = model.head["w"].numel()
+    per_token = 6 * (mats + model.groups * shared + head) + \
+        _attention_flops(model.groups, cfg, seq)
+    d_inner = cfg.ssm_expand * cfg.d_model
+    heads, n, p = d_inner // cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_head_dim
+    chunk = min(cfg.ssm_chunk, seq)
+    ssd = 3 * cfg.num_layers * 2 * heads * ((chunk + 1) / 2 * (n + p) +
+                                            2 * n * p)
+    return {"bf16": batch * seq * per_token, "f32": batch * seq * ssd}, {}
+
+
+def vlm_train_flops(model, batch: int, seq: int):
+    """A VLM step's bf16 products, forward and backward: the layers over
+    every position, `vis_proj` over the patches, the head over the text
+    positions, and causal attention.  No fields of its own."""
+    cfg = model.cfg
+    layers = sum(p.numel() for layer in model.layers
+                 for p in layer.parameters() if p.ndim == 2)
+    text = seq - cfg.vision_patches
+    per_step = 6 * (seq * layers + cfg.vision_patches *
+                    model.vis_proj["w"].numel() +
+                    text * model.head["w"].numel()) + \
+        seq * _attention_flops(cfg.num_layers, cfg, seq)
+    return {"bf16": batch * per_step, "f32": 0}, {}
+
+
+def lm_serve_hybrid_phase(dev, card: str) -> None:
+    """Phase 6l: zamba2-2.7b at full width and full depth behind the LM
+    serving engine, and its decode logits against a float32 full forward
+    (see the docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_served_model, make_requests
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(LM_HYBRID_ARCH)
+    require((cfg.family, cfg.num_layers, cfg.attn_every, cfg.d_model,
+             cfg.ssm_state, cfg.vocab_size, cfg.dtype) ==
+            ("hybrid", 54, 6, 2560, 64, 32_000, "bfloat16"),
+            f"lm_serve_hybrid: {LM_HYBRID_ARCH} is not the full bf16 "
+            f"config: {cfg}")
+    mem_start = _memory_base()
+    t0 = time.perf_counter()
+    model = build_served_model(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    sites = model.groups
+    require((n_params, weight_bytes, sites) ==
+            (LM_HYBRID_PARAMS, LM_HYBRID_WEIGHT_BYTES, 9),
+            f"lm_serve_hybrid: {n_params} parameters, {weight_bytes} "
+            f"weight bytes, {sites} sites")
+
+    prefill_ms, step_ms = [], []
+    prefill, decode_step = model.prefill, model.decode_step
+
+    def timed(fn, into):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    def stream():
+        engine = ServeEngine(model, max_len=LM_MAX_LEN, slots=LM_SLOTS,
+                             eos_id=-1)
+        reqs = make_requests(cfg.vocab_size, LM_REQUESTS, LM_NEW_TOKENS)
+        for r in reqs:
+            engine.submit(r)
+        return engine, reqs
+
+    engine, _ = stream()
+    warm_steps = engine.run_until_drained()         # warm-up
+    engine, reqs = stream()
+    model.prefill = timed(prefill, prefill_ms)
+    model.decode_step = timed(decode_step, step_ms)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        del model.prefill, model.decode_step
+    bad = [(r.uid, r.done, len(r.output)) for r in reqs
+           if not r.done or len(r.output) != LM_NEW_TOKENS]
+    require(not bad, f"lm_serve_hybrid: requests not done with "
+            f"{LM_NEW_TOKENS} tokens (uid, done, tokens): {bad}")
+    require(steps == warm_steps == len(step_ms),
+            f"lm_serve_hybrid: {steps} steps ({warm_steps} warm), "
+            f"{len(step_ms)} timed")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(r.output) for r in reqs)
+
+    # a decode step's bytes: the weights, the shared block again at each
+    # further site, every block's ssm and conv states read and written,
+    # the whole KV cache read, the logits written
+    leaf = {f"{part}.{n}": t.numel() * t.element_size()
+            for part, c in engine.cache.items() for n, t in c.items()}
+    shared_bytes = sum(p.numel() * p.element_size()
+                       for p in model.shared.parameters())
+    state_bytes = leaf["mamba.ssm"] + leaf["mamba.conv"]
+    kv_bytes = leaf["attn.k"] + leaf["attn.v"]
+    logit_bytes = LM_SLOTS * cfg.padded_vocab * 4
+    step_bytes = (weight_bytes + (sites - 1) * shared_bytes +
+                  2 * state_bytes + kv_bytes + logit_bytes)
+    bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+    step_q = _quartiles(step_ms)
+    del engine
+
+    # the logits of ragged decode steps against a float32 forward
+    wide = build_model(cfg.replace(dtype="float32"), dev)
+    with torch.no_grad():
+        for mine, theirs in zip(wide.parameters(), model.parameters()):
+            mine.copy_(theirs)                       # the bf16-rounded weights
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n)
+               for n in LM_CHECK_PROMPTS]
+    forced = rng.integers(1, cfg.vocab_size,
+                          size=(len(prompts), LM_CHECK_STEPS))
+    ratio_f32 = decode_logit_ratio(wide, wide, prompts, forced, dev)
+    ratio_bf16 = decode_logit_ratio(model, wide, prompts, forced, dev)
+    peak_check = torch.cuda.max_memory_allocated()
+    del wide, model
+    torch.cuda.empty_cache()
+    require(ratio_f32 <= LM_F32_BOUND, f"lm_serve_hybrid: float32 decode "
+            f"logits {ratio_f32:.3e} of max |logit| from the forward > "
+            f"{LM_F32_BOUND}")
+    require(ratio_bf16 <= LM_BF16_BOUND, f"lm_serve_hybrid: bf16 decode "
+            f"logits {ratio_bf16:.3e} of max |logit| from the float32 "
+            f"forward > {LM_BF16_BOUND}")
+    emit({"phase": "lm_serve_hybrid", "card": card, "arch": cfg.name,
+          "mamba_blocks": cfg.num_layers, "attn_every": cfg.attn_every,
+          "shared_sites": sites, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": n_params,
+          "weight_bytes": weight_bytes, "build_s": build_s,
+          "slots": LM_SLOTS, "max_len": LM_MAX_LEN,
+          "requests": LM_REQUESTS, "new_tokens": LM_NEW_TOKENS,
+          "all_done": True, "tokens": tokens, "decode_steps": steps,
+          "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
+          "slot_utilisation": (tokens - LM_REQUESTS) / (steps * LM_SLOTS),
+          "prefill_ms": _quartiles(prefill_ms), "prefills": len(prefill_ms),
+          "step_ms_median": step_q["median"], "step_ms_q1": step_q["q1"],
+          "step_ms_q3": step_q["q3"], "step_bytes": step_bytes,
+          "step_bytes_by_part": {
+              "weights": weight_bytes,
+              "shared_block_again": (sites - 1) * shared_bytes,
+              "states_read_and_written": 2 * state_bytes,
+              "kv_cache": kv_bytes, "logits": logit_bytes},
+          "bound_ms": bound_ms, "bound_by": "bytes",
           "bound_share": bound_ms / step_q["median"],
+          "peak_bytes": peak, "peak_bytes_above_start": peak - mem_start,
+          "check_peak_bytes": peak_check,
+          "logit_ratio_f32": ratio_f32, "logit_bound_f32": LM_F32_BOUND,
+          "logit_ratio_bf16": ratio_bf16, "logit_bound_bf16": LM_BF16_BOUND,
+          "check_prompts": list(LM_CHECK_PROMPTS),
+          "check_steps": LM_CHECK_STEPS,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def lm_train_hybrid_phase(dev, card: str) -> None:
+    """Phase 6m: zamba2-2.7b trained at full width (see the docstring)."""
+    t_phase = time.perf_counter()
+    line = lm_train_family(dev, "lm_train_hybrid", LM_HYBRID_ARCH, None,
+                           hybrid_train_flops)
+    emit({"phase": "lm_train_hybrid", "card": card, "arch": LM_HYBRID_ARCH,
+          **line, "seconds": time.perf_counter() - t_phase})
+
+
+def lm_vlm_phase(dev, card: str) -> None:
+    """Phase 6n: phi-3-vision-4.2b at full width and full depth, a batched
+    prefill with patches and greedy decode steps held against a float32
+    forward, then trained at full width (see the docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_served_model
+    from repro_torch.models.registry import build_model
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(LM_VLM_ARCH)
+    require((cfg.family, cfg.num_layers, cfg.d_model, cfg.vocab_size,
+             cfg.vision_patches, cfg.vision_dim, cfg.dtype) ==
+            ("vlm", 32, 3072, 32_064, 144, 1024, "bfloat16"),
+            f"lm_vlm: {LM_VLM_ARCH} is not the full bf16 config: {cfg}")
+    mem_start = _memory_base()
+    t0 = time.perf_counter()
+    model = build_served_model(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    require((n_params, weight_bytes) == (LM_VLM_PARAMS, LM_VLM_WEIGHT_BYTES),
+            f"lm_vlm: {n_params} parameters, {weight_bytes} weight bytes")
+
+    b, p_n, text = LM_VLM_BATCH, cfg.vision_patches, LM_VLM_TEXT
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, text)),
+                             device=dev)
+    patches = torch.from_numpy(rng.standard_normal(
+        (b, p_n, cfg.vision_dim))).to(device=dev, dtype=torch.bfloat16)
+
+    def start(m):
+        """m's prefill of the batch, its cache widened to LM_VLM_MAX_LEN."""
+        lg, c = m.prefill({"tokens": tokens, "patches": patches})
+        cache = {part: {n: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                        for n, t in leaves.items()}
+                 for part, leaves in m.cache_spec(
+                     b, LM_VLM_MAX_LEN).items()}
+        for part, leaves in c.items():
+            for n, t in leaves.items():
+                cache[part][n][:, :, :p_n + text] = t
+        return lg, cache
+
+    start(model)                                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = start(model)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    logits, fed, step_ms = [lg[:, -1, :cfg.vocab_size].float()], [], []
+    for i in range(LM_NEW_TOKENS):
+        nxt = torch.argmax(logits[-1], dim=-1)[:, None]
+        fed.append(nxt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(nxt, cache, p_n + text + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg[:, -1, :cfg.vocab_size].float())
+    peak = torch.cuda.max_memory_allocated()
+    kv_bytes = sum(t.numel() * t.element_size() for t in cache["main"].values())
+    logit_bytes = b * cfg.padded_vocab * 4
+    bound_ms = (weight_bytes + kv_bytes + logit_bytes) / \
+        PEAK_BYTES_PER_S * 1e3
+    step_q = _quartiles(step_ms)
+    del cache
+
+    # the logits against a float32 copy's prefill of each longer sequence,
+    # and the float32 copy's own decode steps on the same tokens
+    wide = build_model(cfg.replace(dtype="float32"), dev)
+    with torch.no_grad():
+        for mine, theirs in zip(wide.parameters(), model.parameters()):
+            mine.copy_(theirs)
+    _, wcache = start(wide)
+    worst = {"bf16": 0.0, "f32": 0.0}
+    worst_ref = 0.0
+    for i in range(LM_NEW_TOKENS + 1):
+        seq = torch.cat([tokens] + fed[:i], dim=1)
+        ref, _ = wide.prefill({"tokens": seq, "patches": patches})
+        ref = ref[:, -1, :cfg.vocab_size]
+        worst_ref = max(worst_ref, float(ref.abs().max()))
+        worst["bf16"] = max(worst["bf16"],
+                            float((logits[i] - ref).abs().max()))
+        if i:
+            wl, wcache = wide.decode_step(fed[i - 1], wcache,
+                                          p_n + text + i - 1)
+            worst["f32"] = max(worst["f32"], float(
+                (wl[:, -1, :cfg.vocab_size] - ref).abs().max()))
+    ratio_f32, ratio_bf16 = worst["f32"] / worst_ref, \
+        worst["bf16"] / worst_ref
+    peak_check = torch.cuda.max_memory_allocated()
+    del wide, wcache, model, logits
+    require(ratio_f32 <= LM_F32_BOUND, f"lm_vlm: float32 decode logits "
+            f"{ratio_f32:.3e} of max |logit| from the forward > "
+            f"{LM_F32_BOUND}")
+    require(ratio_bf16 <= LM_BF16_BOUND, f"lm_vlm: bf16 prefill and decode "
+            f"logits {ratio_bf16:.3e} of max |logit| from the float32 "
+            f"forward > {LM_BF16_BOUND}")
+    serve = {"batch": b, "patches": p_n, "vision_dim": cfg.vision_dim,
+             "text_tokens": text, "cache_positions": p_n + text,
+             "decode_steps": LM_NEW_TOKENS, "build_s": build_s,
+             "prefill_ms": prefill_ms,
+             "step_ms_median": step_q["median"], "step_ms_q1": step_q["q1"],
+             "step_ms_q3": step_q["q3"],
+             "tokens_per_s": b * LM_NEW_TOKENS / (sum(step_ms) / 1e3),
+             "bound_ms": bound_ms, "bound_by": "bytes",
+             "bound_share": bound_ms / step_q["median"],
+             "kv_cache_bytes": kv_bytes,
+             "peak_bytes_above_start": peak - mem_start,
+             "check_peak_bytes": peak_check,
+             "logit_ratio_f32": ratio_f32, "logit_bound_f32": LM_F32_BOUND,
+             "logit_ratio_bf16": ratio_bf16,
+             "logit_bound_bf16": LM_BF16_BOUND}
+    train = lm_train_family(dev, "lm_vlm", LM_VLM_ARCH, None,
+                            vlm_train_flops)
+    emit({"phase": "lm_vlm", "card": card, "arch": cfg.name,
+          "params": n_params, "weight_bytes": weight_bytes,
+          "serve": serve, "train": train,
           "seconds": time.perf_counter() - t_phase})
 
 
@@ -4339,6 +4756,15 @@ def main() -> None:
 
     # 6k. lm_train_moe: moonshot-v1-16b-a3b trained at full width, cut ----
     lm_train_moe_phase(dev, card)
+
+    # 6l. lm_serve_hybrid: zamba2-2.7b, full width and depth, served -----
+    lm_serve_hybrid_phase(dev, card)
+
+    # 6m. lm_train_hybrid: zamba2-2.7b trained at full width ------------
+    lm_train_hybrid_phase(dev, card)
+
+    # 6n. lm_vlm: phi-3-vision-4.2b prefilled, decoded and trained -------
+    lm_vlm_phase(dev, card)
 
     # 7. the kernels line, the card line, the result line -------------------
     def main_path(variant, dt):

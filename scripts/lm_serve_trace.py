@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of the port's MoE decode step goes, on one CUDA device:
-moonshot-v1-16b-a3b at full width and full depth (bf16, weights from
+"""Where the time of the port's MoE or hybrid decode step goes, on one
+CUDA device: moonshot-v1-16b-a3b (or, with --arch zamba2-2.7b, the hybrid
+family's zamba2) at full width and full depth (bf16, weights from
 `torch.Generator` seed 0) behind `ServeEngine` with `launch/serve.py
 --preset full`'s stream (8 slots, max_len 256, 16 requests), stepped until
 every slot holds a request; then a decode step unprofiled and one under
@@ -8,15 +9,16 @@ torch.profiler.
 
 Prints one JSON line: the step's host wall unprofiled and profiled (each
 ending in a synchronize); the host time inside the MoE layers
-(`moe.moe_apply`), inside decode attention (`transformer.attn_decode`)
-and in the rest of the step, from profiler ranges the script puts around
-those functions; the CUDA launch calls and the kernels a step; the
-device's kernel time by class (`scripts/lm_train_trace.py`'s classes), its
-top kernels and its busy share of the profiled step's span.  Then the
+(`moe.moe_apply`; for zamba2 the Mamba-2 steps, `mamba2.mamba_step`),
+inside decode attention (`transformer.attn_decode`) and in the rest of
+the step, from profiler ranges the script puts around those functions;
+the CUDA launch calls and the kernels a step; the device's kernel time by
+class (`scripts/lm_train_trace.py`'s classes), its top kernels and its
+busy share of the profiled step's span.  Then the
 card's nvidia-smi name and power limit.  Needs a CUDA device; imports
 neither jax nor the reference package.
 
-Run:  python3 scripts/lm_serve_moe_trace.py
+Run:  python3 scripts/lm_serve_trace.py [--arch zamba2-2.7b]
 """
 
 import json
@@ -31,21 +33,35 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 from lm_train_trace import LAUNCH_CALLS, kernel_class  # noqa: E402
 
-RANGES = ("moe_apply", "attn_decode")
+# the architecture's per-layer function traced beside decode attention:
+# (module of repro_torch.models, function name)
+LAYER_RANGE = {"moonshot-v1-16b-a3b": ("moe", "moe_apply"),
+               "zamba2-2.7b": ("mamba2", "mamba_step")}
 
 
 def main() -> None:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="moonshot-v1-16b-a3b",
+                    choices=sorted(LAYER_RANGE))
+    arch = ap.parse_args().arch
+    layer_module, layer_fn = LAYER_RANGE[arch]
+    ranges = (layer_fn, "attn_decode")
+
     if not torch.cuda.is_available():
-        sys.exit("lm_serve_moe_trace: no CUDA device")
+        sys.exit("lm_serve_trace: no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch import configs
     from repro_torch.launch.serve import build_served_model, make_requests
-    from repro_torch.models import moe, transformer
+    import importlib
+
+    from repro_torch.models import transformer
     from repro_torch.serving.engine import ServeEngine
 
     def ranged(fn, name):
@@ -54,7 +70,7 @@ def main() -> None:
                 return fn(*args, **kwargs)
         return call
 
-    cfg = configs.get("moonshot-v1-16b-a3b")
+    cfg = configs.get(arch)
     model = build_served_model(cfg, "cuda", seed=0)
     engine = ServeEngine(model, max_len=256, slots=8, eos_id=-1)
     for req in make_requests(cfg.vocab_size, 16, 16):
@@ -73,7 +89,9 @@ def main() -> None:
 
     model.decode_step = timed
     engine.step()                 # unprofiled
-    moe.moe_apply = ranged(moe.moe_apply, "moe_apply")
+    layer_mod = importlib.import_module(f"repro_torch.models.{layer_module}")
+    setattr(layer_mod, layer_fn, ranged(getattr(layer_mod, layer_fn),
+                                        layer_fn))
     transformer.attn_decode = ranged(transformer.attn_decode, "attn_decode")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -81,17 +99,17 @@ def main() -> None:
     events = prof.events()
     # the ranges show on the device's timeline too: they are not kernels
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and
-               e.name not in RANGES]
+               e.name not in ranges]
     launches = [e for e in events if e.device_type == DeviceType.CPU and
                 e.name in LAUNCH_CALLS]
     host = {name: sum(e.cpu_time_total for e in events
-                      if e.name == name) / 1e3 for name in RANGES}
+                      if e.name == name) / 1e3 for name in ranges}
     line = {"arch": cfg.name, "layers": cfg.num_layers, "slots": 8,
             "active_slots": sum(r is not None for r in engine.active),
             "step_ms_unprofiled": walls[0], "step_ms_profiled": walls[1],
             "host_ms": {**host, "rest": walls[1] - sum(host.values())},
             "range_calls": {name: sum(e.name == name for e in events)
-                            for name in RANGES},
+                            for name in ranges},
             "cuda_launch_calls": len(launches)}
     if not kernels:
         line["device"] = "not measured: the profiler saw no CUDA kernels"

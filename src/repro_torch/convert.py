@@ -96,14 +96,17 @@ def _tensor_from_numpy(arr) -> torch.Tensor:
 
 
 def lm_params_from_numpy(cfg, params, device=None):
-    """The port's `DecoderLM` for `cfg` on `device` (the CUDA device unless
-    the caller names another), holding the reference's parameter tree given
-    as numpy arrays (``jax.tree.map(np.asarray, params)``).
+    """The port's model for `cfg` (`DecoderLM` or `HybridLM`) on `device`
+    (the CUDA device unless the caller names another), holding the
+    reference's parameter tree given as numpy arrays
+    (``jax.tree.map(np.asarray, params)``).
 
     The leading 'layers' axis of "layers" (and of the MoE family's
-    "dense_layers") is unstacked into the model's layers, and the (d_in,
-    d_out) weight layout is kept; the MoE layers' "moe" subtrees (router,
-    experts, shared experts) come across as they are.  The reference's
+    "dense_layers", and of the hybrid family's "mamba" stack) is unstacked
+    into the model's layers, and the (d_in, d_out) weight layout is kept;
+    the MoE layers' "moe" subtrees (router, experts, shared experts), the
+    VLM family's "vis_proj" and the hybrid family's "shared" block, "ln_f"
+    and untied "head" come across as they are.  The reference's
     `rope_table` leaf (rope_policy="precomputed") is not carried: the
     port's table is a buffer made by `rope.rope_table` (ROADMAP Queue 3).
     """
@@ -131,7 +134,7 @@ def _numpy_leaves(tree) -> list:
 
 
 def train_state_from_numpy(cfg, state, device=None):
-    """(the port's `DecoderLM` for `cfg`, its train state) on `device` (the
+    """(the port's model for `cfg`, its train state) on `device` (the
     CUDA device unless the caller names another), holding the reference's
     whole train state given as numpy arrays (``jax.tree.map(np.asarray,
     state)``): the parameters, the AdamW moments (the 8-bit `QState`s when

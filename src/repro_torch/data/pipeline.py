@@ -7,8 +7,10 @@ are the reference's, bit for bit: they are drawn with numpy from the same
 seeds, then put on the device as int32.  `host_prefetch` wraps any batch_fn
 with a background prefetch thread.  A packed-document mode mimics real LM
 pretraining batches (documents of random length packed to full sequences
-with EOS = 0).  The vision and audio inputs come with their families'
-slices and raise here.
+with EOS = 0).  The VLM family's batches carry the reference's bf16
+`patches` (B, P, vision_dim), drawn after the tokens from the same stream,
+and tokens cut to S - P.  The audio inputs come with their family's slice
+and raise here.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ class SyntheticLM:
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int,
                  seed: int = 0, packed: bool = True, device=None):
-        if cfg.family in ("vlm", "audio"):
+        if cfg.family == "audio":
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} inputs are not ported yet "
                 f"(ROADMAP Queue 1, item 5, {PENDING[cfg.family]})")
@@ -60,8 +62,13 @@ class SyntheticLM:
         if self.packed:  # insert document breaks (EOS = 0)
             eos = rng.random((b, s)) < (1.0 / 256)
             toks = np.where(eos, 0, toks)
-        return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(
-            self.device)}
+        out = {"tokens": torch.from_numpy(toks.astype(np.int32))}
+        if self.cfg.family == "vlm":
+            p = self.cfg.vision_patches
+            out["patches"] = torch.from_numpy(rng.standard_normal(
+                (b, p, self.cfg.vision_dim))).to(torch.bfloat16)
+            out["tokens"] = out["tokens"][:, :s - p].contiguous()
+        return {k: v.to(self.device) for k, v in out.items()}
 
     __call__ = batch_at
 

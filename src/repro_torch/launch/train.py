@@ -1,5 +1,5 @@
-"""Training launcher: the dense and MoE LMs on one device (the reference's
-`launch/train.py`).
+"""Training launcher: the dense, MoE, VLM and hybrid LMs on one device (the
+reference's `launch/train.py`).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       [--shape train_4k] [--preset demo|full] [--steps N] [--layers L] \\
@@ -11,7 +11,11 @@ sequence length (4096 for train_4k) and its global batch (256) cut to
 FULL_BATCH = 4 at FULL_GRAD_ACCUM = 2 microbatches, which one H100 80GB
 holds with remat "full"; the cut is printed.  --layers L cuts the depth
 to L layers (the MoE family's dense layers kept first): moonshot-v1-16b-a3b
-at full width trains on one card only so cut.  The reference runs the full
+at full width trains on one card only so cut.  The hybrid family's L must
+be a multiple of its `attn_every` (6 for zamba2-2.7b), else the model
+raises, as the reference's asserts.  The VLM family's batches carry their
+patches inside the shape's sequence (phi-3-vision-4.2b: 144 patches and
+3952 tokens at train_4k).  The reference runs the full
 preset on its production mesh; --multi-pod raises here (the mesh is ROADMAP
 Queue 1, item 5, slice 8).  The weights are random, from `torch.Generator`
 seed 0; the data is `SyntheticLM`.  It runs on the card unless --device
@@ -26,6 +30,7 @@ import tempfile
 from typing import Callable, NamedTuple
 
 import torch
+from torch import nn
 
 from repro_torch import configs
 from repro_torch.core.nekbone import resolve_device
@@ -33,7 +38,6 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch.serve import build_served_model
 from repro_torch.models.config import (SHAPE_CASES, ModelConfig,
                                        reduced_config)
-from repro_torch.models.transformer import DecoderLM
 from repro_torch.training.fault_tolerance import run_resilient
 from repro_torch.training.train_loop import (TrainConfig, init_state,
                                              make_train_step)
@@ -48,7 +52,7 @@ class TrainRun(NamedTuple):
     """What the launcher trains."""
 
     cfg: ModelConfig
-    model: DecoderLM
+    model: nn.Module                # a DecoderLM or a HybridLM
     tcfg: TrainConfig
     state: dict
     step: Callable

@@ -1,7 +1,8 @@
 """Model registry: family -> model class (the reference's
 `models/registry.py`).
 
-The port runs the dense and MoE families.  Every other family raises,
+The port runs the dense, MoE and VLM families (`DecoderLM`) and the hybrid
+family (`HybridLM`).  Every other family raises,
 naming the slice of ROADMAP Queue 1, item 5 that brings it; `configs.get`
 refuses no family, so this is where an unported one stops.
 """
@@ -9,16 +10,16 @@ refuses no family, so this is where an unported one stops.
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import DecoderLM
 
 __all__ = ["build_model", "FAMILIES", "PENDING"]
 
-FAMILIES = {"dense": DecoderLM, "moe": DecoderLM}
+FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
+            "hybrid": HybridLM}
 
 # family -> where ROADMAP Queue 1, item 5 ports it
 PENDING = {
-    "vlm": "slice 4 (the VLM stub)",
-    "hybrid": "slice 5 (SSM/hybrid)",
     "ssm": "slice 6 (xLSTM)",
     "audio": "slice 7 (enc-dec/audio)",
 }

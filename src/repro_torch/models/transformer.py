@@ -1,6 +1,6 @@
 """Decoder-only LM: GQA blocks, the training loss, prefill and ragged decode
-with a KV cache (the reference's `models/transformer.py`, dense and MoE
-paths).
+with a KV cache (the reference's `models/transformer.py`, dense, MoE and
+VLM paths).
 
 `DecoderLM` is an `nn.Module` whose parameters mirror the reference's tree
 (`param_specs`), one `ParamTree` a layer in an `nn.ModuleList`.  The MoE
@@ -16,8 +16,9 @@ its matrix products without batch dimensions and recomputes the rest, and
 The reference's `hoist_barrier` has no counterpart: it is a fence for XLA
 (stopping hoisted upcasts), not mathematics.  Nor do its `ctx`/`constraint`
 sharding hooks: this module is single-device, and `ShardCtx` comes with the
-multi-card LM slice.  The vision projection raises until its slice lands
-(ROADMAP Queue 1, item 5, slice 4).
+multi-card LM slice.  The VLM family's patch embeddings (a stub frontend:
+precomputed (B, P, vision_dim) patches) go through `vis_proj` and are put
+before the token embeddings; the loss scores the text positions only.
 
 Parameters are made with requires_grad=False; `training.train_loop.
 init_state` switches them on.  `prefill` and `decode_step` run under
@@ -220,7 +221,7 @@ def _unstack(tree, i: int):
 
 
 class DecoderLM(nn.Module):
-    """Dense and MoE decoder LM (the reference's VLM branch raises).
+    """Dense, MoE and VLM decoder LM.
 
     Its parameters live on `device` (the CUDA device unless the caller
     names another; "meta" gives shapes without allocating) and start
@@ -230,10 +231,6 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.vision_patches:
-            raise NotImplementedError(
-                f"{cfg.name}: the vision projection is not ported yet "
-                f"(ROADMAP Queue 1, item 5, slice 4)")
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = _DTYPES[cfg.dtype]
@@ -249,6 +246,8 @@ class DecoderLM(nn.Module):
         self.ln_f = ParamTree(spec["ln_f"], device)
         self.head = ParamTree(spec["head"], device) if "head" in spec \
             else None
+        self.vis_proj = ParamTree(spec["vis_proj"], device) \
+            if "vis_proj" in spec else None
         self.register_buffer(
             "rope_table", rope.rope_table(ROPE_TABLE_LEN,
                                           cfg.resolved_head_dim,
@@ -280,6 +279,9 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             spec["head"] = linear_spec(cfg.d_model, cfg.padded_vocab,
                                        ("fsdp", "vocab"), dtype=dt)
+        if cfg.vision_patches:
+            spec["vis_proj"] = linear_spec(cfg.vision_dim, cfg.d_model,
+                                           (None, "fsdp"), dtype=dt)
         return spec
 
     def param_tree(self) -> Dict:
@@ -292,8 +294,9 @@ class DecoderLM(nn.Module):
         if len(self.dense_layers):
             tree["dense_layers"] = [layer.tree()
                                     for layer in self.dense_layers]
-        if self.head is not None:
-            tree["head"] = self.head.tree()
+        for name in ("head", "vis_proj"):
+            if getattr(self, name) is not None:
+                tree[name] = getattr(self, name).tree()
         return tree
 
     def load_params(self, params) -> None:
@@ -307,11 +310,17 @@ class DecoderLM(nn.Module):
                 layer.load(_unstack(params[stack], i))
         self.embed.load(params["embed"])
         self.ln_f.load(params["ln_f"])
-        if self.head is not None:
-            self.head.load(params["head"])
+        for name in ("head", "vis_proj"):
+            if getattr(self, name) is not None:
+                getattr(self, name).load(params[name])
 
     def _embed_inputs(self, batch):
+        """The token embeddings, behind the projected patches when the
+        family has them, and their positions 0 ... P+S-1."""
         x = embed(self.embed, batch["tokens"], self.dtype)
+        if self.vis_proj is not None:
+            pe = linear(self.vis_proj, batch["patches"].to(self.dtype))
+            x = torch.cat([pe, x], dim=1)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         return x, positions
@@ -355,14 +364,17 @@ class DecoderLM(nn.Module):
         return x, aux
 
     def loss(self, batch):
-        """batch {"tokens": (B, S) integer tensor} -> (loss, {"ce", "aux"}):
-        the mean next-token CE (`chunked_ce`) plus router_aux_weight times
+        """batch {"tokens": (B, S) integer tensor[, "patches": (B, P,
+        vision_dim)]} -> (loss, {"ce", "aux"}): the mean next-token CE
+        (`chunked_ce`) over the text positions plus router_aux_weight times
         the routers' auxiliary losses summed over the layers (0 for the
         dense family)."""
         cfg = self.cfg
         x, positions = self._embed_inputs(batch)
         x, aux = self._stack(x, positions)
         x = rms_norm(self.ln_f, x, cfg.norm_eps)
+        if cfg.vision_patches:   # score text positions only
+            x = x[:, cfg.vision_patches:]
         ce = chunked_ce(x, batch["tokens"][:, 1:], self.embed, self.head,
                         cfg.vocab_size)
         return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
@@ -385,8 +397,9 @@ class DecoderLM(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch):
-        """batch {"tokens": (B, S) integer tensor} -> (the last position's
-        masked float32 logits (B, 1, V_padded), a cache of length S)."""
+        """batch {"tokens": (B, S) integer tensor[, "patches": (B, P,
+        vision_dim)]} -> (the last position's masked float32 logits (B, 1,
+        V_padded), a cache of length P + S)."""
         cfg = self.cfg
         x, positions = self._embed_inputs(batch)
         b, s = x.shape[:2]

@@ -8,6 +8,15 @@ Prefill runs per admission at batch 1 and is spliced into its slot; decode
 is one ragged step for the whole batch, which writes the cache in place.
 Idle slots decode too (token 0 at their stale length), as in the
 reference.  The step runs eagerly.
+
+Each cache leaf is (L, slots, n, ...): a KV leaf's axis 2 runs over
+positions up to max_len, a recurrent state's (the hybrid family's ssm and
+conv states) over its own width.  Admission copies the prefill's leaf
+along its own axis 2 and zeroes the rest, so a slot's whole state is
+overwritten.  The reference's splice pads every leaf's axis 2 to max_len
+and fails on the recurrent states (ROADMAP Queue 3).  A model with patch
+inputs (the VLM family) is refused: the reference's engine passes no
+patches to `prefill`.
 """
 
 from __future__ import annotations
@@ -31,9 +40,15 @@ class Request:
 
 
 class ServeEngine:
-    """Serves `model` (a `DecoderLM`) on the device its parameters are on."""
+    """Serves `model` (a `DecoderLM` or a `HybridLM`) on the device its
+    parameters are on."""
 
     def __init__(self, model, max_len: int, slots: int, eos_id: int = 0):
+        if model.cfg.vision_patches:
+            raise NotImplementedError(
+                f"{model.cfg.name}: the engine serves token prompts only; "
+                f"the reference's engine passes no patches to prefill, and "
+                f"the port adds no image requests")
         self.model = model
         self.max_len = max_len
         self.slots = slots
@@ -63,15 +78,15 @@ class ServeEngine:
                 # (not re-feeding prompt[-1]) keeps the cache write-once
                 first = int(torch.argmax(logits1[0, -1]))
                 req.output.append(first)
-                s = len(req.prompt)
                 for part, leaves in cache1.items():
                     for name, small in leaves.items():
-                        # (L, 1, S, KV, Dh): the slot padded to max_len
+                        # (L, 1, n, ...) into the slot along axis 2
                         big = self.cache[part][name]
-                        big[:, slot, :s] = small[:, 0]
-                        big[:, slot, s:] = 0
+                        n = small.shape[2]
+                        big[:, slot, :n] = small[:, 0]
+                        big[:, slot, n:] = 0
                 self.active[slot] = req
-                self.lengths[slot] = s
+                self.lengths[slot] = len(req.prompt)
 
     def step(self) -> int:
         """One decode step for all active slots; returns #active."""

@@ -1,6 +1,6 @@
 """Train an LM with the training substrate: checkpoints, fault tolerance,
-any dense --arch of the pool (the port's twin of the reference's
-`examples/train_lm.py`).
+any dense, MoE, VLM or hybrid --arch of the pool (the port's twin of the
+reference's `examples/train_lm.py`).
 
 Presets:
   demo (default) — the reduced config, a few hundred steps in minutes.

@@ -47,7 +47,7 @@ PORT_SCRIPTS = [ROOT / "chip_smoke.py",
                 ROOT / "scripts" / "slab_phase_probe.py",
                 ROOT / "scripts" / "sharded_spread.py",
                 ROOT / "scripts" / "lm_train_trace.py",
-                ROOT / "scripts" / "lm_serve_moe_trace.py"]
+                ROOT / "scripts" / "lm_serve_trace.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + PORT_SCRIPTS,

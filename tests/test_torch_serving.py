@@ -11,7 +11,7 @@ request the same status and rungs; fp32 iterations within +-1 and x
 within 1e-4 of max|x|; a bf16_x32 stream's iterations within
 max(3, 10%) and x within 1e-2, see `PARITY`); padded columns bitwise
 neutral — which the reference's own test of it does not meet (ROADMAP
-Queue 3, item 5); one RHS at column 0 of blocks of width 1-8 with the
+Queue 3, item 3); one RHS at column 0 of blocks of width 1-8 with the
 same x bits at every width; `prepare` on a zero block; a sharded problem
 refused; the CLI on the CPU.
 """
