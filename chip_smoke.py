@@ -11,8 +11,11 @@ LM training of qwen3-0.6b at full width, with checkpoints and restarts;
 the MoE family, moonshot-v1-16b-a3b served at full width and full
 depth and trained at full width with its depth cut; the hybrid family,
 zamba2-2.7b served at full width and full depth and trained at full
-width; and the VLM stub, phi-3-vision-4.2b prefilled with patches,
-decoded and trained at full width
+width with its depth cut; the VLM stub, phi-3-vision-4.2b prefilled with
+patches, decoded and trained at full width; the xLSTM family, xlstm-350m
+served at full width and full depth and trained at full width and depth
+with its sequence cut; and the enc-dec/audio family, seamless-m4t-medium
+prefilled with frames, decoded and trained at full width and depth
 — through the entry points a user calls (`setup_problem`,
 `rhs_from_solution`, `solve`, `resilience.retry.solve_resilient`,
 `serving.solve_service.SolveService`, `launch.serve`,
@@ -344,8 +347,10 @@ each:
               PEAK_BYTES_PER_S), prefill ms an admission, peak memory;
               lm_serve's logit check against a float32 copy of the whole
               model (LM_F32_BOUND, LM_BF16_BOUND)
-  6m. lm_train_hybrid  zamba2-2.7b through `launch/train.py --preset full`
-              at full depth: lm_train's batch, sequence and microbatches, 6
+  6m. lm_train_hybrid  zamba2-2.7b through `launch/train.py --preset full
+              --layers 12` (12 of 54 Mamba-2 blocks, 2 sites of the shared
+              block; the cut printed): lm_train's batch, sequence and
+              microbatches, 6
               float32 AdamW steps (one a warm-up) and 3 8-bit ones on the
               host clock, step 0 the same in both, 8-bit losses within
               LM_TRAIN_8BIT_BOUND; tokens a second, peak memory, optimizer
@@ -360,7 +365,35 @@ each:
               each, beside the step's byte bound), every step's logits
               against a float32 copy's prefill of the longer sequence and
               the copy's own decode steps (LM_F32_BOUND, LM_BF16_BOUND);
-              then trained at full depth as lm_train_hybrid
+              then trained as lm_train_hybrid, its depth cut to 8 layers
+              (the cut printed)
+  6o. lm_serve_xlstm  the xLSTM family behind the engine: xlstm-350m at
+              full width and full depth (24 layers, 12 (mLSTM, sLSTM)
+              pairs; 241,894,400 parameters; bf16) with lm_serve's
+              warm-up and timed streams: every request done with 16
+              tokens, tokens a second, decode-step ms (median, quartiles)
+              beside its byte bound (the weights but the embedding table,
+              whose rows are gathered, every pair's mLSTM and sLSTM states
+              read and written, the logits, over PEAK_BYTES_PER_S),
+              prefill ms an admission, peak memory; lm_serve's logit check
+              against a float32 copy (LM_F32_BOUND, LM_BF16_BOUND)
+  6p. lm_train_xlstm  xlstm-350m through `launch/train.py --preset full`
+              at full depth, the sequence cut from 4096 to 256 (printed):
+              lm_train_hybrid's steps and checks; the FLOP bound's float32
+              part the sLSTM's input and recurrent products, the mLSTM's
+              gates and its causal decay attention
+  6q. lm_audio  seamless-m4t-medium at full width and full depth (12
+              encoder and 12 decoder layers; 716,503,040 parameters;
+              bf16): a prefill at batch 8 of 1,024 frames of width 1024
+              and a 4-token prompt (numpy seed 1), 16 greedy decode steps
+              through `decode_step` on the cross K/V at the encoder's
+              length (ms each, beside the step's byte bound), every step's
+              logits against a float32 copy's prefill of the longer
+              sequence over the same frames and the copy's own decode
+              steps (LM_F32_BOUND, LM_BF16_BOUND); then trained at full
+              depth as lm_train_hybrid with 2,048 frames and 2,048 tokens
+              (the cut printed), the encoder's and the cross-attention's
+              products counted over all keys
   7. the `kernels` line (ten entry points, each launched on its main
      path and, as `launches_sharded`, on the sharded ones, psum and
      neighbour exchange together, and as `launches_serve` by the served
@@ -693,23 +726,55 @@ LM_MOE_TRAIN_LAYERS = 3
 LM_HYBRID_ARCH = "zamba2-2.7b"
 LM_HYBRID_PARAMS = 2_422_532_000
 LM_HYBRID_WEIGHT_BYTES = 4_845_658_240
-# The lm_train_hybrid phase: `launch/train.py --preset full` of zamba2 at
-# full depth (its float32 AdamW state and the checkpointed blocks fit in
-# 80 GB); lm_train's steps, float32 then 8-bit AdamW, and the reduced
-# config restarted at lm_train's failures.
+# The lm_train_hybrid phase: `launch/train.py --preset full --layers 12`
+# of zamba2 (12 of its 54 Mamba-2 blocks, the shared block at 2 sites;
+# the depth cut to fit the script in its time: full depth fits in 80 GB
+# and took ~80 s); lm_train's steps, float32 then 8-bit AdamW, and the
+# reduced config restarted at lm_train's failures.
+LM_HYBRID_TRAIN_LAYERS = 12
 # The lm_vlm phase: phi-3-vision-4.2b at full width and full depth, bf16:
 # a prefill at batch LM_VLM_BATCH of 144 patches (width 1024) and
 # LM_VLM_TEXT text tokens, then LM_NEW_TOKENS greedy decode steps through
 # `decode_step` (no engine: it takes token prompts only), the logits held
 # against a float32 copy's prefill of each longer sequence (LM_F32_BOUND,
-# LM_BF16_BOUND); then `launch/train.py --preset full` at full depth, as
-# lm_train_hybrid.
+# LM_BF16_BOUND); then `launch/train.py --preset full --layers 8`, as
+# lm_train_hybrid (the depth cut from 32 to fit the script in its time).
 LM_VLM_ARCH = "phi-3-vision-4.2b"
 LM_VLM_PARAMS = 3_825_404_928
 LM_VLM_WEIGHT_BYTES = 7_651_209_216
 LM_VLM_BATCH = 8
 LM_VLM_TEXT = 48
 LM_VLM_MAX_LEN = 256
+LM_VLM_TRAIN_LAYERS = 8
+# The lm_serve_xlstm phase: xlstm-350m at full width and full depth (24
+# layers, 12 (mLSTM, sLSTM) pairs; bf16, its gate weights, r, biases and
+# norm scales float32) behind the engine with lm_serve's stream, its
+# logits checked as lm_serve's are.  The lm_train_xlstm phase:
+# `launch/train.py --preset full` at full depth with the sequence cut to
+# LM_XLSTM_TRAIN_SEQ (the sLSTM runs ~20 ops a time step a layer, eagerly);
+# lm_train's steps and checks otherwise.
+LM_XLSTM_ARCH = "xlstm-350m"
+LM_XLSTM_PARAMS = 241_894_400
+LM_XLSTM_WEIGHT_BYTES = 509_349_888
+LM_XLSTM_TRAIN_SEQ = 256
+# The lm_audio phase: seamless-m4t-medium at full width and full depth (12
+# encoder and 12 decoder layers; bf16): a prefill at batch LM_AUDIO_BATCH of
+# LM_AUDIO_FRAMES frames of width 1024 and an LM_AUDIO_PROMPT-token prompt,
+# LM_NEW_TOKENS greedy decode steps through `decode_step` (no engine: it
+# takes token prompts only) on the self K/V widened to LM_AUDIO_MAX_LEN and
+# the cross K/V at the encoder's length, the logits held against a float32
+# copy's prefill of each longer sequence (LM_F32_BOUND, LM_BF16_BOUND); then
+# `launch/train.py --preset full` at full depth with LM_AUDIO_TRAIN_SEQ
+# frames and as many tokens (the shape's 4096 cut to fit the script in its
+# time).
+LM_AUDIO_ARCH = "seamless-m4t-medium"
+LM_AUDIO_PARAMS = 716_503_040
+LM_AUDIO_WEIGHT_BYTES = 1_433_133_056
+LM_AUDIO_BATCH = 8
+LM_AUDIO_FRAMES = 1024
+LM_AUDIO_PROMPT = 4
+LM_AUDIO_MAX_LEN = 256
+LM_AUDIO_TRAIN_SEQ = 2048
 
 
 def ulp_distance(a, b):
@@ -2009,9 +2074,11 @@ def lm_serve_moe_phase(dev, card: str) -> None:
 
 
 def lm_train_family(dev, phase: str, arch: str, layers, flops_of,
-                    check_rows=None) -> dict:
+                    check_rows=None, seq=None) -> dict:
     """`launch/train.py --preset full [--layers L]`'s run of `arch`
-    (lm_train's batch, sequence and microbatches, remat "full"):
+    (lm_train's batch, sequence and microbatches, remat "full"; the
+    sequence cut to `seq` where given, a cut printed, which no launcher
+    flag makes):
     LM_TRAIN_STEPS float32 AdamW steps (the first a warm-up) and
     LM_TRAIN_8BIT_STEPS 8-bit ones on the host clock, step 0's loss equal
     in both and the 8-bit losses within LM_TRAIN_8BIT_BOUND; the reduced
@@ -2033,17 +2100,22 @@ def lm_train_family(dev, phase: str, arch: str, layers, flops_of,
 
     full = configs.get(arch)
     base = _memory_base()
+    full_seq = SHAPE_CASES["train_4k"].seq_len
     run = launch_train.build_run(arch, "full", steps=LM_TRAIN_STEPS,
-                                 device=dev, layers=layers)
+                                 device=dev, layers=layers, seq=seq)
     cfg, data = run.cfg, run.data
     if layers is not None:
         print(f"{phase}: depth cut from {full.num_layers} to "
               f"{cfg.num_layers} layers", flush=True)
+    if seq is not None:
+        print(f"{phase}: sequence cut from {full_seq} to {data.seq} "
+              f"positions", flush=True)
     require((cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.dtype,
              cfg.remat) == (layers or full.num_layers, full.d_model,
                             full.vocab_size, "bfloat16", "full"),
             f"{phase}: not the full-width bf16 config with remat full: {cfg}")
-    require((data.batch, data.seq, run.tcfg.grad_accum) == (4, 4096, 2),
+    require((data.batch, data.seq, run.tcfg.grad_accum) ==
+            (4, seq or full_seq, 2),
             f"{phase}: the full preset runs batch {data.batch}, seq "
             f"{data.seq}, grad_accum {run.tcfg.grad_accum}")
     n_params = sum(p.numel() for p in run.model.parameters())
@@ -2058,7 +2130,7 @@ def lm_train_family(dev, phase: str, arch: str, layers, flops_of,
 
     base = _memory_base()
     run8 = launch_train.build_run(arch, "full", steps=LM_TRAIN_STEPS,
-                                  device=dev, layers=layers,
+                                  device=dev, layers=layers, seq=seq,
                                   eight_bit_optimizer=True)
     state8, rows8 = _timed_steps(run8, LM_TRAIN_8BIT_STEPS)
     opt_bytes8 = nbytes(state8["opt"])
@@ -2085,6 +2157,7 @@ def lm_train_family(dev, phase: str, arch: str, layers, flops_of,
             "layers": cfg.num_layers, "d_model": cfg.d_model,
             "vocab": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat,
             "params": n_params, **fields, "batch": b, "seq": s,
+            "seq_cut": None if seq is None else {"seq": s, "of": full_seq},
             "global_batch_cut_from": SHAPE_CASES["train_4k"].global_batch,
             "grad_accum": accum, "steps": LM_TRAIN_STEPS, "warmup_steps": 1,
             "step_ms": step_q, "warmup_step_ms": rows[0]["step_ms"],
@@ -2197,38 +2270,16 @@ def vlm_train_flops(model, batch: int, seq: int):
     return {"bf16": batch * per_step, "f32": 0}, {}
 
 
-def lm_serve_hybrid_phase(dev, card: str) -> None:
-    """Phase 6l: zamba2-2.7b at full width and full depth behind the LM
-    serving engine, and its decode logits against a float32 full forward
-    (see the docstring)."""
-    import numpy as np
+def _served_stream(model, cfg, phase: str):
+    """lm_serve's stream behind the engine twice, a warm-up and a run
+    timed on the host clock, each prefill and decode step of it timed (a
+    synchronize() at each end); every request done with LM_NEW_TOKENS
+    tokens.  Returns (the engine, its requests, {"steps", "wall_s",
+    "prefill_ms", "step_ms"})."""
     import torch
 
-    from repro_torch import configs
-    from repro_torch.launch.serve import build_served_model, make_requests
-    from repro_torch.models.registry import build_model
+    from repro_torch.launch.serve import make_requests
     from repro_torch.serving.engine import ServeEngine
-
-    t_phase = time.perf_counter()
-    cfg = configs.get(LM_HYBRID_ARCH)
-    require((cfg.family, cfg.num_layers, cfg.attn_every, cfg.d_model,
-             cfg.ssm_state, cfg.vocab_size, cfg.dtype) ==
-            ("hybrid", 54, 6, 2560, 64, 32_000, "bfloat16"),
-            f"lm_serve_hybrid: {LM_HYBRID_ARCH} is not the full bf16 "
-            f"config: {cfg}")
-    mem_start = _memory_base()
-    t0 = time.perf_counter()
-    model = build_served_model(cfg, dev, seed=0)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    sites = model.groups
-    require((n_params, weight_bytes, sites) ==
-            (LM_HYBRID_PARAMS, LM_HYBRID_WEIGHT_BYTES, 9),
-            f"lm_serve_hybrid: {n_params} parameters, {weight_bytes} "
-            f"weight bytes, {sites} sites")
 
     prefill_ms, step_ms = [], []
     prefill, decode_step = model.prefill, model.decode_step
@@ -2266,31 +2317,26 @@ def lm_serve_hybrid_phase(dev, card: str) -> None:
         del model.prefill, model.decode_step
     bad = [(r.uid, r.done, len(r.output)) for r in reqs
            if not r.done or len(r.output) != LM_NEW_TOKENS]
-    require(not bad, f"lm_serve_hybrid: requests not done with "
+    require(not bad, f"{phase}: requests not done with "
             f"{LM_NEW_TOKENS} tokens (uid, done, tokens): {bad}")
     require(steps == warm_steps == len(step_ms),
-            f"lm_serve_hybrid: {steps} steps ({warm_steps} warm), "
+            f"{phase}: {steps} steps ({warm_steps} warm), "
             f"{len(step_ms)} timed")
-    peak = torch.cuda.max_memory_allocated()
-    tokens = sum(len(r.output) for r in reqs)
+    return engine, reqs, {"steps": steps, "wall_s": wall_s,
+                          "prefill_ms": prefill_ms, "step_ms": step_ms}
 
-    # a decode step's bytes: the weights, the shared block again at each
-    # further site, every block's ssm and conv states read and written,
-    # the whole KV cache read, the logits written
-    leaf = {f"{part}.{n}": t.numel() * t.element_size()
-            for part, c in engine.cache.items() for n, t in c.items()}
-    shared_bytes = sum(p.numel() * p.element_size()
-                       for p in model.shared.parameters())
-    state_bytes = leaf["mamba.ssm"] + leaf["mamba.conv"]
-    kv_bytes = leaf["attn.k"] + leaf["attn.v"]
-    logit_bytes = LM_SLOTS * cfg.padded_vocab * 4
-    step_bytes = (weight_bytes + (sites - 1) * shared_bytes +
-                  2 * state_bytes + kv_bytes + logit_bytes)
-    bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
-    step_q = _quartiles(step_ms)
-    del engine
 
-    # the logits of ragged decode steps against a float32 forward
+def _float32_decode_check(model, cfg, dev, phase: str):
+    """lm_serve's logit check: the ragged decode steps of a float32 copy
+    of `model` (its bf16-rounded weights) and of `model` against the
+    copy's prefill of each whole sequence (`decode_logit_ratio`), within
+    LM_F32_BOUND and LM_BF16_BOUND.  Returns (ratio_f32, ratio_bf16, the
+    peak bytes of the check); frees the copy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.registry import build_model
+
     wide = build_model(cfg.replace(dtype="float32"), dev)
     with torch.no_grad():
         for mine, theirs in zip(wide.parameters(), model.parameters()):
@@ -2303,34 +2349,111 @@ def lm_serve_hybrid_phase(dev, card: str) -> None:
     ratio_f32 = decode_logit_ratio(wide, wide, prompts, forced, dev)
     ratio_bf16 = decode_logit_ratio(model, wide, prompts, forced, dev)
     peak_check = torch.cuda.max_memory_allocated()
-    del wide, model
+    del wide
     torch.cuda.empty_cache()
-    require(ratio_f32 <= LM_F32_BOUND, f"lm_serve_hybrid: float32 decode "
+    require(ratio_f32 <= LM_F32_BOUND, f"{phase}: float32 decode "
             f"logits {ratio_f32:.3e} of max |logit| from the forward > "
             f"{LM_F32_BOUND}")
-    require(ratio_bf16 <= LM_BF16_BOUND, f"lm_serve_hybrid: bf16 decode "
+    require(ratio_bf16 <= LM_BF16_BOUND, f"{phase}: bf16 decode "
             f"logits {ratio_bf16:.3e} of max |logit| from the float32 "
             f"forward > {LM_BF16_BOUND}")
+    return ratio_f32, ratio_bf16, peak_check
+
+
+def _serve_fields(reqs, run, step_bytes: int) -> dict:
+    """A served stream's fields of its phase's line, beside the decode
+    step's byte bound over PEAK_BYTES_PER_S."""
+    tokens = sum(len(r.output) for r in reqs)
+    step_q = _quartiles(run["step_ms"])
+    bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"slots": LM_SLOTS, "max_len": LM_MAX_LEN,
+            "requests": LM_REQUESTS, "new_tokens": LM_NEW_TOKENS,
+            "all_done": True, "tokens": tokens,
+            "decode_steps": run["steps"], "wall_s": run["wall_s"],
+            "tokens_per_s": tokens / run["wall_s"],
+            "slot_utilisation": (tokens - LM_REQUESTS) /
+            (run["steps"] * LM_SLOTS),
+            "prefill_ms": _quartiles(run["prefill_ms"]),
+            "prefills": len(run["prefill_ms"]),
+            "step_ms_median": step_q["median"], "step_ms_q1": step_q["q1"],
+            "step_ms_q3": step_q["q3"], "step_bytes": step_bytes,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / step_q["median"]}
+
+
+def _built(cfg, dev, phase: str, params: int, weight_bytes: int):
+    """`build_served_model(cfg)` on the card, timed: (the model, the
+    build's seconds, the bytes allocated before it); its parameter count
+    and weight bytes checked."""
+    import torch
+
+    from repro_torch.launch.serve import build_served_model
+
+    mem_start = _memory_base()
+    t0 = time.perf_counter()
+    model = build_served_model(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    got = (sum(p.numel() for p in model.parameters()),
+           sum(p.numel() * p.element_size() for p in model.parameters()))
+    require(got == (params, weight_bytes),
+            f"{phase}: {got[0]} parameters, {got[1]} weight bytes")
+    return model, build_s, mem_start
+
+
+def lm_serve_hybrid_phase(dev, card: str) -> None:
+    """Phase 6l: zamba2-2.7b at full width and full depth behind the LM
+    serving engine, and its decode logits against a float32 full forward
+    (see the docstring)."""
+    import torch
+
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(LM_HYBRID_ARCH)
+    require((cfg.family, cfg.num_layers, cfg.attn_every, cfg.d_model,
+             cfg.ssm_state, cfg.vocab_size, cfg.dtype) ==
+            ("hybrid", 54, 6, 2560, 64, 32_000, "bfloat16"),
+            f"lm_serve_hybrid: {LM_HYBRID_ARCH} is not the full bf16 "
+            f"config: {cfg}")
+    model, build_s, mem_start = _built(cfg, dev, "lm_serve_hybrid",
+                                       LM_HYBRID_PARAMS,
+                                       LM_HYBRID_WEIGHT_BYTES)
+    sites = model.groups
+    require(sites == 9, f"lm_serve_hybrid: {sites} sites")
+    engine, reqs, run = _served_stream(model, cfg, "lm_serve_hybrid")
+    peak = torch.cuda.max_memory_allocated()
+
+    # a decode step's bytes: the weights, the shared block again at each
+    # further site, every block's ssm and conv states read and written,
+    # the whole KV cache read, the logits written
+    leaf = {f"{part}.{n}": t.numel() * t.element_size()
+            for part, c in engine.cache.items() for n, t in c.items()}
+    shared_bytes = sum(p.numel() * p.element_size()
+                       for p in model.shared.parameters())
+    state_bytes = leaf["mamba.ssm"] + leaf["mamba.conv"]
+    kv_bytes = leaf["attn.k"] + leaf["attn.v"]
+    logit_bytes = LM_SLOTS * cfg.padded_vocab * 4
+    step_bytes = (LM_HYBRID_WEIGHT_BYTES + (sites - 1) * shared_bytes +
+                  2 * state_bytes + kv_bytes + logit_bytes)
+    del engine
+
+    # the logits of ragged decode steps against a float32 forward
+    ratio_f32, ratio_bf16, peak_check = _float32_decode_check(
+        model, cfg, dev, "lm_serve_hybrid")
+    del model
+    torch.cuda.empty_cache()
     emit({"phase": "lm_serve_hybrid", "card": card, "arch": cfg.name,
           "mamba_blocks": cfg.num_layers, "attn_every": cfg.attn_every,
           "shared_sites": sites, "d_model": cfg.d_model,
-          "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": n_params,
-          "weight_bytes": weight_bytes, "build_s": build_s,
-          "slots": LM_SLOTS, "max_len": LM_MAX_LEN,
-          "requests": LM_REQUESTS, "new_tokens": LM_NEW_TOKENS,
-          "all_done": True, "tokens": tokens, "decode_steps": steps,
-          "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
-          "slot_utilisation": (tokens - LM_REQUESTS) / (steps * LM_SLOTS),
-          "prefill_ms": _quartiles(prefill_ms), "prefills": len(prefill_ms),
-          "step_ms_median": step_q["median"], "step_ms_q1": step_q["q1"],
-          "step_ms_q3": step_q["q3"], "step_bytes": step_bytes,
+          "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+          "params": LM_HYBRID_PARAMS, "weight_bytes": LM_HYBRID_WEIGHT_BYTES,
+          "build_s": build_s, **_serve_fields(reqs, run, step_bytes),
           "step_bytes_by_part": {
-              "weights": weight_bytes,
+              "weights": LM_HYBRID_WEIGHT_BYTES,
               "shared_block_again": (sites - 1) * shared_bytes,
               "states_read_and_written": 2 * state_bytes,
               "kv_cache": kv_bytes, "logits": logit_bytes},
-          "bound_ms": bound_ms, "bound_by": "bytes",
-          "bound_share": bound_ms / step_q["median"],
           "peak_bytes": peak, "peak_bytes_above_start": peak - mem_start,
           "check_peak_bytes": peak_check,
           "logit_ratio_f32": ratio_f32, "logit_bound_f32": LM_F32_BOUND,
@@ -2340,61 +2463,143 @@ def lm_serve_hybrid_phase(dev, card: str) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
-def lm_train_hybrid_phase(dev, card: str) -> None:
-    """Phase 6m: zamba2-2.7b trained at full width (see the docstring)."""
+def lm_serve_xlstm_phase(dev, card: str) -> None:
+    """Phase 6o: xlstm-350m at full width and full depth behind the LM
+    serving engine, and its decode logits against a float32 full forward
+    (see the docstring)."""
+    import torch
+
+    from repro_torch import configs
+
     t_phase = time.perf_counter()
-    line = lm_train_family(dev, "lm_train_hybrid", LM_HYBRID_ARCH, None,
-                           hybrid_train_flops)
+    cfg = configs.get(LM_XLSTM_ARCH)
+    require((cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads,
+             cfg.vocab_size, cfg.dtype) ==
+            ("ssm", 24, 1024, 4, 50_304, "bfloat16"),
+            f"lm_serve_xlstm: {LM_XLSTM_ARCH} is not the full bf16 "
+            f"config: {cfg}")
+    model, build_s, mem_start = _built(cfg, dev, "lm_serve_xlstm",
+                                       LM_XLSTM_PARAMS,
+                                       LM_XLSTM_WEIGHT_BYTES)
+    engine, reqs, run = _served_stream(model, cfg, "lm_serve_xlstm")
+    peak = torch.cuda.max_memory_allocated()
+
+    # a decode step's bytes: every weight but the embedding table (a row a
+    # slot is gathered), the pairs' mLSTM and sLSTM states read and
+    # written, the logits written
+    table = model.embed["table"]
+    weights = (LM_XLSTM_WEIGHT_BYTES - table.numel() * table.element_size()
+               + LM_SLOTS * cfg.d_model * table.element_size())
+    state_bytes = {part: sum(t.numel() * t.element_size()
+                             for t in c.values())
+                   for part, c in engine.cache.items()}
+    logit_bytes = LM_SLOTS * cfg.padded_vocab * 4
+    step_bytes = weights + 2 * sum(state_bytes.values()) + logit_bytes
+    del engine
+
+    ratio_f32, ratio_bf16, peak_check = _float32_decode_check(
+        model, cfg, dev, "lm_serve_xlstm")
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_serve_xlstm", "card": card, "arch": cfg.name,
+          "layers": cfg.num_layers, "pairs": cfg.num_layers // 2,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+          "params": LM_XLSTM_PARAMS, "weight_bytes": LM_XLSTM_WEIGHT_BYTES,
+          "build_s": build_s, **_serve_fields(reqs, run, step_bytes),
+          "step_bytes_by_part": {
+              "weights_read": weights,
+              "mlstm_states_read_and_written": 2 * state_bytes["mlstm"],
+              "slstm_states_read_and_written": 2 * state_bytes["slstm"],
+              "logits": logit_bytes},
+          "peak_bytes": peak, "peak_bytes_above_start": peak - mem_start,
+          "check_peak_bytes": peak_check,
+          "logit_ratio_f32": ratio_f32, "logit_bound_f32": LM_F32_BOUND,
+          "logit_ratio_bf16": ratio_bf16, "logit_bound_bf16": LM_BF16_BOUND,
+          "check_prompts": list(LM_CHECK_PROMPTS),
+          "check_steps": LM_CHECK_STEPS,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def xlstm_train_flops(model, batch: int, seq: int):
+    """An xLSTM step's products, forward and backward (3 x forward): bf16
+    -- each mLSTM's qkv, ogate and out, each sLSTM's out, the head;
+    float32 -- each sLSTM's input (x @ w_in, in float32) and recurrent
+    (r) products and each mLSTM's gates, and the mLSTM's decay attention
+    (state (dh, dh + 1)), counted causally as `hybrid_train_flops` counts
+    the SSD's.  Its fields: the pairs and the mLSTM's chunk."""
+    cfg = model.cfg
+    require(model.pairs == cfg.num_layers // 2,
+            f"lm_train_xlstm: {model.pairs} pairs of {cfg.num_layers}")
+    bf16 = (sum(blk[n]["w"].numel() for blk in model.mlstm
+                for n in ("qkv", "ogate", "out")) +
+            sum(blk["out"]["w"].numel() for blk in model.slstm) +
+            model.head["w"].numel())
+    f32 = (sum(blk["w_in"]["w"].numel() + blk["r"].numel()
+               for blk in model.slstm) +
+           sum(blk["gates"]["w"].numel() for blk in model.mlstm))
+    dh = cfg.d_model // cfg.num_heads
+    n, p = dh, dh + 1
+    chunk = min(cfg.attn_chunk, seq, 256)
+    mlstm = 3 * model.pairs * 2 * cfg.num_heads * (
+        (chunk + 1) / 2 * (n + p) + 2 * n * p)
+    return {"bf16": batch * seq * 6 * bf16,
+            "f32": batch * seq * (6 * f32 + mlstm)}, {
+        "pairs": model.pairs, "mlstm_chunk": chunk}
+
+
+def lm_train_xlstm_phase(dev, card: str) -> None:
+    """Phase 6p: xlstm-350m trained at full width and full depth, its
+    sequence cut (see the docstring)."""
+    t_phase = time.perf_counter()
+    line = lm_train_family(dev, "lm_train_xlstm", LM_XLSTM_ARCH, None,
+                           xlstm_train_flops, seq=LM_XLSTM_TRAIN_SEQ)
+    emit({"phase": "lm_train_xlstm", "card": card, "arch": LM_XLSTM_ARCH,
+          **line, "seconds": time.perf_counter() - t_phase})
+
+
+def audio_train_flops(model, batch: int, seq: int):
+    """An enc-dec step's bf16 products, forward and backward, at `seq`
+    frames and `seq` tokens: `audio_proj` and the encoder's layers over
+    every frame, the cross K/V projections over the encoder's output, the
+    decoder's layers and the tied head over every token; attention -- the
+    decoder's self-attention causal (as lm_train counts it), the
+    encoder's bidirectional and the cross-attention over all keys.  No
+    fields of its own."""
+    cfg = model.cfg
+    enc = model.audio_proj["w"].numel() + sum(
+        p.numel() for lp in model.enc_layers for p in lp.parameters()
+        if p.ndim == 2)
+    cross_kv = sum(lp["xattn"][w]["w"].numel() for lp in model.dec_layers
+                   for w in ("wk", "wv"))
+    dec = model.embed["table"].numel() + sum(
+        p.numel() for lp in model.dec_layers for p in lp.parameters()
+        if p.ndim == 2) - cross_kv
+    width = cfg.num_heads * cfg.resolved_head_dim
+    all_keys = 3 * 2 * 2 * seq * width      # a query over seq keys, 3 x fwd
+    per_position = (6 * (enc + cross_kv + dec) +
+                    _attention_flops(cfg.num_layers, cfg, seq) +
+                    (cfg.encoder_layers + cfg.num_layers) * all_keys)
+    return {"bf16": batch * seq * per_position, "f32": 0}, {}
+
+
+def lm_train_hybrid_phase(dev, card: str) -> None:
+    """Phase 6m: zamba2-2.7b trained at full width, its depth cut (see the
+    docstring)."""
+    t_phase = time.perf_counter()
+    line = lm_train_family(dev, "lm_train_hybrid", LM_HYBRID_ARCH,
+                           LM_HYBRID_TRAIN_LAYERS, hybrid_train_flops)
     emit({"phase": "lm_train_hybrid", "card": card, "arch": LM_HYBRID_ARCH,
           **line, "seconds": time.perf_counter() - t_phase})
 
 
-def lm_vlm_phase(dev, card: str) -> None:
-    """Phase 6n: phi-3-vision-4.2b at full width and full depth, a batched
-    prefill with patches and greedy decode steps held against a float32
-    forward, then trained at full width (see the docstring)."""
-    import numpy as np
+def _timed_greedy(model, cfg, start, pos0: int):
+    """`start(model)` (a batched prefill and its widened cache) once to
+    warm up and once timed, then LM_NEW_TOKENS greedy decode steps from
+    position `pos0`, each timed (a synchronize() at each end).  Returns
+    (the prefill's ms, the steps' ms, the real-vocabulary float32 logits
+    of the prefill and of every step, the tokens fed, the final cache)."""
     import torch
-
-    from repro_torch import configs
-    from repro_torch.launch.serve import build_served_model
-    from repro_torch.models.registry import build_model
-
-    t_phase = time.perf_counter()
-    cfg = configs.get(LM_VLM_ARCH)
-    require((cfg.family, cfg.num_layers, cfg.d_model, cfg.vocab_size,
-             cfg.vision_patches, cfg.vision_dim, cfg.dtype) ==
-            ("vlm", 32, 3072, 32_064, 144, 1024, "bfloat16"),
-            f"lm_vlm: {LM_VLM_ARCH} is not the full bf16 config: {cfg}")
-    mem_start = _memory_base()
-    t0 = time.perf_counter()
-    model = build_served_model(cfg, dev, seed=0)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    require((n_params, weight_bytes) == (LM_VLM_PARAMS, LM_VLM_WEIGHT_BYTES),
-            f"lm_vlm: {n_params} parameters, {weight_bytes} weight bytes")
-
-    b, p_n, text = LM_VLM_BATCH, cfg.vision_patches, LM_VLM_TEXT
-    rng = np.random.default_rng(1)
-    tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, text)),
-                             device=dev)
-    patches = torch.from_numpy(rng.standard_normal(
-        (b, p_n, cfg.vision_dim))).to(device=dev, dtype=torch.bfloat16)
-
-    def start(m):
-        """m's prefill of the batch, its cache widened to LM_VLM_MAX_LEN."""
-        lg, c = m.prefill({"tokens": tokens, "patches": patches})
-        cache = {part: {n: torch.zeros(t.shape, dtype=t.dtype, device=dev)
-                        for n, t in leaves.items()}
-                 for part, leaves in m.cache_spec(
-                     b, LM_VLM_MAX_LEN).items()}
-        for part, leaves in c.items():
-            for n, t in leaves.items():
-                cache[part][n][:, :, :p_n + text] = t
-        return lg, cache
 
     start(model)                                     # warm-up
     torch.cuda.synchronize()
@@ -2408,20 +2613,24 @@ def lm_vlm_phase(dev, card: str) -> None:
         fed.append(nxt)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = model.decode_step(nxt, cache, p_n + text + i)
+        lg, cache = model.decode_step(nxt, cache, pos0 + i)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         logits.append(lg[:, -1, :cfg.vocab_size].float())
-    peak = torch.cuda.max_memory_allocated()
-    kv_bytes = sum(t.numel() * t.element_size() for t in cache["main"].values())
-    logit_bytes = b * cfg.padded_vocab * 4
-    bound_ms = (weight_bytes + kv_bytes + logit_bytes) / \
-        PEAK_BYTES_PER_S * 1e3
-    step_q = _quartiles(step_ms)
-    del cache
+    return prefill_ms, step_ms, logits, fed, cache
 
-    # the logits against a float32 copy's prefill of each longer sequence,
-    # and the float32 copy's own decode steps on the same tokens
+
+def _greedy_against_float32(model, cfg, dev, start, batch_of, logits, fed,
+                            pos0: int, phase: str):
+    """`_timed_greedy`'s logits against a float32 copy of `model` (its
+    bf16-rounded weights): the copy's prefill of each longer sequence
+    (`batch_of(tokens fed so far)`) and the copy's own decode steps on the
+    same tokens, within LM_BF16_BOUND and LM_F32_BOUND of max |logit|.
+    Returns (ratio_f32, ratio_bf16, the peak bytes of the check)."""
+    import torch
+
+    from repro_torch.models.registry import build_model
+
     wide = build_model(cfg.replace(dtype="float32"), dev)
     with torch.no_grad():
         for mine, theirs in zip(wide.parameters(), model.parameters()):
@@ -2430,46 +2639,193 @@ def lm_vlm_phase(dev, card: str) -> None:
     worst = {"bf16": 0.0, "f32": 0.0}
     worst_ref = 0.0
     for i in range(LM_NEW_TOKENS + 1):
-        seq = torch.cat([tokens] + fed[:i], dim=1)
-        ref, _ = wide.prefill({"tokens": seq, "patches": patches})
+        ref, _ = wide.prefill(batch_of(fed[:i]))
         ref = ref[:, -1, :cfg.vocab_size]
         worst_ref = max(worst_ref, float(ref.abs().max()))
         worst["bf16"] = max(worst["bf16"],
                             float((logits[i] - ref).abs().max()))
         if i:
-            wl, wcache = wide.decode_step(fed[i - 1], wcache,
-                                          p_n + text + i - 1)
+            wl, wcache = wide.decode_step(fed[i - 1], wcache, pos0 + i - 1)
             worst["f32"] = max(worst["f32"], float(
                 (wl[:, -1, :cfg.vocab_size] - ref).abs().max()))
     ratio_f32, ratio_bf16 = worst["f32"] / worst_ref, \
         worst["bf16"] / worst_ref
     peak_check = torch.cuda.max_memory_allocated()
-    del wide, wcache, model, logits
-    require(ratio_f32 <= LM_F32_BOUND, f"lm_vlm: float32 decode logits "
+    del wide, wcache
+    require(ratio_f32 <= LM_F32_BOUND, f"{phase}: float32 decode logits "
             f"{ratio_f32:.3e} of max |logit| from the forward > "
             f"{LM_F32_BOUND}")
-    require(ratio_bf16 <= LM_BF16_BOUND, f"lm_vlm: bf16 prefill and decode "
+    require(ratio_bf16 <= LM_BF16_BOUND, f"{phase}: bf16 prefill and decode "
             f"logits {ratio_bf16:.3e} of max |logit| from the float32 "
             f"forward > {LM_BF16_BOUND}")
+    return ratio_f32, ratio_bf16, peak_check
+
+
+def _greedy_fields(prefill_ms, step_ms, batch: int, step_bytes: int) -> dict:
+    """A batched greedy decode's fields of its phase's line, beside the
+    decode step's byte bound over PEAK_BYTES_PER_S."""
+    step_q = _quartiles(step_ms)
+    bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"decode_steps": LM_NEW_TOKENS, "prefill_ms": prefill_ms,
+            "step_ms_median": step_q["median"], "step_ms_q1": step_q["q1"],
+            "step_ms_q3": step_q["q3"],
+            "tokens_per_s": batch * LM_NEW_TOKENS / (sum(step_ms) / 1e3),
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / step_q["median"]}
+
+
+def lm_audio_phase(dev, card: str) -> None:
+    """Phase 6q: seamless-m4t-medium at full width and full depth, a
+    batched prefill of frames and a prompt and greedy decode steps held
+    against a float32 forward, then trained at full width (see the
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(LM_AUDIO_ARCH)
+    require((cfg.family, cfg.num_layers, cfg.encoder_layers, cfg.d_model,
+             cfg.num_heads, cfg.vocab_size, cfg.audio_dim, cfg.dtype) ==
+            ("audio", 12, 12, 1024, 16, 256_206, 1024, "bfloat16"),
+            f"lm_audio: {LM_AUDIO_ARCH} is not the full bf16 config: {cfg}")
+    model, build_s, mem_start = _built(cfg, dev, "lm_audio",
+                                       LM_AUDIO_PARAMS,
+                                       LM_AUDIO_WEIGHT_BYTES)
+    b, f_n, p_n = LM_AUDIO_BATCH, LM_AUDIO_FRAMES, LM_AUDIO_PROMPT
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, p_n)),
+                             device=dev)
+    frames = torch.from_numpy(rng.standard_normal(
+        (b, f_n, cfg.audio_dim))).to(device=dev, dtype=torch.bfloat16)
+
+    def batch_of(fed):
+        return {"tokens": torch.cat([tokens] + fed, dim=1), "frames": frames}
+
+    def start(m):
+        """m's prefill of the batch; its self K/V widened to
+        LM_AUDIO_MAX_LEN, its cross K/V kept at the encoder's length
+        (decode's cross-attention is unmasked)."""
+        lg, c = m.prefill(batch_of([]))
+        wide_self = m.cache_spec(b, LM_AUDIO_MAX_LEN)["self"]
+        cache = {"self": {n: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                          for n, t in wide_self.items()},
+                 "cross": c["cross"]}
+        for n, t in c["self"].items():
+            cache["self"][n][:, :, :p_n] = t
+        require(c["cross"]["k"].shape[2] == f_n,
+                f"lm_audio: cross K/V of {c['cross']['k'].shape[2]} "
+                f"positions")
+        return lg, cache
+
+    prefill_ms, step_ms, logits, fed, cache = _timed_greedy(
+        model, cfg, start, p_n)
+    peak = torch.cuda.max_memory_allocated()
+    # a decode step's bytes: the decoder's weights and the tied embedding
+    # (the head), the cross K/V, the self K/V up to the last step's
+    # length, the logits written
+    dec_bytes = sum(p.numel() * p.element_size() for part in
+                    (model.dec_layers, model.ln_f, model.embed)
+                    for p in part.parameters())
+    cross_bytes = sum(t.numel() * t.element_size()
+                      for t in cache["cross"].values())
+    self_bytes = sum(t[:, :, :p_n + LM_NEW_TOKENS].numel() *
+                     t.element_size() for t in cache["self"].values())
+    logit_bytes = b * cfg.padded_vocab * 4
+    step_bytes = dec_bytes + cross_bytes + self_bytes + logit_bytes
+    del cache
+    ratio_f32, ratio_bf16, peak_check = _greedy_against_float32(
+        model, cfg, dev, start, batch_of, logits, fed, p_n, "lm_audio")
+    del model, logits
+    serve = {"batch": b, "frames": f_n, "audio_dim": cfg.audio_dim,
+             "prompt_tokens": p_n, "max_len": LM_AUDIO_MAX_LEN,
+             "build_s": build_s,
+             **_greedy_fields(prefill_ms, step_ms, b, step_bytes),
+             "step_bytes": step_bytes,
+             "step_bytes_by_part": {"decoder_and_head": dec_bytes,
+                                    "cross_kv": cross_bytes,
+                                    "self_kv": self_bytes,
+                                    "logits": logit_bytes},
+             "peak_bytes_above_start": peak - mem_start,
+             "check_peak_bytes": peak_check,
+             "logit_ratio_f32": ratio_f32, "logit_bound_f32": LM_F32_BOUND,
+             "logit_ratio_bf16": ratio_bf16,
+             "logit_bound_bf16": LM_BF16_BOUND}
+    train = lm_train_family(dev, "lm_audio", LM_AUDIO_ARCH, None,
+                            audio_train_flops, seq=LM_AUDIO_TRAIN_SEQ)
+    emit({"phase": "lm_audio", "card": card, "arch": cfg.name,
+          "params": LM_AUDIO_PARAMS, "weight_bytes": LM_AUDIO_WEIGHT_BYTES,
+          "encoder_layers": cfg.encoder_layers,
+          "decoder_layers": cfg.num_layers,
+          "serve": serve, "train": train,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def lm_vlm_phase(dev, card: str) -> None:
+    """Phase 6n: phi-3-vision-4.2b at full width and full depth, a batched
+    prefill with patches and greedy decode steps held against a float32
+    forward, then trained at full width (see the docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(LM_VLM_ARCH)
+    require((cfg.family, cfg.num_layers, cfg.d_model, cfg.vocab_size,
+             cfg.vision_patches, cfg.vision_dim, cfg.dtype) ==
+            ("vlm", 32, 3072, 32_064, 144, 1024, "bfloat16"),
+            f"lm_vlm: {LM_VLM_ARCH} is not the full bf16 config: {cfg}")
+    model, build_s, mem_start = _built(cfg, dev, "lm_vlm", LM_VLM_PARAMS,
+                                       LM_VLM_WEIGHT_BYTES)
+    b, p_n, text = LM_VLM_BATCH, cfg.vision_patches, LM_VLM_TEXT
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, text)),
+                             device=dev)
+    patches = torch.from_numpy(rng.standard_normal(
+        (b, p_n, cfg.vision_dim))).to(device=dev, dtype=torch.bfloat16)
+
+    def batch_of(fed):
+        return {"tokens": torch.cat([tokens] + fed, dim=1),
+                "patches": patches}
+
+    def start(m):
+        """m's prefill of the batch, its cache widened to LM_VLM_MAX_LEN."""
+        lg, c = m.prefill(batch_of([]))
+        cache = {part: {n: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                        for n, t in leaves.items()}
+                 for part, leaves in m.cache_spec(
+                     b, LM_VLM_MAX_LEN).items()}
+        for part, leaves in c.items():
+            for n, t in leaves.items():
+                cache[part][n][:, :, :p_n + text] = t
+        return lg, cache
+
+    prefill_ms, step_ms, logits, fed, cache = _timed_greedy(
+        model, cfg, start, p_n + text)
+    peak = torch.cuda.max_memory_allocated()
+    kv_bytes = sum(t.numel() * t.element_size() for t in cache["main"].values())
+    logit_bytes = b * cfg.padded_vocab * 4
+    step_bytes = LM_VLM_WEIGHT_BYTES + kv_bytes + logit_bytes
+    del cache
+    ratio_f32, ratio_bf16, peak_check = _greedy_against_float32(
+        model, cfg, dev, start, batch_of, logits, fed, p_n + text, "lm_vlm")
+    del model, logits
     serve = {"batch": b, "patches": p_n, "vision_dim": cfg.vision_dim,
              "text_tokens": text, "cache_positions": p_n + text,
-             "decode_steps": LM_NEW_TOKENS, "build_s": build_s,
-             "prefill_ms": prefill_ms,
-             "step_ms_median": step_q["median"], "step_ms_q1": step_q["q1"],
-             "step_ms_q3": step_q["q3"],
-             "tokens_per_s": b * LM_NEW_TOKENS / (sum(step_ms) / 1e3),
-             "bound_ms": bound_ms, "bound_by": "bytes",
-             "bound_share": bound_ms / step_q["median"],
+             "build_s": build_s,
+             **_greedy_fields(prefill_ms, step_ms, b, step_bytes),
              "kv_cache_bytes": kv_bytes,
              "peak_bytes_above_start": peak - mem_start,
              "check_peak_bytes": peak_check,
              "logit_ratio_f32": ratio_f32, "logit_bound_f32": LM_F32_BOUND,
              "logit_ratio_bf16": ratio_bf16,
              "logit_bound_bf16": LM_BF16_BOUND}
-    train = lm_train_family(dev, "lm_vlm", LM_VLM_ARCH, None,
-                            vlm_train_flops)
+    train = lm_train_family(dev, "lm_vlm", LM_VLM_ARCH,
+                            LM_VLM_TRAIN_LAYERS, vlm_train_flops)
     emit({"phase": "lm_vlm", "card": card, "arch": cfg.name,
-          "params": n_params, "weight_bytes": weight_bytes,
+          "params": LM_VLM_PARAMS, "weight_bytes": LM_VLM_WEIGHT_BYTES,
           "serve": serve, "train": train,
           "seconds": time.perf_counter() - t_phase})
 
@@ -4765,6 +5121,15 @@ def main() -> None:
 
     # 6n. lm_vlm: phi-3-vision-4.2b prefilled, decoded and trained -------
     lm_vlm_phase(dev, card)
+
+    # 6o. lm_serve_xlstm: xlstm-350m, full width and depth, served -------
+    lm_serve_xlstm_phase(dev, card)
+
+    # 6p. lm_train_xlstm: xlstm-350m trained at full width, seq cut ------
+    lm_train_xlstm_phase(dev, card)
+
+    # 6q. lm_audio: seamless-m4t-medium prefilled, decoded and trained ---
+    lm_audio_phase(dev, card)
 
     # 7. the kernels line, the card line, the result line -------------------
     def main_path(variant, dt):

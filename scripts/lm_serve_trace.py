@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of the port's MoE or hybrid decode step goes, on one
-CUDA device: moonshot-v1-16b-a3b (or, with --arch zamba2-2.7b, the hybrid
-family's zamba2) at full width and full depth (bf16, weights from
+"""Where the time of the port's MoE, hybrid or xLSTM decode step goes, on
+one CUDA device: moonshot-v1-16b-a3b (or, with --arch zamba2-2.7b, the
+hybrid family's zamba2; with --arch xlstm-350m, the xLSTM family's) at full
+width and full depth (bf16, weights from
 `torch.Generator` seed 0) behind `ServeEngine` with `launch/serve.py
 --preset full`'s stream (8 slots, max_len 256, 16 requests), stepped until
 every slot holds a request; then a decode step unprofiled and one under
@@ -9,16 +10,18 @@ torch.profiler.
 
 Prints one JSON line: the step's host wall unprofiled and profiled (each
 ending in a synchronize); the host time inside the MoE layers
-(`moe.moe_apply`; for zamba2 the Mamba-2 steps, `mamba2.mamba_step`),
-inside decode attention (`transformer.attn_decode`) and in the rest of
-the step, from profiler ranges the script puts around those functions;
+(`moe.moe_apply`; for zamba2 the Mamba-2 steps, `mamba2.mamba_step`) and
+inside decode attention (`transformer.attn_decode`) -- for xlstm-350m
+inside the sLSTM and mLSTM steps (`xlstm.slstm_step`, `xlstm.mlstm_step`)
+-- and in the rest of the step, from profiler ranges the script puts
+around those functions;
 the CUDA launch calls and the kernels a step; the device's kernel time by
 class (`scripts/lm_train_trace.py`'s classes), its top kernels and its
 busy share of the profiled step's span.  Then the
 card's nvidia-smi name and power limit.  Needs a CUDA device; imports
 neither jax nor the reference package.
 
-Run:  python3 scripts/lm_serve_trace.py [--arch zamba2-2.7b]
+Run:  python3 scripts/lm_serve_trace.py [--arch zamba2-2.7b|xlstm-350m]
 """
 
 import json
@@ -33,10 +36,13 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 from lm_train_trace import LAUNCH_CALLS, kernel_class  # noqa: E402
 
-# the architecture's per-layer function traced beside decode attention:
-# (module of repro_torch.models, function name)
-LAYER_RANGE = {"moonshot-v1-16b-a3b": ("moe", "moe_apply"),
-               "zamba2-2.7b": ("mamba2", "mamba_step")}
+# the architecture's functions traced, each (module of repro_torch.models,
+# function name)
+_ATTN = ("transformer", "attn_decode")
+LAYER_RANGE = {"moonshot-v1-16b-a3b": (("moe", "moe_apply"), _ATTN),
+               "zamba2-2.7b": (("mamba2", "mamba_step"), _ATTN),
+               "xlstm-350m": (("xlstm", "slstm_step"),
+                              ("xlstm", "mlstm_step"))}
 
 
 def main() -> None:
@@ -48,8 +54,7 @@ def main() -> None:
     ap.add_argument("--arch", default="moonshot-v1-16b-a3b",
                     choices=sorted(LAYER_RANGE))
     arch = ap.parse_args().arch
-    layer_module, layer_fn = LAYER_RANGE[arch]
-    ranges = (layer_fn, "attn_decode")
+    ranges = tuple(fn for _, fn in LAYER_RANGE[arch])
 
     if not torch.cuda.is_available():
         sys.exit("lm_serve_trace: no CUDA device")
@@ -61,7 +66,6 @@ def main() -> None:
     from repro_torch.launch.serve import build_served_model, make_requests
     import importlib
 
-    from repro_torch.models import transformer
     from repro_torch.serving.engine import ServeEngine
 
     def ranged(fn, name):
@@ -89,10 +93,9 @@ def main() -> None:
 
     model.decode_step = timed
     engine.step()                 # unprofiled
-    layer_mod = importlib.import_module(f"repro_torch.models.{layer_module}")
-    setattr(layer_mod, layer_fn, ranged(getattr(layer_mod, layer_fn),
-                                        layer_fn))
-    transformer.attn_decode = ranged(transformer.attn_decode, "attn_decode")
+    for module, fn in LAYER_RANGE[arch]:
+        mod = importlib.import_module(f"repro_torch.models.{module}")
+        setattr(mod, fn, ranged(getattr(mod, fn), fn))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         engine.step()

@@ -96,17 +96,21 @@ def _tensor_from_numpy(arr) -> torch.Tensor:
 
 
 def lm_params_from_numpy(cfg, params, device=None):
-    """The port's model for `cfg` (`DecoderLM` or `HybridLM`) on `device`
+    """The port's model for `cfg` (`build_model`'s: `DecoderLM`,
+    `HybridLM`, `XLSTMLM` or `EncDecLM`) on `device`
     (the CUDA device unless the caller names another), holding the
     reference's parameter tree given as numpy arrays
     (``jax.tree.map(np.asarray, params)``).
 
     The leading 'layers' axis of "layers" (and of the MoE family's
-    "dense_layers", and of the hybrid family's "mamba" stack) is unstacked
-    into the model's layers, and the (d_in, d_out) weight layout is kept;
-    the MoE layers' "moe" subtrees (router, experts, shared experts), the
-    VLM family's "vis_proj" and the hybrid family's "shared" block, "ln_f"
-    and untied "head" come across as they are.  The reference's
+    "dense_layers", the hybrid family's "mamba" stack, the xLSTM family's
+    "ln_m", "mlstm", "ln_s" and "slstm" stacks of pairs, and the enc-dec
+    family's "enc_layers" and "dec_layers") is unstacked into the model's
+    layers, and the (d_in, d_out) weight layout is kept; the MoE layers'
+    "moe" subtrees (router, experts, shared experts), the VLM family's
+    "vis_proj", the hybrid family's "shared" block, the enc-dec family's
+    "audio_proj" and "ln_enc", "ln_f" and an untied "head" come across as
+    they are.  The reference's
     `rope_table` leaf (rope_policy="precomputed") is not carried: the
     port's table is a buffer made by `rope.rope_table` (ROADMAP Queue 3).
     """

@@ -9,8 +9,9 @@ with a background prefetch thread.  A packed-document mode mimics real LM
 pretraining batches (documents of random length packed to full sequences
 with EOS = 0).  The VLM family's batches carry the reference's bf16
 `patches` (B, P, vision_dim), drawn after the tokens from the same stream,
-and tokens cut to S - P.  The audio inputs come with their family's slice
-and raise here.
+and tokens cut to S - P; the enc-dec/audio family's carry its bf16
+`frames` (B, S, audio_dim), drawn the same way, beside S tokens.  Both are
+the reference's bits.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ import torch
 
 from repro_torch.core.nekbone import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.registry import PENDING
 
 __all__ = ["SyntheticLM", "host_prefetch"]
 
@@ -36,10 +36,6 @@ class SyntheticLM:
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int,
                  seed: int = 0, packed: bool = True, device=None):
-        if cfg.family == "audio":
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} inputs are not ported yet "
-                f"(ROADMAP Queue 1, item 5, {PENDING[cfg.family]})")
         self.cfg = cfg
         self.batch = batch
         self.seq = seq
@@ -68,6 +64,9 @@ class SyntheticLM:
             out["patches"] = torch.from_numpy(rng.standard_normal(
                 (b, p, self.cfg.vision_dim))).to(torch.bfloat16)
             out["tokens"] = out["tokens"][:, :s - p].contiguous()
+        if self.cfg.family == "audio":
+            out["frames"] = torch.from_numpy(rng.standard_normal(
+                (b, s, self.cfg.audio_dim))).to(torch.bfloat16)
         return {k: v.to(self.device) for k, v in out.items()}
 
     __call__ = batch_at

@@ -7,9 +7,10 @@ reference's `launch/serve.py`).
 
 --preset full serves the architecture at its full width, demo its reduced
 config; the weights are random, from `torch.Generator` seed 0.  The dense,
-MoE and hybrid (zamba2-2.7b) families serve; a VLM architecture
-(phi-3-vision-4.2b) is refused by the engine, which takes token prompts
-only, as the reference's does.  The
+MoE, hybrid (zamba2-2.7b) and xLSTM (xlstm-350m) families serve; a VLM
+architecture (phi-3-vision-4.2b) and an enc-dec/audio one
+(seamless-m4t-medium) are refused by the engine, which takes token
+prompts only, as the reference's does.  The
 traffic is the reference's: `--requests` prompts of 4-31 tokens from
 `np.random.default_rng(0)`, 16 new tokens each, no EOS.  It runs on the
 card unless --device cpu is given; with no card it raises.

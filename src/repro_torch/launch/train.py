@@ -1,5 +1,5 @@
-"""Training launcher: the dense, MoE, VLM and hybrid LMs on one device (the
-reference's `launch/train.py`).
+"""Training launcher: the dense, MoE, VLM, hybrid, xLSTM and enc-dec/audio
+LMs on one device (the reference's `launch/train.py`).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       [--shape train_4k] [--preset demo|full] [--steps N] [--layers L] \\
@@ -12,14 +12,15 @@ FULL_BATCH = 4 at FULL_GRAD_ACCUM = 2 microbatches, which one H100 80GB
 holds with remat "full"; the cut is printed.  --layers L cuts the depth
 to L layers (the MoE family's dense layers kept first): moonshot-v1-16b-a3b
 at full width trains on one card only so cut.  The hybrid family's L must
-be a multiple of its `attn_every` (6 for zamba2-2.7b), else the model
-raises, as the reference's asserts.  The VLM family's batches carry their
-patches inside the shape's sequence (phi-3-vision-4.2b: 144 patches and
-3952 tokens at train_4k).  The reference runs the full
-preset on its production mesh; --multi-pod raises here (the mesh is ROADMAP
-Queue 1, item 5, slice 8).  The weights are random, from `torch.Generator`
-seed 0; the data is `SyntheticLM`.  It runs on the card unless --device
-cpu is given; with no card it raises.
+be a multiple of its `attn_every` (6 for zamba2-2.7b) and the xLSTM
+family's even (mLSTM, sLSTM pairs), else the model raises, as the
+reference's asserts.  The VLM family's batches carry their patches inside
+the shape's sequence (phi-3-vision-4.2b: 144 patches and 3952 tokens at
+train_4k); the enc-dec/audio family's carry as many frames as tokens.
+The reference runs the full preset on its production mesh; --multi-pod
+raises here (the mesh is ROADMAP Queue 1, item 5, slice 8).  The weights
+are random, from `torch.Generator` seed 0; the data is `SyntheticLM`.  It
+runs on the card unless --device cpu is given; with no card it raises.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ class TrainRun(NamedTuple):
     """What the launcher trains."""
 
     cfg: ModelConfig
-    model: nn.Module                # a DecoderLM or a HybridLM
+    model: nn.Module                # the family's model
     tcfg: TrainConfig
     state: dict
     step: Callable
@@ -61,11 +62,14 @@ class TrainRun(NamedTuple):
 
 def build_run(arch: str, preset: str = "demo", shape: str = "train_4k",
               steps: int = 100, device=None, seed: int = 0,
-              layers: int | None = None, **tcfg_fields) -> TrainRun:
+              layers: int | None = None, seq: int | None = None,
+              **tcfg_fields) -> TrainRun:
     """The launcher's run on `device` (the CUDA device unless the caller
     names another): `preset`'s config (cut to `layers` layers when given)
-    and batch, weights drawn by `launch.serve.build_served_model` from a
-    `torch.Generator` seeded `seed`, and `TrainConfig(total_steps=steps,
+    and batch, its sequence cut to `seq` when given (no flag sets it: a
+    caller's cut, as chip_smoke.py's of the families whose step is slow
+    per position), weights drawn by `launch.serve.build_served_model` from
+    a `torch.Generator` seeded `seed`, and `TrainConfig(total_steps=steps,
     grad_accum=..., **tcfg_fields)`."""
     device = resolve_device(device)
     case = SHAPE_CASES[shape]
@@ -74,9 +78,10 @@ def build_run(arch: str, preset: str = "demo", shape: str = "train_4k",
         cfg = cfg.replace(num_layers=layers)
     if preset == "demo":
         cfg = reduced_config(cfg)
-        batch, seq, accum = 8, 64, 1
+        batch, seq, accum = 8, seq or 64, 1
     else:
-        batch, seq = min(case.global_batch, FULL_BATCH), case.seq_len
+        batch, seq = (min(case.global_batch, FULL_BATCH),
+                      seq or case.seq_len)
         accum = FULL_GRAD_ACCUM
     model = build_served_model(cfg, device, seed=seed)
     tcfg = TrainConfig(**{"total_steps": steps, "grad_accum": accum,

@@ -1,36 +1,35 @@
 """Model registry: family -> model class (the reference's
 `models/registry.py`).
 
-The port runs the dense, MoE and VLM families (`DecoderLM`) and the hybrid
-family (`HybridLM`).  Every other family raises,
-naming the slice of ROADMAP Queue 1, item 5 that brings it; `configs.get`
-refuses no family, so this is where an unported one stops.
+The port runs every family the reference's registry has: the dense, MoE
+and VLM families (`DecoderLM`), the hybrid family (`HybridLM`), the xLSTM
+family ("ssm", `XLSTMLM`) and the enc-dec/audio family (`EncDecLM`).  A
+family the registry lacks raises; `configs.get` refuses no family, so this
+is where an unknown one stops.
 """
 
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.xlstm_model import XLSTMLM
 
 __all__ = ["build_model", "FAMILIES", "PENDING"]
 
 FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
-            "hybrid": HybridLM}
+            "hybrid": HybridLM, "ssm": XLSTMLM, "audio": EncDecLM}
 
-# family -> where ROADMAP Queue 1, item 5 ports it
-PENDING = {
-    "ssm": "slice 6 (xLSTM)",
-    "audio": "slice 7 (enc-dec/audio)",
-}
+# family -> the slice of ROADMAP Queue 1, item 5 that ports it: none left
+PENDING: dict = {}
 
 
 def build_model(cfg: ModelConfig, device=None):
     """The family's model with uninitialised parameters on `device` (the
     CUDA device unless the caller names another; raises without one)."""
     if cfg.family not in FAMILIES:
-        where = PENDING.get(cfg.family, "no slice yet")
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1, item 5, {where})")
+            f"{cfg.name}: family {cfg.family!r} is not in the registry "
+            f"({sorted(FAMILIES)})")
     return FAMILIES[cfg.family](cfg, device=device)

@@ -121,9 +121,13 @@ def _qkv(p, x, cfg: ModelConfig, positions, rope_tab):
     return q, k, v
 
 
-def attn_apply(p, x, cfg: ModelConfig, positions, rope_tab):
+def attn_apply(p, x, cfg: ModelConfig, positions, rope_tab,
+               causal: bool = True):
+    """Self-attention over a whole sequence, causal or (the enc-dec
+    family's encoder) bidirectional; returns (out, (k, v))."""
     q, k, v = _qkv(p, x, cfg, positions, rope_tab)
-    o = attention.causal_attention(q, k, v, chunk=cfg.attn_chunk)
+    o = attention.causal_attention(q, k, v, chunk=cfg.attn_chunk,
+                                   causal=causal)
     b, s = x.shape[:2]
     o = o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return linear(p["wo"], o), (k, v)

@@ -8,7 +8,7 @@ of the reference's `examples/quickstart.py`).
    plain PyTorch version.  With --device cpu there is no kernel to run:
    the plain version runs, and the line says so.
 4. Train a tiny LM for 20 steps with the same training substrate the
-   launcher uses.
+   launcher uses (which trains every family of the registry).
 
 It runs on the card unless --device cpu is given; with no card it raises.
 

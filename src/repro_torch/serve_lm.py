@@ -3,9 +3,10 @@ port's twin of the reference's `examples/serve_lm.py`.
 
 Submits a burst of variable-length requests, drains them through the engine,
 and reports slot utilisation + per-request outputs.  The model is the
-architecture's reduced config (a dense, MoE or hybrid one) with random
-weights (`torch.Generator` seed 0).  It runs on the card unless --device cpu is given; with no card it
-raises.
+architecture's reduced config (a dense, MoE, hybrid or xLSTM one; the
+engine refuses the VLM and enc-dec/audio families, whose prompts carry
+patches or frames) with random weights (`torch.Generator` seed 0).  It
+runs on the card unless --device cpu is given; with no card it raises.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve_lm [--arch qwen3-0.6b]
           [--slots 4] [--requests 10] [--max-new 16] [--max-len 128]

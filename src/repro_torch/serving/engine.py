@@ -11,12 +11,13 @@ reference.  The step runs eagerly.
 
 Each cache leaf is (L, slots, n, ...): a KV leaf's axis 2 runs over
 positions up to max_len, a recurrent state's (the hybrid family's ssm and
-conv states) over its own width.  Admission copies the prefill's leaf
-along its own axis 2 and zeroes the rest, so a slot's whole state is
-overwritten.  The reference's splice pads every leaf's axis 2 to max_len
-and fails on the recurrent states (ROADMAP Queue 3).  A model with patch
-inputs (the VLM family) is refused: the reference's engine passes no
-patches to `prefill`.
+conv states, the xLSTM family's mLSTM memory and sLSTM cell states) over
+its own width.  Admission copies the prefill's leaf along its own axis 2
+and zeroes the rest, so a slot's whole state is overwritten.  The
+reference's splice pads every leaf's axis 2 to max_len and fails on the
+recurrent states (ROADMAP Queue 3).  A model with patch inputs (the VLM
+family) or frame inputs (the enc-dec/audio family) is refused: the
+reference's engine passes only tokens to `prefill`.
 """
 
 from __future__ import annotations
@@ -40,15 +41,17 @@ class Request:
 
 
 class ServeEngine:
-    """Serves `model` (a `DecoderLM` or a `HybridLM`) on the device its
-    parameters are on."""
+    """Serves `model` (a `DecoderLM`, a `HybridLM` or an `XLSTMLM`) on the
+    device its parameters are on."""
 
     def __init__(self, model, max_len: int, slots: int, eos_id: int = 0):
-        if model.cfg.vision_patches:
-            raise NotImplementedError(
-                f"{model.cfg.name}: the engine serves token prompts only; "
-                f"the reference's engine passes no patches to prefill, and "
-                f"the port adds no image requests")
+        for field, what in (("vision_patches", "patches"),
+                            ("encoder_layers", "frames")):
+            if getattr(model.cfg, field):
+                raise NotImplementedError(
+                    f"{model.cfg.name}: the engine serves token prompts "
+                    f"only; the reference's engine passes no {what} to "
+                    f"prefill, and the port adds no such requests")
         self.model = model
         self.max_len = max_len
         self.slots = slots

@@ -1,6 +1,6 @@
 """Train an LM with the training substrate: checkpoints, fault tolerance,
-any dense, MoE, VLM or hybrid --arch of the pool (the port's twin of the
-reference's `examples/train_lm.py`).
+any --arch of the pool: dense, MoE, VLM, hybrid, xLSTM or enc-dec/audio
+(the port's twin of the reference's `examples/train_lm.py`).
 
 Presets:
   demo (default) — the reduced config, a few hundred steps in minutes.

@@ -30,7 +30,7 @@ from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import attention, layers, losses, rope
 from repro_torch.models.config import reduced_config
 from repro_torch.models.params import ParamSpec, init_from_specs, spec_bytes
-from repro_torch.models.registry import PENDING, build_model
+from repro_torch.models.registry import FAMILIES, PENDING, build_model
 
 RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DTYPES = tuple(RTOL)
@@ -92,11 +92,13 @@ def test_qwen3_full_width_sizes():
     assert cfg.padded_vocab == 152_064
 
 
-@pytest.mark.parametrize("arch", ["phi_3_vision_4_2b", "zamba2_2_7b"])
+@pytest.mark.parametrize("arch", ["phi_3_vision_4_2b", "zamba2_2_7b",
+                                  "xlstm_350m", "seamless_m4t_medium"])
 def test_full_vlm_and_hybrid_parameter_count_is_the_references(arch):
-    """The VLM and hybrid families on the meta device: the reference spec
-    tree's leaves, elements and bytes (phi-3-vision-4.2b 3,825,404,928
-    parameters, zamba2-2.7b 2,422,532,000)."""
+    """The VLM, hybrid, xLSTM and enc-dec/audio families on the meta
+    device: the reference spec tree's leaves, elements and bytes
+    (phi-3-vision-4.2b 3,825,404,928 parameters, zamba2-2.7b 2,422,532,000,
+    xlstm-350m 241,894,400, seamless-m4t-medium 716,503,040)."""
     ref_specs = ref_build_model(ref_configs.get(arch)).param_specs()
     leaves = jax.tree.leaves(ref_specs, is_leaf=lambda x: hasattr(x, "axes"))
     ref_count = sum(int(np.prod(s.shape)) for s in leaves)
@@ -104,20 +106,23 @@ def test_full_vlm_and_hybrid_parameter_count_is_the_references(arch):
     assert all(p.device.type == "meta" for p in model.parameters())
     assert sum(p.numel() for p in model.parameters()) == ref_count == {
         "phi_3_vision_4_2b": 3_825_404_928,
-        "zamba2_2_7b": 2_422_532_000}[arch]
+        "zamba2_2_7b": 2_422_532_000,
+        "xlstm_350m": 241_894_400,
+        "seamless_m4t_medium": 716_503_040}[arch]
     assert spec_bytes(model.param_specs()) == ref_spec_bytes(ref_specs)
     assert set(model.param_tree()) == set(ref_specs)
     assert configs.get(arch).family not in PENDING
 
 
-@pytest.mark.parametrize("arch", [a for a in ref_configs.ARCH_IDS
-                                  if ref_configs.get(a).family in PENDING])
-def test_unported_families_raise_naming_their_slice(arch):
-    cfg = configs.get(arch)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1, item 5, slice \d"):
+def test_a_family_the_registry_lacks_raises():
+    """Every family of the reference's registry is ported (PENDING is
+    empty); a family the registry lacks raises, naming the registry's."""
+    assert PENDING == {}
+    assert all(configs.get(a).family in FAMILIES
+               for a in ref_configs.ARCH_IDS)
+    cfg = configs.get("qwen3_0_6b").replace(family="retnet")
+    with pytest.raises(NotImplementedError, match="not in the registry"):
         build_model(cfg, device="meta")
-    assert cfg.family in PENDING
 
 
 def test_init_from_specs_follows_the_reference_rule():

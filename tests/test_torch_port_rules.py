@@ -109,7 +109,8 @@ for r in lm_reqs:
 engine.run_until_drained()
 assert all(len(r.output) == 3 for r in lm_reqs)
 from repro_torch.launch.train import build_run
-for arch in ("qwen3-0.6b", "moonshot-v1-16b-a3b"):
+for arch in ("xlstm-350m", "seamless-m4t-medium", "qwen3-0.6b",
+             "moonshot-v1-16b-a3b"):
     run = build_run(arch, "demo", steps=2, device="cpu")
     state = run.state
     for i in range(2):
@@ -166,8 +167,9 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         lm_serve.main(["--arch", "qwen3-0.6b", "--device", "cuda"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lm.main([])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_model(configs.reduced("qwen3_0_6b"))
+    for arch in ("qwen3_0_6b", "xlstm_350m", "seamless_m4t_medium"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(configs.reduced(arch))
     model = build_model(configs.reduced("qwen3_0_6b"), device="cpu")
     assert model.device.type == "cpu"
     # LM training: the launcher, the train_lm twin, the quickstart, the data

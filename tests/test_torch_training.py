@@ -331,13 +331,6 @@ def test_prefetch_resumes_at_step():
     it.close()
 
 
-@pytest.mark.parametrize("arch", ["seamless_m4t_medium"])
-def test_unported_inputs_raise_naming_their_slice(arch):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1, item 5, slice \d"):
-        SyntheticLM(reduced_config(configs.get(arch)), 2, 16, device="cpu")
-
-
 # ---------------------------------------------------------- checkpoint ----
 
 def test_checkpoint_roundtrip_dtypes(tmp_path):
